@@ -1,0 +1,515 @@
+"""MemoStore — the lifecycle-managed two-tier memo subsystem, the
+counterpart of the reference's ``core/store.py`` (without the capacity
+tier, which waits for a later slice).
+
+The host tier (``AttentionDB`` arena + slot-aligned host index) is the
+reference's numpy code, so the same admit/evict/sync sequence leaves
+byte-identical arrays in both packages (``state_dict``). The device tier
+(``DeviceDB`` + ``DeviceIndex``) is torch tensors on ``device``.
+
+* ``admit(apms, embs)`` — admission under a byte budget, recycling
+                          free slots (stable slot ids, no compaction).
+* ``evict(n)``          — the registered eviction policy (CLOCK).
+* ``sync()``            — generation-counted incremental device sync: a
+                          no-op when clean, in-place deltas of the dirty
+                          slots when the device slack holds them, a full
+                          re-materialization otherwise. Ends by
+                          publishing a ``StoreSnapshot``.
+
+Snapshots: the reference's snapshot holds immutable jnp arrays, so a
+published generation stays valid while the next one is built. Here a
+delta sync patches the device tensors IN PLACE (``index_copy_``), which
+mutates every snapshot that shares them. That is harmless while
+maintenance runs inline between batches (``MemoEngine.infer``); a
+runtime that overlaps maintenance with serving must double-buffer.
+"""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.database import AttentionDB, DeviceDB, pad_delta_pow2
+from repro_torch.core.faults import FaultInjector, MemoStoreError, fire
+from repro_torch.core.index import TOMBSTONE, DeviceIndex
+from repro_torch.core.registry import DEVICE_INDEXES, EVICTIONS, HOST_INDEXES
+
+
+class StoreSnapshot(NamedTuple):
+    """The device tier as one batch serves it (read once per batch)."""
+    generation: int
+    db_parts: Tuple[torch.Tensor, ...]    # DeviceDB codec parts
+    index: object                         # the DeviceIndex of search_args
+    search_args: object                   # (table, row_norms)
+    index_key: str
+    codec_key: object
+    lengths: torch.Tensor                 # (cap,) int32 entry lengths
+    sim_a: float                          # dist→similarity calibration
+    sim_b: float
+
+
+@dataclass
+class StoreStats:
+    """Lifecycle + transfer accounting (the delta-vs-full receipts)."""
+    n_admitted: int = 0
+    n_evicted: int = 0
+    n_noop_syncs: int = 0
+    n_delta_syncs: int = 0
+    n_full_syncs: int = 0
+    bytes_delta: int = 0          # bytes moved by delta syncs
+    bytes_full: int = 0           # bytes moved by full re-materializations
+    n_quarantined: int = 0        # entries tombstoned on checksum mismatch
+    n_evict_rejected: int = 0     # bogus policy slots the store refused
+
+    @property
+    def bytes_total(self) -> int:
+        return self.bytes_delta + self.bytes_full
+
+
+class MemoStore:
+    """Both memo tiers behind one lifecycle (lookup/admit/evict/sync)."""
+
+    def __init__(self, apm_shape: Tuple[int, int, int], embed_dim: int, *,
+                 index_kind: str = "exact", budget_bytes: Optional[int] = None,
+                 capacity: int = 64, device=None, device_slack: float = 1.0,
+                 codec: str = "f16",
+                 apm_rank: Optional[int] = None,
+                 device_index_kind: str = "auto",
+                 cluster_crossover: int = 4096, eviction: str = "clock",
+                 faults: Optional[FaultInjector] = None,
+                 capacity_dir: Optional[str] = None):
+        if capacity_dir is not None:
+            raise NotImplementedError(
+                "the capacity (disk) tier waits for the capacity-tier "
+                "slice; leave capacity_dir unset")
+        self.apm_shape = tuple(apm_shape)
+        self.embed_dim = embed_dim
+        self.index_kind = index_kind
+        self.budget_bytes = budget_bytes
+        self.device_slack = device_slack
+        self.device = torch.device(device if device is not None else "cpu")
+        self.device_index_kind = device_index_kind  # flat|clustered|auto
+        self.cluster_crossover = cluster_crossover
+        self.db = AttentionDB(self.apm_shape, capacity=capacity,
+                              codec=codec, rank=apm_rank)
+        self.eviction_kind = eviction
+        self._evict_policy = EVICTIONS.resolve(eviction)
+        if device_index_kind != "auto":
+            DEVICE_INDEXES.resolve(device_index_kind)   # fail-fast only
+        self.index = HOST_INDEXES.resolve(index_kind)(
+            embed_dim, device=self.device)
+        self.sim_cal: Tuple[float, float] = (-1.0, 1.0)
+        self._embs_host = np.full((capacity, embed_dim), TOMBSTONE,
+                                  np.float32)
+        self._lens_host = np.full((capacity,), -1, np.int32)
+        self._dev_lens: Optional[torch.Tensor] = None
+        self._lock = threading.RLock()
+        self._snapshot: Optional[StoreSnapshot] = None
+        self._faults = faults
+        self.generation = 0           # bumped on every host-tier mutation
+        self.device_generation = -1   # generation the device tier reflects
+        self._dirty: set = set()      # host slots changed since last sync
+        self._synced_n = 0            # arena prefix length at last sync
+        self._clock_hand = 0
+        self.stats = StoreStats()
+        self.device_db: Optional[DeviceDB] = None
+        self.device_index = None
+
+    # ------------------------------------------------------------ accounting
+    @property
+    def codec(self):
+        return self.db.codec
+
+    @property
+    def entry_nbytes(self) -> int:
+        """Codec-true bytes per entry (compressed APM + f32 embedding)."""
+        return self.db.entry_nbytes + self.embed_dim * 4
+
+    @property
+    def live_count(self) -> int:
+        return self.db.live_count
+
+    @property
+    def budget_entries(self) -> Optional[int]:
+        if self.budget_bytes is None:
+            return None
+        return max(1, int(self.budget_bytes) // self.entry_nbytes)
+
+    @property
+    def device_stale(self) -> bool:
+        return (self.device_db is None
+                or self.device_generation != self.generation
+                or len(self.db) > self._synced_n)
+
+    def __len__(self):
+        return len(self.db)
+
+    # --------------------------------------------------------------- lookup
+    def lookup(self, embs, k: int = 1):
+        """Host-tier search: (L2 dists (B,k), slots (B,k))."""
+        return self.index.search(np.asarray(embs, np.float32), k)
+
+    def note_reuse(self, slots: Sequence[int]) -> None:
+        """Record device-tier hits (drained once per batch)."""
+        slots = np.asarray(slots).reshape(-1)
+        if slots.size:
+            with self._lock:
+                np.add.at(self.db.reuse_counts, slots, 1)
+
+    @property
+    def default_len(self) -> int:
+        return int(self.apm_shape[-1])
+
+    def embeddings_at(self, slots) -> np.ndarray:
+        slots = np.asarray(slots).reshape(-1)
+        return self._embs_host[slots].copy()
+
+    # --------------------------------------------------------------- admit
+    def _ensure_emb_capacity(self, need: int) -> None:
+        cap = self._embs_host.shape[0]
+        if need <= cap:
+            return
+        new = np.full((max(need, 2 * cap), self.embed_dim), TOMBSTONE,
+                      np.float32)
+        new[:cap] = self._embs_host
+        self._embs_host = new
+        lens = np.full((new.shape[0],), -1, np.int32)
+        lens[:cap] = self._lens_host
+        self._lens_host = lens
+
+    def admit(self, apms, embs, lengths=None) -> np.ndarray:
+        """Admission under the byte budget. apms: (B, H, L, L), embs:
+        (B, embed_dim), lengths: optional (B,) true lengths. Returns the
+        assigned arena slots (recycled free slots first, then appends)."""
+        with self._lock:
+            return self._admit_locked(apms, embs, lengths)
+
+    def _admit_locked(self, apms, embs, lengths) -> np.ndarray:
+        apms = np.asarray(apms, self.db.dtype)
+        embs = np.asarray(embs, np.float32)
+        lengths = (np.full(apms.shape[0], self.default_len, np.int32)
+                   if lengths is None
+                   else np.asarray(lengths, np.int32).reshape(-1))
+        n_new = apms.shape[0]
+        if n_new == 0:
+            return np.zeros(0, np.int64)
+        cap = self.budget_entries
+        if cap is not None:
+            if n_new > cap:
+                apms, embs = apms[-cap:], embs[-cap:]
+                lengths = lengths[-cap:]
+                n_new = cap
+            over = self.live_count + n_new - cap
+            if over > 0:
+                self.evict(over)
+        slots = self.db.put(apms)
+        self._ensure_emb_capacity(int(slots.max()) + 1)
+        self._embs_host[slots] = embs
+        self._lens_host[slots] = lengths
+        if self.index is not self.device_index:
+            self.index.assign(slots, embs)
+        self._dirty.update(int(s) for s in slots)
+        self.generation += 1
+        self.stats.n_admitted += n_new
+        if fire(self._faults, "store.corrupt_row") is not None:
+            row = self.db._arenas[0][int(slots[-1])]
+            row.view(np.uint8)[...] ^= 0xFF
+        return slots
+
+    # --------------------------------------------------------------- evict
+    def evict(self, n: int = 1) -> List[int]:
+        """Evict ``n`` entries chosen by the registered policy; evicted
+        slots are released to the free-list and tombstoned in the index."""
+        db = self.db
+        if n <= 0 or db._n == 0 or db.live_count == 0:
+            return []
+        with self._lock:
+            n = min(n, db.live_count)
+            evicted = [int(s) for s in self._evict_policy(self, n)]
+            if fire(self._faults, "store.evict_bogus") is not None:
+                dead = np.flatnonzero(~db.live_mask)
+                evicted += ([evicted[0]] if evicted else []) \
+                    + [db._n + 7] \
+                    + ([int(dead[0])] if dead.size else [])
+            seen: set = set()
+            valid = []
+            for s in evicted:
+                if 0 <= s < db._n and db._live[s] and s not in seen:
+                    valid.append(s)
+                    seen.add(s)
+                else:
+                    self.stats.n_evict_rejected += 1
+            evicted = valid
+            if not evicted:
+                return evicted
+            self._retire_slots_locked(evicted)
+            self.stats.n_evicted += len(evicted)
+        return evicted
+
+    def _retire_slots_locked(self, slots: List[int]) -> None:
+        """Release the arena slots and tombstone every index row, so a
+        hit on them is impossible."""
+        self.db.release(slots)
+        self.index.remove(slots)
+        self._ensure_emb_capacity(max(slots) + 1)
+        self._embs_host[slots] = TOMBSTONE
+        self._lens_host[slots] = -1
+        self._dirty.update(slots)
+        self.generation += 1
+
+    # ------------------------------------------------------------ integrity
+    def _quarantine_locked(self, bad: np.ndarray) -> List[int]:
+        bad = [int(s) for s in np.asarray(bad).reshape(-1)]
+        if bad:
+            self._retire_slots_locked(bad)
+            self.stats.n_quarantined += len(bad)
+        return bad
+
+    def verify_integrity(self, quarantine: bool = True) -> List[int]:
+        """Recompute every live entry's checksums; quarantine mismatches."""
+        with self._lock:
+            bad = self.db.verify()
+            if quarantine:
+                return self._quarantine_locked(bad)
+            return [int(s) for s in bad]
+
+    # ---------------------------------------------------------------- sync
+    def _device_index_kind(self, n: int) -> str:
+        if self.device_index_kind == "auto":
+            return ("clustered" if n >= self.cluster_crossover else "flat")
+        return self.device_index_kind
+
+    def _absorb_external_growth(self) -> None:
+        """Backstop for out-of-band ``db.add``/``index.add`` growth."""
+        lo, hi = self._synced_n, len(self.db)
+        if hi <= lo:
+            return
+        fresh = [s for s in range(lo, hi) if s not in self._dirty]
+        if fresh:
+            rows = getattr(self.index, "_embs", None)
+            self._ensure_emb_capacity(hi)
+            for s in fresh:
+                if rows is not None and s < rows.shape[0]:
+                    self._embs_host[s] = rows[s]
+                self._lens_host[s] = self.default_len
+            self._dirty.update(fresh)
+            self.generation += 1
+
+    def sync(self, force_full: bool = False) -> Dict[str, object]:
+        """Incremental device sync; publishes a fresh ``StoreSnapshot``."""
+        with self._lock:
+            return self._sync_locked(force_full)
+
+    def _need_full_sync_locked(self, n: int, force_full: bool) -> bool:
+        return (force_full or self.device_db is None
+                or n > self.device_db.capacity
+                or self.device_index is None
+                or n > self.device_index.capacity
+                or self._device_index_kind(n)
+                != getattr(self.device_index, "_registry_kind", None))
+
+    def _full_sync_device_locked(self, n: int) -> int:
+        cap = n + max(8, int(n * self.device_slack))
+        kind = self._device_index_kind(n)
+        di = DEVICE_INDEXES.resolve(kind)(self.embed_dim, capacity=cap,
+                                          device=self.device)
+        di._registry_kind = kind
+        di.add(self._embs_host[:n])
+        self.device_db = DeviceDB.from_host(self.db, capacity=cap,
+                                            device=self.device)
+        if isinstance(self.index, DeviceIndex):
+            # the device table IS the host-tier index: one object
+            self.index = di
+        self.device_index = di
+        lens = np.full((cap,), -1, np.int32)
+        lens[:n] = self._lens_host[:n]
+        self._dev_lens = torch.from_numpy(lens).to(self.device)
+        return (self.device_db.transfer_bytes
+                + self.device_index.transfer_bytes + int(lens.nbytes))
+
+    def _delta_sync_device_locked(self, n: int, slots: np.ndarray) -> int:
+        shipped = self.device_db.update(slots, self.db.parts_at(slots))
+        b0 = self.device_index.transfer_bytes
+        dead = slots[~self.db._live[slots]]
+        live = slots[self.db._live[slots]]
+        if live.size:
+            self.device_index.assign(live, self._embs_host[live])
+        if dead.size:
+            self.device_index.remove(dead)
+        shipped += self.device_index.transfer_bytes - b0
+        if slots.size:
+            sl, vals = pad_delta_pow2(slots, self._lens_host[slots])
+            self._dev_lens.index_copy_(
+                0, torch.from_numpy(sl.astype(np.int64)).to(self.device),
+                torch.from_numpy(vals).to(self.device))
+            shipped += int(vals.nbytes + sl.size * 4)
+        return shipped
+
+    def _sync_locked(self, force_full: bool) -> Dict[str, object]:
+        if fire(self._faults, "store.sync_fail") is not None:
+            raise MemoStoreError(
+                f"injected delta-sync failure (store generation "
+                f"{self.generation})")
+        self._absorb_external_growth()
+        n = len(self.db)
+        if (self.device_db is not None and not force_full
+                and not self._dirty):
+            self.stats.n_noop_syncs += 1
+            if self._snapshot is None:
+                self.publish()
+            return {"kind": "noop", "bytes": 0}
+        need_full = self._need_full_sync_locked(n, force_full)
+        check = (None if need_full
+                 else np.asarray(sorted(self._dirty), np.int64))
+        bad = self.db.verify(check)
+        if bad.size:
+            self._quarantine_locked(bad)
+        if need_full:
+            shipped = self._full_sync_device_locked(n)
+            self.stats.n_full_syncs += 1
+            self.stats.bytes_full += shipped
+            kind = "full"
+        else:
+            slots = np.asarray(sorted(self._dirty), np.int64)
+            slots = slots[slots < n]
+            shipped = self._delta_sync_device_locked(n, slots)
+            self.stats.n_delta_syncs += 1
+            self.stats.bytes_delta += shipped
+            kind = "delta"
+        self._dirty.clear()
+        self._synced_n = n
+        self.device_generation = self.generation
+        self.publish()
+        return {"kind": kind, "bytes": shipped}
+
+    # ------------------------------------------------------------- publish
+    @property
+    def snapshot(self) -> Optional[StoreSnapshot]:
+        return self._snapshot
+
+    def publish(self) -> StoreSnapshot:
+        """Build and install a fresh ``StoreSnapshot`` (end of every sync
+        and after a calibration change)."""
+        with self._lock:
+            di = self.device_index
+            snap = StoreSnapshot(
+                generation=self.generation,
+                db_parts=self.device_db.parts,
+                index=di,
+                search_args=di.search_args,
+                index_key=type(di).__name__,
+                codec_key=self.codec.key,
+                lengths=self._dev_lens,
+                sim_a=float(self.sim_cal[0]),
+                sim_b=float(self.sim_cal[1]))
+            self._snapshot = snap
+            return snap
+
+    # --------------------------------------------------------- persistence
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        """Every host-tier array needed to reconstruct this store exactly
+        (the reference's layout, so a state moves between packages)."""
+        with self._lock:
+            n = len(self.db)
+            out = {
+                "n": np.asarray(n, np.int64),
+                "free": np.asarray(self.db._free, np.int64),
+                "live": self.db._live[:n].copy(),
+                "reuse": self.db.reuse_counts[:n].copy(),
+                "embs": self._embs_host[:n].copy(),
+                "lens": self._lens_host[:n].copy(),
+                "clock_hand": np.asarray(self._clock_hand, np.int64),
+                "sim_cal": np.asarray(self.sim_cal, np.float64),
+            }
+            for spec, arena, csum in zip(self.codec.parts, self.db._arenas,
+                                         self.db.checksums):
+                out[f"part_{spec.name}"] = arena[:n].copy()
+                out[f"csum_{spec.name}"] = csum[:n].copy()
+            embs = getattr(self.index, "_embs", None)
+            if embs is not None:
+                out["index_embs"] = np.asarray(embs).copy()
+            return out
+
+    def load_state_dict(self, state: Dict[str, np.ndarray]) -> None:
+        """Restore ``state_dict`` output — this package's or the
+        reference's — into this freshly constructed, identically
+        configured store. The device tier stays unmaterialized; the next
+        ``sync()`` performs the full upload."""
+        with self._lock:
+            n = int(np.asarray(state["n"]).reshape(-1)[0])
+            db = self.db
+            db._grow_to(n)
+            for spec, arena, csum in zip(self.codec.parts, db._arenas,
+                                         db.checksums):
+                arena[:n] = state[f"part_{spec.name}"]
+                saved = state.get(f"csum_{spec.name}")
+                csum[:n] = (saved if saved is not None
+                            else db._crc_rows(arena[:n]))
+            db._n = n
+            db._live[:n] = state["live"]
+            db.reuse_counts[:n] = state["reuse"]
+            db._free = [int(s) for s in state["free"]]
+            self._ensure_emb_capacity(n)
+            self._embs_host[:n] = state["embs"]
+            self._lens_host[:n] = state["lens"]
+            self._clock_hand = int(
+                np.asarray(state["clock_hand"]).reshape(-1)[0])
+            self.sim_cal = tuple(
+                float(v) for v in np.asarray(state["sim_cal"]).reshape(-1))
+            embs = state.get("index_embs")
+            if embs is not None and len(embs):
+                try:
+                    self.index._embs = np.asarray(embs, np.float32).copy()
+                except AttributeError:     # computed staging view
+                    self.index.assign(np.arange(len(embs)), embs)
+            elif n:
+                self.index.assign(np.arange(n), self._embs_host[:n])
+            self._dirty.clear()
+            self._synced_n = n
+            self.generation = 0
+            self.device_generation = -1
+            self.device_db = None
+            self.device_index = None
+            self._dev_lens = None
+            self._snapshot = None
+
+
+# ------------------------------------------------------ eviction policies
+def clock_eviction(store: MemoStore, n: int) -> List[int]:
+    """Reuse-aware CLOCK (the reference's policy, line for line)."""
+    db = store.db
+    counts = db.reuse_counts
+    evicted: List[int] = []
+    hand = store._clock_hand % db._n
+    scanned, limit = 0, 2 * db._n
+    while len(evicted) < n and scanned < limit:
+        slot, hand = hand, (hand + 1) % db._n
+        scanned += 1
+        if not db._live[slot]:
+            continue
+        if counts[slot] > 0:
+            counts[slot] //= 2
+        else:
+            evicted.append(slot)
+    store._clock_hand = hand
+    if len(evicted) < n:   # all hot: fall back to coldest-first
+        live = np.flatnonzero(db.live_mask)
+        live = live[~np.isin(live, evicted)]
+        order = live[np.argsort(counts[live], kind="stable")]
+        evicted.extend(int(s) for s in order[: n - len(evicted)])
+    return evicted
+
+
+def coldest_eviction(store: MemoStore, n: int) -> List[int]:
+    """Strict coldest-first (ties broken by slot id)."""
+    db = store.db
+    live = np.flatnonzero(db.live_mask)
+    order = live[np.argsort(db.reuse_counts[live], kind="stable")]
+    return [int(s) for s in order[:n]]
+
+
+EVICTIONS.register("clock", clock_eviction)
+EVICTIONS.register("coldest", coldest_eviction)

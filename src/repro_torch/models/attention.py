@@ -1,0 +1,141 @@
+"""GQA/MQA/MHA attention (the GQA part of the reference's
+``models/attention.py``; MLA comes with the model-zoo slice).
+
+Functions over dicts of tensors whose keys and layouts are the JAX
+tree's (``wq (d,H,dh)``, ``wo (H,dh,d)``). Each full-sequence apply can
+  * capture the attention-probability matrix (APM) — AttMemo's memoized
+    quantity — via ``return_apm=True``;
+  * consume a memoized APM override via ``memo=Memo(apm, hit)`` where
+    ``apm: (B, H, S, S)`` and ``hit: (B,) bool``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.models.layers import apply_rope, dense_init
+
+
+class Memo(NamedTuple):
+    apm: torch.Tensor          # (B, H, Sq, Sk) memoized probabilities
+    hit: torch.Tensor          # (B,) bool
+
+
+# ---------------------------------------------------------------------------
+# masks
+# ---------------------------------------------------------------------------
+
+def make_mask(sq: int, sk: int, kind: str, window: Optional[int] = None,
+              device=None):
+    """(sq, sk) boolean mask. kind: causal | bidir."""
+    if kind == "bidir" and window is None:
+        return torch.ones((sq, sk), dtype=torch.bool, device=device)
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if kind == "causal":
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _sdpa(q, k, v, mask, scale, memo: Optional[Memo] = None,
+          return_apm: bool = False):
+    """q: (B,Sq,Hkv,G,dh)  k,v: (B,Sk,Hkv,dh)  mask: (Sq,Sk) or (B,Sq,Sk).
+
+    Masks with ``finfo(float32).min`` before the softmax, as the
+    reference does, so a fully masked row comes out uniform (the kernels'
+    −1e30 convention zeroes it instead; both are correct)."""
+    B, Sq, Hkv, G, dh = q.shape
+    scores = torch.einsum("bqhgd,bshd->bhgqs", q, k).float() * scale
+    if mask.ndim == 2:
+        mask = mask[None]
+    neg = torch.finfo(torch.float32).min
+    scores = scores.masked_fill(~mask[:, None, None], neg)
+    apm = torch.softmax(scores, dim=-1)
+    if memo is not None:
+        memo_apm = memo.apm.reshape(B, Hkv, G, Sq, -1).float()
+        apm = torch.where(memo.hit[:, None, None, None, None], memo_apm, apm)
+    out = torch.einsum("bhgqs,bshd->bqhgd", apm.to(v.dtype), v)
+    apm_full = apm.reshape(B, Hkv * G, Sq, -1) if return_apm else None
+    return out, apm_full
+
+
+# ---------------------------------------------------------------------------
+# GQA
+# ---------------------------------------------------------------------------
+
+def gqa_init(gen, cfg, dtype=torch.float32, device=None):
+    d, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(dtype=dtype, device=device)
+    p = {"wq": dense_init(gen, (d, H, dh), scale=d ** -0.5, **kw),
+         "wk": dense_init(gen, (d, Hkv, dh), scale=d ** -0.5, **kw),
+         "wv": dense_init(gen, (d, Hkv, dh), scale=d ** -0.5, **kw),
+         "wo": dense_init(gen, (H, dh, d), scale=(H * dh) ** -0.5, **kw)}
+    if cfg.qkv_bias:
+        p.update(bq=torch.zeros((H, dh), **kw),
+                 bk=torch.zeros((Hkv, dh), **kw),
+                 bv=torch.zeros((Hkv, dh), **kw))
+    if cfg.qk_norm:
+        p.update(q_norm=torch.ones((dh,), **kw),
+                 k_norm=torch.ones((dh,), **kw))
+    return p
+
+
+def _rms(x, scale, eps=1e-6):
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    return (xf * scale.float()).to(x.dtype)
+
+
+def _qkv(params, x, cfg, positions, use_rope=True):
+    q = torch.einsum("bsd,dhe->bshe", x, params["wq"])
+    k = torch.einsum("bsd,dhe->bshe", x, params["wk"])
+    v = torch.einsum("bsd,dhe->bshe", x, params["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    if cfg.qk_norm:
+        q, k = _rms(q, params["q_norm"]), _rms(k, params["k_norm"])
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_apply(params, x, cfg, *, positions, mask_kind="causal",
+              window=None, memo: Optional[Memo] = None, return_apm=False,
+              use_rope=True, kpad=None):
+    """Full-sequence GQA. x: (B,S,D) → (B,S,D).
+
+    ``kpad``: optional (B, S) bool key-validity mask for padded
+    variable-length batches — False keys are excluded from the softmax,
+    so a sequence padded to a bucket length produces the same APM rows
+    (and zero probability mass on pad columns) as its unpadded run."""
+    B, S, _ = x.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _qkv(params, x, cfg, positions, use_rope)
+    qg = q.reshape(B, S, Hkv, H // Hkv, dh)
+    mask = make_mask(S, S, mask_kind, window, device=x.device)
+    if kpad is not None:
+        mask = mask[None] & kpad[:, None, :]
+    out, apm = _sdpa(qg, k, v, mask, dh ** -0.5, memo, return_apm)
+    out = out.reshape(B, S, H, dh)
+    y = torch.einsum("bshe,hed->bsd", out, params["wo"])
+    return y, apm
+
+
+def gqa_apply_memo(params, x, cfg, apm):
+    """Memo-only fast path: the APM is fully known, so Q/K projections,
+    QKᵀ and softmax are all skipped — only V and the APM·V matmul run.
+    x: (B,S,D); apm: (B,H,S,S) → (B,S,D)."""
+    B, S, _ = x.shape
+    H, dh = cfg.n_heads, cfg.head_dim
+    v = torch.einsum("bsd,dhe->bshe", x, params["wv"])
+    if cfg.qkv_bias:
+        v = v + params["bv"]
+    Hkv = cfg.n_kv_heads
+    apm_g = apm.reshape(B, Hkv, H // Hkv, S, S).to(v.dtype)
+    out = torch.einsum("bhgqs,bshd->bqhgd", apm_g, v).reshape(B, S, H, dh)
+    return torch.einsum("bshe,hed->bsd", out, params["wo"])

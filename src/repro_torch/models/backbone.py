@@ -1,0 +1,230 @@
+"""Backbone: assembles attention + MLP layers into a model (the dense
+part of the reference's ``models/backbone.py``).
+
+The parameter tree keeps the reference's layout, so the bridge from JAX
+weights is a name map: ``params["layers"]["seg{i}"]["l{u}"]`` holds one
+segment of ``scan_plan``, and a ``scan`` segment stacks its repeats on a
+leading axis. PyTorch runs eagerly, so every segment is a Python loop
+(the reference's ``layer_loop="unroll"``): per-layer APM capture and
+memo overrides work everywhere.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    dense_init, embed_init, mlp_apply, mlp_init, norm_apply, norm_init,
+)
+
+_LATER = {
+    "mla": "MLA attention waits for the model-zoo slice",
+    "rwkv6": "rwkv6 layers wait for the slice that ports the rwkv6 kernel",
+    "rglru": "rglru layers wait for the model-zoo slice",
+    "moe": "MoE channel mixers wait for the model-zoo slice",
+    "rwkvc": "rwkv6 channel mixers wait for the rwkv6 slice",
+}
+
+
+def _not_ported(kind: str):
+    return NotImplementedError(f"layer kind {kind!r} is not ported: "
+                               f"{_LATER[kind]}")
+
+
+# ---------------------------------------------------------------------------
+# segment plan
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Segment:
+    kind: str            # "single" | "scan"
+    start: int           # first layer index
+    unit: Tuple[str, ...]  # mixer kinds inside one step
+    reps: int            # scan repeats (1 for single)
+
+
+def scan_plan(cfg) -> List[Segment]:
+    kinds = cfg.layer_kinds()
+    n = cfg.n_layers
+    segs: List[Segment] = []
+    start = cfg.dense_first_n
+    for i in range(start):
+        segs.append(Segment("single", i, (kinds[i],), 1))
+    unit = len(cfg.layer_pattern) if cfg.layer_pattern != ("mix",) else 1
+    reps = (n - start) // unit
+    if reps > 0:
+        segs.append(Segment("scan", start, tuple(kinds[start:start + unit]),
+                            reps))
+    for i in range(start + reps * unit, n):
+        segs.append(Segment("single", i, (kinds[i],), 1))
+    return segs
+
+
+def _chan_kind(cfg, layer_idx: int) -> str:
+    if cfg.layer_kinds()[layer_idx] == "rwkv6":
+        return "rwkvc"
+    if cfg.moe is not None and layer_idx >= cfg.dense_first_n:
+        return "moe"
+    return "mlp"
+
+
+def _dense_ff(cfg, layer_idx: int) -> int:
+    if (cfg.moe is not None and layer_idx < cfg.dense_first_n
+            and cfg.dense_d_ff):
+        return cfg.dense_d_ff
+    return cfg.d_ff
+
+
+# ---------------------------------------------------------------------------
+# per-layer init / apply
+# ---------------------------------------------------------------------------
+
+def _layer_init(gen, cfg, layer_idx, kind, dtype, device):
+    if kind != "attn":
+        raise _not_ported(kind)
+    ck = _chan_kind(cfg, layer_idx)
+    if ck != "mlp":
+        raise _not_ported(ck)
+    d = cfg.d_model
+    return {"norm1": norm_init(d, cfg.norm, dtype, device),
+            "norm2": norm_init(d, cfg.norm, dtype, device),
+            "mix": attn.gqa_init(gen, cfg, dtype, device),
+            "chan": mlp_init(gen, d, _dense_ff(cfg, layer_idx), cfg.glu,
+                             dtype, device)}
+
+
+def _layer_apply(lp, h, cfg, kind, layer_idx, *, mode, positions,
+                 memo=None, capture=False, kpad=None):
+    """Returns (h, apm) — ``apm`` is ``{"apm", "hidden"}`` under capture."""
+    if mode != "full":
+        raise NotImplementedError(
+            f"mode {mode!r} (prefill/decode) waits for the prefill slice")
+    if kind != "attn":
+        raise _not_ported(kind)
+    mask_kind = "causal" if cfg.causal else "bidir"
+    x = norm_apply(lp["norm1"], h, cfg.norm)
+    y, apm = attn.gqa_apply(lp["mix"], x, cfg, positions=positions,
+                            mask_kind=mask_kind, window=cfg.sliding_window,
+                            memo=memo,
+                            return_apm=capture, kpad=kpad)
+    if apm is not None:
+        # AttMemo capture: the memo key is the attention input hidden state
+        apm = {"apm": apm, "hidden": x}
+    h = h + y
+    ck = _chan_kind(cfg, layer_idx)
+    if ck != "mlp":
+        raise _not_ported(ck)
+    x = norm_apply(lp["norm2"], h, cfg.norm)
+    h = h + mlp_apply(lp["chan"], x, cfg.act, cfg.glu)
+    return h, apm
+
+
+# ---------------------------------------------------------------------------
+# backbone init
+# ---------------------------------------------------------------------------
+
+def backbone_init(gen, cfg, dtype=torch.float32, device=None):
+    p: Dict[str, Any] = {
+        "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype, device),
+        "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
+                                  dtype=dtype, device=device)
+    if cfg.n_classes:
+        p["cls"] = dense_init(gen, (cfg.d_model, cfg.n_classes),
+                              dtype=dtype, device=device)
+    layers = {}
+    for si, seg in enumerate(scan_plan(cfg)):
+        def group_init(rep):
+            return {f"l{u}": _layer_init(
+                gen, cfg, seg.start + rep * len(seg.unit) + u, kind, dtype,
+                device) for u, kind in enumerate(seg.unit)}
+        if seg.kind == "single":
+            layers[f"seg{si}"] = group_init(0)
+        else:
+            layers[f"seg{si}"] = _tree_stack(
+                [group_init(r) for r in range(seg.reps)])
+    p["layers"] = layers
+    return p
+
+
+def _tree_stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _tree_index(tree, r):
+    if isinstance(tree, dict):
+        return {k: _tree_index(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params, tokens, cfg):
+    """tokens: int ids (B,S) or precomputed embeddings (B,S,D)."""
+    if tokens.ndim == 3:
+        return tokens.to(params["embed"].dtype)
+    return params["embed"][tokens.long()]
+
+
+def iter_layers(params, cfg):
+    """Yield (layer_idx, kind, layer_params) in depth order; a scan
+    segment's repeats are views into the stacked tensors."""
+    for si, seg in enumerate(scan_plan(cfg)):
+        sp = params["layers"][f"seg{si}"]
+        if seg.kind == "single":
+            for u, kind in enumerate(seg.unit):
+                yield seg.start + u, kind, sp[f"l{u}"]
+        else:
+            for r in range(seg.reps):
+                gp = _tree_index(sp, r)
+                for u, kind in enumerate(seg.unit):
+                    yield (seg.start + r * len(seg.unit) + u, kind,
+                           gp[f"l{u}"])
+
+
+def forward_hidden(params, h, cfg, *, mode="full", positions=None,
+                   memo_plan=None, capture=False):
+    """Run all layers. Returns (h, apms{layer_idx: apm})."""
+    apms: Dict[int, Any] = {}
+    if positions is None:
+        B, S = h.shape[0], h.shape[1]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=h.device).expand(B, S)
+    for li, kind, lp in iter_layers(params, cfg):
+        memo = memo_plan.get(li) if memo_plan else None
+        h, apm = _layer_apply(lp, h, cfg, kind, li, mode=mode,
+                              positions=positions, memo=memo,
+                              capture=capture and kind in ("attn", "mla"))
+        if apm is not None:
+            apms[li] = apm
+    return h, apms
+
+
+def logits_from_hidden(params, h, cfg):
+    h = norm_apply(params["final_norm"], h, cfg.norm)
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T
+    return h @ params["lm_head"]
+
+
+def classify_from_hidden(params, h, cfg, kpad: Optional[torch.Tensor] = None):
+    """``kpad``: optional (B, S) bool validity mask — padded positions are
+    excluded from the mean pool so a padded variable-length batch scores
+    each sequence exactly like its unpadded run."""
+    h = norm_apply(params["final_norm"], h, cfg.norm)
+    if kpad is None:
+        pooled = torch.mean(h, dim=1)
+    else:
+        m = kpad.to(h.dtype)[:, :, None]
+        pooled = torch.sum(h * m, dim=1) / torch.clamp(
+            torch.sum(m, dim=1), min=1.0)
+    return pooled @ params["cls"]

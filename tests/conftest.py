@@ -85,3 +85,9 @@ try:  # pragma: no cover - exercised implicitly at collection time
     import hypothesis  # noqa: F401
 except ImportError:
     _install_hypothesis_shim()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips (with its reason) on a "
+        "machine without one")

@@ -1,0 +1,133 @@
+"""The port's kernel wrappers on the CPU (their plain PyTorch versions)
+against the JAX package's kernels on the same numpy inputs.
+
+The JAX side runs ``memo_attention(impl="xla")`` — and, in one tiny case,
+the Pallas kernel under ``interpret=True`` — and ``nn_search`` under
+``interpret=True``, as tests/test_kernels.py does. Tolerances: f32
+attention outputs within atol 1e-5; search indices EQUAL, squared
+distances within 1e-4 relative (two f32 matmul formulations)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.codec import _quantize_rows
+from repro.kernels.memo_attention.ops import memo_attention as jax_memo
+from repro.kernels.nn_search.ops import nn_search as jax_nn
+from repro_torch.kernels.memo_attention.ops import memo_attention
+from repro_torch.kernels.nn_search.ops import nn_search
+
+ATOL = 1e-5
+
+
+def _softmax_rows(rng, shape):
+    x = rng.standard_normal(shape).astype(np.float32) * 3
+    p = np.exp(x - x.max(-1, keepdims=True))
+    return p / p.sum(-1, keepdims=True)
+
+
+def _case(*, B, S, H, Hkv, dh, N, L, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, dh)).astype(np.float32)
+    apm = _softmax_rows(rng, (N, H, L, L))
+    hit_idx = rng.integers(0, N, B).astype(np.int32)
+    hit = (np.arange(B) % 2).astype(np.int32)           # mixed hits
+    lengths = rng.integers(1, S + 1, B).astype(np.int32)
+    return q, k, v, apm, hit_idx, hit, lengths
+
+
+def _both(q, k, v, db, hit_idx, hit, *, scales=None, lengths=None,
+          causal, window=None, jax_kw=None):
+    j = lambda a: None if a is None else jnp.asarray(a)   # noqa: E731
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    ref = jax_memo(j(q), j(k), j(v), j(db), j(hit_idx), j(hit),
+                   db_scales=j(scales), lengths=j(lengths), causal=causal,
+                   window=window, **(jax_kw or {"impl": "xla"}))
+    n0 = memo_attention.launches
+    out = memo_attention(t(q), t(k), t(v), t(db), t(hit_idx), t(hit),
+                         db_scales=t(scales), lengths=t(lengths),
+                         causal=causal, window=window)
+    assert memo_attention.launches == n0     # CPU: the plain version
+    return np.asarray(ref), out.numpy()
+
+
+@pytest.mark.parametrize("codec", ["int8", "f16"])
+@pytest.mark.parametrize("varlen", [False, True])
+def test_memo_attention_matches_jax(codec, varlen):
+    """The serving case at a small size: mixed hits, bidirectional,
+    int8 codes + f16 scales or an f16 DB, fixed or varlen."""
+    q, k, v, apm, hi, hit, lengths = _case(B=6, S=32, H=4, Hkv=4, dh=16,
+                                           N=9, L=32, seed=1)
+    if codec == "int8":
+        db, scales = _quantize_rows(apm)
+    else:
+        db, scales = apm.astype(np.float16), None
+    ref, out = _both(q, k, v, db, hi, hit, scales=scales,
+                     lengths=lengths if varlen else None, causal=False)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 7),
+                                           (False, 5)])
+def test_memo_attention_gqa_ragged_matches_jax(causal, window):
+    """GQA group 2, causal and sliding window, ragged S (19) against a
+    DB stored at a longer L (24): the wrapper must slice [:S, :S]."""
+    q, k, v, apm, hi, hit, lengths = _case(B=4, S=19, H=4, Hkv=2, dh=16,
+                                           N=5, L=24, seed=2)
+    db, scales = _quantize_rows(apm)
+    ref, out = _both(q, k, v, db, hi, hit, scales=scales, lengths=lengths,
+                     causal=causal, window=window)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=ATOL)
+
+
+def test_memo_attention_matches_pallas_interpret():
+    """One tiny case against the Pallas kernel itself (interpret mode)."""
+    q, k, v, apm, hi, hit, _ = _case(B=2, S=16, H=2, Hkv=1, dh=16, N=3,
+                                     L=16, seed=3)
+    db, scales = _quantize_rows(apm)
+    ref, out = _both(q, k, v, db, hi, hit, scales=scales, causal=True,
+                     jax_kw=dict(impl="pallas", interpret=True,
+                                 block_q=8, block_k=8))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=ATOL)
+
+
+def test_memo_attention_rejects_other_devices():
+    """Off the CPU the wrapper launches its kernel or raises — never the
+    plain version (here: the meta device)."""
+    t = torch.empty((1, 4, 1, 16), device="meta")
+    db = torch.empty((1, 1, 4, 4), dtype=torch.float16, device="meta")
+    z = torch.zeros((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        memo_attention(t, t, t, db, z, z)
+    with pytest.raises(ValueError):
+        nn_search(torch.empty((2, 8), device="meta"),
+                  torch.empty((5, 8), device="meta"))
+
+
+@pytest.mark.parametrize("N,norms", [(37, True), (37, False), (64, True)])
+def test_nn_search_matches_jax(N, norms):
+    """N not a multiple of the block, cached norms or not, TOMBSTONE
+    slack rows and planted duplicates: indices must be EQUAL (ties →
+    the lowest index)."""
+    rng = np.random.default_rng(4)
+    B, dim = 6, 16
+    db = rng.standard_normal((N, dim)).astype(np.float32)
+    db[N - 8:] = 1.0e6                       # TOMBSTONE slack rows
+    db[20] = db[3]                           # planted duplicates
+    db[N - 9] = db[3]
+    q = db[[3, 20, 5, 0, 11, 3]].copy()
+    q[2:5] += 0.05 * rng.standard_normal((3, dim)).astype(np.float32)
+    dn = (db.astype(np.float64) ** 2).sum(-1).astype(np.float32)
+    rd, ri = jax_nn(jnp.asarray(q), jnp.asarray(db),
+                    db_norms=jnp.asarray(dn) if norms else None,
+                    block_q=4, block_n=16, interpret=True)
+    n0 = nn_search.launches
+    d, i = nn_search(torch.from_numpy(q), torch.from_numpy(db),
+                     db_norms=torch.from_numpy(dn) if norms else None)
+    assert nn_search.launches == n0
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    assert i[0] == 3 and i[1] == 3 and i[5] == 3
+    np.testing.assert_allclose(d.numpy(), np.asarray(rd), rtol=1e-4,
+                               atol=1e-3)

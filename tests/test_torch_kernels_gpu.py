@@ -1,0 +1,79 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card (``pytest -m gpu tests/test_torch_kernels_gpu.py``). No JAX here:
+the machine with the card has none. Without a card every test skips.
+Inputs come from ``chip_smoke.attention_case``, the generator the chip
+smoke test uses.
+
+Tolerances (``chip_smoke.ATOL``): f32 outputs within 2e-5 absolute —
+both sides compute in f32 and differ only in summation order (128-term
+sums of O(1) terms); search indices must be EQUAL (ties → the lowest
+index)."""
+import pytest
+import torch
+
+from chip_smoke import ATOL, attention_case
+from repro_torch.kernels.memo_attention.ops import memo_attention
+from repro_torch.kernels.memo_attention.ref import memo_attention_ref
+from repro_torch.kernels.nn_search.ops import nn_search
+from repro_torch.kernels.nn_search.ref import nn_search_ref
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _check(args, kw, **mask):
+    n0 = memo_attention.launches
+    out = memo_attention(*args, **mask, **kw)
+    torch.cuda.synchronize()
+    assert memo_attention.launches == n0 + 1
+    ref = memo_attention_ref(*args, **mask, **kw)
+    err = (out - ref).abs().max().item()
+    print(f"memo_attention {mask} max|err|={err:.3e}")
+    assert err <= ATOL
+
+
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "f16"])
+@pytest.mark.parametrize("varlen", [False, True], ids=["fixed", "varlen"])
+def test_memo_attention_serving_shapes(cuda, quant, varlen):
+    args, kw = attention_case(torch, cuda, B=32, S=128, H=12, Hkv=12, dh=64,
+                              N=3072, L=128, quant=quant, varlen=varlen,
+                              seed=1)
+    _check(args, kw, causal=False)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 7),
+                                           (False, 5)])
+def test_memo_attention_gqa_ragged(cuda, causal, window):
+    args, kw = attention_case(torch, cuda, B=5, S=50, H=4, Hkv=2, dh=32,
+                              N=9, L=64, quant=True, varlen=True, seed=2)
+    _check(args, kw, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("N,norms", [(3072, True), (3001, True),
+                                     (3001, False)])
+def test_nn_search_planted_duplicates(cuda, N, norms):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    db = torch.randn((N, 128), generator=g, device=cuda)
+    db[N // 2:] = 1.0e6                      # TOMBSTONE slack rows
+    db[100] = db[7]                          # planted duplicates: the
+    db[N // 2 - 1] = db[7]                   # lowest index must win
+    q = db[torch.tensor([7, 100, 3, 5] * 8, device=cuda)].clone()
+    q[4:] += 0.01 * torch.randn((28, 128), generator=g, device=cuda)
+    dn = (db * db).sum(-1) if norms else None
+    n0 = nn_search.launches
+    d, i = nn_search(q, db, db_norms=dn)
+    assert nn_search.launches == n0 + 1
+    rd, ri = nn_search_ref(q, db, dn)
+    assert torch.equal(i, ri)
+    assert i[0].item() == 7 and i[1].item() == 7
+    err = (d - rd).abs().max().item()
+    print(f"nn_search N={N} norms={norms} max|d2 err|={err:.3e}")
+    assert err <= 1e-3 * max(1.0, rd.abs().max().item())

@@ -1,0 +1,241 @@
+"""The port's configs, data, layers, model, embedder and optimizer
+against the JAX package on the same inputs and (bridged) weights.
+
+Tolerances: f32 activations, logits and APMs within atol 1e-5 (two f32
+implementations that differ in summation order); copied numpy code
+(configs, corpus) must be EQUAL."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import get_reduced as jax_get_reduced
+from repro.core import embedding as jemb
+from repro.data import TemplateCorpus as JaxCorpus
+from repro.models import build_model as jax_build_model
+from repro.models import layers as jlayers
+from repro.optim import adamw as jadamw
+from repro_torch.bridge import tree_to_torch
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.core import embedding as temb
+from repro_torch.core.similarity import similarity_score
+from repro_torch.data import TemplateCorpus
+from repro_torch.models import build_model
+from repro_torch.models import layers as tlayers
+from repro_torch.optim import adamw as tadamw
+
+ATOL = 1e-5
+CPU = torch.device("cpu")
+
+
+def _small(**kw):
+    kw = dict(dict(n_classes=4, n_layers=2, d_model=128, d_ff=256,
+                   n_heads=4, n_kv_heads=4), **kw)
+    return (get_reduced("bert_base").replace(**kw),
+            jax_get_reduced("bert_base").replace(**kw))
+
+
+def test_configs_are_copies():
+    assert dataclasses.asdict(get_config("bert_base")) == \
+        dataclasses.asdict(jax_get_config("bert_base"))
+    assert dataclasses.asdict(get_reduced("bert_base")) == \
+        dataclasses.asdict(jax_get_reduced("bert_base"))
+    with pytest.raises(NotImplementedError):
+        get_config("qwen3_8b")
+
+
+def test_corpus_draws_identical_batches():
+    a = TemplateCorpus(vocab=512, seq_len=32, n_templates=6, seed=3)
+    b = JaxCorpus(vocab=512, seq_len=32, n_templates=6, seed=3)
+    for _ in range(3):
+        (ta, la), (tb, lb) = a.sample(8), b.sample(8)
+        np.testing.assert_array_equal(ta, tb)
+        np.testing.assert_array_equal(la, lb)
+
+
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+def test_norm_matches_jax(kind):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 5, 32)).astype(np.float32)
+    p = {"scale": rng.standard_normal(32).astype(np.float32),
+         "bias": rng.standard_normal(32).astype(np.float32)}
+    ref = jlayers.norm_apply({k: jnp.asarray(v) for k, v in p.items()},
+                             jnp.asarray(x), kind)
+    out = tlayers.norm_apply(tree_to_torch(p, CPU), torch.from_numpy(x),
+                             kind)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_rope_and_mlp_match_jax():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 7, 3, 16)).astype(np.float32)
+    pos = np.tile(np.arange(7, dtype=np.int32), (2, 1))
+    ref = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10000.0)
+    out = tlayers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                             10000.0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    h = rng.standard_normal((2, 7, 16)).astype(np.float32)
+    for glu, act in ((True, "silu"), (False, "gelu")):
+        p = jlayers.mlp_init(jax.random.PRNGKey(2), 16, 32, glu)
+        ref = jlayers.mlp_apply(p, jnp.asarray(h), act, glu)
+        out = tlayers.mlp_apply(tree_to_torch(p, CPU), torch.from_numpy(h),
+                                act, glu)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def _tree_shapes(t):
+    if isinstance(t, dict):
+        return {k: _tree_shapes(v) for k, v in t.items()}
+    return tuple(t.shape)
+
+
+@pytest.mark.parametrize("variant", ["bert", "causal_gqa"])
+def test_model_logits_and_apms_match_jax(variant):
+    """The whole model with the JAX weights carried across: classify
+    logits, LM logits and every layer's captured APM and hidden state.
+    ``causal_gqa`` also drives RoPE, the causal mask + sliding window,
+    GQA, rmsnorm and the gated MLP."""
+    kw = {} if variant == "bert" else dict(
+        causal=True, n_kv_heads=2, norm="rmsnorm", act="silu", glu=True,
+        sliding_window=9)
+    if variant == "causal_gqa":
+        cfg = get_reduced("bert_base").replace(
+            n_classes=4, n_layers=2, d_model=128, d_ff=256, n_heads=4, **kw)
+        jcfg = jax_get_reduced("bert_base").replace(
+            n_classes=4, n_layers=2, d_model=128, d_ff=256, n_heads=4, **kw)
+    else:
+        cfg, jcfg = _small()
+    jm = jax_build_model(jcfg, layer_loop="unroll")
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = build_model(cfg, device="cpu")
+    assert _tree_shapes(tm.init(0)) == _tree_shapes(jp)
+    tp = tree_to_torch(jp, CPU)
+    toks = JaxCorpus(vocab=cfg.vocab, seq_len=32).sample(4)[0]
+    jl, jcaps = jm.classify(jp, {"tokens": jnp.asarray(toks)}, capture=True)
+    with torch.no_grad():
+        tl, tcaps = tm.classify(tp, {"tokens": toks}, capture=True)
+        tlm = tm.forward(tp, {"tokens": toks})[0]
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    assert sorted(tcaps) == sorted(jcaps) == [0, 1]
+    for li in jcaps:
+        for key in ("apm", "hidden"):
+            np.testing.assert_allclose(tcaps[li][key].numpy(),
+                                       np.asarray(jcaps[li][key]),
+                                       atol=ATOL, err_msg=f"{li} {key}")
+    jlm = jm.forward(jp, {"tokens": jnp.asarray(toks)})[0]
+    np.testing.assert_allclose(tlm.numpy(), np.asarray(jlm), atol=1e-4)
+
+
+def test_model_init_is_seeded_and_device_none_raises(monkeypatch):
+    cfg, _ = _small()
+    a = build_model(cfg, device="cpu").init(7)
+    b = build_model(cfg, device="cpu").init(7)
+    assert torch.equal(a["layers"]["seg0"]["l0"]["mix"]["wq"],
+                       b["layers"]["seg0"]["l0"]["mix"]["wq"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+
+
+def test_similarity_matches_vmap():
+    rng = np.random.default_rng(5)
+    a = rng.random((6, 2, 8, 8)).astype(np.float32)
+    b = rng.random((6, 2, 8, 8)).astype(np.float32)
+    from repro.core.similarity import similarity_score as jsim
+    ref = jax.vmap(jsim)(jnp.asarray(a), jnp.asarray(b))
+    out = similarity_score(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+    one = similarity_score(torch.from_numpy(a[0]), torch.from_numpy(b[0]))
+    np.testing.assert_allclose(float(one), float(ref[0]), atol=1e-6)
+
+
+@pytest.mark.parametrize("seq_len", [32, 30])
+def test_embed_apply_matches_jax_and_pads(seq_len):
+    """Bridged embedder params: contiguous and mask-aware pooling match
+    JAX, and a padded batch embeds like its unpadded run (1e-5)."""
+    rng = np.random.default_rng(6)
+    H = 24
+    emb = jemb.Embedder.init(jax.random.PRNGKey(3), seq_len, H, dim=16,
+                             pool=8)
+    tp = tree_to_torch(emb.params, CPU)
+    hid = rng.standard_normal((5, seq_len, H)).astype(np.float32)
+    ref = jemb.embed_apply(emb.params, jnp.asarray(hid), 8, "linear")
+    out = temb.embed_apply(tp, torch.from_numpy(hid), 8, "linear")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    lens = np.array([seq_len, 17, 9, 24, 1], np.int32)
+    ref = jemb.embed_apply(emb.params, jnp.asarray(hid), 8, "linear",
+                           lengths=jnp.asarray(lens), full_len=seq_len)
+    out = temb.embed_apply(tp, torch.from_numpy(hid), 8, "linear",
+                           lengths=torch.from_numpy(lens),
+                           full_len=seq_len)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    padded = np.concatenate([hid, rng.standard_normal(
+        (5, 8, H)).astype(np.float32)], 1)
+    out_pad = temb.embed_apply(tp, torch.from_numpy(padded), 8, "linear",
+                               lengths=torch.from_numpy(lens),
+                               full_len=seq_len)
+    np.testing.assert_allclose(out_pad.numpy(), out.numpy(), atol=1e-5)
+
+
+def test_siamese_loss_and_adamw_match_jax():
+    rng = np.random.default_rng(7)
+    emb = jemb.Embedder.init(jax.random.PRNGKey(4), 16, 8, dim=8, pool=4,
+                             widths=(32, 16))
+    a = rng.standard_normal((6, 16, 8)).astype(np.float32)
+    b = rng.standard_normal((6, 16, 8)).astype(np.float32)
+    d = rng.random(6).astype(np.float32)
+    loss_fn = lambda p: jemb.siamese_loss(  # noqa: E731
+        p, jnp.asarray(a), jnp.asarray(b), jnp.asarray(d), 4, "linear")
+    jl, jg = jax.value_and_grad(loss_fn)(emb.params)
+    tp = {k: v.requires_grad_(True)
+          for k, v in tree_to_torch(emb.params, CPU).items()}
+    tl = temb.siamese_loss(tp, torch.from_numpy(a), torch.from_numpy(b),
+                           torch.from_numpy(d), 4, "linear")
+    tg = dict(zip(tp, torch.autograd.grad(tl, list(tp.values()))))
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    jnew, jstate = jadamw.adamw_update(emb.params, jg,
+                                       jadamw.adamw_init(emb.params),
+                                       lr=1e-2, weight_decay=0.1,
+                                       grad_clip=0.5)
+    tnew, tstate = tadamw.adamw_update(
+        {k: v.detach() for k, v in tp.items()}, tg,
+        tadamw.adamw_init(tp), lr=1e-2, weight_decay=0.1, grad_clip=0.5)
+    assert tstate["t"] == int(jstate["t"]) == 1
+    for k in jnew:
+        np.testing.assert_allclose(tnew[k].numpy(), np.asarray(jnew[k]),
+                                   atol=ATOL, err_msg=k)
+
+
+def test_train_embedder_lowers_the_loss():
+    g = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(8)
+    hid = torch.from_numpy(rng.standard_normal((32, 16, 8)).astype(
+        np.float32))
+    apm = torch.softmax(torch.from_numpy(rng.standard_normal(
+        (32, 2, 16, 16)).astype(np.float32)), -1)
+    emb = temb.Embedder.init(g, 16, 8, dim=8, pool=4, widths=(32, 16))
+    trained, hist = temb.train_embedder(0, emb, hid, apm, steps=40,
+                                        pair_batch=16, lr=3e-3)
+    assert len(hist) == 40
+    assert np.mean(hist[-5:]) < np.mean(hist[:5])
+    assert trained.pool == 4 and trained.params["w1"].shape == (32, 32)
+
+
+def test_gqa_apply_memo_matches_jax():
+    """The memo-only attention (V and APM·V only) with bridged weights."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    cfg, jcfg = _small(n_kv_heads=2)
+    p = jattn.gqa_init(jax.random.PRNGKey(5), jcfg)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((3, 12, 128)).astype(np.float32)
+    apm = rng.random((3, 4, 12, 12)).astype(np.float32)
+    apm /= apm.sum(-1, keepdims=True)
+    ref = jattn.gqa_apply_memo(p, jnp.asarray(x), jcfg, jnp.asarray(apm))
+    out = tattn.gqa_apply_memo(tree_to_torch(p, CPU), torch.from_numpy(x),
+                               cfg, torch.from_numpy(apm))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
