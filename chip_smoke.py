@@ -160,6 +160,8 @@ def check_kernels(torch, dev):
 
 # ------------------------------------------------------------ phase 3
 def serve_main_path(torch, dev):
+    import repro_torch.core.engine as engine_mod
+    import repro_torch.core.index as index_mod
     from repro_torch.configs import get_config
     from repro_torch.data import TemplateCorpus
     from repro_torch.kernels.memo_attention.ops import memo_attention
@@ -219,28 +221,53 @@ def serve_main_path(torch, dev):
             outs.append(logits)
         return outs, sorted(times)[len(times) // 2]
 
-    for mode in ("kernel", "bucket"):        # warm-up, outside the counts
+    # warm-up, outside the counts; it records the arguments each kernel
+    # wrapper gets on the main path, one call per layer, which phase 4
+    # holds against the plain version and times
+    captured = {"memo_attention": [], "nn_search": []}
+    real = {"memo_attention": memo_attention, "nn_search": nn_search}
+
+    def recording(name):
+        def call(*args, **kw):
+            captured[name].append((args, kw))
+            return real[name](*args, **kw)
+        return call
+
+    engine_mod.memo_attention = recording("memo_attention")
+    index_mod.nn_search = recording("nn_search")
+    for mode in ("kernel", "bucket"):
         sess.spec.runtime.mode = mode
         sess.infer(requests[0])
+    engine_mod.memo_attention = real["memo_attention"]
+    index_mod.nn_search = real["nn_search"]
     sess.infer(requests[0], use_memo=False)
     torch.cuda.synchronize()
     pends.clear()
 
-    memo_attention.launches = 0
-    nn_search.launches = 0
-    results = {}
+    # each path is driven with every count at 0 just before it and read
+    # just after it
+    results, per_path = {}, {}
     for mode in ("kernel", "bucket"):
         sess.spec.runtime.mode = mode
         before = sess.stats()
+        memo_attention.launches = 0
+        nn_search.launches = 0
         outs, ms = serve(True)
+        per_path[mode] = {"memo_attention": memo_attention.launches,
+                          "nn_search": nn_search.launches}
         after = sess.stats()
         results[mode] = dict(
             outs=outs, ms=ms, pend=list(pends),
             rate=(after["n_hits"] - before["n_hits"])
             / (after["n_layer_attempts"] - before["n_layer_attempts"]))
         pends.clear()
-    launches = {"memo_attention": memo_attention.launches,
-                "nn_search": nn_search.launches}
+    print(json.dumps({"kernel_launches_per_path": per_path}))
+    require(per_path["kernel"]["memo_attention"] > 0,
+            f"kernel mode never launched memo_attention: {per_path}")
+    require(per_path["bucket"]["nn_search"] > 0,
+            f"bucket mode never launched nn_search: {per_path}")
+    launches = {"memo_attention": per_path["kernel"]["memo_attention"],
+                "nn_search": per_path["bucket"]["nn_search"]}
     plain, plain_ms = serve(False)
     eng.run_layers = real_run_layers
 
@@ -287,29 +314,37 @@ def serve_main_path(torch, dev):
           f"with equal decisions, max|dlogits| {worst:.3e} (int8 gap "
           f"{MODE_GAP:.0e}); {flips} near-threshold decision flips")
     require(worst <= MODE_GAP, f"kernel vs bucket gap {worst}")
-    return sess, launches, results["kernel"]["rate"], requests[0]
+    return sess, launches, captured, requests[0]
 
 
 # ------------------------------------------------------------ phase 4
-def time_kernels(torch, dev, sess, hit_rate):
+def time_kernels(torch, dev, sess, captured, errs):
+    """Each kernel on the arguments the main path gave it in the warm-up
+    batch: held against its plain version on every layer's call, then
+    timed on the layer with the median hit count beside its bound, the
+    plain version and a library yardstick. Errors fold into ``errs``."""
     import torch.nn.functional as F
     from repro_torch.kernels.memo_attention.ops import memo_attention
     from repro_torch.kernels.memo_attention.ref import memo_attention_ref
     from repro_torch.kernels.nn_search.ops import nn_search
-    from repro_torch.kernels.nn_search.ref import nn_search_ref
+    from repro_torch.kernels.nn_search.ref import nn_search_ref, sq_dists
 
-    view = sess.store.snapshot
-    codes, scales = view.db_parts
-    n = len(sess.store)
-    B, S, H, dh = BATCH, SEQ, 12, 64
-    g = torch.Generator(device=dev).manual_seed(7)
-    q, k, v = (torch.randn((B, S, H, dh), generator=g, device=dev)
-               for _ in range(3))
-    hit_idx = torch.randint(0, n, (B,), generator=g, device=dev,
-                            dtype=torch.int32)
-    n_hit = int(round(hit_rate * B))
-    hit = torch.zeros(B, dtype=torch.int32, device=dev)
-    hit[:n_hit] = 1
+    calls = captured["memo_attention"]
+    hits = [int(a[5].sum()) for a, _ in calls]
+    for li, (args, kw) in enumerate(calls):
+        err = (memo_attention(*args, **kw)
+               - memo_attention_ref(*args, **kw)).abs().max().item()
+        q, codes = args[0], args[3]
+        print(f"[main-args] memo_attention layer {li} "
+              f"B,S,H,dh={tuple(q.shape)} N={codes.shape[0]} (the "
+              f"session's int8 arena), {hits[li]}/{q.shape[0]} hits: "
+              f"max|err| {err:.3e} (tolerance {ATOL:.0e})")
+        require(err <= ATOL, f"memo_attention error {err} on layer {li}")
+        errs["memo_attention"] = max(errs["memo_attention"], err)
+    layer = sorted(range(len(calls)), key=hits.__getitem__)[len(calls) // 2]
+    (q, k, v, codes, hit_idx, hit), kw = calls[layer]
+    B, S, H, dh = q.shape
+    n_hit = hits[layer]
     out = {}
 
     def attn_bound(n_hit):
@@ -320,7 +355,6 @@ def time_kernels(torch, dev, sess, hit_rate):
                  + (B - n_hit) * (4 * H * S * S * dh + 5 * H * S * S))
         return bound(nbytes, flops)
 
-    kw = dict(db_scales=scales, causal=False)
     ms = event_ms(lambda: memo_attention(q, k, v, codes, hit_idx, hit, **kw))
     plain_ms = event_ms(lambda: memo_attention_ref(q, k, v, codes, hit_idx,
                                                    hit, **kw))
@@ -334,14 +368,39 @@ def time_kernels(torch, dev, sess, hit_rate):
     print(f"[time] memo_attention B={B} S={S} H={H} dh={dh} int8 DB, "
           f"{n_hit}/{B} hits: {ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}), "
           f"plain {plain_ms:.4f} ms; all-miss {miss_ms:.4f} ms (bound "
-          f"{mb_ms:.4f} ms, {mb_by}) vs SDPA {sdpa_ms:.4f} ms; "
-          f"{sess.engine.cfg.n_layers} launches per batch")
+          f"{mb_ms:.4f} ms, {mb_by}) vs SDPA {sdpa_ms:.4f} ms (library_ms "
+          f"is this all-miss case); {sess.engine.cfg.n_layers} launches "
+          f"per batch")
     out["memo_attention"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=sdpa_ms)
+                                 bound_by=b_by, library_ms=sdpa_ms,
+                                 miss_ms=miss_ms, miss_bound_ms=mb_ms)
 
-    table, norms = view.search_args
-    N, dim = table.shape
-    emb = torch.randn((B, dim), generator=g, device=dev)
+    for li, ((emb, table), kw) in enumerate(captured["nn_search"]):
+        norms = kw["db_norms"]
+        d, i = nn_search(emb, table, db_norms=norms)
+        rd, ri = nn_search_ref(emb, table, norms)
+        tol = 1e-3 * max(1.0, rd.abs().max().item())
+        err = (d - rd).abs().max().item()
+        # idx must be equal, except on a row whose two picks are a near
+        # tie: the plain distances to both lie within the d2 tolerance
+        differ = (i != ri).nonzero().flatten()
+        if len(differ):
+            dd = sq_dists(emb[differ], table, norms)
+            gap = (dd.gather(1, i[differ, None].long())
+                   - dd.gather(1, ri[differ, None].long())).abs().max()
+            require(gap.item() <= tol, f"nn_search picks differ by {gap}")
+        print(f"[main-args] nn_search layer {li} B={emb.shape[0]} "
+              f"dim={emb.shape[1]} N={table.shape[0]} (the session's "
+              f"table, slack rows included): idx equal on "
+              f"{emb.shape[0] - len(differ)}/{emb.shape[0]} rows, "
+              f"{len(differ)} near ties; max|d2 err| {err:.3e} (tolerance "
+              f"{tol:.1e} = 1e-3 of max d2)")
+        require(err <= tol, f"nn_search d2 error {err} on layer {li}")
+        errs["nn_search"] = max(errs["nn_search"], err)
+
+    (emb, table), kw = captured["nn_search"][layer]
+    norms = kw["db_norms"]
+    B, (N, dim) = emb.shape[0], table.shape
     ms = event_ms(lambda: nn_search(emb, table, db_norms=norms))
     plain_ms = event_ms(lambda: nn_search_ref(emb, table, norms))
     lib_ms = event_ms(lambda: torch.cdist(emb, table).min(1))
@@ -411,11 +470,8 @@ def main() -> int:
             print(f"[setup] ptxas {line.strip()}")
 
     errs = check_kernels(torch, dev)
-    sess, launches, hit_rate, request = serve_main_path(torch, dev)
-    print(json.dumps({"kernel_launches": launches}))
-    require(all(c > 0 for c in launches.values()),
-            f"a kernel of the path never launched: {launches}")
-    times = time_kernels(torch, dev, sess, hit_rate)
+    sess, launches, captured, request = serve_main_path(torch, dev)
+    times = time_kernels(torch, dev, sess, captured, errs)
     profile_batch(torch, sess, request)
 
     meta = {

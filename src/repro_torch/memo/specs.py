@@ -16,7 +16,9 @@ that select JAX implementations (``RuntimeSpec.interpret``,
 ``RuntimeSpec.kernel_impl`` — a kernel wrapper here picks its path from
 the tensor's device) or tune the clustered index (``IndexSpec.nprobe``,
 ``n_clusters``), which waits for a later slice. String-keyed fields
-validate against this package's registries.
+validate against this package's registries. The capacity, shard and
+prefill specs keep only their opt-in field, which makes the engine
+raise until the slice that reads the rest lands.
 """
 from __future__ import annotations
 
@@ -169,98 +171,30 @@ class RuntimeSpec:
 
 @dataclass
 class CapacitySpec:
-    """The big-memory capacity tier (DESIGN.md §2.11): an mmap-backed,
-    crash-consistent third storage tier under the host arena. ``dir``
-    is the opt-in — ``None`` (the default) attaches no disk tier and
-    every other field is inert."""
+    """The big-memory capacity tier (DESIGN.md §2.11). Only its opt-in is
+    carried over: a ``dir`` makes the engine raise until the
+    capacity-tier slice lands with the fields that tune it."""
     dir: Optional[str] = None       # tier directory (None = no disk tier)
-    budget_mb: Optional[float] = None   # disk byte budget (None = ∞)
-    promote: bool = True            # serve misses from disk when similar
-    promote_max: int = 64           # promotions per maintenance flush
-    checkpoint_every: int = 8       # WAL→manifest every N applied payloads
-    stall_s: float = 5.0            # disk-op watchdog → DISK_DEGRADED
-    fsync: bool = True              # fsync WAL frames + checkpoints (off:
-                                    # survive crashes, not power loss)
-    # background re-compaction: when the retired fraction of the arenas
-    # exceeds this ratio, the maintenance worker rewrites them dense
-    # (returning bytes to the filesystem). None = never compact.
-    compact_ratio: Optional[float] = None
-
-    def __post_init__(self):
-        _require(self.budget_mb is None or float(self.budget_mb) > 0,
-                 f"capacity budget_mb must be None or > 0: {self.budget_mb}")
-        _require(int(self.promote_max) >= 1,
-                 f"capacity promote_max must be >= 1: {self.promote_max}")
-        _require(int(self.checkpoint_every) >= 1,
-                 f"capacity checkpoint_every must be >= 1: "
-                 f"{self.checkpoint_every}")
-        _require(float(self.stall_s) > 0,
-                 f"capacity stall_s must be > 0: {self.stall_s}")
-        _require(self.compact_ratio is None
-                 or 0 < float(self.compact_ratio) <= 1,
-                 f"capacity compact_ratio must be None or in (0, 1]: "
-                 f"{self.compact_ratio}")
 
 
 @dataclass
 class ShardSpec:
-    """The sharded device tier (DESIGN.md §2.12): partition the memo
-    store's device arenas + index rows over a mesh axis, routed by
-    nearest centroid. ``shards=0`` (the default) keeps the single-host
-    store and every other field inert; ``shards=N`` requests an N-way
-    1-D mesh over the local devices. The port's engine refuses
-    ``shards > 0`` until the sharded-store slice lands.
-    """
+    """The sharded device tier (DESIGN.md §2.12). Only its opt-in is
+    carried over: ``shards > 0`` makes the engine raise until the
+    sharded-store slice lands with the fields that tune it."""
     shards: int = 0                 # 0 = single-host store (no mesh)
-    axis: str = "store"             # mesh axis name for the store
-    hot: int = 32                   # replicated hot-set size (rows)
-    route_nprobe: Optional[int] = None  # centroids probed per query
-    #                                     (None = IndexSpec.nprobe)
-    # drift repair between full syncs: when a delta sync has spilled
-    # this many rows off their routed shard since the last centroid
-    # (re)fit, the maintenance worker refits the routing centroids from
-    # the current embedding table (rows do NOT move — ownership follows
-    # where they actually live). 0 = wait for the next full sync.
-    refresh_spills: int = 0
 
     def __post_init__(self):
         _require(int(self.shards) >= 0,
                  f"shards must be >= 0: {self.shards}")
-        _require(bool(self.axis), "shard axis must be a non-empty name")
-        _require(int(self.hot) >= 0,
-                 f"shard hot-set size must be >= 0: {self.hot}")
-        _require(self.route_nprobe is None or int(self.route_nprobe) >= 1,
-                 f"route_nprobe must be None or >= 1: {self.route_nprobe}")
-        _require(int(self.refresh_spills) >= 0,
-                 f"refresh_spills must be >= 0: {self.refresh_spills}")
 
 
 @dataclass
 class PrefillSpec:
-    """Memoized causal prefill (AttnCache; DESIGN.md §2.13): extend each
-    memo entry from "APM only" to "APM + per-layer K/V", so a prefill
-    hit skips the layer's attention AND materializes that layer's decode
-    cache from the stored entry. ``enabled=False`` (the default) keeps
-    the classic APM-only entry layout and every other field inert."""
+    """Memoized causal prefill (DESIGN.md §2.13). Only its opt-in is
+    carried over: ``enabled=True`` makes the engine raise until the
+    prefill slice lands with the fields that tune it."""
     enabled: bool = False
-    # decode-cache length handed back by a memoized prefill (None =
-    # 2x the prompt length; set it explicitly when you intend to
-    # decode further than the prompt's own length)
-    cache_len: Optional[int] = None
-    # stored-KV wire format: "auto" follows the APM codec (f16 → f16,
-    # int8/lowrank → int8 per-row symmetric), or force f16|int8|lowrank
-    kv_codec: str = "auto"
-    # lowrank KV rank (None = max(4, S//8), mirroring the APM codec)
-    kv_rank: Optional[int] = None
-
-    def __post_init__(self):
-        _require(self.cache_len is None or int(self.cache_len) >= 1,
-                 f"prefill cache_len must be None or >= 1: {self.cache_len}")
-        _require(self.kv_codec in ("auto", "f16", "int8", "lowrank"),
-                 f"prefill kv_codec must be auto|f16|int8|lowrank: "
-                 f"{self.kv_codec!r}")
-        _require(self.kv_rank is None or int(self.kv_rank) >= 1,
-                 f"prefill kv_rank must be None or >= 1: {self.kv_rank}")
 
 
 # old flat MemoConfig field → (component, field) — the single source of
@@ -292,26 +226,10 @@ FLAT_FIELDS: Dict[str, Tuple[str, str]] = {
     "eviction_kind": ("eviction", "kind"),
     # new in the fault-tolerance layer (DESIGN.md §2.9)
     "faults": ("runtime", "faults"),
-    # new in the capacity tier (DESIGN.md §2.11)
+    # opt-ins of later slices (DESIGN.md §2.11-2.13); the engine raises
     "capacity_dir": ("capacity", "dir"),
-    "capacity_budget_mb": ("capacity", "budget_mb"),
-    "capacity_promote": ("capacity", "promote"),
-    "capacity_promote_max": ("capacity", "promote_max"),
-    "capacity_checkpoint_every": ("capacity", "checkpoint_every"),
-    "capacity_stall_s": ("capacity", "stall_s"),
-    "capacity_fsync": ("capacity", "fsync"),
-    "capacity_compact_ratio": ("capacity", "compact_ratio"),
-    # new in the sharded store (DESIGN.md §2.12)
     "shards": ("shard", "shards"),
-    "shard_axis": ("shard", "axis"),
-    "shard_hot": ("shard", "hot"),
-    "shard_route_nprobe": ("shard", "route_nprobe"),
-    "shard_refresh_spills": ("shard", "refresh_spills"),
-    # new in prefill memoization (DESIGN.md §2.13)
     "prefill_enabled": ("prefill", "enabled"),
-    "prefill_cache_len": ("prefill", "cache_len"),
-    "prefill_kv_codec": ("prefill", "kv_codec"),
-    "prefill_kv_rank": ("prefill", "kv_rank"),
 }
 
 
@@ -418,7 +336,8 @@ def _flat_property(comp: str, attr: str) -> property:
         old = getattr(component, attr)
         setattr(component, attr, value)
         try:
-            component.__post_init__()     # writes re-validate
+            if hasattr(component, "__post_init__"):
+                component.__post_init__()     # writes re-validate
         except Exception:
             setattr(component, attr, old)    # reject atomically
             raise

@@ -226,6 +226,26 @@ def test_unported_paths_raise(built, monkeypatch):
                           batches=[])
 
 
+@pytest.mark.parametrize("field, value, match", [
+    ("shards", 2, "sharded-store"),
+    ("prefill_enabled", True, "prefill"),
+    ("capacity_dir", "/nonexistent", "capacity-tier")])
+def test_later_slice_opt_ins_raise(field, value, match):
+    """A reference spec that opts into a later slice crosses over with its
+    opt-in kept (the fields that tune it are dropped), and the engine
+    refuses it."""
+    from repro.memo import MemoSpec as JaxSpec
+    from repro_torch.core.engine import MemoEngine
+    spec = MemoSpec.from_dict(JaxSpec.flat(**{field: value}).to_dict())
+    assert getattr(spec, field) == value
+    spec2 = MemoSpec.flat()
+    setattr(spec2, field, value)                  # write-through property
+    assert spec2 == spec
+    cfg, _ = _cfgs()
+    with pytest.raises(NotImplementedError, match=match):
+        MemoEngine(build_model(cfg, device="cpu"), None, spec)
+
+
 def test_port_imports_neither_jax_nor_reference():
     """Every module of the port, imported in a fresh interpreter, leaves
     ``jax`` and the reference package out of ``sys.modules``."""
