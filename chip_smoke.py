@@ -4,16 +4,27 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/csrc``
-(``build/`` at the repository root), holds each kernel against its plain
-PyTorch version at the serving shapes, serves full-width ``bert_base``
-(random weights from a seed, the synthetic template corpus) through
-``MemoSession.build`` → ``MemoSession.infer`` in ``kernel`` and
-``bucket`` mode with ``run_layers`` under
-``torch.cuda.set_sync_debug_mode("error")``, times each kernel beside
-its bound, its plain version and a library yardstick, and ends with one
-JSON line ``{"ok": true, "device": {...}}``. Any failure raises: the
-script catches nothing, and exits non-zero without a card or outside the
-repository.
+(``build/`` at the repository root) and holds each against its plain
+PyTorch version on synthetic cases. Then it drives four paths, each with
+every launch count at 0 just before it and read just after:
+
+* ``kernel`` and ``bucket`` — full-width ``bert_base`` (random weights
+  from a seed, the synthetic template corpus) served through
+  ``MemoSession.build`` → ``MemoSession.infer`` with ``run_layers``
+  under ``torch.cuda.set_sync_debug_mode("error")``
+  (``memo_attention``, ``nn_search``);
+* ``gpt2_small`` and ``rwkv6_3b`` — ``Model(attn_impl="kernel").forward``
+  at full width and depth (random weights from a seed, made on the card;
+  tokens from numpy) under ``set_sync_debug_mode("error")``
+  (``flash_attention``, ``rwkv6``), its logits held against the
+  ``attn_impl="plain"`` forward.
+
+Every kernel is held against its plain version on the arguments each
+layer of its path gave it, and timed there beside its bound, its plain
+version and a library yardstick; one batch or forward of each path is
+profiled. It ends with one JSON line ``{"ok": true, "device": {...}}``.
+Any failure raises: the script catches nothing, and exits non-zero
+without a card or outside the repository.
 """
 from __future__ import annotations
 
@@ -31,8 +42,20 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
-ATOL = 2e-5          # kernel vs plain, f32: both sum 128-term f32 dot
-#                      products, in different orders
+ATOL = 2e-5          # attention kernels vs plain, f32: both sum
+#                      dh- and S-term f32 dot products, in different orders
+# rwkv6 vs plain: two f32 sequential recurrences whose 64-term sums run in
+# different orders; the state carries rounding over ~1/(1-w) steps and
+# |o| reaches ~1e2-1e3, so the bound is relative to the output's scale
+WKV_RTOL = 2e-5
+# kernel vs plain forward, whole model: the same matmuls, attention in
+# another summation order, compounded over the layers; relative to the
+# logits' scale (5.2e-6 of 3.15 measured on an H100, PERF.md)
+FORWARD_RTOL = {"gpt2_small": 1e-5}
+# rwkv6_3b: random weights at 32 layers amplify rounding (see
+# check_against_f64); the kernel forward's mean distance from the f64-wkv
+# forward may be at most this multiple of the plain f32 forward's
+F64_RATIO = 2.0
 SEQ, BATCH, CALIB_BATCHES, FRESH_BATCHES = 128, 32, 8, 6
 # kernel mode dequantizes int8 APM rows in f32; bucket mode decodes them
 # through f16 (decode_rows) before APM·V. Both are right (the reference
@@ -42,6 +65,7 @@ SEQ, BATCH, CALIB_BATCHES, FRESH_BATCHES = 128, 32, 8, 6
 # H100 (PERF.md), held here with a 10x margin.
 MODE_GAP = 2e-3
 SIM_MARGIN = 1e-3    # a decision within this of the threshold may flip
+KERNELS = ("memo_attention", "nn_search", "flash_attention", "rwkv6")
 
 
 def require(ok: bool, what: str) -> None:
@@ -58,12 +82,12 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def event_ms(fn, *, reps=20, rounds=5):
+def event_ms(fn, *, reps=20, rounds=5, warmup=3):
     """Median device time of one ``fn()`` call: a GPU sleep lets the host
     queue ``reps`` calls ahead, so the events bracket back-to-back work
     and no launch gap (CUDA events, median over ``rounds``)."""
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -83,6 +107,25 @@ def event_ms(fn, *, reps=20, rounds=5):
 def bound(nbytes: float, flops: float):
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def wrappers():
+    """Each kernel's wrapper, which carries its launch count."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.memo_attention.ops import memo_attention
+    from repro_torch.kernels.nn_search.ops import nn_search
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    return {"memo_attention": memo_attention, "nn_search": nn_search,
+            "flash_attention": flash_attention, "rwkv6": wkv6}
+
+
+def zero_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 # ------------------------------------------------------------ phase 2
@@ -107,12 +150,65 @@ def attention_case(torch, dev, *, B, S, H, Hkv, dh, N, L, quant, varlen,
                                              lengths=lengths)
 
 
+def flash_case(torch, dev, *, B, S, H, Hkv, dh, seed, strided=False):
+    """q (B,S,H,dh), k/v (B,S,Hkv,dh); ``strided`` hands the kernel views
+    of (B,H,S,dh) tensors, read by their strides."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if strided:
+        return tuple(torch.randn((B, h, S, dh), generator=g,
+                                 device=dev).transpose(1, 2)
+                     for h in (H, Hkv, Hkv))
+    return tuple(torch.randn((B, S, h, dh), generator=g, device=dev)
+                 for h in (H, Hkv, Hkv))
+
+
+def wkv_case(torch, dev, *, B, S, nh, N, decay_mean, seed):
+    """r, k, v ~ N(0,1), w = exp(-exp(N(0,1) + decay_mean)), u ~ N(0,0.1)
+    (tests/test_kernels.py's wkv inputs)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    r, k, v = rand(B, S, nh, N), rand(B, S, nh, N), rand(B, S, nh, N)
+    w = torch.exp(-torch.exp(rand(B, S, nh, N) + decay_mean))
+    return r, k, v, w, 0.1 * rand(nh, N)
+
+
+def flash_bound(B, S, H, Hkv, dh, causal, window):
+    """Each of q/k/v/out moved once; 4*dh flops per visible (q, k) pair
+    (QK^T and PV) plus 5 for the softmax."""
+    import numpy as np
+    qpos, kpos = np.arange(S)[:, None], np.arange(S)[None, :]
+    mask = np.ones((S, S), bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    pairs = B * H * int(mask.sum())
+    return bound(4 * B * S * dh * (2 * H + 2 * Hkv), pairs * (4 * dh + 5))
+
+
+def wkv_bound(B, S, nh, N):
+    """r, k, v, w read and o written once (u is negligible); 5 N^2 flops
+    per head and step: o (N^2 multiply-adds) and the update (w*S, k v^T
+    and their sum)."""
+    return bound(4 * (5 * B * S * nh * N + nh * N), 5 * B * S * nh * N * N)
+
+
+def wkv_err(o, ref):
+    """max |o - ref| and its tolerance, WKV_RTOL of the output's scale."""
+    return ((o - ref).abs().max().item(),
+            WKV_RTOL * max(1.0, ref.abs().max().item()))
+
+
 def check_kernels(torch, dev):
     from repro_torch.kernels.memo_attention.ops import memo_attention
     from repro_torch.kernels.memo_attention.ref import memo_attention_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.nn_search.ops import nn_search
     from repro_torch.kernels.nn_search.ref import nn_search_ref
-    errs = {"memo_attention": 0.0, "nn_search": 0.0}
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    errs = dict.fromkeys(KERNELS, 0.0)
     cases = [dict(B=BATCH, S=SEQ, H=12, Hkv=12, dh=64, N=3072, L=SEQ,
                   quant=quant, varlen=varlen, causal=False, window=None)
              for quant in (True, False) for varlen in (False, True)]
@@ -155,6 +251,40 @@ def check_kernels(torch, dev):
               f"{1e-3 * scale:.1e} = 1e-3 of max d2)")
         require(err <= 1e-3 * scale, f"nn_search d2 error {err}")
         errs["nn_search"] = max(errs["nn_search"], err)
+
+    cases = [dict(B=2, S=S, H=4, Hkv=2, dh=dh, causal=causal, window=w,
+                  strided=False)
+             for S, dh in ((33, 16), (1000, 32), (64, 64))
+             for causal in (True, False) for w in (None, 8, 16)]
+    cases += [dict(B=3, S=100, H=6, Hkv=3, dh=64, causal=True, window=None,
+                   strided=True),
+              dict(B=8, S=1024, H=12, Hkv=12, dh=64, causal=True,
+                   window=None, strided=False)]
+    for i, c in enumerate(cases):
+        q, k, v = flash_case(torch, dev, seed=100 + i, **{
+            key: c[key] for key in ("B", "S", "H", "Hkv", "dh", "strided")})
+        out = flash_attention(q, k, v, causal=c["causal"], window=c["window"])
+        ref = flash_attention_ref(q, k, v, causal=c["causal"],
+                                  window=c["window"])
+        err = (out - ref).abs().max().item()
+        print(f"[kernel] flash_attention B={c['B']} S={c['S']} H={c['H']}/"
+              f"{c['Hkv']} dh={c['dh']} causal={c['causal']} "
+              f"window={c['window']} strided={c['strided']}: max|err| "
+              f"{err:.3e} (tolerance {ATOL:.0e})")
+        require(err <= ATOL, f"flash_attention error {err}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+
+    cases = [dict(B=2, S=S, nh=4, N=64, decay_mean=dm)
+             for S in (41, 1000) for dm in (-6.0, -3.5, -1.0)]
+    cases += [dict(B=3, S=77, nh=5, N=N, decay_mean=-4.0) for N in (16, 32)]
+    for i, c in enumerate(cases):
+        args = wkv_case(torch, dev, seed=200 + i, **c)
+        err, tol = wkv_err(wkv6(*args), wkv6_ref(*args))
+        print(f"[kernel] rwkv6 B={c['B']} S={c['S']} nh={c['nh']} "
+              f"N={c['N']} decay mean {c['decay_mean']}, u != 0: max|err| "
+              f"{err:.3e} (tolerance {tol:.1e} = {WKV_RTOL:.0e} of max|o|)")
+        require(err <= tol, f"rwkv6 error {err}")
+        errs["rwkv6"] = max(errs["rwkv6"], err)
     return errs
 
 
@@ -250,24 +380,19 @@ def serve_main_path(torch, dev):
     for mode in ("kernel", "bucket"):
         sess.spec.runtime.mode = mode
         before = sess.stats()
-        memo_attention.launches = 0
-        nn_search.launches = 0
+        zero_counts()
         outs, ms = serve(True)
-        per_path[mode] = {"memo_attention": memo_attention.launches,
-                          "nn_search": nn_search.launches}
+        per_path[mode] = read_counts()
         after = sess.stats()
         results[mode] = dict(
             outs=outs, ms=ms, pend=list(pends),
             rate=(after["n_hits"] - before["n_hits"])
             / (after["n_layer_attempts"] - before["n_layer_attempts"]))
         pends.clear()
-    print(json.dumps({"kernel_launches_per_path": per_path}))
     require(per_path["kernel"]["memo_attention"] > 0,
             f"kernel mode never launched memo_attention: {per_path}")
     require(per_path["bucket"]["nn_search"] > 0,
             f"bucket mode never launched nn_search: {per_path}")
-    launches = {"memo_attention": per_path["kernel"]["memo_attention"],
-                "nn_search": per_path["bucket"]["nn_search"]}
     plain, plain_ms = serve(False)
     eng.run_layers = real_run_layers
 
@@ -314,7 +439,7 @@ def serve_main_path(torch, dev):
           f"with equal decisions, max|dlogits| {worst:.3e} (int8 gap "
           f"{MODE_GAP:.0e}); {flips} near-threshold decision flips")
     require(worst <= MODE_GAP, f"kernel vs bucket gap {worst}")
-    return sess, launches, captured, requests[0]
+    return sess, per_path, captured, requests[0]
 
 
 # ------------------------------------------------------------ phase 4
@@ -416,19 +541,18 @@ def time_kernels(torch, dev, sess, captured, errs):
 
 
 # ------------------------------------------------------------ phase 5
-def profile_batch(torch, sess, batch):
-    """Where one kernel-mode batch spends its device time: kernel time by
-    name from a ``torch.profiler`` trace, and the device's idle share of
-    the batch's wall time (one stream, so busy time is the sum)."""
+def device_profile(torch, label, fn):
+    """Where one ``fn()`` spends its device time: kernel time by name from
+    a ``torch.profiler`` trace, and the device's idle share of its wall
+    time (one stream, so busy time is the sum)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    sess.spec.runtime.mode = "kernel"
-    sess.infer(batch)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sess.infer(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -439,13 +563,246 @@ def profile_batch(torch, sess, batch):
             rows.append((us / 1e3, e.count, e.key))
     busy = sum(r[0] for r in rows)
     if busy == 0:
-        print("[profile] the trace shows no device time: not measured")
+        print(f"[profile] {label}: the trace shows no device time: not "
+              f"measured")
         return
-    print(f"[profile] kernel-mode batch: wall {wall_ms:.2f} ms, device "
-          f"busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}")
+    print(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy "
+          f"{busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}")
     for ms, count, name in sorted(rows, reverse=True)[:10]:
         print(f"[profile] {ms:8.3f} ms {ms / busy:6.1%} x{count:<4d} "
               f"{name[:90]}")
+
+
+def profile_batch(torch, sess, batch):
+    sess.spec.runtime.mode = "kernel"
+    device_profile(torch, "kernel-mode batch", lambda: sess.infer(batch))
+
+
+# ------------------------------------------------------------ phase 6
+# the kernel forward: (arch, batch, seq, the kernel it reaches, where the
+# model calls that kernel's wrapper)
+FORWARDS = (("gpt2_small", 8, 1024, "flash_attention",
+             "repro_torch.models.attention"),
+            ("rwkv6_3b", 4, 1024, "rwkv6", "repro_torch.models.rwkv"))
+
+
+def perturb_rwkv(params, gen):
+    """u ~ N(0, 0.1) and w0 ~ U[-8, -1] in every rwkv6 layer: at init
+    u = 0 and w0 = -6 everywhere, which would leave the bonus and the
+    decay's range out of the check."""
+    for seg in params["layers"].values():
+        for lp in seg.values():
+            lp["mix"]["u"].normal_(0.0, 0.1, generator=gen)
+            lp["mix"]["w0"].uniform_(-8.0, -1.0, generator=gen)
+
+
+def check_logits(arch, logits, plain_logits):
+    """The kernel forward's logits within FORWARD_RTOL of the plain
+    forward's scale."""
+    scale = max(1.0, plain_logits.abs().max().item())
+    diff = (logits - plain_logits).abs().max().item()
+    tol = FORWARD_RTOL[arch] * scale
+    agree = (logits.argmax(-1) == plain_logits.argmax(-1)).float().mean()
+    print(f"[{arch}] kernel forward (under set_sync_debug_mode('error')) vs "
+          f"plain forward: max|dlogits| {diff:.3e} (tolerance {tol:.2e} = "
+          f"{FORWARD_RTOL[arch]:.0e} of max|logit| {scale:.3f}); argmax "
+          f"agreement {agree.item():.6f}")
+    require(diff <= tol, f"{arch} kernel vs plain logits {diff}")
+
+
+def forward_wkv_f64(plain_model, params, batch):
+    """The plain forward with the wkv recurrence run in f64: the yardstick
+    of how far f32 rounding alone moves this model's logits."""
+    import repro_torch.models.rwkv as rwkv_mod
+    f32_scan = rwkv_mod._wkv_scan
+
+    def f64_scan(*ts):
+        o, s = f32_scan(*(t.double() for t in ts))
+        return o.float(), s.float()
+
+    rwkv_mod._wkv_scan = f64_scan
+    try:
+        return plain_model.forward(params, batch)[0]
+    finally:
+        rwkv_mod._wkv_scan = f32_scan
+
+
+def check_against_f64(arch, logits, plain_logits, f64_logits):
+    """A deep random-weight rwkv6 stack amplifies rounding from layer to
+    layer, so two f32 forwards that sum in different orders end far apart
+    at 32 layers whatever their kernels. The check: the kernel forward
+    stays as close to the f64-wkv forward as the plain f32 forward does,
+    within F64_RATIO on the mean |dlogits|."""
+    stats = {}
+    for name, lg in (("kernel", logits), ("plain", plain_logits)):
+        d = (lg - f64_logits).abs()
+        stats[name] = (d.mean().item(), d.max().item(), (
+            lg.argmax(-1) == f64_logits.argmax(-1)).float().mean().item())
+        print(f"[{arch}] {name} forward vs the f64-wkv forward: mean|dlogits|"
+              f" {stats[name][0]:.3e}, max {stats[name][1]:.3e}, argmax "
+              f"agreement {stats[name][2]:.6f}")
+    d = (logits - plain_logits).abs()
+    print(f"[{arch}] kernel forward (under set_sync_debug_mode('error')) vs "
+          f"plain forward: mean|dlogits| {d.mean().item():.3e}, max "
+          f"{d.max().item():.3e} (max|logit| "
+          f"{plain_logits.abs().max().item():.3f}); tolerance: kernel's "
+          f"mean|dlogits| from f64 <= {F64_RATIO} x plain's")
+    require(stats["kernel"][0] <= F64_RATIO * stats["plain"][0],
+            f"{arch}: kernel forward farther from f64 than plain: {stats}")
+
+
+def forward_ms(torch, fn, runs=3):
+    """Median of ``runs`` CUDA-event timings of one ``fn()`` after one
+    warm-up call: device time from the first launch to the last,
+    including any gap while the host issues work."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def forward_path(torch, dev, arch, B, S, kname, site, errs):
+    """Full-width, full-depth ``Model.forward`` of ``arch`` with
+    ``attn_impl="kernel"``: launch counts, no host sync, every layer's
+    kernel call against the plain version, logits against the plain
+    forward, timings and a profile. Returns (counts, kernel timings)."""
+    import importlib
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    kernel_model = build_model(cfg, device=dev, attn_impl="kernel")
+    plain_model = build_model(cfg, device=dev, attn_impl="plain")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = kernel_model.init(generator=gen)
+    if cfg.mixer == "rwkv6":
+        perturb_rwkv(params, gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S))).to(dev)
+    batch = {"tokens": tokens}
+    print(f"[{arch}] {cfg.n_layers}L d{cfg.d_model} {cfg.n_heads}x"
+          f"{cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab}: "
+          f"{n_params / 1e9:.3f} B params ({n_params * 4 / 1e9:.2f} GB f32) "
+          f"made on the card in {time.perf_counter() - t0:.1f}s; B={B} "
+          f"S={S}")
+
+    mod = importlib.import_module(site)
+    attr = "flash_attention" if kname == "flash_attention" else "wkv6"
+    real = getattr(mod, attr)
+    calls = []
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    with torch.no_grad():
+        # warm-up, outside the counts: records each layer's arguments
+        setattr(mod, attr, recording)
+        kernel_model.forward(params, batch)
+        setattr(mod, attr, real)
+        torch.cuda.synchronize()
+
+        zero_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits = kernel_model.forward(params, batch)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        counts = read_counts()
+        torch.cuda.synchronize()
+        want = {name: cfg.n_layers if name == kname else 0
+                for name in KERNELS}
+        require(counts == want, f"{arch} launches {counts}, want {want}")
+        require(len(calls) == cfg.n_layers,
+                f"{arch}: recorded {len(calls)} calls")
+
+        # every layer's call against the plain version
+        plain = flash_attention_ref if kname == "flash_attention" else wkv6_ref
+        for li, (args, kw) in enumerate(calls):
+            out, ref = real(*args, **kw), plain(*args, **kw)
+            if kname == "flash_attention":
+                err, tol = (out - ref).abs().max().item(), ATOL
+            else:
+                err, tol = wkv_err(out, ref)
+            print(f"[main-args] {kname} {arch} layer {li} "
+                  f"{tuple(args[0].shape)}: max|err| {err:.3e} (tolerance "
+                  f"{tol:.1e})")
+            require(err <= tol, f"{kname} error {err} on {arch} layer {li}")
+            errs[kname] = max(errs[kname], err)
+        del out, ref
+
+        plain_logits = plain_model.forward(params, batch)[0]
+        torch.cuda.synchronize()
+        for name, lg in (("kernel", logits), ("plain", plain_logits)):
+            require(lg.shape == (B, S, cfg.vocab), f"{name} shape {lg.shape}")
+            require(bool(torch.isfinite(lg).all()), f"{name}: non-finite")
+        if cfg.mixer == "rwkv6":
+            f64_logits = forward_wkv_f64(plain_model, params, batch)
+            check_against_f64(arch, logits, plain_logits, f64_logits)
+            del f64_logits
+        else:
+            check_logits(arch, logits, plain_logits)
+        del logits, plain_logits
+
+        # timings: both forwards, then the kernel on the median layer
+        fwd_k = forward_ms(torch, lambda: kernel_model.forward(params, batch))
+        fwd_p = forward_ms(torch, lambda: plain_model.forward(params, batch))
+        print(f"[{arch}] forward B={B} S={S}: kernel {fwd_k:.2f} ms, plain "
+              f"{fwd_p:.2f} ms (CUDA events, median of 3)")
+        args, kw = calls[len(calls) // 2]
+        ms = event_ms(lambda: real(*args, **kw))
+        if kname == "flash_attention":
+            q, k, v = args
+            Bq, Sq, H, dh = q.shape
+            b_ms, b_by = flash_bound(Bq, Sq, H, k.shape[2], dh,
+                                     kw["causal"], kw["window"])
+            plain_ms = event_ms(lambda: plain(*args, **kw))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=kw["causal"]))
+            lib = f"SDPA (is_causal={kw['causal']}) {lib_ms:.4f} ms"
+        else:
+            Bq, Sq, nh, N = args[0].shape
+            b_ms, b_by = wkv_bound(Bq, Sq, nh, N)
+            plain_ms = event_ms(lambda: plain(*args, **kw), reps=2,
+                                rounds=3, warmup=1)
+            lib_ms, lib = None, "no single library call"
+        print(f"[time] {kname} {tuple(args[0].shape)} ({arch} layer "
+              f"{len(calls) // 2}): {ms:.4f} ms (bound {b_ms:.4f} ms, "
+              f"{b_by}), plain {plain_ms:.4f} ms, {lib}; {cfg.n_layers} "
+              f"launches per forward")
+        device_profile(torch, f"{arch} kernel forward B={B} S={S}",
+                       lambda: kernel_model.forward(params, batch))
+    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                  library_ms=lib_ms, forward_ms=fwd_k,
+                  plain_forward_ms=fwd_p)
+    del params, calls, args, kw
+    torch.cuda.empty_cache()
+    return counts, timing
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> int:
@@ -470,19 +827,35 @@ def main() -> int:
             print(f"[setup] ptxas {line.strip()}")
 
     errs = check_kernels(torch, dev)
-    sess, launches, captured, request = serve_main_path(torch, dev)
+    sess, per_path, captured, request = serve_main_path(torch, dev)
     times = time_kernels(torch, dev, sess, captured, errs)
     profile_batch(torch, sess, request)
+    del sess, captured, request
+    torch.cuda.empty_cache()
+    launches = {"memo_attention": per_path["kernel"]["memo_attention"],
+                "nn_search": per_path["bucket"]["nn_search"]}
+    for arch, B, S, kname, site in FORWARDS:
+        per_path[arch], times[kname] = forward_path(torch, dev, arch, B, S,
+                                                    kname, site, errs)
+        launches[kname] = per_path[arch][kname]
+    print(json.dumps({"kernel_launches_per_path": per_path}))
 
     meta = {
         "memo_attention": ("src/repro_torch/csrc/memo_attention.cu",
                            "src/repro/kernels/memo_attention/kernel.py:199"),
         "nn_search": ("src/repro_torch/csrc/nn_search.cu",
                       "src/repro/kernels/nn_search/kernel.py:96"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:86"),
+        "rwkv6": ("src/repro_torch/csrc/rwkv6.cu",
+                  "src/repro/kernels/rwkv6/kernel.py:75"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name], max_abs_err=errs[name],
-                    **times[name]) for name, (src, rep) in meta.items()]
+                    launches=launches[name],
+                    launches_per_path={path: c[name]
+                                       for path, c in per_path.items()},
+                    max_abs_err=errs[name], **times[name])
+               for name, (src, rep) in meta.items()]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,7 @@ from repro_torch.configs.base import (  # noqa: F401
     EncoderConfig, InputShape, INPUT_SHAPES, MLAConfig, ModelConfig, MoEConfig,
 )
 
-ARCH_IDS = ["bert_base"]
+ARCH_IDS = ["bert_base", "gpt2_small", "rwkv6_3b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 

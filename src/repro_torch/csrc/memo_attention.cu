@@ -13,7 +13,9 @@
 //          renormalisation: stored rows already sum to 1.
 //   miss — never touches the DB. Online-softmax attention over K/V tiles
 //          with scale dh^-1/2, the mask kpos < lengths[b], causal and
-//          window, NEG_INF = -1e30, fully masked rows zeroed.
+//          window, NEG_INF = -1e30, fully masked rows zeroed: the
+//          online_softmax tile of attention_tile.cuh, which
+//          flash_attention.cu shares.
 // The DB is indexed with its own L stride and only [:S, :S] is read (zero
 // past L), which replaces the reference's pad/slice copies; the ragged
 // last q-tile and k-tile are masked here. GQA reads K/V at h / group.
@@ -35,13 +37,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_tile.cuh"
+
 namespace {
 
-constexpr int BQ = 32;          // query rows per block
-constexpr int BK = 32;          // keys per tile
-constexpr int TPR = 4;          // threads per query row
-constexpr int NT = BQ * TPR;    // threads per block
-constexpr float NEG_INF = -1e30f;
+using attn_tile::BK;
+using attn_tile::BQ;
+using attn_tile::NT;
+using attn_tile::TPR;
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -60,52 +63,29 @@ __global__ void __launch_bounds__(NT) memo_attention_kernel(
     const int* __restrict__ hit, const int* __restrict__ lengths,
     float* __restrict__ out, int S, int H, int Hkv, int L, int N,
     int causal, int has_window, int window, float scale) {
-  constexpr int CPT = DH / TPR;   // output columns per thread
-  constexpr int KPT = BK / TPR;   // scores per thread per key tile
-  __shared__ float sQ[BQ][DH + 1];
-  __shared__ float sK[BK][DH + 1];
-  __shared__ float sV[BK][DH];
-  __shared__ float sP[BQ][BK + 1];
+  __shared__ attn_tile::Smem<DH> sm;
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x;
   const int r = tid / TPR, t = tid % TPR;
-  const int qpos = q0 + r;
   const int hk = h / (H / Hkv);
   const size_t q_row = (size_t)H * DH, kv_row = (size_t)Hkv * DH;
-  const float* qb = q + (size_t)b * S * q_row + (size_t)h * DH;
-  const float* kb = k + (size_t)b * S * kv_row + (size_t)hk * DH;
   const float* vb = v + (size_t)b * S * kv_row + (size_t)hk * DH;
-  const bool is_hit = hit[b] == 1;
 
-  float acc[CPT];
+  float acc[DH / TPR];
 #pragma unroll
-  for (int c = 0; c < CPT; ++c) acc[c] = 0.f;
-  float m_run = NEG_INF, l_run = 0.f;
+  for (int c = 0; c < DH / TPR; ++c) acc[c] = 0.f;
+  float denom = 1.f;
 
-// V tile [k0, k0+BK) into sV, zero past S
-#define LOAD_V_TILE(k0)                                        \
-  for (int i = tid; i < BK * DH; i += NT) {                    \
-    const int j = i / DH, d = i % DH, s = (k0) + j;            \
-    sV[j][d] = s < S ? vb[(size_t)s * kv_row + d] : 0.f;       \
-  }
-// acc += sP[r, :] @ sV[:, this thread's columns]
-#define ACCUMULATE_PV()                                        \
-  _Pragma("unroll 4") for (int j = 0; j < BK; ++j) {           \
-    const float p = sP[r][j];                                  \
-    _Pragma("unroll") for (int c = 0; c < CPT; ++c)            \
-        acc[c] += p * sV[j][t + TPR * c];                      \
-  }
-
-  if (is_hit) {
+  if (hit[b] == 1) {
     int e = hit_idx[b];
     e = e < 0 ? 0 : (e >= N ? N - 1 : e);
     const size_t plane = ((size_t)e * H + h) * (size_t)L;
     const int kend = S < L ? S : L;
     for (int k0 = 0; k0 < kend; k0 += BK) {
       __syncthreads();
-      LOAD_V_TILE(k0)
+      attn_tile::load_v_tile<DH>(sm, vb, kv_row, k0, S);
       for (int i = tid; i < BQ * BK; i += NT) {
         const int rr = i / BK, j = i % BK;
         const int qs = q0 + rr, ks = k0 + j;
@@ -114,78 +94,19 @@ __global__ void __launch_bounds__(NT) memo_attention_kernel(
           a = to_f32<DB_T>(db[(plane + qs) * L + ks]);
           if (QUANT) a *= __half2float(scales[plane + qs]);
         }
-        sP[rr][j] = a;
+        sm.P[rr][j] = a;
       }
       __syncthreads();
-      ACCUMULATE_PV()
+      attn_tile::accumulate_pv<DH>(sm, r, t, acc);
     }
   } else {
-    for (int i = tid; i < BQ * DH; i += NT) {
-      const int rr = i / DH, d = i % DH, s = q0 + rr;
-      sQ[rr][d] = s < S ? qb[(size_t)s * q_row + d] : 0.f;
-    }
-    const int len = lengths[b] < S ? lengths[b] : S;
-    int kend = len;
-    if (causal && q0 + BQ < kend) kend = q0 + BQ;
-    int kstart = 0;
-    if (has_window) {
-      const int lo = q0 - window + 1;   // first key any row may see
-      if (lo > 0) kstart = (lo / BK) * BK;
-    }
-    for (int k0 = kstart; k0 < kend; k0 += BK) {
-      __syncthreads();
-      for (int i = tid; i < BK * DH; i += NT) {
-        const int j = i / DH, d = i % DH, s = k0 + j;
-        sK[j][d] = s < S ? kb[(size_t)s * kv_row + d] : 0.f;
-      }
-      LOAD_V_TILE(k0)
-      __syncthreads();
-      float sc[KPT];
-      float tmax = NEG_INF;
-#pragma unroll
-      for (int jj = 0; jj < KPT; ++jj) {
-        const int j = t + TPR * jj, kpos = k0 + j;
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < DH; ++d) dot += sQ[r][d] * sK[j][d];
-        dot *= scale;
-        bool ok = kpos < len;
-        if (causal) ok = ok && kpos <= qpos;
-        if (has_window) ok = ok && kpos > qpos - window;
-        sc[jj] = ok ? dot : NEG_INF;
-        tmax = fmaxf(tmax, sc[jj]);
-      }
-#pragma unroll
-      for (int off = 1; off < TPR; off <<= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_new = fmaxf(m_run, tmax);
-      const float alpha = expf(m_run - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < KPT; ++jj) {
-        const float p =
-            sc[jj] <= NEG_INF * 0.5f ? 0.f : expf(sc[jj] - m_new);
-        sP[r][t + TPR * jj] = p;
-        psum += p;
-      }
-#pragma unroll
-      for (int off = 1; off < TPR; off <<= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l_run = l_run * alpha + psum;
-      m_run = m_new;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[c] *= alpha;
-      __syncwarp();
-      ACCUMULATE_PV()
-    }
+    denom = attn_tile::online_softmax<DH>(
+        sm, q + (size_t)b * S * q_row + (size_t)h * DH, q_row,
+        k + (size_t)b * S * kv_row + (size_t)hk * DH, kv_row, vb, kv_row, S,
+        lengths[b], q0, causal, has_window, window, scale, acc);
   }
-
-  if (qpos < S) {
-    const float denom = is_hit ? 1.f : fmaxf(l_run, 1e-30f);
-    float* ob = out + ((size_t)b * S + qpos) * q_row + (size_t)h * DH;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) ob[t + TPR * c] = acc[c] / denom;
-  }
+  attn_tile::store_rows<DH>(out + (size_t)b * S * q_row + (size_t)h * DH,
+                            q_row, S, q0, denom, acc);
 }
 
 template <int DH>

@@ -20,13 +20,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("memo_attention.cu", "nn_search.cu")
+SOURCES = ("memo_attention.cu", "nn_search.cu", "flash_attention.cu",
+           "rwkv6.cu")
+HEADERS = ("attention_tile.cuh",)   # included by sources: hashed too
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_P64 = ctypes.POINTER(ctypes.c_int64)
 # C signatures: every pointer and the stream as c_void_p (a bare int
 # would be cut to 32 bits), every entry point returns cudaGetLastError()
 SIGNATURES = {
@@ -35,6 +38,9 @@ SIGNATURES = {
                            _I, _I, _I, _F, _P],
     "nn_search_f32": [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _P],
+    "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P64,
+                            _I, _I, _I, _F, _P],
+    "wkv6_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -58,7 +64,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -1,14 +1,14 @@
 """Plain PyTorch version of memo_attention — the reference's
 ``_memo_attention_xla`` (``kernels/memo_attention/ops.py``) line for line:
-f32 compute, NEG_INF masking with explicit zeroing of fully masked rows,
-hits consume the raw APM rows (no renormalisation), and one probs·V
-product serves both paths."""
+the miss rows' probabilities are flash_attention's plain version (f32,
+−1e30 masking, fully masked rows zeroed), hits consume the raw APM rows
+(no renormalisation), and one probs·V product serves both paths."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-NEG_INF = -1e30
+from repro_torch.kernels.flash_attention.ref import attention_probs
 
 
 def _fit_db(db, target: int, n_tail_dims: int):
@@ -29,27 +29,9 @@ def memo_attention_ref(q, k, v, db_apm, hit_idx, hit, *, db_scales=None,
     with ``db_scales`` (N,H,L) f16), hit_idx/hit/lengths (B,)."""
     B, S, H, dh = q.shape
     Hkv = k.shape[2]
-    group = H // Hkv
     dev = q.device
-    qf = q.float().permute(0, 2, 1, 3).reshape(B, Hkv, group, S, dh)
-    kf = k.float().permute(0, 2, 1, 3)
+    p = attention_probs(q, k, causal=causal, window=window, lengths=lengths)
     vf = v.float().permute(0, 2, 1, 3)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * dh ** -0.5
-    qpos = torch.arange(S, device=dev)[:, None]
-    kpos = torch.arange(S, device=dev)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=dev)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
-    mask = mask[None, None, None].expand(B, 1, 1, S, S)
-    if lengths is not None:
-        mask = mask & (torch.arange(S, device=dev)[None, :]
-                       < lengths.to(dev)[:, None])[:, None, None, None, :]
-    s = torch.where(mask, s, NEG_INF)
-    m = torch.amax(s, -1, keepdim=True)
-    p = torch.where(s <= NEG_INF * 0.5, 0.0, torch.exp(s - m))
-    p = p / torch.clamp(torch.sum(p, -1, keepdim=True), min=1e-30)
     idx = torch.clamp(hit_idx.to(dev).long(), 0, db_apm.shape[0] - 1)
     apm = db_apm.index_select(0, idx).float()
     if db_scales is not None:
@@ -57,6 +39,6 @@ def memo_attention_ref(q, k, v, db_apm, hit_idx, hit, *, db_scales=None,
     apm = _fit_db(apm, S, 2)
     p = torch.where((hit.to(dev) == 1)[:, None, None, None], apm,
                     p.reshape(B, H, S, S))
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p.reshape(B, Hkv, group, S, S),
-                       vf)
+    out = torch.einsum("bhgqk,bhkd->bhgqd",
+                       p.reshape(B, Hkv, H // Hkv, S, S), vf)
     return out.reshape(B, H, S, dh).permute(0, 2, 1, 3).to(q.dtype)

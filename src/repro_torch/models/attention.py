@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, dense_init
 
 
@@ -106,8 +107,12 @@ def _qkv(params, x, cfg, positions, use_rope=True):
 
 def gqa_apply(params, x, cfg, *, positions, mask_kind="causal",
               window=None, memo: Optional[Memo] = None, return_apm=False,
-              use_rope=True, kpad=None):
+              use_rope=True, attn_impl="plain", kpad=None):
     """Full-sequence GQA. x: (B,S,D) → (B,S,D).
+
+    ``attn_impl="kernel"`` runs the ``flash_attention`` kernel wrapper
+    when there is no memo, no APM capture and no ``kpad`` (the
+    reference's gate for ``"pallas_interpret"``); otherwise ``_sdpa``.
 
     ``kpad``: optional (B, S) bool key-validity mask for padded
     variable-length batches — False keys are excluded from the softmax,
@@ -116,12 +121,18 @@ def gqa_apply(params, x, cfg, *, positions, mask_kind="causal",
     B, S, _ = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _qkv(params, x, cfg, positions, use_rope)
-    qg = q.reshape(B, S, Hkv, H // Hkv, dh)
-    mask = make_mask(S, S, mask_kind, window, device=x.device)
-    if kpad is not None:
-        mask = mask[None] & kpad[:, None, :]
-    out, apm = _sdpa(qg, k, v, mask, dh ** -0.5, memo, return_apm)
-    out = out.reshape(B, S, H, dh)
+    if attn_impl == "kernel" and memo is None and not return_apm \
+            and kpad is None:
+        out = flash_attention(q, k, v, causal=(mask_kind == "causal"),
+                              window=window)
+        apm = None
+    else:
+        qg = q.reshape(B, S, Hkv, H // Hkv, dh)
+        mask = make_mask(S, S, mask_kind, window, device=x.device)
+        if kpad is not None:
+            mask = mask[None] & kpad[:, None, :]
+        out, apm = _sdpa(qg, k, v, mask, dh ** -0.5, memo, return_apm)
+        out = out.reshape(B, S, H, dh)
     y = torch.einsum("bshe,hed->bsd", out, params["wo"])
     return y, apm
 

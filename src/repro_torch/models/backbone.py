@@ -16,16 +16,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (
     dense_init, embed_init, mlp_apply, mlp_init, norm_apply, norm_init,
 )
 
 _LATER = {
     "mla": "MLA attention waits for the model-zoo slice",
-    "rwkv6": "rwkv6 layers wait for the slice that ports the rwkv6 kernel",
     "rglru": "rglru layers wait for the model-zoo slice",
     "moe": "MoE channel mixers wait for the model-zoo slice",
-    "rwkvc": "rwkv6 channel mixers wait for the rwkv6 slice",
 }
 
 
@@ -82,44 +81,61 @@ def _dense_ff(cfg, layer_idx: int) -> int:
 # per-layer init / apply
 # ---------------------------------------------------------------------------
 
+_MIX_INIT = {"attn": attn.gqa_init, "rwkv6": rwkv_mod.rwkv_time_init}
+
+
 def _layer_init(gen, cfg, layer_idx, kind, dtype, device):
-    if kind != "attn":
+    if kind not in _MIX_INIT:
         raise _not_ported(kind)
-    ck = _chan_kind(cfg, layer_idx)
-    if ck != "mlp":
-        raise _not_ported(ck)
     d = cfg.d_model
-    return {"norm1": norm_init(d, cfg.norm, dtype, device),
-            "norm2": norm_init(d, cfg.norm, dtype, device),
-            "mix": attn.gqa_init(gen, cfg, dtype, device),
-            "chan": mlp_init(gen, d, _dense_ff(cfg, layer_idx), cfg.glu,
-                             dtype, device)}
+    p = {"norm1": norm_init(d, cfg.norm, dtype, device),
+         "norm2": norm_init(d, cfg.norm, dtype, device),
+         "mix": _MIX_INIT[kind](gen, cfg, dtype, device)}
+    ck = _chan_kind(cfg, layer_idx)
+    if ck == "rwkvc":
+        p["chan"] = rwkv_mod.rwkv_channel_init(gen, cfg, dtype, device)
+    elif ck == "mlp":
+        p["chan"] = mlp_init(gen, d, _dense_ff(cfg, layer_idx), cfg.glu,
+                             dtype, device)
+    else:
+        raise _not_ported(ck)
+    return p
 
 
 def _layer_apply(lp, h, cfg, kind, layer_idx, *, mode, positions,
-                 memo=None, capture=False, kpad=None):
+                 memo=None, capture=False, window=None, attn_impl="plain",
+                 kpad=None):
     """Returns (h, apm) — ``apm`` is ``{"apm", "hidden"}`` under capture."""
     if mode != "full":
         raise NotImplementedError(
             f"mode {mode!r} (prefill/decode) waits for the prefill slice")
-    if kind != "attn":
-        raise _not_ported(kind)
-    mask_kind = "causal" if cfg.causal else "bidir"
     x = norm_apply(lp["norm1"], h, cfg.norm)
-    y, apm = attn.gqa_apply(lp["mix"], x, cfg, positions=positions,
-                            mask_kind=mask_kind, window=cfg.sliding_window,
-                            memo=memo,
-                            return_apm=capture, kpad=kpad)
+    apm = None
+    if kind == "attn":
+        win = cfg.sliding_window if cfg.sliding_window else window
+        y, apm = attn.gqa_apply(lp["mix"], x, cfg, positions=positions,
+                                mask_kind="causal" if cfg.causal else "bidir",
+                                window=win, memo=memo, return_apm=capture,
+                                attn_impl=attn_impl, kpad=kpad)
+    elif kind == "rwkv6":
+        y, _ = rwkv_mod.rwkv_time_apply(
+            lp["mix"], x, cfg,
+            impl="kernel" if attn_impl == "kernel" else "scan")
+    else:
+        raise _not_ported(kind)
     if apm is not None:
         # AttMemo capture: the memo key is the attention input hidden state
         apm = {"apm": apm, "hidden": x}
     h = h + y
-    ck = _chan_kind(cfg, layer_idx)
-    if ck != "mlp":
-        raise _not_ported(ck)
     x = norm_apply(lp["norm2"], h, cfg.norm)
-    h = h + mlp_apply(lp["chan"], x, cfg.act, cfg.glu)
-    return h, apm
+    ck = _chan_kind(cfg, layer_idx)
+    if ck == "rwkvc":
+        y, _ = rwkv_mod.rwkv_channel_apply(lp["chan"], x, cfg)
+    elif ck == "mlp":
+        y = mlp_apply(lp["chan"], x, cfg.act, cfg.glu)
+    else:
+        raise _not_ported(ck)
+    return h + y, apm
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +208,8 @@ def iter_layers(params, cfg):
 
 
 def forward_hidden(params, h, cfg, *, mode="full", positions=None,
-                   memo_plan=None, capture=False):
+                   memo_plan=None, capture=False, window=None,
+                   attn_impl="plain"):
     """Run all layers. Returns (h, apms{layer_idx: apm})."""
     apms: Dict[int, Any] = {}
     if positions is None:
@@ -203,7 +220,8 @@ def forward_hidden(params, h, cfg, *, mode="full", positions=None,
         memo = memo_plan.get(li) if memo_plan else None
         h, apm = _layer_apply(lp, h, cfg, kind, li, mode=mode,
                               positions=positions, memo=memo,
-                              capture=capture and kind in ("attn", "mla"))
+                              capture=capture and kind in ("attn", "mla"),
+                              window=window, attn_impl=attn_impl)
         if apm is not None:
             apms[li] = apm
     return h, apms

@@ -1,6 +1,18 @@
 """Model interface over the backbone (the reference's ``models/model.py``
 for decoder-only and encoder configs; enc-dec and prefill/decode come
-with later slices)."""
+with later slices).
+
+``attn_impl`` keeps the reference's name and picks what the
+full-sequence forward runs in its kernel-backed layers:
+
+* ``"plain"`` — the reference's ``"xla"``: attention through ``_sdpa``,
+  the rwkv6 mixer through ``_wkv_scan``;
+* ``"kernel"`` — the reference's ``"pallas"`` / ``"pallas_interpret"``:
+  the ``flash_attention`` and ``rwkv6`` kernel wrappers (CUDA kernels on
+  CUDA tensors, their plain versions on CPU tensors). Attention keeps
+  ``_sdpa`` where a memo, APM capture or a key-padding mask is in play,
+  as the reference does.
+"""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,13 +23,20 @@ from repro_torch.device import resolve_device
 from repro_torch.models import backbone as bb
 
 
+ATTN_IMPLS = ("plain", "kernel")
+
+
 class Model:
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, *, device=None, attn_impl="plain"):
         if cfg.encoder is not None:
             raise NotImplementedError(
                 "encoder-decoder models (whisper) wait for the model-zoo "
                 "slice")
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                             f"{attn_impl!r}")
         self.cfg = cfg
+        self.attn_impl = attn_impl
         self.device = resolve_device(device)
         self.is_encdec = False
 
@@ -33,11 +52,15 @@ class Model:
     def _tokens(self, batch):
         return torch.as_tensor(batch["tokens"], device=self.device)
 
-    def forward(self, params, batch, *, capture=False, memo_plan=None):
-        """Returns (logits, apms, aux)."""
+    def forward(self, params, batch, *, capture=False, memo_plan=None,
+                window=None):
+        """Returns (logits, apms, aux). ``window`` is a sliding window for
+        attention layers of configs that set none."""
         h = bb.embed_tokens(params, self._tokens(batch), self.cfg)
         h, apms = bb.forward_hidden(params, h, self.cfg, mode="full",
-                                    memo_plan=memo_plan, capture=capture)
+                                    memo_plan=memo_plan, capture=capture,
+                                    window=window,
+                                    attn_impl=self.attn_impl)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return bb.logits_from_hidden(params, h, self.cfg), apms, aux
 
@@ -45,10 +68,11 @@ class Model:
         """Mean-pool classification (AttMemo accuracy experiments)."""
         h = bb.embed_tokens(params, self._tokens(batch), self.cfg)
         h, apms = bb.forward_hidden(params, h, self.cfg, mode="full",
-                                    memo_plan=memo_plan, capture=capture)
+                                    memo_plan=memo_plan, capture=capture,
+                                    attn_impl=self.attn_impl)
         logits = bb.classify_from_hidden(params, h, self.cfg)
         return (logits, apms) if capture else logits
 
 
-def build_model(cfg, *, device=None) -> Model:
-    return Model(cfg, device=device)
+def build_model(cfg, *, device=None, attn_impl="plain") -> Model:
+    return Model(cfg, device=device, attn_impl=attn_impl)

@@ -2,9 +2,11 @@
 against the JAX package's kernels on the same numpy inputs.
 
 The JAX side runs ``memo_attention(impl="xla")`` — and, in one tiny case,
-the Pallas kernel under ``interpret=True`` — and ``nn_search`` under
-``interpret=True``, as tests/test_kernels.py does. Tolerances: f32
-attention outputs within atol 1e-5; search indices EQUAL, squared
+the Pallas kernel under ``interpret=True`` — and ``nn_search``,
+``flash_attention`` and ``wkv6_chunked`` under ``interpret=True``, as
+tests/test_kernels.py does. Tolerances: f32 memo attention outputs
+within atol 1e-5, flash attention within 2e-5 and wkv within 3e-4 (the
+JAX tests' own bounds; see each constant); search indices EQUAL, squared
 distances within 1e-4 relative (two f32 matmul formulations)."""
 import jax.numpy as jnp
 import numpy as np
@@ -12,10 +14,14 @@ import pytest
 import torch
 
 from repro.core.codec import _quantize_rows
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.memo_attention.ops import memo_attention as jax_memo
 from repro.kernels.nn_search.ops import nn_search as jax_nn
+from repro.kernels.rwkv6.ops import wkv6_chunked as jax_wkv6
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.memo_attention.ops import memo_attention
 from repro_torch.kernels.nn_search.ops import nn_search
+from repro_torch.kernels.rwkv6.ops import wkv6
 
 ATOL = 1e-5
 
@@ -131,3 +137,89 @@ def test_nn_search_matches_jax(N, norms):
     assert i[0] == 3 and i[1] == 3 and i[5] == 3
     np.testing.assert_allclose(d.numpy(), np.asarray(rd), rtol=1e-4,
                                atol=1e-3)
+
+
+# ------------------------------------------------------------ flash_attention
+
+FLASH_ATOL = 2e-5    # f32 attention, online vs one-pass softmax (the JAX
+#                      test's own bound for the Pallas kernel)
+
+
+def _flash_case(B, S, H, Hkv, dh, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, S, H, dh), (B, S, Hkv, dh), (B, S, Hkv, dh)))
+
+
+def _flash_both(q, k, v, *, causal, window, bq, bk):
+    ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=causal, window=window, block_q=bq, block_k=bk,
+                    interpret=True)
+    n0 = flash_attention.launches
+    out = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal, window=window)
+    assert flash_attention.launches == n0     # CPU: the plain version
+    return np.asarray(ref), out.numpy()
+
+
+@pytest.mark.parametrize("S,H,Hkv,dh,bq,bk", [
+    (64, 4, 2, 32, 32, 16),     # GQA
+    (48, 2, 2, 64, 16, 16),
+    (33, 4, 1, 16, 16, 16),     # ragged S, MQA
+    (128, 8, 8, 64, 128, 128),
+])
+def test_flash_attention_matches_jax(S, H, Hkv, dh, bq, bk):
+    """The shapes of tests/test_kernels.py's flash sweep, causal, against
+    the Pallas kernel in interpret mode."""
+    q, k, v = _flash_case(2, S, H, Hkv, dh, seed=S)
+    ref, out = _flash_both(q, k, v, causal=True, window=None, bq=bq, bk=bk)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=FLASH_ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [None, 8, 16])
+def test_flash_attention_masks_match_jax(causal, window):
+    """Causal and bidirectional, with and without a sliding window."""
+    q, k, v = _flash_case(1, 64, 4, 2, 32, seed=5)
+    ref, out = _flash_both(q, k, v, causal=causal, window=window, bq=32,
+                           bk=16)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=FLASH_ATOL)
+
+
+# ------------------------------------------------------------- rwkv6 wkv
+
+WKV_TOL = 3e-4       # the chunked (JAX) and sequential (port) forms sum
+#                      in different orders: the JAX test's own bound
+
+
+def _wkv_case(B, S, nh, N, decay_mean, seed):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, S, nh, N)).astype(np.float32)
+               for _ in range(3))
+    w = np.exp(-np.exp(rng.standard_normal((B, S, nh, N)) + decay_mean))
+    u = rng.standard_normal((nh, N)) * 0.1
+    return r, k, v, w.astype(np.float32), u.astype(np.float32)
+
+
+@pytest.mark.parametrize("decay_mean", [-6.0, -1.0])
+@pytest.mark.parametrize("S,chunk", [(48, 16), (41, 16), (64, 32), (8, 8)])
+def test_wkv6_matches_jax(S, chunk, decay_mean):
+    """Ragged and exact chunks, u ≠ 0, slow and fast decay, against the
+    chunked Pallas kernel in interpret mode."""
+    args = _wkv_case(2, S, 3, 16, decay_mean, seed=S)
+    ref = jax_wkv6(*map(jnp.asarray, args), chunk=chunk, interpret=True)
+    n0 = wkv6.launches
+    out = wkv6(*map(torch.from_numpy, args))
+    assert wkv6.launches == n0
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=WKV_TOL,
+                               atol=WKV_TOL)
+
+
+def test_flash_and_wkv6_reject_other_devices():
+    """Off the CPU each wrapper launches its kernel or raises — never the
+    plain version (here: the meta device)."""
+    t = torch.empty((1, 4, 2, 16), device="meta")
+    with pytest.raises(ValueError):
+        flash_attention(t, t, t)
+    with pytest.raises(ValueError):
+        wkv6(t, t, t, t, torch.empty((2, 16), device="meta"))

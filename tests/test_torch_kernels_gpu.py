@@ -1,21 +1,26 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (``pytest -m gpu tests/test_torch_kernels_gpu.py``). No JAX here:
 the machine with the card has none. Without a card every test skips.
-Inputs come from ``chip_smoke.attention_case``, the generator the chip
-smoke test uses.
+Inputs come from ``chip_smoke.attention_case``, ``flash_case`` and
+``wkv_case``, the generators the chip smoke test uses.
 
-Tolerances (``chip_smoke.ATOL``): f32 outputs within 2e-5 absolute —
-both sides compute in f32 and differ only in summation order (128-term
-sums of O(1) terms); search indices must be EQUAL (ties → the lowest
-index)."""
+Tolerances (``chip_smoke.ATOL``, ``WKV_RTOL``): attention outputs within
+2e-5 absolute — both sides compute in f32 and differ only in summation
+order (128-term sums of O(1) terms); wkv outputs within 2e-5 of the
+output's scale (two f32 recurrences whose rounding the state carries);
+search indices must be EQUAL (ties → the lowest index)."""
 import pytest
 import torch
 
-from chip_smoke import ATOL, attention_case
+from chip_smoke import ATOL, attention_case, flash_case, wkv_case, wkv_err
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.memo_attention.ops import memo_attention
 from repro_torch.kernels.memo_attention.ref import memo_attention_ref
 from repro_torch.kernels.nn_search.ops import nn_search
 from repro_torch.kernels.nn_search.ref import nn_search_ref
+from repro_torch.kernels.rwkv6.ops import wkv6
+from repro_torch.kernels.rwkv6.ref import wkv6_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -77,3 +82,41 @@ def test_nn_search_planted_duplicates(cuda, N, norms):
     err = (d - rd).abs().max().item()
     print(f"nn_search N={N} norms={norms} max|d2 err|={err:.3e}")
     assert err <= 1e-3 * max(1.0, rd.abs().max().item())
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,dh,causal,window,strided", [
+    (8, 1024, 12, 12, 64, True, None, False),   # gpt2_small's shape
+    (2, 33, 4, 2, 16, True, 8, False),          # ragged, GQA, window
+    (2, 1000, 4, 2, 32, False, 16, False),      # bidirectional window
+    (3, 100, 6, 3, 64, True, None, True),       # read by strides
+])
+def test_flash_attention_against_plain(cuda, B, S, H, Hkv, dh, causal,
+                                       window, strided):
+    q, k, v = flash_case(torch, cuda, B=B, S=S, H=H, Hkv=Hkv, dh=dh,
+                         seed=S, strided=strided)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    err = (out - flash_attention_ref(q, k, v, causal=causal,
+                                     window=window)).abs().max().item()
+    print(f"flash_attention S={S} max|err|={err:.3e}")
+    assert err <= ATOL
+
+
+@pytest.mark.parametrize("B,S,nh,N,decay_mean", [
+    (4, 1024, 40, 64, -6.0),                    # rwkv6_3b's shape
+    (2, 41, 4, 64, -1.0),                       # ragged, fast decay
+    (2, 1000, 4, 64, -3.5),
+    (3, 77, 5, 16, -4.0),
+])
+def test_wkv6_against_plain(cuda, B, S, nh, N, decay_mean):
+    args = wkv_case(torch, cuda, B=B, S=S, nh=nh, N=N,
+                    decay_mean=decay_mean, seed=S)
+    n0 = wkv6.launches
+    out = wkv6(*args)
+    torch.cuda.synchronize()
+    assert wkv6.launches == n0 + 1
+    err, tol = wkv_err(out, wkv6_ref(*args))
+    print(f"rwkv6 S={S} N={N} max|err|={err:.3e} (tolerance {tol:.1e})")
+    assert err <= tol
