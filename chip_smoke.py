@@ -4,9 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/csrc``
-(``build/`` at the repository root) and holds each against its plain
-PyTorch version on synthetic cases. Then it drives four paths, each with
-every launch count at 0 just before it and read just after:
+(``build/`` at the repository root), requires the attention kernels to
+spill nothing (ptxas) and to hold tensor-core instructions (their SASS,
+from ``cuobjdump``), and holds each kernel against its plain PyTorch
+version on synthetic cases, the attention tiles' edges among them. Then
+it drives four paths, each with every launch count at 0 just before it
+and read just after:
 
 * ``kernel`` and ``bucket`` — full-width ``bert_base`` (random weights
   from a seed, the synthetic template corpus) served through
@@ -20,9 +23,10 @@ every launch count at 0 just before it and read just after:
   ``attn_impl="plain"`` forward.
 
 Every kernel is held against its plain version on the arguments each
-layer of its path gave it, and timed there beside its bound, its plain
-version and a library yardstick; one batch or forward of each path is
-profiled. It ends with one JSON line ``{"ok": true, "device": {...}}``.
+layer of its path gave it, and timed there beside its bound (for the
+attention kernels at the tensor cores' split-TF32 rate, with the SIMT
+bound beside it), its plain version and a library yardstick; one batch
+or forward of each path, and each SDPA yardstick, is profiled. It ends with one JSON line ``{"ok": true, "device": {...}}``.
 Any failure raises: the script catches nothing, and exits non-zero
 without a card or outside the repository.
 """
@@ -37,10 +41,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s on the
-# SIMT cores (the kernels compute in f32 outside the tensor cores)
+# H100 SXM peaks (NVIDIA H100 Tensor Core GPU data sheet, dense rates):
+# HBM3 bytes/s, f32 FLOP/s on the SIMT cores, and TF32 FLOP/s on the
+# tensor cores. The attention kernels run each f32 product as three TF32
+# products (split TF32), so their products' peak is a third of TF32's;
+# their softmax runs at the SIMT rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 494.7e12
+TF32X3_FLOP_PER_S = TF32_FLOP_PER_S / 3
 
 ATOL = 2e-5          # attention kernels vs plain, f32: both sum
 #                      dh- and S-term f32 dot products, in different orders
@@ -66,6 +75,8 @@ SEQ, BATCH, CALIB_BATCHES, FRESH_BATCHES = 128, 32, 8, 6
 MODE_GAP = 2e-3
 SIM_MARGIN = 1e-3    # a decision within this of the threshold may flip
 KERNELS = ("memo_attention", "nn_search", "flash_attention", "rwkv6")
+# sequence lengths at the edges of the attention kernels' 64-row tiles
+TILE_EDGES = (63, 64, 65, 127, 129)
 
 
 def require(ok: bool, what: str) -> None:
@@ -109,6 +120,66 @@ def bound(nbytes: float, flops: float):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+def attention_bounds(nbytes: float, mm_flops: float, softmax_flops: float):
+    """An attention kernel's bound at the tensor cores' split-TF32 rate
+    (``bound_ms``: its products at TF32X3_FLOP_PER_S, its softmax on the
+    SIMT cores, whichever takes longer) and, for history, with all of
+    its work on the SIMT cores (``simt_bound_ms``)."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_f = max(mm_flops / TF32X3_FLOP_PER_S, softmax_flops / F32_FLOP_PER_S)
+    return dict(bound_ms=max(t_b, t_f) * 1e3,
+                bound_by="bytes" if t_b >= t_f else "operations",
+                simt_bound_ms=bound(nbytes, mm_flops + softmax_flops)[0])
+
+
+def check_build(info):
+    """The compiler's report and the built code of the attention kernels:
+    prints ptxas's register and spill lines and, from ``cuobjdump
+    --dump-sass`` of the library, the tensor-core instructions (HMMA,
+    HGMMA) of every instantiation; each attention kernel must spill
+    nothing and hold tensor-core instructions. Returns those counts
+    summed by kernel."""
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    attention = ("flash_attention_kernel", "memo_attention_kernel")
+    fn = None
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[setup] ptxas {line.strip()}")
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn and any(a in fn for a in attention):
+            require(m.group(1) == "0" and m.group(2) == "0",
+                    f"ptxas spills in {fn}: {line.strip()}")
+    tool = shutil.which("cuobjdump") or str(
+        Path(build._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", info["path"]],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    per_fn, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            per_fn[fn] = 0
+        elif fn and re.search(r"\b(HMMA|HGMMA)\b", line):
+            per_fn[fn] += 1
+    totals = {}
+    for a in attention:
+        fns = {f: n for f, n in per_fn.items() if a in f}
+        require(len(fns) > 0, f"no {a} in the SASS of {info['path']}")
+        for f, n in sorted(fns.items()):
+            print(f"[setup] SASS {n} tensor-core instructions (HMMA/HGMMA) "
+                  f"in {f}")
+            require(n > 0, f"{f} has no tensor-core instruction")
+        totals[a.removesuffix("_kernel")] = sum(fns.values())
+    return totals
+
+
 def wrappers():
     """Each kernel's wrapper, which carries its launch count."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -130,7 +201,9 @@ def read_counts():
 
 # ------------------------------------------------------------ phase 2
 def attention_case(torch, dev, *, B, S, H, Hkv, dh, N, L, quant, varlen,
-                   seed):
+                   seed, hits="mixed"):
+    """Memo attention inputs; ``hits`` is "mixed" (each row hits with
+    probability 1/2), "all" or "none"."""
     g = torch.Generator(device=dev).manual_seed(seed)
     rand = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
     q, k, v = rand(B, S, H, dh), rand(B, S, Hkv, dh), rand(B, S, Hkv, dh)
@@ -144,22 +217,29 @@ def attention_case(torch, dev, *, B, S, H, Hkv, dh, N, L, quant, varlen,
     hit_idx = torch.randint(0, N, (B,), generator=g, device=dev,
                             dtype=torch.int32)
     hit = (torch.rand(B, generator=g, device=dev) < 0.5).to(torch.int32)
+    if hits != "mixed":
+        hit.fill_(int(hits == "all"))
     lengths = (torch.randint(1, S + 1, (B,), generator=g, device=dev,
                              dtype=torch.int32) if varlen else None)
     return (q, k, v, db, hit_idx, hit), dict(db_scales=scales,
                                              lengths=lengths)
 
 
-def flash_case(torch, dev, *, B, S, H, Hkv, dh, seed, strided=False):
+def flash_case(torch, dev, *, B, S, H, Hkv, dh, seed, strided=False,
+               offset=0):
     """q (B,S,H,dh), k/v (B,S,Hkv,dh); ``strided`` hands the kernel views
-    of (B,H,S,dh) tensors, read by their strides."""
+    of (B,H,S,dh) tensors, read by their strides; ``offset`` starts each
+    tensor that many floats into its allocation (1: a base that is not
+    16-byte aligned)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    if strided:
-        return tuple(torch.randn((B, h, S, dh), generator=g,
-                                 device=dev).transpose(1, 2)
-                     for h in (H, Hkv, Hkv))
-    return tuple(torch.randn((B, S, h, dh), generator=g, device=dev)
-                 for h in (H, Hkv, Hkv))
+
+    def make(h):
+        shape = (B, h, S, dh) if strided else (B, S, h, dh)
+        n = B * h * S * dh
+        x = torch.randn(n + offset, generator=g, device=dev)[offset:]
+        x = x.view(shape)
+        return x.transpose(1, 2) if strided else x
+    return tuple(make(h) for h in (H, Hkv, Hkv))
 
 
 def wkv_case(torch, dev, *, B, S, nh, N, decay_mean, seed):
@@ -173,8 +253,8 @@ def wkv_case(torch, dev, *, B, S, nh, N, decay_mean, seed):
 
 
 def flash_bound(B, S, H, Hkv, dh, causal, window):
-    """Each of q/k/v/out moved once; 4*dh flops per visible (q, k) pair
-    (QK^T and PV) plus 5 for the softmax."""
+    """Each of q/k/v/out moved once; 4*dh flops of products per visible
+    (q, k) pair (QK^T and PV) plus 5 for the softmax (attention_bounds)."""
     import numpy as np
     qpos, kpos = np.arange(S)[:, None], np.arange(S)[None, :]
     mask = np.ones((S, S), bool)
@@ -183,7 +263,8 @@ def flash_bound(B, S, H, Hkv, dh, causal, window):
     if window is not None:
         mask &= kpos > qpos - window
     pairs = B * H * int(mask.sum())
-    return bound(4 * B * S * dh * (2 * H + 2 * Hkv), pairs * (4 * dh + 5))
+    return attention_bounds(4 * B * S * dh * (2 * H + 2 * Hkv),
+                            pairs * 4 * dh, pairs * 5)
 
 
 def wkv_bound(B, S, nh, N):
@@ -230,6 +311,35 @@ def check_kernels(torch, dev):
               f"max|err| {err:.3e} (tolerance {ATOL:.0e})")
         require(err <= ATOL, f"memo_attention error {err}")
         errs["memo_attention"] = max(errs["memo_attention"], err)
+    # the edges of the 64-row tiles: S at, below and past one or two tiles,
+    # every head_dim, GQA, causal / windowed / bidirectional, all-hit,
+    # all-miss and mixed blocks, DB rows equal to S, longer (a multiple of
+    # 64: 16-byte rows, copied asynchronously) or shorter (read element by
+    # element, zero past L)
+    for i, S in enumerate(TILE_EDGES):
+        for j, dh in enumerate((16, 32, 64)):
+            for hits in ("all", "none", "mixed"):
+                L = (S, -(-S // 64) * 64, S - 5)[(i + j) % 3]
+                causal, window = ((True, None), (True, 70),
+                                  (False, 24))[(i + 2 * j) % 3]
+                quant = (i + j) % 2 == 0
+                args, kw = attention_case(
+                    torch, dev, B=3, S=S, H=4, Hkv=2, dh=dh, N=5, L=L,
+                    quant=quant, varlen=j == 1, seed=300 + 15 * i + j,
+                    hits=hits)
+                err = (memo_attention(*args, causal=causal, window=window,
+                                      **kw)
+                       - memo_attention_ref(*args, causal=causal,
+                                            window=window, **kw)
+                       ).abs().max().item()
+                print(f"[kernel] memo_attention tile edge S={S} L={L} "
+                      f"dh={dh} H=4/2 {'int8' if quant else 'f16'} "
+                      f"varlen={j == 1} causal={causal} window={window} "
+                      f"hits={hits}: max|err| {err:.3e} (tolerance "
+                      f"{ATOL:.0e})")
+                require(err <= ATOL, f"memo_attention tile-edge error {err}")
+                errs["memo_attention"] = max(errs["memo_attention"], err)
+
     g = torch.Generator(device=dev).manual_seed(99)
     for N in (3072, 3001):
         db = torch.randn((N, 128), generator=g, device=dev)
@@ -253,24 +363,34 @@ def check_kernels(torch, dev):
         errs["nn_search"] = max(errs["nn_search"], err)
 
     cases = [dict(B=2, S=S, H=4, Hkv=2, dh=dh, causal=causal, window=w,
-                  strided=False)
+                  strided=False, offset=0)
              for S, dh in ((33, 16), (1000, 32), (64, 64))
              for causal in (True, False) for w in (None, 8, 16)]
     cases += [dict(B=3, S=100, H=6, Hkv=3, dh=64, causal=True, window=None,
-                   strided=True),
+                   strided=True, offset=0),
               dict(B=8, S=1024, H=12, Hkv=12, dh=64, causal=True,
-                   window=None, strided=False)]
+                   window=None, strided=False, offset=0)]
+    # tile edges (as memo_attention's above), and strided views whose base
+    # is not 16-byte aligned (the wrapper copies them for cp.async)
+    cases += [dict(B=2, S=S, H=4, Hkv=2, dh=dh, causal=causal, window=w,
+                   strided=False, offset=0)
+              for S in TILE_EDGES for dh in (16, 32, 64)
+              for causal, w in ((True, None), (True, 70), (False, 24))]
+    cases += [dict(B=2, S=S, H=4, Hkv=2, dh=dh, causal=True, window=None,
+                   strided=True, offset=1) for S, dh in ((65, 64), (129, 16))]
     for i, c in enumerate(cases):
         q, k, v = flash_case(torch, dev, seed=100 + i, **{
-            key: c[key] for key in ("B", "S", "H", "Hkv", "dh", "strided")})
+            key: c[key] for key in ("B", "S", "H", "Hkv", "dh", "strided",
+                                    "offset")})
         out = flash_attention(q, k, v, causal=c["causal"], window=c["window"])
         ref = flash_attention_ref(q, k, v, causal=c["causal"],
                                   window=c["window"])
         err = (out - ref).abs().max().item()
         print(f"[kernel] flash_attention B={c['B']} S={c['S']} H={c['H']}/"
               f"{c['Hkv']} dh={c['dh']} causal={c['causal']} "
-              f"window={c['window']} strided={c['strided']}: max|err| "
-              f"{err:.3e} (tolerance {ATOL:.0e})")
+              f"window={c['window']} strided={c['strided']} base offset "
+              f"{4 * c['offset']} B: max|err| {err:.3e} (tolerance "
+              f"{ATOL:.0e})")
         require(err <= ATOL, f"flash_attention error {err}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
 
@@ -473,32 +593,43 @@ def time_kernels(torch, dev, sess, captured, errs):
     out = {}
 
     def attn_bound(n_hit):
+        """A hit row reads V and its int8 APM + f16 row scales, a miss
+        row Q/K/V; every row writes out."""
         row = S * H * dh * 4
         nbytes = (n_hit * (row + H * S * S + H * S * 2)
                   + (B - n_hit) * 3 * row + B * row + 3 * B * 4)
-        flops = (n_hit * (2 * H * S * S * dh + H * S * S)
-                 + (B - n_hit) * (4 * H * S * S * dh + 5 * H * S * S))
-        return bound(nbytes, flops)
+        mm = (n_hit * 2 + (B - n_hit) * 4) * H * S * S * dh
+        softmax = (n_hit * 1 + (B - n_hit) * 5) * H * S * S
+        return attention_bounds(nbytes, mm, softmax)
 
+    miss, every = torch.zeros_like(hit), torch.ones_like(hit)
     ms = event_ms(lambda: memo_attention(q, k, v, codes, hit_idx, hit, **kw))
     plain_ms = event_ms(lambda: memo_attention_ref(q, k, v, codes, hit_idx,
                                                    hit, **kw))
-    miss = torch.zeros_like(hit)
     miss_ms = event_ms(lambda: memo_attention(q, k, v, codes, hit_idx, miss,
                                               **kw))
+    hit_ms = event_ms(lambda: memo_attention(q, k, v, codes, hit_idx, every,
+                                             **kw))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa_ms = event_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    b_ms, b_by = attn_bound(n_hit)
-    mb_ms, mb_by = attn_bound(0)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+    sdpa_ms = event_ms(sdpa)
+    bd, mbd, hbd = attn_bound(n_hit), attn_bound(0), attn_bound(B)
     print(f"[time] memo_attention B={B} S={S} H={H} dh={dh} int8 DB, "
-          f"{n_hit}/{B} hits: {ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}), "
-          f"plain {plain_ms:.4f} ms; all-miss {miss_ms:.4f} ms (bound "
-          f"{mb_ms:.4f} ms, {mb_by}) vs SDPA {sdpa_ms:.4f} ms (library_ms "
-          f"is this all-miss case); {sess.engine.cfg.n_layers} launches "
-          f"per batch")
-    out["memo_attention"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=sdpa_ms,
-                                 miss_ms=miss_ms, miss_bound_ms=mb_ms)
+          f"{n_hit}/{B} hits: {ms:.4f} ms (bound {bd['bound_ms']:.4f} ms, "
+          f"{bd['bound_by']}; SIMT bound {bd['simt_bound_ms']:.4f}), plain "
+          f"{plain_ms:.4f} ms; all-miss {miss_ms:.4f} ms (bound "
+          f"{mbd['bound_ms']:.4f} ms, {mbd['bound_by']}; SIMT "
+          f"{mbd['simt_bound_ms']:.4f}) vs SDPA {sdpa_ms:.4f} ms (library_ms "
+          f"is this all-miss case); all-hit {hit_ms:.4f} ms (bound "
+          f"{hbd['bound_ms']:.4f} ms, {hbd['bound_by']}; SIMT "
+          f"{hbd['simt_bound_ms']:.4f}); {sess.engine.cfg.n_layers} "
+          f"launches per batch")
+    device_profile(torch, f"SDPA f32 B={B} S={S} H={H} dh={dh}", sdpa)
+    out["memo_attention"] = dict(
+        ms=ms, plain_ms=plain_ms, **bd, library_ms=sdpa_ms,
+        miss_ms=miss_ms, miss_bound_ms=mbd["bound_ms"],
+        miss_simt_bound_ms=mbd["simt_bound_ms"], hit_ms=hit_ms,
+        hit_bound_ms=hbd["bound_ms"], hit_simt_bound_ms=hbd["simt_bound_ms"])
 
     for li, ((emb, table), kw) in enumerate(captured["nn_search"]):
         norms = kw["db_norms"]
@@ -767,32 +898,38 @@ def forward_path(torch, dev, arch, B, S, kname, site, errs):
               f"{fwd_p:.2f} ms (CUDA events, median of 3)")
         args, kw = calls[len(calls) // 2]
         ms = event_ms(lambda: real(*args, **kw))
+        sdpa = None
         if kname == "flash_attention":
             q, k, v = args
             Bq, Sq, H, dh = q.shape
-            b_ms, b_by = flash_bound(Bq, Sq, H, k.shape[2], dh,
-                                     kw["causal"], kw["window"])
+            bd = flash_bound(Bq, Sq, H, k.shape[2], dh, kw["causal"],
+                             kw["window"])
             plain_ms = event_ms(lambda: plain(*args, **kw))
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=kw["causal"]))
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=kw["causal"])
+            lib_ms = event_ms(sdpa)
             lib = f"SDPA (is_causal={kw['causal']}) {lib_ms:.4f} ms"
+            simt = f"; SIMT bound {bd['simt_bound_ms']:.4f}"
         else:
             Bq, Sq, nh, N = args[0].shape
             b_ms, b_by = wkv_bound(Bq, Sq, nh, N)
+            bd = dict(bound_ms=b_ms, bound_by=b_by)
             plain_ms = event_ms(lambda: plain(*args, **kw), reps=2,
                                 rounds=3, warmup=1)
-            lib_ms, lib = None, "no single library call"
+            lib_ms, lib, simt = None, "no single library call", ""
         print(f"[time] {kname} {tuple(args[0].shape)} ({arch} layer "
-              f"{len(calls) // 2}): {ms:.4f} ms (bound {b_ms:.4f} ms, "
-              f"{b_by}), plain {plain_ms:.4f} ms, {lib}; {cfg.n_layers} "
-              f"launches per forward")
+              f"{len(calls) // 2}): {ms:.4f} ms (bound {bd['bound_ms']:.4f} "
+              f"ms, {bd['bound_by']}{simt}), plain {plain_ms:.4f} ms, {lib}; "
+              f"{cfg.n_layers} launches per forward")
+        if sdpa is not None:
+            device_profile(torch, f"SDPA f32 {tuple(args[0].shape)} "
+                           f"is_causal={kw['causal']}", sdpa)
         device_profile(torch, f"{arch} kernel forward B={B} S={S}",
                        lambda: kernel_model.forward(params, batch))
-    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                  library_ms=lib_ms, forward_ms=fwd_k,
-                  plain_forward_ms=fwd_p)
-    del params, calls, args, kw
+    timing = dict(ms=ms, plain_ms=plain_ms, **bd, library_ms=lib_ms,
+                  forward_ms=fwd_k, plain_forward_ms=fwd_p)
+    del params, calls, args, kw, sdpa
     torch.cuda.empty_cache()
     return counts, timing
 
@@ -822,9 +959,7 @@ def main() -> int:
     info = build.build_info()
     print(f"[setup] kernels built in {time.perf_counter() - t0:.1f}s "
           f"({info['path']})")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[setup] ptxas {line.strip()}")
+    sass = check_build(info)
 
     errs = check_kernels(torch, dev)
     sess, per_path, captured, request = serve_main_path(torch, dev)
@@ -854,7 +989,9 @@ def main() -> int:
                     launches=launches[name],
                     launches_per_path={path: c[name]
                                        for path, c in per_path.items()},
-                    max_abs_err=errs[name], **times[name])
+                    max_abs_err=errs[name], **times[name],
+                    **({"sass_tensor_core_instructions": sass[name]}
+                       if name in sass else {}))
                for name, (src, rep) in meta.items()]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,146 +1,378 @@
-// Online-softmax attention over one tile of query rows, shared by
-// memo_attention.cu (its miss branch) and flash_attention.cu.
+// Attention tiles on Hopper's tensor cores in split TF32, shared by
+// flash_attention.cu and memo_attention.cu (its miss branch runs
+// online_softmax; its hit branch, apm_pv, runs pv_slice on the APM).
 //
-// A block of NT threads owns BQ query rows of one (batch row, head);
-// TPR threads share a row, each holding DH / TPR output columns in
-// registers. Key/value tiles of BK rows stream through shared memory.
-// Scores are scaled by dh^-1/2 and masked by kpos < len, causal
-// kpos <= qpos and window kpos > qpos - window with NEG_INF = -1e30;
-// a fully masked row keeps m = NEG_INF, its probabilities are zeroed and
-// its output is 0. Key tiles that are wholly masked (at or past len,
-// after the causal diagonal, before the window) are neither loaded nor
-// computed: exact, since such a tile changes neither the running max
-// nor the sum. Q/K/V rows are read at their own sequence strides, so a
-// caller's (B,S,H,dh) layout needs no transpose, and the ragged last
-// tile is masked here, so it needs no padding either.
+// Replaces the inner loops of the TPU kernels
+// src/repro/kernels/flash_attention/kernel.py (_flash_kernel) and
+// src/repro/kernels/memo_attention/kernel.py (_memo_kernel): QK^T,
+// online softmax and P·V over one tile of query rows.
+//
+// Bound on the H100: f32-accurate products on the tensor cores cost three
+// TF32 products each, so they run at 494.7 / 3 ~ 165 TFLOP/s dense. At
+// gpt2_small's shape (B=8, S=1024, H=12, dh=64, causal) the 50.4 M
+// visible (q, k) pairs need 4*dh flops each, 12.9 GFLOP: 0.078 ms, set
+// by operations (the 100.7 MB of Q/K/V/out take 0.030 ms). At
+// bert_base's serving shape (B=32, S=128) memo_attention is set by bytes:
+// 50.3 MB all-miss, 0.015 ms.
+//
+// What the design does about it:
+// * Products run as mma.sync.m16n8k8 tf32 with f32 accumulators. Each
+//   f32 operand x splits into hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x -
+//   hi), and each product is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, in that
+//   order, the small terms first (3xTF32): f32-level error, where one
+//   TF32 product keeps about 3 decimal digits.
+// * A block of NT = 128 threads (4 warps) owns BQ = 64 query rows; each
+//   warp owns 16 rows, whose Q hi/lo fragments stay in registers for the
+//   whole key loop. Key tiles hold BK = 64 rows and are computed in two
+//   online-softmax steps of KC = 32 keys, which keeps the score and
+//   per-step P·V accumulators to 16 + DH / 2 registers: at dh = 64 the
+//   kernels take up to 253 registers with no spills, two blocks per SM.
+//   A step has no branch inside, so the accumulators' mma chains
+//   interleave. (64-key steps, and a cap of 170 registers for three
+//   blocks per SM, which spills, both ran slower on an H100:
+//   scripts/attention_tile_variants.py.)
+// * The tensor cores do not round their f32 sums to nearest, so a long
+//   chain of products into one accumulator drifts: each step's P·V sums
+//   into a fresh accumulator that joins O in f32 (add_tile), and each
+//   score sums its small products apart from its large ones.
+// * K/V tiles arrive by cp.async, 16 bytes per thread, into a ring of
+//   STAGES = 2 stages in dynamic shared memory: the next tile's copy
+//   overlaps this tile's products. Rows past S are zero-filled by the
+//   copy itself (src-size 0), so the ragged last tile needs no padding.
+//   One stage is a K (or APM) region and a V region of BK rows of DH + 4
+//   floats: 69,632 bytes for the two stages at dh = 64, which needs
+//   cudaFuncAttributeMaxDynamicSharedMemorySize (allow_smem).
+// * The row padding DH + 4 makes both fragment reads conflict-free: K is
+//   read as B with n = key (8 rows apart by 4 banks) and V as B with
+//   k = key (rows 2t and 2t+1, 8 banks apart).
+// * P never leaves registers: the k index of the P·V product is
+//   permuted so that A column t is key 2t and column t + 4 key 2t + 1,
+//   which is where the m16n8 accumulator of QK^T holds them, and V's
+//   rows are read in the same order.
+// * Softmax, max and exp stay f32 on the SIMT cores: scale dh^-1/2, masks
+//   kpos < len, causal kpos <= qpos, window kpos > qpos - window, with
+//   NEG_INF = -1e30; a fully masked row keeps m = NEG_INF, its
+//   probabilities are zeroed and its output is 0. Key tiles that are
+//   wholly masked for the block (at or past len, after the causal
+//   diagonal, before the window) are neither loaded nor computed, and a
+//   warp skips the 32-key steps that are wholly masked for its 16 rows:
+//   exact, since those slices change neither the running max nor the sum.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32), lane = 4 g + t:
+//   A (16x8, row): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//   B (8x8, col):  b0 (k=t, n=g), b1 (k=t+4, n=g)
+//   C (16x8 f32):  c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace attn_tile {
 
-constexpr int BQ = 32;          // query rows per block
-constexpr int BK = 32;          // keys per tile
-constexpr int TPR = 4;          // threads per query row
-constexpr int NT = BQ * TPR;    // threads per block
+constexpr int BQ = 64;          // query rows per block
+constexpr int BK = 64;          // keys per tile
+constexpr int NT = 128;         // threads per block: 4 warps of 16 rows
+constexpr int STAGES = 2;       // K/V ring depth
+constexpr int KC = 32;          // keys per online-softmax step
 constexpr float NEG_INF = -1e30f;
 
-template <int DH>
-struct Smem {
-  float Q[BQ][DH + 1];
-  float K[BK][DH + 1];
-  float V[BK][DH];
-  float P[BQ][BK + 1];
+// Dynamic shared memory of one block. A stage is an A region (a K tile,
+// or an APM tile of APM_ELEM-byte values, whichever is larger) and a V
+// tile; K/V rows are LD floats apart, APM rows APM_LD bytes apart.
+template <int DH, int APM_ELEM = 0>
+struct Layout {
+  static constexpr int LD = DH + 4;
+  static constexpr int KV_BYTES = BK * LD * 4;
+  static constexpr int APM_LD = BK * APM_ELEM + 16;
+  static constexpr int A_BYTES =
+      KV_BYTES > BQ * APM_LD ? KV_BYTES : BQ * APM_LD;
+  static constexpr int STAGE = A_BYTES + KV_BYTES;
+  static constexpr int SMEM = STAGES * STAGE;
+  __device__ static unsigned char* a(unsigned char* sm, int st) {
+    return sm + st * STAGE;
+  }
+  __device__ static float* v(unsigned char* sm, int st) {
+    return reinterpret_cast<float*>(sm + st * STAGE + A_BYTES);
+  }
 };
 
-// V[j] = v row k0 + j (rows vs apart), zero past S
+// Lets `kernel` take `bytes` of dynamic shared memory on the current
+// device (above 48 KB it must ask). `done` is the caller's per-device
+// bitmask, so the attribute is set once per kernel and device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, unsigned& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || bytes <= 48 * 1024 || (done >> dev & 1u)) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) done |= 1u << dev;
+  return e;
+}
+
+// ---------------------------------------------------------------- PTX
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  const float r = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(r));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in split TF32: a_lo*b_hi + a_hi*b_lo + a_hi*b_hi. With
+// `small` given, the two small products go there instead, to be added to
+// d in f32 once the sum is complete.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1, float (&small)[4]) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(small, al, bh0, bh1);
+  mma(small, ah, bl0, bl1);
+  mma(d, ah, bh0, bh1);
+}
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  mma3(d, ah, al, b0, b1, d);
+}
+
+// 16 bytes global -> shared; bytes past `src_bytes` (0..16) are zeroed
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------- tiles
+
+// dst row j (LD floats apart) = src row r0 + j (rows `stride` apart), for
+// BK rows by cp.async; rows at or past rmax are zeroed
 template <int DH>
-__device__ __forceinline__ void load_v_tile(Smem<DH>& sm, const float* vb,
-                                            size_t vs, int k0, int S) {
-  for (int i = threadIdx.x; i < BK * DH; i += NT) {
-    const int j = i / DH, d = i % DH, s = k0 + j;
-    sm.V[j][d] = s < S ? vb[(size_t)s * vs + d] : 0.f;
+__device__ __forceinline__ void load_rows_async(float* dst, const float* src,
+                                                size_t stride, int r0,
+                                                int rmax) {
+  constexpr int CPR = DH / 4;   // 16-byte chunks per row
+#pragma unroll
+  for (int it = 0; it < BK * CPR / NT; ++it) {
+    const int i = threadIdx.x + it * NT, j = i / CPR, c = i % CPR;
+    const bool ok = r0 + j < rmax;
+    cp_async16(dst + j * Layout<DH>::LD + c * 4,
+               ok ? src + (size_t)(r0 + j) * stride + c * 4 : src,
+               ok ? 16 : 0);
   }
 }
 
-// acc += P[r, :] @ V[:, columns t, t + TPR, ...]
+// o += P · V for key slice kk (8 keys) of the V tile: P as A fragments,
+// column t holding key 2t and column t + 4 key 2t + 1. The tensor cores
+// do not round their f32 sums to nearest, so a caller sums one key tile
+// per accumulator and adds the tiles in f32 (add_tile).
 template <int DH>
-__device__ __forceinline__ void accumulate_pv(const Smem<DH>& sm, int r,
-                                              int t,
-                                              float (&acc)[DH / TPR]) {
-#pragma unroll 4
-  for (int j = 0; j < BK; ++j) {
-    const float p = sm.P[r][j];
+__device__ __forceinline__ void pv_slice(float (&o)[DH / 8][4],
+                                         const uint32_t (&ph)[4],
+                                         const uint32_t (&pl)[4],
+                                         const float* V, int kk) {
+  constexpr int LD = Layout<DH>::LD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* v0 = V + (kk * 8 + 2 * t) * LD + g;
 #pragma unroll
-    for (int c = 0; c < DH / TPR; ++c) acc[c] += p * sm.V[j][t + TPR * c];
+  for (int n = 0; n < DH / 8; ++n) mma3(o[n], ph, pl, v0[n * 8], v0[LD + n * 8]);
+}
+
+// o = o * alpha + acc, rows g (alpha[0]) and g + 8 (alpha[1])
+template <int DH>
+__device__ __forceinline__ void add_tile(float (&o)[DH / 8][4],
+                                         const float (&acc)[DH / 8][4],
+                                         const float (&alpha)[2]) {
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o[n][e] = fmaf(o[n][e], alpha[e >> 1], acc[n][e]);
   }
 }
 
 // Rows [q0, q0 + BQ) of q (rows qs apart) attend over keys [0, len) of
-// k/v (rows ks / vs apart). acc must start at 0; it ends holding this
-// thread's columns of the unnormalised output. Returns the row's softmax
-// denominator, clamped at 1e-30 so a fully masked row divides to 0.
-template <int DH>
-__device__ __forceinline__ float online_softmax(
-    Smem<DH>& sm, const float* qb, size_t qs, const float* kb, size_t ks,
-    const float* vb, size_t vs, int S, int len, int q0, int causal,
-    int has_window, int window, float scale, float (&acc)[DH / TPR]) {
-  constexpr int KPT = BK / TPR;   // scores per thread per key tile
-  const int tid = threadIdx.x;
-  const int r = tid / TPR, t = tid % TPR;
-  const int qpos = q0 + r;
-  for (int i = tid; i < BQ * DH; i += NT) {
-    const int rr = i / DH, d = i % DH, s = q0 + rr;
-    sm.Q[rr][d] = s < S ? qb[(size_t)s * qs + d] : 0.f;
-  }
+// k/v (rows ks / vs apart); warp w owns rows q0 + 16 w + {g, g + 8}.
+// o must start at 0 and ends holding this thread's columns
+// (8 n + 2t, 8 n + 2t + 1) of its two rows' unnormalised outputs; l ends
+// holding their softmax denominators, clamped at 1e-30 so a fully masked
+// row divides to 0. smem is the block's Layout<DH, APM_ELEM> ring.
+template <int DH, int APM_ELEM>
+__device__ __forceinline__ void online_softmax(
+    unsigned char* smem, const float* qb, size_t qs, const float* kb,
+    size_t ks, const float* vb, size_t vs, int S, int len, int q0,
+    int causal, int has_window, int window, float scale,
+    float (&o)[DH / 8][4], float (&l)[2]) {
+  using Lay = Layout<DH, APM_ELEM>;
+  constexpr int LD = Lay::LD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wq = q0 + warp * 16;           // the warp's first row
+  const int row[2] = {wq + g, wq + g + 8};
+
   len = len < S ? len : S;
   int kend = len;
   if (causal && q0 + BQ < kend) kend = q0 + BQ;
   int kstart = 0;
   if (has_window) {
-    const int lo = q0 - window + 1;   // first key any row may see
+    const int lo = q0 - window + 1;        // first key any row may see
     if (lo > 0) kstart = (lo / BK) * BK;
   }
-  float m_run = NEG_INF, l_run = 0.f;
-  for (int k0 = kstart; k0 < kend; k0 += BK) {
-    __syncthreads();
-    for (int i = tid; i < BK * DH; i += NT) {
-      const int j = i / DH, d = i % DH, s = k0 + j;
-      sm.K[j][d] = s < S ? kb[(size_t)s * ks + d] : 0.f;
-    }
-    load_v_tile<DH>(sm, vb, vs, k0, S);
-    __syncthreads();
-    float sc[KPT];
-    float tmax = NEG_INF;
-#pragma unroll
-    for (int jj = 0; jj < KPT; ++jj) {
-      const int j = t + TPR * jj, kpos = k0 + j;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < DH; ++d) dot += sm.Q[r][d] * sm.K[j][d];
-      dot *= scale;
-      bool ok = kpos < len;
-      if (causal) ok = ok && kpos <= qpos;
-      if (has_window) ok = ok && kpos > qpos - window;
-      sc[jj] = ok ? dot : NEG_INF;
-      tmax = fmaxf(tmax, sc[jj]);
-    }
-#pragma unroll
-    for (int off = 1; off < TPR; off <<= 1)
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-    const float m_new = fmaxf(m_run, tmax);
-    const float alpha = expf(m_run - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < KPT; ++jj) {
-      const float p = sc[jj] <= NEG_INF * 0.5f ? 0.f : expf(sc[jj] - m_new);
-      sm.P[r][t + TPR * jj] = p;
-      psum += p;
-    }
-#pragma unroll
-    for (int off = 1; off < TPR; off <<= 1)
-      psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    l_run = l_run * alpha + psum;
-    m_run = m_new;
-#pragma unroll
-    for (int c = 0; c < DH / TPR; ++c) acc[c] *= alpha;
-    __syncwarp();
-    accumulate_pv<DH>(sm, r, t, acc);
+  // keys [kstart_w, kend_w) hold every key any row of this warp may see
+  const int kend_w = causal && wq + 16 < kend ? wq + 16 : kend;
+  const int kstart_w = has_window ? wq - window + 1 : 0;
+
+  if (kstart < kend) {
+    load_rows_async<DH>(reinterpret_cast<float*>(Lay::a(smem, 0)), kb, ks,
+                        kstart, S);
+    load_rows_async<DH>(Lay::v(smem, 0), vb, vs, kstart, S);
+    cp_commit();
   }
-  return fmaxf(l_run, 1e-30f);
+  // the warp's Q rows as A fragments, split once for the whole key loop
+  uint32_t qh[DH / 8][4], ql[DH / 8][4];
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row[e & 1], c = d * 8 + t + (e >> 1) * 4;
+      split(r < S ? qb[(size_t)r * qs + c] : 0.f, qh[d][e], ql[d][e]);
+    }
+  }
+
+  float m[2] = {NEG_INF, NEG_INF};
+  l[0] = l[1] = 0.f;
+  int st = 0;
+  for (int k0 = kstart; k0 < kend; k0 += BK, st ^= 1) {
+    if (k0 + BK < kend) {
+      load_rows_async<DH>(reinterpret_cast<float*>(Lay::a(smem, st ^ 1)), kb,
+                          ks, k0 + BK, S);
+      load_rows_async<DH>(Lay::v(smem, st ^ 1), vb, vs, k0 + BK, S);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    // the tile in chunks of KC keys, each a step of the online softmax
+#pragma unroll 1
+    for (int c0 = k0; c0 < k0 + BK; c0 += KC) {
+      if (c0 >= kend_w || c0 + KC <= kstart_w) continue;   // all masked
+      const float* K = reinterpret_cast<const float*>(Lay::a(smem, st)) +
+                       (c0 - k0) * LD;
+      const float* V = Lay::v(smem, st) + (c0 - k0) * LD;
+
+      // S = Q K^T; each score's small products sum apart and join its
+      // large ones in f32
+      float s[KC / 8][4];
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) {
+        float small[4] = {0.f, 0.f, 0.f, 0.f};
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+        const float* k_row = K + (n * 8 + g) * LD + t;
+#pragma unroll
+        for (int d = 0; d < DH / 8; ++d)
+          mma3(s[n], qh[d], ql[d], k_row[d * 8], k_row[d * 8 + 4], small);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = small[e] + s[n][e];
+      }
+
+      // scale, mask, running max (rows g, g + 8: a quad shares a row)
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = row[e >> 1], kpos = c0 + n * 8 + 2 * t + (e & 1);
+          bool ok = kpos < kend_w;   // kend_w <= len
+          if (causal) ok = ok && kpos <= r;
+          if (has_window) ok = ok && kpos > r - window;
+          s[n][e] = ok ? s[n][e] * scale : NEG_INF;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        alpha[i] = expf(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = s[n][e] <= NEG_INF * 0.5f
+                              ? 0.f
+                              : expf(s[n][e] - m[e >> 1]);
+          s[n][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+
+      // O = O alpha + P V: P's accumulator is its A operand
+      float acc[DH / 8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        uint32_t ph[4], pl[4];
+        split(s[kk][0], ph[0], pl[0]);
+        split(s[kk][2], ph[1], pl[1]);
+        split(s[kk][1], ph[2], pl[2]);
+        split(s[kk][3], ph[3], pl[3]);
+        pv_slice<DH>(acc, ph, pl, V, kk);
+      }
+      add_tile<DH>(o, acc, alpha);
+    }
+    __syncthreads();   // stage st is refilled two tiles on
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
 }
 
-// out row qpos (rows os apart) = acc / denom, for qpos < S
+// out rows q0 + 16 w + {g, g + 8} (rows os apart) = o / l, for rows < S
 template <int DH>
 __device__ __forceinline__ void store_rows(float* ob, size_t os, int S,
-                                           int q0, float denom,
-                                           const float (&acc)[DH / TPR]) {
-  const int r = threadIdx.x / TPR, t = threadIdx.x % TPR;
-  if (q0 + r >= S) return;
-  float* row = ob + (size_t)(q0 + r) * os;
+                                           int q0, const float (&o)[DH / 8][4],
+                                           const float (&l)[2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + (threadIdx.x >> 5) * 16 + g;
 #pragma unroll
-  for (int c = 0; c < DH / TPR; ++c) row[t + TPR * c] = acc[c] / denom;
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r >= S) continue;
+    float* out = ob + (size_t)r * os + 2 * t;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<float2*>(out + n * 8) =
+          make_float2(o[n][2 * i] / l[i], o[n][2 * i + 1] / l[i]);
+  }
 }
 
 }  // namespace attn_tile

@@ -127,10 +127,12 @@ def library() -> ctypes.CDLL:
 
 def build_info() -> dict:
     """Path, build seconds of this process (0 when the library was
-    already built) and the compiler's resource report (``-Xptxas -v``)."""
+    already built) and the compiler's resource report (``-Xptxas -v``,
+    kept beside the library)."""
     library()
+    log = _State.log or _State.path.with_suffix(".log").read_text()
     return {"path": str(_State.path), "seconds": _State.seconds,
-            "log": _State.log}
+            "log": log}
 
 
 def check(err: int, name: str) -> None:

@@ -10,7 +10,10 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention/kernel.py``
 Contract (the JAX layout): q (B,S,H,dh), k/v (B,S,Hkv,dh) → (B,S,H,dh),
 ``causal``, ``window``; query head h reads kv head h // (H/Hkv). The
 kernel takes f32 and head_dim in {16, 32, 64} and reads q/k/v by their
-strides (a contiguous last dim is all it needs).
+strides. Its 16-byte asynchronous copies need a contiguous last dim, a
+16-byte-aligned base and batch/seq/head strides that are multiples of 4
+elements; a view that has not is copied to a fresh contiguous tensor
+first (a layout copy: the kernel still runs).
 
 On CPU tensors the plain version (``ref.py``) runs; on CUDA tensors the
 kernel launches or the call raises. ``flash_attention.launches`` counts
@@ -26,6 +29,13 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _DH = (16, 32, 64)
+
+
+def _async_readable(t) -> bool:
+    """Whether the kernel's 16-byte cp.async can read ``t`` as it lies:
+    unit last stride, aligned base, other strides multiples of 16 bytes."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % 4 == 0 for s in t.stride()[:3]))
 
 
 def _launch(q, k, v, causal, window):
@@ -44,7 +54,8 @@ def _launch(q, k, v, causal, window):
         if t.device != q.device:
             raise ValueError("flash_attention operands must share one "
                              "device")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (t if _async_readable(t) else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     strides = (ctypes.c_int64 * 9)(*(s for t in (q, k, v)
                                      for s in t.stride()[:3]))
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)

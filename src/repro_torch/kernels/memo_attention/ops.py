@@ -61,7 +61,10 @@ def _launch(q, k, v, db_apm, hit_idx, hit, db_scales, lengths, causal,
         tensors.append(db_scales)
     if any(t.device != dev for t in tensors):
         raise ValueError("memo_attention operands must share one device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the kernel's 16-byte asynchronous copies need aligned rows
+    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else
+               t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     db_apm = db_apm.contiguous()
     hit_idx = hit_idx.to(torch.int32).contiguous()
     hit = hit.to(torch.int32).contiguous()

@@ -223,3 +223,62 @@ def test_flash_and_wkv6_reject_other_devices():
         flash_attention(t, t, t)
     with pytest.raises(ValueError):
         wkv6(t, t, t, t, torch.empty((2, 16), device="meta"))
+
+
+# ------------------------------------------------- split TF32 (3xTF32)
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` in plain PyTorch: round an f32 to a 10-bit
+    mantissa, to nearest with ties away from zero (half an ulp of TF32
+    added to the magnitude bits, the 13 low bits then cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, *, split):
+    """a @ b as the attention kernels' mma.m16n8k8 steps: f32 sums over
+    k in slices of 8, each slice adding a_lo*b_hi + a_hi*b_lo + a_hi*b_hi
+    (``split``, 3xTF32) or a_hi*b_hi alone (1xTF32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        if split:
+            acc = acc + al[..., ks] @ bh[..., ks, :]
+            acc = acc + ah[..., ks] @ bl[..., ks, :]
+        acc = acc + ah[..., ks] @ bh[..., ks, :]
+    return acc
+
+
+def _attention(q, k, v, *, causal, mm):
+    """The kernels' attention on (B,H,S,dh): scores scaled by dh^-1/2,
+    f32 softmax numerators, P·V, then the division by the row sum."""
+    S, dh = q.shape[-2:]
+    s = mm(q, k.transpose(-1, -2)) * dh ** -0.5
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return mm(p, v) / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("B,H,S,causal", [
+    (2, 12, 128, False),    # bert_base's attention, B cut from 32
+    (1, 2, 1024, True),     # gpt2_small-like: S=1024, causal
+])
+def test_split_tf32_keeps_f32_accuracy(B, H, S, causal):
+    """Why the attention kernels split each f32 operand into two TF32
+    values: with three TF32 products per f32 product (f32 sums) the
+    output lands within the card's tolerance (chip_smoke.ATOL) of an f64
+    reference; with one TF32 product it does not."""
+    from chip_smoke import ATOL as CARD_ATOL
+    rng = np.random.default_rng(S)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, S, 64)))
+               for _ in range(3))
+    ref = _attention(q, k, v, causal=causal, mm=torch.matmul)    # f64
+    q, k, v = q.float(), k.float(), v.float()
+    err = {split: (_attention(q, k, v, causal=causal,
+                              mm=lambda a, b: _mm_tf32(a, b, split=split))
+                   .double() - ref).abs().max().item()
+           for split in (True, False)}
+    assert err[True] <= CARD_ATOL < err[False], err

@@ -12,7 +12,8 @@ search indices must be EQUAL (ties → the lowest index)."""
 import pytest
 import torch
 
-from chip_smoke import ATOL, attention_case, flash_case, wkv_case, wkv_err
+from chip_smoke import (ATOL, TILE_EDGES, attention_case, flash_case,
+                        wkv_case, wkv_err)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.memo_attention.ops import memo_attention
@@ -62,6 +63,22 @@ def test_memo_attention_gqa_ragged(cuda, causal, window):
     _check(args, kw, causal=causal, window=window)
 
 
+@pytest.mark.parametrize("hits", ["all", "none", "mixed"])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("S", TILE_EDGES)
+def test_memo_attention_tile_edges(cuda, S, dh, hits):
+    """S at, below and past the 64-row tiles; all-hit, all-miss and mixed
+    blocks; GQA; DB rows equal to S, a multiple of 64 (16-byte rows, the
+    asynchronous copy) or shorter than S (zero past L)."""
+    i, j = TILE_EDGES.index(S), dh // 32
+    L = (S, -(-S // 64) * 64, S - 5)[(i + j) % 3]
+    causal, window = ((True, None), (True, 70), (False, 24))[(i + 2 * j) % 3]
+    args, kw = attention_case(torch, cuda, B=3, S=S, H=4, Hkv=2, dh=dh, N=5,
+                              L=L, quant=(i + j) % 2 == 0, varlen=j == 1,
+                              seed=S + dh, hits=hits)
+    _check(args, kw, causal=causal, window=window)
+
+
 @pytest.mark.parametrize("N,norms", [(3072, True), (3001, True),
                                      (3001, False)])
 def test_nn_search_planted_duplicates(cuda, N, norms):
@@ -102,6 +119,36 @@ def test_flash_attention_against_plain(cuda, B, S, H, Hkv, dh, causal,
                                      window=window)).abs().max().item()
     print(f"flash_attention S={S} max|err|={err:.3e}")
     assert err <= ATOL
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 70),
+                                           (False, 24)])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("S", TILE_EDGES)
+def test_flash_attention_tile_edges(cuda, S, dh, causal, window):
+    """S at, below and past the 64-row tiles, GQA, every head_dim."""
+    q, k, v = flash_case(torch, cuda, B=2, S=S, H=4, Hkv=2, dh=dh,
+                         seed=S + dh)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    err = (out - flash_attention_ref(q, k, v, causal=causal,
+                                     window=window)).abs().max().item()
+    print(f"flash_attention S={S} dh={dh} max|err|={err:.3e}")
+    assert err <= ATOL
+
+
+@pytest.mark.parametrize("S,dh", [(65, 64), (129, 16)])
+def test_flash_attention_unaligned_view(cuda, S, dh):
+    """Strided views whose base is 4 bytes past an aligned allocation:
+    the wrapper copies them for the 16-byte asynchronous copies and the
+    kernel still launches."""
+    q, k, v = flash_case(torch, cuda, B=2, S=S, H=4, Hkv=2, dh=dh, seed=S,
+                         strided=True, offset=1)
+    assert q.data_ptr() % 16 != 0
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert (out - flash_attention_ref(q, k, v)).abs().max().item() <= ATOL
 
 
 @pytest.mark.parametrize("B,S,nh,N,decay_mean", [
