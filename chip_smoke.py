@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/csrc``
-(``build/`` at the repository root), requires the attention kernels to
-spill nothing (ptxas) and to hold tensor-core instructions (their SASS,
-from ``cuobjdump``), and holds each kernel against its plain PyTorch
-version on synthetic cases, the attention tiles' edges among them. Then
+(``build/`` at the repository root), requires the attention kernels and
+the three rwkv6 kernels to spill nothing (ptxas) and the attention
+kernels to hold tensor-core instructions (their SASS, from
+``cuobjdump``), and holds each kernel against its plain PyTorch version
+on synthetic cases, the attention tiles' edges and rwkv6's chunk edges
+among them. Then
 it drives four paths, each with every launch count at 0 just before it
 and read just after:
 
@@ -25,8 +27,10 @@ and read just after:
 Every kernel is held against its plain version on the arguments each
 layer of its path gave it, and timed there beside its bound (for the
 attention kernels at the tensor cores' split-TF32 rate, with the SIMT
-bound beside it), its plain version and a library yardstick; one batch
-or forward of each path, and each SDPA yardstick, is profiled. It ends with one JSON line ``{"ok": true, "device": {...}}``.
+bound beside it), its plain version and a library yardstick; rwkv6 also
+per phase and over a sweep of its chunk length. One batch or forward of
+each path, and each SDPA yardstick, is profiled. It ends with one JSON
+line ``{"ok": true, "device": {...}}``.
 Any failure raises: the script catches nothing, and exits non-zero
 without a card or outside the repository.
 """
@@ -77,6 +81,12 @@ SIM_MARGIN = 1e-3    # a decision within this of the threshold may flip
 KERNELS = ("memo_attention", "nn_search", "flash_attention", "rwkv6")
 # sequence lengths at the edges of the attention kernels' 64-row tiles
 TILE_EDGES = (63, 64, 65, 127, 129)
+# rwkv6 chunk lengths timed at rwkv6_3b's shape; 0 stands for C = S (one
+# chunk: one block per (b, h) walking all S steps, one launch)
+WKV_SWEEP = (64, 128, 256, 0)
+# kernels ptxas must report spill-free
+SPILL_FREE = ("flash_attention_kernel", "memo_attention_kernel",
+              "wkv6_states_kernel", "wkv6_scan_kernel", "wkv6_out_kernel")
 
 
 def require(ok: bool, what: str) -> None:
@@ -133,17 +143,17 @@ def attention_bounds(nbytes: float, mm_flops: float, softmax_flops: float):
 
 
 def check_build(info):
-    """The compiler's report and the built code of the attention kernels:
-    prints ptxas's register and spill lines and, from ``cuobjdump
-    --dump-sass`` of the library, the tensor-core instructions (HMMA,
-    HGMMA) of every instantiation; each attention kernel must spill
-    nothing and hold tensor-core instructions. Returns those counts
+    """The compiler's report and the built code: prints ptxas's register
+    and spill lines; every kernel of SPILL_FREE must appear there and
+    spill nothing. From ``cuobjdump --dump-sass`` of the library, the
+    tensor-core instructions (HMMA, HGMMA) of every instantiation of the
+    attention kernels, each of which must hold some. Returns those counts
     summed by kernel."""
     import re
     import shutil
     from repro_torch.kernels import build
     attention = ("flash_attention_kernel", "memo_attention_kernel")
-    fn = None
+    fn, seen = None, set()
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line:
             print(f"[setup] ptxas {line.strip()}")
@@ -152,9 +162,12 @@ def check_build(info):
             fn = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m and fn and any(a in fn for a in attention):
+        if m and fn and any(a in fn for a in SPILL_FREE):
+            seen.update(a for a in SPILL_FREE if a in fn)
             require(m.group(1) == "0" and m.group(2) == "0",
                     f"ptxas spills in {fn}: {line.strip()}")
+    require(seen == set(SPILL_FREE),
+            f"no ptxas spill line for {set(SPILL_FREE) - seen}")
     tool = shutil.which("cuobjdump") or str(
         Path(build._nvcc()).parent / "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", info["path"]],
@@ -267,6 +280,24 @@ def flash_bound(B, S, H, Hkv, dh, causal, window):
                             pairs * 4 * dh, pairs * 5)
 
 
+def wkv_cases(chunk):
+    """rwkv6 synthetic cases: (B, S, nh, N, decay_mean, chunk), chunk None
+    for the wrapper's default ``chunk``. Ragged and long sequences, every
+    head size, slow to fast decay; S at the edges of ``chunk`` (C-1, C,
+    C+1, 2C+1) and long (4096); decay mean +2, whose chunk decays D_c
+    underflow to 0; each swept chunk length, one that is not a multiple
+    of the kernel's 16-step tile, and several chunks at N 16 and 32."""
+    cases = [(2, S, 4, 64, dm, None) for S in (41, 1000)
+             for dm in (-6.0, -3.5, -1.0)]
+    cases += [(3, 77, 5, N, -4.0, None) for N in (16, 32)]
+    cases += [(2, S, 4, 64, -3.5, None)
+              for S in (chunk - 1, chunk, chunk + 1, 2 * chunk + 1, 4096)]
+    cases += [(2, 1000, 4, 64, 2.0, None)]
+    cases += [(2, 1000, 4, 64, -3.5, c or 1000) for c in WKV_SWEEP + (40,)]
+    cases += [(3, 77, 5, N, -4.0, 16) for N in (16, 32)]
+    return cases
+
+
 def wkv_bound(B, S, nh, N):
     """r, k, v, w read and o written once (u is negligible); 5 N^2 flops
     per head and step: o (N^2 multiply-adds) and the update (w*S, k v^T
@@ -287,7 +318,7 @@ def check_kernels(torch, dev):
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.nn_search.ops import nn_search
     from repro_torch.kernels.nn_search.ref import nn_search_ref
-    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.kernels.rwkv6.ops import CHUNK, wkv6
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
     errs = dict.fromkeys(KERNELS, 0.0)
     cases = [dict(B=BATCH, S=SEQ, H=12, Hkv=12, dh=64, N=3072, L=SEQ,
@@ -394,15 +425,15 @@ def check_kernels(torch, dev):
         require(err <= ATOL, f"flash_attention error {err}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
 
-    cases = [dict(B=2, S=S, nh=4, N=64, decay_mean=dm)
-             for S in (41, 1000) for dm in (-6.0, -3.5, -1.0)]
-    cases += [dict(B=3, S=77, nh=5, N=N, decay_mean=-4.0) for N in (16, 32)]
-    for i, c in enumerate(cases):
-        args = wkv_case(torch, dev, seed=200 + i, **c)
-        err, tol = wkv_err(wkv6(*args), wkv6_ref(*args))
-        print(f"[kernel] rwkv6 B={c['B']} S={c['S']} nh={c['nh']} "
-              f"N={c['N']} decay mean {c['decay_mean']}, u != 0: max|err| "
-              f"{err:.3e} (tolerance {tol:.1e} = {WKV_RTOL:.0e} of max|o|)")
+    for i, (B, S, nh, N, dm, chunk) in enumerate(wkv_cases(CHUNK)):
+        args = wkv_case(torch, dev, B=B, S=S, nh=nh, N=N, decay_mean=dm,
+                        seed=200 + i)
+        out = wkv6(*args) if chunk is None else wkv6(*args, chunk=chunk)
+        err, tol = wkv_err(out, wkv6_ref(*args))
+        print(f"[kernel] rwkv6 B={B} S={S} nh={nh} N={N} decay mean {dm}, "
+              f"u != 0, chunk {chunk or CHUNK}: max|err| {err:.3e} "
+              f"(tolerance {tol:.1e} = {WKV_RTOL:.0e} of max|o|)")
+        require(bool(torch.isfinite(out).all()), "rwkv6: non-finite output")
         require(err <= tol, f"rwkv6 error {err}")
         errs["rwkv6"] = max(errs["rwkv6"], err)
     return errs
@@ -672,10 +703,10 @@ def time_kernels(torch, dev, sess, captured, errs):
 
 
 # ------------------------------------------------------------ phase 5
-def device_profile(torch, label, fn):
-    """Where one ``fn()`` spends its device time: kernel time by name from
-    a ``torch.profiler`` trace, and the device's idle share of its wall
-    time (one stream, so busy time is the sum)."""
+def trace(torch, fn, reps=1):
+    """``reps`` calls of ``fn()`` (after one warm-up) under
+    ``torch.profiler``: their wall ms and, per kernel name, (device ms,
+    launches) summed over the calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -683,7 +714,8 @@ def device_profile(torch, label, fn):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -692,6 +724,14 @@ def device_profile(torch, label, fn):
                      getattr(e, "self_cuda_time_total", 0.0))
         if e.device_type == DeviceType.CUDA and us > 0:
             rows.append((us / 1e3, e.count, e.key))
+    return wall_ms, rows
+
+
+def device_profile(torch, label, fn):
+    """Where one ``fn()`` spends its device time: kernel time by name from
+    a ``torch.profiler`` trace, and the device's idle share of its wall
+    time (one stream, so busy time is the sum)."""
+    wall_ms, rows = trace(torch, fn)
     busy = sum(r[0] for r in rows)
     if busy == 0:
         print(f"[profile] {label}: the trace shows no device time: not "
@@ -918,6 +958,7 @@ def forward_path(torch, dev, arch, B, S, kname, site, errs):
             plain_ms = event_ms(lambda: plain(*args, **kw), reps=2,
                                 rounds=3, warmup=1)
             lib_ms, lib, simt = None, "no single library call", ""
+            wkv = wkv_sweep(torch, real, args)
         print(f"[time] {kname} {tuple(args[0].shape)} ({arch} layer "
               f"{len(calls) // 2}): {ms:.4f} ms (bound {bd['bound_ms']:.4f} "
               f"ms, {bd['bound_by']}{simt}), plain {plain_ms:.4f} ms, {lib}; "
@@ -929,9 +970,43 @@ def forward_path(torch, dev, arch, B, S, kname, site, errs):
                        lambda: kernel_model.forward(params, batch))
     timing = dict(ms=ms, plain_ms=plain_ms, **bd, library_ms=lib_ms,
                   forward_ms=fwd_k, plain_forward_ms=fwd_p)
+    if kname == "rwkv6":
+        timing.update(wkv)
     del params, calls, args, kw, sdpa
     torch.cuda.empty_cache()
     return counts, timing
+
+
+def wkv_sweep(torch, wkv6, args, reps=10):
+    """rwkv6 on one layer's arguments at each chunk length of WKV_SWEEP:
+    its time (CUDA events) and, from a profiler trace of ``reps`` calls,
+    each phase's device time per call. Returns the JSON fields."""
+    from repro_torch.kernels.rwkv6.ops import CHUNK
+    B, S, nh, N = args[0].shape
+    phases = ("wkv6_states", "wkv6_scan", "wkv6_out")
+    sweep, split = {}, {}
+    for c in (c or S for c in WKV_SWEEP):
+        sweep[c] = event_ms(lambda: wkv6(*args, chunk=c))
+        _, rows = trace(torch, lambda: wkv6(*args, chunk=c), reps)
+        split[c] = {p: sum(ms for ms, _, name in rows if p in name) / reps
+                    for p in phases}
+        nc = -(-S // c)
+        scratch = (nc - 1) * B * nh * N * (N + 1) * 4 / 1e6
+        got = ", ".join(f"{p.removeprefix('wkv6_')} {split[c][p]:.4f}"
+                        for p in phases)
+        print(f"[time] rwkv6 phases {(B, S, nh, N)} chunk {c} (nc {nc}, "
+              f"scratch {scratch:.1f} MB): {sweep[c]:.4f} ms (CUDA events); "
+              f"per phase (profiler, per call) {got} ms"
+              + (" [default]" if c == CHUNK else "")
+              + (" [one chunk]" if c == S else ""))
+    best = min(sweep, key=sweep.get)
+    print(f"[time] rwkv6 chunk sweep: fastest chunk {best} "
+          f"({sweep[best]:.4f} ms), default {CHUNK} ({sweep[CHUNK]:.4f} "
+          f"ms), one chunk ({sweep[S]:.4f} ms)")
+    require(sweep[CHUNK] <= sweep[S],
+            f"rwkv6: the default chunk {CHUNK} is slower than one chunk")
+    return dict(chunk=CHUNK, sweep_ms={str(c): t for c, t in sweep.items()},
+                phases_ms={str(c): p for c, p in split.items()})
 
 
 def _leaves(tree):
@@ -960,6 +1035,13 @@ def main() -> int:
     print(f"[setup] kernels built in {time.perf_counter() - t0:.1f}s "
           f"({info['path']})")
     sass = check_build(info)
+    from repro_torch.kernels.rwkv6.ops import resources
+    wkv_res = resources(64)
+    for phase, r in wkv_res.items():
+        print(f"[setup] rwkv6 N=64 {phase} kernel: {r['blocks_per_sm']} "
+              f"resident blocks per SM, {r['registers']} registers, "
+              f"{r['local_bytes']} local bytes")
+        require(r["local_bytes"] == 0, f"rwkv6 {phase} kernel spills")
 
     errs = check_kernels(torch, dev)
     sess, per_path, captured, request = serve_main_path(torch, dev)
@@ -985,6 +1067,7 @@ def main() -> int:
         "rwkv6": ("src/repro_torch/csrc/rwkv6.cu",
                   "src/repro/kernels/rwkv6/kernel.py:75"),
     }
+    times["rwkv6"]["resources"] = wkv_res
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name],
                     launches_per_path={path: c[name]

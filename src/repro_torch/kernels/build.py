@@ -40,7 +40,8 @@ SIGNATURES = {
                       _I, _I, _I, _I, _I, _P],
     "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P64,
                             _I, _I, _I, _F, _P],
-    "wkv6_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "wkv6_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "wkv6_resources": [_I, _P],
 }
 
 

@@ -18,10 +18,12 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.memo_attention.ops import memo_attention as jax_memo
 from repro.kernels.nn_search.ops import nn_search as jax_nn
 from repro.kernels.rwkv6.ops import wkv6_chunked as jax_wkv6
+from repro.kernels.rwkv6.ref import wkv6_ref as jax_wkv6_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.memo_attention.ops import memo_attention
 from repro_torch.kernels.nn_search.ops import nn_search
 from repro_torch.kernels.rwkv6.ops import wkv6
+from repro_torch.kernels.rwkv6.ref import wkv6_chunked_schedule_ref
 
 ATOL = 1e-5
 
@@ -213,6 +215,83 @@ def test_wkv6_matches_jax(S, chunk, decay_mean):
     assert wkv6.launches == n0
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=WKV_TOL,
                                atol=WKV_TOL)
+
+
+WKV_RTOL = 2e-5     # against the sequential recurrence, relative to the
+#                     output's scale (chip_smoke.WKV_RTOL, the card's bound)
+
+
+def _jax_sequential(r, k, v, w, u):
+    """The JAX package's sequential oracle (``kernels/rwkv6/ref.py``) in
+    the model layout."""
+    B, S, nh, N = r.shape
+    bh = lambda t: jnp.asarray(t.transpose(0, 2, 1, 3).reshape(  # noqa: E731
+        B * nh, S, N))
+    ub = jnp.asarray(np.broadcast_to(u[None], (B, nh, N)).reshape(B * nh, N))
+    o = np.asarray(jax_wkv6_ref(bh(r), bh(k), bh(v), bh(w), ub))
+    return o.reshape(B, nh, S, N).transpose(0, 2, 1, 3)
+
+
+def _hold_to_sequential(out, args):
+    ref = _jax_sequential(*args)
+    err = np.abs(out - ref).max()
+    assert np.isfinite(out).all()
+    assert err <= WKV_RTOL * max(1.0, np.abs(ref).max()), err
+
+
+@pytest.mark.parametrize("decay_mean", [-6.0, -1.0, 2.0])
+@pytest.mark.parametrize("edge", ["C-1", "C", "C+1", "2C+1", "4C"])
+@pytest.mark.parametrize("chunk", [8, 16])
+def test_wkv6_schedule_matches_jax(chunk, edge, decay_mean):
+    """The kernel's three-phase schedule (chunk end states from zero, the
+    scan over chunks, each chunk's outputs from the state entering it),
+    emulated in plain PyTorch, at S on both sides of the chunk edges.
+    Against the JAX sequential oracle within 2e-5 of the output's scale
+    and, where the JAX chunked kernel is defined in f32 (decay mean -6
+    and -1), against it in interpret mode within WKV_TOL. At decay mean
+    +2 (|log w| ~ 7 a step) the chunked form's exp(-L) overflows f32 and
+    its clamp bites, while the schedule's chunk decays underflow to 0."""
+    S = {"C-1": chunk - 1, "C": chunk, "C+1": chunk + 1,
+         "2C+1": 2 * chunk + 1, "4C": 4 * chunk}[edge]
+    args = _wkv_case(2, S, 3, 16, decay_mean, seed=10 * chunk + S)
+    out = wkv6_chunked_schedule_ref(*map(torch.from_numpy, args),
+                                    chunk).numpy()
+    _hold_to_sequential(out, args)
+    if decay_mean < 0:
+        ref = jax_wkv6(*map(jnp.asarray, args), chunk=chunk, interpret=True)
+        np.testing.assert_allclose(out, np.asarray(ref), rtol=WKV_TOL,
+                                   atol=WKV_TOL)
+
+
+@pytest.mark.parametrize("w_kind", ["ones", "zeros"])
+@pytest.mark.parametrize("chunk", [8, 16])
+def test_wkv6_schedule_extreme_decay(chunk, w_kind):
+    """w == 1 (no decay: the state only grows) and a w holding exact zeros
+    (the state is wiped at those steps; D_c == 0 exactly), against the
+    JAX sequential oracle only: the chunked form's log clamps w = 0."""
+    r, k, v, w, u = _wkv_case(2, 4 * chunk + 3, 3, 16, -1.0, seed=chunk)
+    if w_kind == "ones":
+        w = np.ones_like(w)
+    else:
+        w = np.where(np.random.default_rng(chunk).random(w.shape) < 0.1,
+                     0.0, w).astype(np.float32)
+    args = (r, k, v, w, u)
+    out = wkv6_chunked_schedule_ref(*map(torch.from_numpy, args),
+                                    chunk).numpy()
+    _hold_to_sequential(out, args)
+
+
+def test_wkv6_chunk_argument():
+    """``chunk=`` is checked on every device; on the CPU any valid chunk
+    gives the plain recurrence, and no launch is counted."""
+    args = tuple(map(torch.from_numpy, _wkv_case(1, 9, 2, 16, -1.0, 0)))
+    n0 = wkv6.launches
+    torch.testing.assert_close(wkv6(*args, chunk=4), wkv6(*args), rtol=0,
+                               atol=0)
+    assert wkv6.launches == n0
+    for bad in (0, -3, 2.5):
+        with pytest.raises(ValueError):
+            wkv6(*args, chunk=bad)
 
 
 def test_flash_and_wkv6_reject_other_devices():

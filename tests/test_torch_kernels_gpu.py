@@ -13,14 +13,14 @@ import pytest
 import torch
 
 from chip_smoke import (ATOL, TILE_EDGES, attention_case, flash_case,
-                        wkv_case, wkv_err)
+                        wkv_case, wkv_cases, wkv_err)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.memo_attention.ops import memo_attention
 from repro_torch.kernels.memo_attention.ref import memo_attention_ref
 from repro_torch.kernels.nn_search.ops import nn_search
 from repro_torch.kernels.nn_search.ref import nn_search_ref
-from repro_torch.kernels.rwkv6.ops import wkv6
+from repro_torch.kernels.rwkv6.ops import CHUNK, wkv6
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
 
 pytestmark = pytest.mark.gpu
@@ -151,19 +151,22 @@ def test_flash_attention_unaligned_view(cuda, S, dh):
     assert (out - flash_attention_ref(q, k, v)).abs().max().item() <= ATOL
 
 
-@pytest.mark.parametrize("B,S,nh,N,decay_mean", [
-    (4, 1024, 40, 64, -6.0),                    # rwkv6_3b's shape
-    (2, 41, 4, 64, -1.0),                       # ragged, fast decay
-    (2, 1000, 4, 64, -3.5),
-    (3, 77, 5, 16, -4.0),
-])
-def test_wkv6_against_plain(cuda, B, S, nh, N, decay_mean):
+@pytest.mark.parametrize("B,S,nh,N,decay_mean,chunk", [
+    (4, 1024, 40, 64, -6.0, None),              # rwkv6_3b's shape
+] + wkv_cases(CHUNK))
+def test_wkv6_against_plain(cuda, B, S, nh, N, decay_mean, chunk):
+    """chip_smoke's synthetic cases (ragged and long S, every head size,
+    slow to fast decay, S at the chunk edges, chunk decays that underflow,
+    every swept chunk length) and rwkv6_3b's shape: one call, up to three
+    launches, counts once."""
     args = wkv_case(torch, cuda, B=B, S=S, nh=nh, N=N,
                     decay_mean=decay_mean, seed=S)
     n0 = wkv6.launches
-    out = wkv6(*args)
+    out = wkv6(*args) if chunk is None else wkv6(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert wkv6.launches == n0 + 1
+    assert torch.isfinite(out).all()
     err, tol = wkv_err(out, wkv6_ref(*args))
-    print(f"rwkv6 S={S} N={N} max|err|={err:.3e} (tolerance {tol:.1e})")
+    print(f"rwkv6 S={S} N={N} chunk={chunk} max|err|={err:.3e} "
+          f"(tolerance {tol:.1e})")
     assert err <= tol
