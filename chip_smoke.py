@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/csrc``
-(``build/`` at the repository root), requires the attention kernels and
-the three rwkv6 kernels to spill nothing (ptxas) and the attention
+(``build/`` at the repository root), requires the attention kernels,
+the three rwkv6 kernels and nn_search's to spill nothing (ptxas; the
+runtime's local bytes for rwkv6 and nn_search) and the attention
 kernels to hold tensor-core instructions (their SASS, from
 ``cuobjdump``), and holds each kernel against its plain PyTorch version
-on synthetic cases, the attention tiles' edges and rwkv6's chunk edges
-among them. Then
+on synthetic cases, the attention tiles' edges, rwkv6's chunk edges and
+nn_search's tile and row-range edges among them. Then
 it drives four paths, each with every launch count at 0 just before it
 and read just after:
 
@@ -28,8 +29,10 @@ Every kernel is held against its plain version on the arguments each
 layer of its path gave it, and timed there beside its bound (for the
 attention kernels at the tensor cores' split-TF32 rate, with the SIMT
 bound beside it), its plain version and a library yardstick; rwkv6 also
-per phase and over a sweep of its chunk length. One batch or forward of
-each path, and each SDPA yardstick, is profiled. It ends with one JSON
+per phase and over a sweep of its chunk length, nn_search also over a
+sweep of table sizes up to a million rows (and the profiler must see one
+device kernel per nn_search call). One batch or forward of each path,
+and each SDPA yardstick, is profiled. It ends with one JSON
 line ``{"ok": true, "device": {...}}``.
 Any failure raises: the script catches nothing, and exits non-zero
 without a card or outside the repository.
@@ -86,7 +89,19 @@ TILE_EDGES = (63, 64, 65, 127, 129)
 WKV_SWEEP = (64, 128, 256, 0)
 # kernels ptxas must report spill-free
 SPILL_FREE = ("flash_attention_kernel", "memo_attention_kernel",
-              "wkv6_states_kernel", "wkv6_scan_kernel", "wkv6_out_kernel")
+              "wkv6_states_kernel", "wkv6_scan_kernel", "wkv6_out_kernel",
+              "nn_search_kernel")
+TOMBSTONE = 1.0e6    # the device index's slack rows (core/index.py)
+# nn_search synthetic cases beyond the serving shape: (B, dim, N, norms,
+# shift); the edges of a 64-row tile and of a row range, query tiles of
+# 1, 31, 33 and 128 rows, widths that are not a multiple of 4, and norms
+# shifted by -shift so that most d2 are negative
+NN_EDGES = ((1, 1, 1, True, 0.0), (31, 50, 65, False, 0.0),
+            (33, 128, 6143, True, 0.0), (128, 128, 6145, True, 50.0),
+            (32, 128, 65537, True, 50.0), (33, 50, 1000, False, 0.0),
+            (1, 16, 64, True, 0.0))
+# nn_search timing sweep at B, N (dim 128) beyond the session's table
+NN_SWEEP = ((32, 65536), (32, 1 << 20), (128, 65536))
 
 
 def require(ok: bool, what: str) -> None:
@@ -265,6 +280,59 @@ def wkv_case(torch, dev, *, B, S, nh, N, decay_mean, seed):
     return r, k, v, w, 0.1 * rand(nh, N)
 
 
+def nn_case(torch, dev, *, B, dim, N, seed, norms=True, shift=0.0):
+    """A table (N, dim) ~ N(0, 1) made on the card, its last eighth
+    TOMBSTONE slack rows as the device index's; copies of the answer row
+    p at the first row of every later row range of the wrapper's split
+    that is not slack, none of which may win over p (nn_tie_ok). Query
+    0 is row p itself, the rest are random live rows plus 0.01 noise.
+    Norms, when asked for, are the rows' ‖d‖² less ``shift``."""
+    from repro_torch.kernels.nn_search.ops import (TILE_ROWS, _n_sms,
+                                                   split_ranges)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    db = torch.randn((N, dim), generator=g, device=dev)
+    live = N - N // 8
+    db[live:] = TOMBSTONE
+    p = min(7, live - 1)
+    R = split_ranges(B, N, _n_sms(dev.index or 0))
+    T = -(-N // TILE_ROWS)
+    firsts = torch.tensor([T * r // R * TILE_ROWS for r in range(1, R)],
+                          dtype=torch.int64, device=dev)
+    db[firsts[(firsts > p) & (firsts < live)]] = db[p].clone()
+    pick = torch.randint(0, live, (B,), generator=g, device=dev)
+    pick[0] = p
+    q = db[pick].clone()
+    q[1:] += 0.01 * torch.randn((B - 1, dim), generator=g, device=dev)
+    dn = (db * db).sum(-1) - shift if norms else None
+    return q, db, dn, p
+
+
+def nn_tie_ok(db, i, p):
+    """The tie rule across ranges: the pick is the answer row p, or a row
+    that is no copy of it (in the matmul form a near neighbour can come
+    out below p's exact 0, as it does in the plain version)."""
+    return i == p or not bool((db[i] == db[p]).all())
+
+
+def nn_bound(B, N, dim):
+    """The table, its norms and the queries read once, (d2, idx) written;
+    2 dim + 3 flops per (query, row)."""
+    return bound(N * dim * 4 + N * 4 + B * dim * 4 + B * 8,
+                 2 * B * N * dim + 3 * B * N)
+
+
+def nn_check(nn_search, nn_search_ref, q, db, dn, what):
+    """Indices EQUAL to the plain version's, d2 within 1e-3 of max|d2|.
+    Returns (max |d2 err|, its tolerance, the kernel's idx)."""
+    d, i = nn_search(q, db, db_norms=dn)
+    rd, ri = nn_search_ref(q, db, dn)
+    require(bool((i == ri).all()), f"nn_search indices differ: {what}")
+    err = (d - rd).abs().max().item()
+    tol = 1e-3 * max(1.0, rd.abs().max().item())
+    require(err <= tol, f"nn_search d2 error {err}: {what}")
+    return err, tol, i
+
+
 def flash_bound(B, S, H, Hkv, dh, causal, window):
     """Each of q/k/v/out moved once; 4*dh flops of products per visible
     (q, k) pair (QK^T and PV) plus 5 for the softmax (attention_bounds)."""
@@ -392,6 +460,27 @@ def check_kernels(torch, dev):
               f"{1e-3 * scale:.1e} = 1e-3 of max d2)")
         require(err <= 1e-3 * scale, f"nn_search d2 error {err}")
         errs["nn_search"] = max(errs["nn_search"], err)
+    # one launch per call: the edges of the tiles and the row ranges,
+    # duplicates across ranges, negative d2, a table of zeros whose norms
+    # are +-0.0 (every d2 is 0: index 0 must win)
+    for j, (B, dim, N, norms, shift) in enumerate(NN_EDGES):
+        q, db, dn, p = nn_case(torch, dev, B=B, dim=dim, N=N, seed=400 + j,
+                               norms=norms, shift=shift)
+        what = (f"B={B} dim={dim} N={N} norms={norms} shifted by "
+                f"-{shift}")
+        err, tol, i = nn_check(nn_search, nn_search_ref, q, db, dn, what)
+        require(nn_tie_ok(db, i[0].item(), p), f"tie rule broken: {what}")
+        print(f"[kernel] nn_search {what}, duplicates across ranges: idx "
+              f"equal, max|d2 err| {err:.3e} (tolerance {tol:.1e})")
+        errs["nn_search"] = max(errs["nn_search"], err)
+    zero = torch.zeros((200, 16), device=dev)
+    signed = torch.zeros(200, device=dev)
+    signed[::2] = -0.0
+    d, i = nn_search(zero[:31], zero, db_norms=signed)
+    require(bool((i == 0).all()) and bool((d == 0).all()),
+            "nn_search: a tie at d2 = 0 with +-0.0 norms")
+    print("[kernel] nn_search B=31 dim=16 N=200 zeros, norms +-0.0: "
+          "every d2 0, idx 0")
 
     cases = [dict(B=2, S=S, H=4, Hkv=2, dh=dh, causal=causal, window=w,
                   strided=False, offset=0)
@@ -688,18 +777,60 @@ def time_kernels(torch, dev, sess, captured, errs):
     (emb, table), kw = captured["nn_search"][layer]
     norms = kw["db_norms"]
     B, (N, dim) = emb.shape[0], table.shape
-    ms = event_ms(lambda: nn_search(emb, table, db_norms=norms))
-    plain_ms = event_ms(lambda: nn_search_ref(emb, table, norms))
-    lib_ms = event_ms(lambda: torch.cdist(emb, table).min(1))
-    b_ms, b_by = bound(N * dim * 4 + N * 4 + B * dim * 4 + B * 8,
-                       2 * B * N * dim + 3 * B * N)
+    t = nn_time(torch, nn_search, nn_search_ref, emb, table, norms)
     print(f"[time] nn_search B={B} dim={dim} N={N} (whole table, slack "
-          f"rows included): {ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}), "
-          f"plain {plain_ms:.4f} ms, cdist+min {lib_ms:.4f} ms; "
-          f"{sess.engine.cfg.n_layers} launches per bucket-mode batch")
-    out["nn_search"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=lib_ms)
+          f"rows included): {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms, "
+          f"{t['bound_by']}), plain {t['plain_ms']:.4f} ms, cdist+min "
+          f"{t['library_ms']:.4f} ms; {sess.engine.cfg.n_layers} launches "
+          f"per bucket-mode batch")
+    # one device kernel per call, no memset or reduction launch beside it
+    reps = 10
+    _, rows = trace(torch, lambda: nn_search(emb, table, db_norms=norms),
+                    reps)
+    kernels = sum(count for _, count, _ in rows)
+    names = sorted({name for _, _, name in rows})
+    print(f"[profile] nn_search: {kernels} device kernels in {reps} calls "
+          f"({names})")
+    require(kernels == reps and all("nn_search_kernel" in n for n in names),
+            f"nn_search issued {kernels} device kernels in {reps} calls: "
+            f"{names}")
+    sweep = [dict(B=B, N=N, dim=dim, **t)] + nn_sweep(
+        torch, dev, nn_search, nn_search_ref)
+    out["nn_search"] = dict(**t, kernels_per_call=kernels / reps,
+                            sweep=sweep)
     return out
+
+
+def nn_time(torch, nn_search, nn_search_ref, q, db, dn):
+    """The kernel, its plain version and ``cdist`` + ``min`` on the same
+    inputs (CUDA events), with the bound."""
+    B, (N, dim) = q.shape[0], db.shape
+    b_ms, b_by = nn_bound(B, N, dim)
+    return dict(ms=event_ms(lambda: nn_search(q, db, db_norms=dn)),
+                plain_ms=event_ms(lambda: nn_search_ref(q, db, dn)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=event_ms(lambda: torch.cdist(q, db).min(1)))
+
+
+def nn_sweep(torch, dev, nn_search, nn_search_ref):
+    """nn_search at dim 128 on NN_SWEEP's tables, made on the card by
+    nn_case (the last eighth TOMBSTONE), each checked against the plain
+    version and timed beside its bound. Returns the JSON rows."""
+    rows = []
+    for j, (B, N) in enumerate(NN_SWEEP):
+        q, db, dn, _ = nn_case(torch, dev, B=B, dim=128, N=N, seed=500 + j)
+        nn_check(nn_search, nn_search_ref, q, db, dn, f"B={B} N={N}")
+        t = nn_time(torch, nn_search, nn_search_ref, q, db, dn)
+        print(f"[time] nn_search sweep B={B} dim=128 N={N} "
+              f"({N * 512 / 2 ** 20:.0f} MB table made on the card): "
+              f"{t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms, "
+              f"{t['bound_by']}; {t['bound_ms'] / t['ms']:.1%} of it), "
+              f"plain {t['plain_ms']:.4f} ms, cdist+min "
+              f"{t['library_ms']:.4f} ms")
+        rows.append(dict(B=B, N=N, dim=128, **t))
+        del q, db, dn
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ------------------------------------------------------------ phase 5
@@ -1042,6 +1173,14 @@ def main() -> int:
               f"resident blocks per SM, {r['registers']} registers, "
               f"{r['local_bytes']} local bytes")
         require(r["local_bytes"] == 0, f"rwkv6 {phase} kernel spills")
+    from repro_torch.kernels.nn_search.ops import resources as nn_resources
+    nn_res = nn_resources()
+    for kind, r in nn_res.items():
+        print(f"[setup] nn_search {kind} kernel: {r['blocks_per_sm']} "
+              f"resident blocks per SM, {r['registers']} registers, "
+              f"{r['local_bytes']} local bytes, {r['shared_bytes']} shared "
+              f"bytes per block")
+        require(r["local_bytes"] == 0, f"nn_search {kind} kernel spills")
 
     errs = check_kernels(torch, dev)
     sess, per_path, captured, request = serve_main_path(torch, dev)
@@ -1068,6 +1207,7 @@ def main() -> int:
                   "src/repro/kernels/rwkv6/kernel.py:75"),
     }
     times["rwkv6"]["resources"] = wkv_res
+    times["nn_search"]["resources"] = nn_res
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name],
                     launches_per_path={path: c[name]

@@ -38,6 +38,7 @@ SIGNATURES = {
                            _I, _I, _I, _F, _P],
     "nn_search_f32": [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _P],
+    "nn_search_resources": [_P],
     "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P64,
                             _I, _I, _I, _F, _P],
     "wkv6_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -16,12 +16,17 @@ import torch
 from repro.core.codec import _quantize_rows
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.memo_attention.ops import memo_attention as jax_memo
+from repro.kernels.nn_search.kernel import nn_search_kernel
 from repro.kernels.nn_search.ops import nn_search as jax_nn
 from repro.kernels.rwkv6.ops import wkv6_chunked as jax_wkv6
 from repro.kernels.rwkv6.ref import wkv6_ref as jax_wkv6_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.memo_attention.ops import memo_attention
-from repro_torch.kernels.nn_search.ops import nn_search
+from repro_torch.kernels.nn_search.ops import (TILE_ROWS, nn_search,
+                                               split_ranges)
+from repro_torch.kernels.nn_search.ref import (blocked_top1,
+                                               nn_search_blocked_ref,
+                                               nn_search_ref)
 from repro_torch.kernels.rwkv6.ops import wkv6
 from repro_torch.kernels.rwkv6.ref import wkv6_chunked_schedule_ref
 
@@ -139,6 +144,78 @@ def test_nn_search_matches_jax(N, norms):
     assert i[0] == 3 and i[1] == 3 and i[5] == 3
     np.testing.assert_allclose(d.numpy(), np.asarray(rd), rtol=1e-4,
                                atol=1e-3)
+
+
+def _nn_edge_case(B, dim, N, seed):
+    """A table with TOMBSTONE slack rows (the last eighth) and copies of
+    row 0 at the first row of every later 64-row tile that is not slack,
+    so the copies fall in different row ranges; query 0 is row 0 itself,
+    the rest are rows plus noise. Norms are shifted by -50 so that most
+    d2 are negative (the matmul form cancels)."""
+    rng = np.random.default_rng(seed)
+    db = rng.standard_normal((N, dim)).astype(np.float32)
+    n_live = N - N // 8
+    db[n_live:] = 1.0e6                      # TOMBSTONE slack rows
+    for r in range(TILE_ROWS, n_live, TILE_ROWS):
+        db[r] = db[0]                        # planted duplicates
+    pick = rng.integers(0, n_live, B)
+    pick[0] = 0
+    q = db[pick].copy()
+    q[1:] += 0.05 * rng.standard_normal((B - 1, dim)).astype(np.float32)
+    dn = (db.astype(np.float64) ** 2).sum(-1).astype(np.float32) - 50.0
+    return q, db, dn
+
+
+@pytest.mark.parametrize("N", [1, TILE_ROWS - 1, TILE_ROWS + 1,
+                               2 * TILE_ROWS - 1, 2 * TILE_ROWS + 1])
+@pytest.mark.parametrize("dim", [1, 16, 50])
+@pytest.mark.parametrize("B", [1, 33])
+def test_nn_search_blocked_schedule_matches_jax(B, dim, N):
+    """The kernel's schedule (``nn_search_blocked_ref``: 64-row tiles in
+    row ranges, per-range (d2, idx), the ordered 64-bit key reduced by
+    min) at the edges of a tile and a range, with duplicates of the
+    answer in different ranges, negative d2 and TOMBSTONE slack rows,
+    against the Pallas kernel in interpret mode and ``nn_search_ref``:
+    indices EQUAL (ties → the lowest index), d2 within 1e-4 relative."""
+    q, db, dn = _nn_edge_case(B, dim, N, seed=1000 * B + 10 * dim + N)
+    rd, ri = nn_search_kernel(jnp.asarray(q), jnp.asarray(db),
+                              db_norms=jnp.asarray(dn), block_q=8,
+                              block_n=16, interpret=True)
+    qt, dbt, dnt = (torch.from_numpy(a) for a in (q, db, dn))
+    pd, pi = nn_search_ref(qt, dbt, dnt)
+    n_tiles = -(-N // TILE_ROWS)
+    # every range one tile, two ranges, and the wrapper's own split on a
+    # 132-SM card
+    for n_ranges in sorted({n_tiles, min(2, n_tiles),
+                            split_ranges(B, N, 132)}):
+        d, i = nn_search_blocked_ref(qt, dbt, dnt, n_ranges=n_ranges)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+        np.testing.assert_array_equal(i.numpy(), pi.numpy())
+        assert i[0] == 0
+        np.testing.assert_allclose(d.numpy(), np.asarray(rd), rtol=1e-4,
+                                   atol=1e-3)
+        np.testing.assert_array_equal(d.numpy(), pd.numpy())
+    if N > 2 * TILE_ROWS:
+        assert (np.asarray(rd) < 0).any()    # the negative-d2 path ran
+
+
+@pytest.mark.parametrize("n_ranges", [1, 2, 3])
+@pytest.mark.parametrize("first,other", [(-0.0, 0.0), (0.0, -0.0)],
+                         ids=["-0 first", "+0 first"])
+def test_nn_search_key_breaks_signed_zero_ties_by_index(first, other,
+                                                        n_ranges):
+    """The cross-range key treats -0.0 and +0.0 as equal, as argmin and
+    the kernel's in-block compare do, so the lowest index wins whichever
+    sign it carries; negative distances order below both."""
+    d2 = torch.full((3, 6), 5.0)
+    d2[0, 1], d2[0, 4] = first, other        # a zero tie across ranges
+    d2[1, 2], d2[1, 5] = other, first
+    d2[2, 0], d2[2, 3], d2[2, 5] = first, -1e-30, -1e-30
+    d, i = blocked_top1(d2, n_ranges, tile_rows=2)
+    assert i.tolist() == torch.argmin(d2, -1).tolist() == [1, 2, 3]
+    assert d[:2].tolist() == [0.0, 0.0]
+    assert not torch.signbit(d[:2]).any()    # decoded as +0.0
+    assert d[2].item() == np.float32(-1e-30)
 
 
 # ------------------------------------------------------------ flash_attention

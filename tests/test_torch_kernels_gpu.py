@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (``pytest -m gpu tests/test_torch_kernels_gpu.py``). No JAX here:
 the machine with the card has none. Without a card every test skips.
-Inputs come from ``chip_smoke.attention_case``, ``flash_case`` and
-``wkv_case``, the generators the chip smoke test uses.
+Inputs come from ``chip_smoke.attention_case``, ``flash_case``,
+``nn_case`` and ``wkv_case``, the generators the chip smoke test uses.
 
 Tolerances (``chip_smoke.ATOL``, ``WKV_RTOL``): attention outputs within
 2e-5 absolute — both sides compute in f32 and differ only in summation
@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from chip_smoke import (ATOL, TILE_EDGES, attention_case, flash_case,
-                        wkv_case, wkv_cases, wkv_err)
+                        nn_case, nn_tie_ok, trace, wkv_case, wkv_cases,
+                        wkv_err)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.memo_attention.ops import memo_attention
@@ -79,26 +80,72 @@ def test_memo_attention_tile_edges(cuda, S, dh, hits):
     _check(args, kw, causal=causal, window=window)
 
 
-@pytest.mark.parametrize("N,norms", [(3072, True), (3001, True),
-                                     (3001, False)])
-def test_nn_search_planted_duplicates(cuda, N, norms):
-    g = torch.Generator(device=cuda).manual_seed(3)
-    db = torch.randn((N, 128), generator=g, device=cuda)
-    db[N // 2:] = 1.0e6                      # TOMBSTONE slack rows
-    db[100] = db[7]                          # planted duplicates: the
-    db[N // 2 - 1] = db[7]                   # lowest index must win
-    q = db[torch.tensor([7, 100, 3, 5] * 8, device=cuda)].clone()
-    q[4:] += 0.01 * torch.randn((28, 128), generator=g, device=cuda)
-    dn = (db * db).sum(-1) if norms else None
+# (B, dim, N, norms, shift): query tiles of 1, 31, 33 and 128 rows,
+# widths 1, 50 and 128, N at 1 and at the edges of a 64-row tile (and of
+# a row range: below 264 * 64 rows every tile is a range); bert_base's
+# serving shape; up to a million rows, where a block walks ~60 tiles;
+# norms shifted by -shift make most d2 negative
+NN_CASES = ([(B, dim, N, (B + dim + N) % 2 == 0, 0.0)
+             for B in (1, 31, 33, 128) for dim in (1, 50, 128)
+             for N in (1, 63, 65, 6143)]
+            + [(32, 128, 3072, True, 0.0), (32, 128, 3001, True, 0.0),
+               (32, 128, 3001, False, 0.0), (33, 50, 16897, True, 50.0),
+               (128, 128, 65537, False, 50.0), (31, 1, 1 << 20, True, 0.0),
+               (32, 128, 1 << 20, True, 0.0),
+               (128, 128, (1 << 20) - 1, True, 50.0)])
+
+
+@pytest.mark.parametrize("B,dim,N,norms,shift", NN_CASES)
+def test_nn_search_planted_duplicates(cuda, B, dim, N, norms, shift):
+    """Copies of the answer row in different row ranges (no copy past the
+    first may win), TOMBSTONE slack rows, negative d2: indices EQUAL to
+    the plain version's, d2 within 1e-3 of max|d2|, one launch per
+    call."""
+    q, db, dn, p = nn_case(torch, cuda, B=B, dim=dim, N=N, seed=N + dim,
+                           norms=norms, shift=shift)
     n0 = nn_search.launches
     d, i = nn_search(q, db, db_norms=dn)
     assert nn_search.launches == n0 + 1
     rd, ri = nn_search_ref(q, db, dn)
     assert torch.equal(i, ri)
-    assert i[0].item() == 7 and i[1].item() == 7
+    assert nn_tie_ok(db, i[0].item(), p)
     err = (d - rd).abs().max().item()
-    print(f"nn_search N={N} norms={norms} max|d2 err|={err:.3e}")
+    print(f"nn_search B={B} dim={dim} N={N} norms={norms} max|d2 err|="
+          f"{err:.3e}")
     assert err <= 1e-3 * max(1.0, rd.abs().max().item())
+
+
+def test_nn_search_signed_zero_norms_tie(cuda):
+    """A table of zeros with norms +-0.0: every d2 is 0 and index 0 must
+    win, across every row range."""
+    zero = torch.zeros((6145, 16), device=cuda)
+    norms = torch.zeros(6145, device=cuda)
+    norms[::2] = -0.0
+    d, i = nn_search(zero[:33], zero, db_norms=norms)
+    assert (i == 0).all() and (d == 0).all()
+
+
+def test_nn_search_workspace_resets(cuda):
+    """Back-to-back calls with alternating B, queued with no sync between
+    them, return what each returns alone: the last block of each call
+    resets the keys and tickets it used, whatever the next call's B (the
+    workspace grows once, to 128 queries, on the second call)."""
+    q, db, dn, _ = nn_case(torch, cuda, B=128, dim=128, N=6144, seed=9)
+    sizes = (1, 128, 33, 128, 1, 33)
+    outs = [nn_search(q[:b], db, db_norms=dn) for b in sizes]
+    for b, (d, i) in zip(sizes, outs):
+        rd, ri = nn_search_ref(q[:b], db, dn)
+        assert torch.equal(i, ri)
+        assert torch.equal(d, outs[sizes.index(b)][0])
+
+
+def test_nn_search_one_kernel_per_call(cuda):
+    """The profiler sees exactly one device kernel per call: no memset,
+    no second reduction launch."""
+    q, db, dn, _ = nn_case(torch, cuda, B=32, dim=128, N=6144, seed=10)
+    _, rows = trace(torch, lambda: nn_search(q, db, db_norms=dn), reps=5)
+    assert sum(count for _, count, _ in rows) == 5
+    assert all("nn_search_kernel" in name for _, _, name in rows)
 
 
 @pytest.mark.parametrize("B,S,H,Hkv,dh,causal,window,strided", [
