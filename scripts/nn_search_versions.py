@@ -10,10 +10,9 @@ design (C entry point ``nn_search_f32(q, db, norms, part_d, part_i,
 out_d, out_i, B, N, dim, rows_per_split, n_split, stream)``, partials
 sized per call as its wrapper sized them: about two blocks per SM, whole
 32-row tiles), built alone into ``build/``; and ``VARIANTS``: the
-committed ``csrc/nn_search.cu``, diagnostic edits of it, and the
-alternative designs in ``scripts/nn_search_alternatives/`` (same C
-interface), each built in a copy of ``csrc`` under ``build/``. For each
-it prints ptxas's registers and spill bytes. At each shape of chip_smoke's
+committed ``csrc/nn_search.cu`` and diagnostic edits of it, each built
+in a copy of ``csrc`` under ``build/``. For each it prints ptxas's
+registers and spill bytes. At each shape of chip_smoke's
 nn_search sweep (B=32, dim=128, N = 6144, 65,536 and 1,048,576, and
 B=128 at N = 65,536; tables from ``chip_smoke.nn_case``, the last eighth
 TOMBSTONE) every version is checked against the plain version (indices
@@ -39,8 +38,6 @@ sys.path.insert(0, str(ROOT / "src"))
 SHAPES = ((32, 6144), (32, 65536), (32, 1 << 20), (128, 65536))
 
 
-ALT = Path(__file__).resolve().parent / "nn_search_alternatives"
-
 # Diagnostic edits of the committed kernel, whose results are wrong by
 # design (not checked): no products (no shared reads, no FMAs: the loads
 # and the pipeline alone), no loads past the prologue (the products on
@@ -54,32 +51,26 @@ NO_TAIL = [("if (tid < NQ && qb0 + tid < B && sm.key[tid] != EMPTY) {",
             "if (false) {"),
            ("atomicAdd(&tickets[blockIdx.y], 1u) == (unsigned)n_ranges - 1",
             "0")]
-TRUNCATE = [("constexpr bool TRUNCATE_SPLIT = false;",
-             "constexpr bool TRUNCATE_SPLIT = true;")]
 
-# name -> (nn_search.cu to build: None for the committed one, or a file of
-# ALT; edits of it; the wrapper's TILE_ROWS; checked against the plain
+# name -> (edits of the committed nn_search.cu, checked against the plain
 # version)
 VARIANTS = {
-    "committed (f32 SIMT, 4x4 a thread)": (None, [], 64, True),
-    "committed, no products": (None, NO_PRODUCTS, 64, False),
-    "committed, no loads": (None, NO_LOADS, 64, False),
-    "committed, no tail": (None, NO_TAIL, 64, False),
-    "8x8 a thread, 32-dim slices": ("sliced_8x8.cu", [], 256, True),
-    "split TF32, cvt.rna": ("split_tf32.cu", [], 64, True),
-    "split TF32, truncation": ("split_tf32.cu", TRUNCATE, 64, True),
+    "committed": ([], True),
+    "committed, no products": (NO_PRODUCTS, False),
+    "committed, no loads": (NO_LOADS, False),
+    "committed, no tail": (NO_TAIL, False),
 }
 
 
 def ptxas_summary(log: str) -> str:
-    """'[tc_]vec4=<0|1>:registers r/spill-store bytes B' per
-    instantiation of the nn_search kernel."""
+    """'vec4=<0|1>:registers r/spill-store bytes B' per instantiation
+    of the nn_search kernel."""
     out, fn, spill = [], None, "?"
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*nn_search_(\w*)kernel"
-                      r"ILb(\d)", line)
+        m = re.search(r"Compiling entry function '\S*nn_search_kernelILb(\d)",
+                      line)
         if m:
-            fn = f"{m.group(1)}vec4={m.group(2)}"
+            fn = f"vec4={m.group(1)}"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = m.group(1)
@@ -138,17 +129,14 @@ def old_search(dll, n_sms):
     return search
 
 
-def variant_search(csrc, name, source, edits, tile_rows):
-    """Build a copy of csrc whose nn_search.cu is ``source`` (or its own)
-    with ``edits``; returns a search through that library, with the
-    wrapper's tile to match."""
+def variant_search(csrc, name, edits):
+    """Build a copy of csrc whose nn_search.cu has ``edits``; returns a
+    search through that library."""
     from repro_torch.kernels import build
     from repro_torch.kernels.nn_search import ops
     src = build.BUILD_DIR / ("nn_variant_" + re.sub(r"\W+", "_", name))
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(csrc, src)
-    if source is not None:
-        shutil.copy(ALT / source, src / "nn_search.cu")
     text = (src / "nn_search.cu").read_text()
     for a, b in edits:
         if a not in text:
@@ -161,7 +149,7 @@ def variant_search(csrc, name, source, edits, tile_rows):
     print(f"== {name}: {ptxas_summary(info['log'])}; {ops.resources()}")
 
     def search(q, db, db_norms=None):
-        build._State.lib, ops.TILE_ROWS = lib, tile_rows
+        build._State.lib = lib
         return ops.nn_search(q, db, db_norms=db_norms)
     return search
 
@@ -193,8 +181,8 @@ def main() -> int:
         versions["old"] = old_search(build_old(args.old), _n_sms(0))
     csrc = build.CSRC
     checked = {"old"}
-    for name, (source, edits, tile_rows, check) in VARIANTS.items():
-        versions[name] = variant_search(csrc, name, source, edits, tile_rows)
+    for name, (edits, check) in VARIANTS.items():
+        versions[name] = variant_search(csrc, name, edits)
         if check:
             checked.add(name)
     rows = []

@@ -97,10 +97,11 @@ NN_CASES = ([(B, dim, N, (B + dim + N) % 2 == 0, 0.0)
 
 @pytest.mark.parametrize("B,dim,N,norms,shift", NN_CASES)
 def test_nn_search_planted_duplicates(cuda, B, dim, N, norms, shift):
-    """Copies of the answer row in different row ranges (no copy past the
-    first may win), TOMBSTONE slack rows, negative d2: indices EQUAL to
-    the plain version's, d2 within 1e-3 of max|d2|, one launch per
-    call."""
+    """Copies of the answer row in different row ranges, TOMBSTONE slack
+    rows, negative d2: indices EQUAL to the plain version's, d2 within
+    1e-3 of max|d2|, one launch per call; queries 0 and B-1, copies of
+    the answer row, pick its lowest copy (at dim 1: no later copy wins,
+    ``nn_tie_ok``)."""
     q, db, dn, p = nn_case(torch, cuda, B=B, dim=dim, N=N, seed=N + dim,
                            norms=norms, shift=shift)
     n0 = nn_search.launches
@@ -108,7 +109,7 @@ def test_nn_search_planted_duplicates(cuda, B, dim, N, norms, shift):
     assert nn_search.launches == n0 + 1
     rd, ri = nn_search_ref(q, db, dn)
     assert torch.equal(i, ri)
-    assert nn_tie_ok(db, i[0].item(), p)
+    assert nn_tie_ok(db, i, p)
     err = (d - rd).abs().max().item()
     print(f"nn_search B={B} dim={dim} N={N} norms={norms} max|d2 err|="
           f"{err:.3e}")
@@ -129,14 +130,30 @@ def test_nn_search_workspace_resets(cuda):
     """Back-to-back calls with alternating B, queued with no sync between
     them, return what each returns alone: the last block of each call
     resets the keys and tickets it used, whatever the next call's B (the
-    workspace grows once, to 128 queries, on the second call)."""
+    workspace grows to 128 queries by the second call). Each call
+    takes other queries and norms raised by 10 more than the call before,
+    so a key left over from an earlier call would win the atomicMin with
+    a smaller d2 and another row; after the queue the workspace is back
+    to all-ones keys and zero tickets."""
+    from repro_torch.kernels.nn_search.ops import _WORKSPACE
     q, db, dn, _ = nn_case(torch, cuda, B=128, dim=128, N=6144, seed=9)
+    g = torch.Generator().manual_seed(9)
     sizes = (1, 128, 33, 128, 1, 33)
-    outs = [nn_search(q[:b], db, db_norms=dn) for b in sizes]
-    for b, (d, i) in zip(sizes, outs):
-        rd, ri = nn_search_ref(q[:b], db, dn)
-        assert torch.equal(i, ri)
-        assert torch.equal(d, outs[sizes.index(b)][0])
+    calls = [(q[torch.randperm(128, generator=g)[:b].to(cuda)],
+              dn + 10.0 * k) for k, b in enumerate(sizes)]
+    outs = [nn_search(qk, db, db_norms=dk) for qk, dk in calls]
+    torch.cuda.synchronize()
+    keys, tickets = _WORKSPACE[(cuda.index or 0,
+                                torch.cuda.current_stream().cuda_stream)]
+    assert keys.numel() >= 128
+    assert (keys == -1).all() and (tickets == 0).all()
+    for (qk, dk), (d, i) in zip(calls, outs):
+        ad, ai = nn_search(qk, db, db_norms=dk)
+        rd, ri = nn_search_ref(qk, db, dk)
+        assert torch.equal(i, ri) and torch.equal(i, ai)
+        assert torch.equal(d, ad)
+        tol = 1e-3 * max(1.0, rd.abs().max().item())
+        assert (d - rd).abs().max().item() <= tol
 
 
 def test_nn_search_one_kernel_per_call(cuda):
