@@ -11,14 +11,22 @@ kernels to hold tensor-core instructions (their SASS, from
 ``cuobjdump``), and holds each kernel against its plain PyTorch version
 on synthetic cases, the attention tiles' edges, rwkv6's chunk edges and
 nn_search's tile and row-range edges among them. Then
-it drives four paths, each with every launch count at 0 just before it
+it drives every path, each with every launch count at 0 just before it
 and read just after:
 
 * ``kernel`` and ``bucket`` — full-width ``bert_base`` (random weights
   from a seed, the synthetic template corpus) served through
   ``MemoSession.build`` → ``MemoSession.infer`` with ``run_layers``
   under ``torch.cuda.set_sync_debug_mode("error")``
-  (``memo_attention``, ``nn_search``);
+  (``memo_attention``, ``nn_search``), and the memo-free path;
+* on the same session and requests (phase 5b): ``select`` mode, the
+  host-synchronous ``bucket`` and ``kernel`` paths (``memo_attention``),
+  the bucket fast path at ``device_quanta=4`` (``nn_search``), the
+  selective-memoization profiler (its lookup probe: ``nn_search``; the
+  PB table and kernel-mode latency over its active layers), and last,
+  online admission in kernel mode with a budget that evicts
+  (``memo_attention``), its writes read back from the device tier; each
+  held to kernel mode, select or quanta 1 on decisions and logits;
 * ``gpt2_small`` and ``rwkv6_3b`` — ``Model(attn_impl="kernel").forward``
   at full width and depth (random weights from a seed, made on the card;
   tokens from numpy) under ``set_sync_debug_mode("error")``
@@ -81,6 +89,9 @@ SEQ, BATCH, CALIB_BATCHES, FRESH_BATCHES = 128, 32, 8, 6
 # H100 (PERF.md), held here with a 10x margin.
 MODE_GAP = 2e-3
 SIM_MARGIN = 1e-3    # a decision within this of the threshold may flip
+# the admission phase's byte budget, in entries above the built store: a
+# batch admits ~230 misses, so the second batch already evicts
+ADMIT_HEADROOM = 256
 KERNELS = ("memo_attention", "nn_search", "flash_attention", "rwkv6")
 # sequence lengths at the edges of the attention kernels' 64-row tiles
 TILE_EDGES = (63, 64, 65, 127, 129)
@@ -538,6 +549,130 @@ def check_kernels(torch, dev):
 
 
 # ------------------------------------------------------------ phase 3
+class SyncFreeRunLayers:
+    """While active, ``eng.run_layers`` runs under
+    ``set_sync_debug_mode("error")`` (a host sync raises) and keeps each
+    batch's ``prep.pend``."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng, self.pends = torch, eng, []
+
+    def __enter__(self):
+        real, torch = self.eng.run_layers, self.torch
+
+        def run_layers(prep):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = real(prep)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            self.pends.append(prep.pend)
+            return out
+        self.eng.run_layers = run_layers
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng.run_layers
+
+
+class HostLookups:
+    """While active, records each host lookup's hits ((L, B) per batch)."""
+
+    def __init__(self, eng):
+        self.eng, self.memos = eng, []
+
+    def __enter__(self):
+        real = self.eng._lookup
+
+        def lookup(*a, **k):
+            memo = real(*a, **k)
+            self.memos.append(memo.hit)
+            return memo
+        self.eng._lookup = lookup
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._lookup
+
+
+def drive(torch, sess, requests, name, per_path, **kw):
+    """One warm-up batch outside the counts, then every request (``kw``
+    go to ``sess.infer``) with each launch count at 0 just before and
+    read just after (``per_path[name]``). On the fast path ``run_layers``
+    runs under ``set_sync_debug_mode("error")``. Hits and sims per batch
+    come from the fast path's ``prep.pend`` or, on the host path, from
+    ``_lookup`` and ``MemoStats.sims`` (none memo-free). Returns outs,
+    hits, sims, the median ms per batch, the hit rate and the summed
+    stats."""
+    import numpy as np
+    from repro_torch.core.engine import MemoStats
+    eng = sess.engine
+    use_memo = kw.get("use_memo", True)
+    fast = use_memo and eng._use_fast_path()
+    ctx = SyncFreeRunLayers(torch, eng) if fast else HostLookups(eng)
+    total = MemoStats()
+    outs, hits, sims, times = [], [], [], []
+    with ctx:
+        sess.infer(requests[0], **kw)
+        torch.cuda.synchronize()
+        ctx.pends, ctx.memos = [], []
+        zero_counts()
+        for batch in requests:
+            t = time.perf_counter()
+            logits, st = sess.infer(batch, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            outs.append(logits)
+            total.merge(st)
+            if fast:
+                pend = ctx.pends.pop()
+                hits.append(np.stack([p[2].cpu().numpy() for p in pend]))
+                sims.append(np.stack([p[1].cpu().numpy() for p in pend]))
+            elif use_memo:
+                hits.append(np.stack(ctx.memos))
+                ctx.memos.clear()
+                sims.append(np.asarray(list(st.sims)).reshape(
+                    len(hits[-1]), -1))
+        per_path[name] = read_counts()
+    return dict(outs=outs, hits=hits, sims=sims,
+                ms=sorted(times)[len(times) // 2], rate=total.memo_rate,
+                stats=total)
+
+
+def agreement(outs, plain):
+    """Mean argmax agreement of two paths' logits, batch by batch."""
+    return sum((o.argmax(-1) == p.argmax(-1)).float().mean().item()
+               for o, p in zip(outs, plain)) / len(outs)
+
+
+def compare_decisions(torch, name_a, a, name_b, b, thr, tol, why):
+    """Two paths on the same state and requests: equal hit decisions
+    except within SIM_MARGIN of the threshold, logits within ``tol`` on
+    the rows whose decisions agree at every layer. ``a``/``b`` carry
+    per batch ``outs`` (logits), ``hits`` and ``sims`` ((L, B) numpy)."""
+    import numpy as np
+    worst, flips, rows, total = 0.0, 0, 0, 0
+    for oa, ob, ha, hb, sa, sb in zip(a["outs"], b["outs"], a["hits"],
+                                      b["hits"], a["sims"], b["sims"]):
+        differ = ha != hb
+        if differ.any():
+            near = (np.abs(sa - thr) < SIM_MARGIN) | (np.abs(sb - thr)
+                                                      < SIM_MARGIN)
+            require(bool(near[differ].all()),
+                    f"{name_a} vs {name_b}: a far-from-threshold flip")
+            flips += int(differ.sum())
+        same = torch.from_numpy(~differ.any(0)).to(oa.device)
+        rows += int(same.sum())
+        total += len(same)
+        if same.any():
+            worst = max(worst, (oa[same] - ob[same]).abs().max().item())
+    print(f"[main] {name_a} vs {name_b}: {rows}/{total} rows with equal "
+          f"decisions, max|dlogits| {worst:.3e} (tolerance {tol:.0e}, "
+          f"{why}); {flips} near-threshold decision flips")
+    require(worst <= tol, f"{name_a} vs {name_b} gap {worst}")
+    return dict(rows=rows, flips=flips, max_dlogits=worst)
+
+
 def serve_main_path(torch, dev):
     import repro_torch.core.engine as engine_mod
     import repro_torch.core.index as index_mod
@@ -574,35 +709,11 @@ def serve_main_path(torch, dev):
     print(f"[main] sim_cal (a, b) {sess.store.sim_cal}; levels {levels}; "
           f"threshold (moderate) {thr:.6f}")
 
-    eng = sess.engine
-    real_run_layers = eng.run_layers
-    pends = []
-
-    def run_layers_without_sync(prep):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = real_run_layers(prep)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        pends.append(prep.pend)
-        return out
-
-    eng.run_layers = run_layers_without_sync
     requests = fresh + [calib[0]]        # six fresh + one replayed batch
 
-    def serve(use_memo):
-        outs, times = [], []
-        for batch in requests:
-            t = time.perf_counter()
-            logits, _ = sess.infer(batch, use_memo=use_memo)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-            outs.append(logits)
-        return outs, sorted(times)[len(times) // 2]
-
-    # warm-up, outside the counts; it records the arguments each kernel
-    # wrapper gets on the main path, one call per layer, which phase 4
-    # holds against the plain version and times
+    # a warm-up batch per mode, outside the counts, records the arguments
+    # each kernel wrapper gets on the main path, one call per layer, which
+    # phase 4 holds against the plain version and times
     captured = {"memo_attention": [], "nn_search": []}
     real = {"memo_attention": memo_attention, "nn_search": nn_search}
 
@@ -619,76 +730,39 @@ def serve_main_path(torch, dev):
         sess.infer(requests[0])
     engine_mod.memo_attention = real["memo_attention"]
     index_mod.nn_search = real["nn_search"]
-    sess.infer(requests[0], use_memo=False)
-    torch.cuda.synchronize()
-    pends.clear()
 
     # each path is driven with every count at 0 just before it and read
-    # just after it
+    # just after it, run_layers under set_sync_debug_mode("error")
     results, per_path = {}, {}
     for mode in ("kernel", "bucket"):
         sess.spec.runtime.mode = mode
-        before = sess.stats()
-        zero_counts()
-        outs, ms = serve(True)
-        per_path[mode] = read_counts()
-        after = sess.stats()
-        results[mode] = dict(
-            outs=outs, ms=ms, pend=list(pends),
-            rate=(after["n_hits"] - before["n_hits"])
-            / (after["n_layer_attempts"] - before["n_layer_attempts"]))
-        pends.clear()
+        results[mode] = drive(torch, sess, requests, mode, per_path)
     require(per_path["kernel"]["memo_attention"] > 0,
             f"kernel mode never launched memo_attention: {per_path}")
     require(per_path["bucket"]["nn_search"] > 0,
             f"bucket mode never launched nn_search: {per_path}")
-    plain, plain_ms = serve(False)
-    eng.run_layers = real_run_layers
+    r = drive(torch, sess, requests, "memo-free", per_path, use_memo=False)
+    plain, plain_ms = r["outs"], r["ms"]
 
     for mode in ("kernel", "bucket"):
         r = results[mode]
-        agree = [(o.argmax(-1) == p.argmax(-1)).float().mean().item()
-                 for o, p in zip(r["outs"], plain)]
         print(f"[main] {mode}: hit rate {r['rate']:.4f}, median "
               f"{r['ms']:.2f} ms/batch memoized vs {plain_ms:.2f} plain, "
               f"prediction agreement with the plain path "
-              f"{sum(agree) / len(agree):.4f} (run_layers under "
+              f"{agreement(r['outs'], plain):.4f} (run_layers under "
               f"set_sync_debug_mode('error'))")
         for o in r["outs"]:
             require(o.shape == (BATCH, SEQ, cfg.vocab), f"shape {o.shape}")
             require(bool(torch.isfinite(o).all()), "non-finite logits")
         require(r["rate"] > 0, f"{mode}: no hits")
-    replay = torch.stack([p[2] for p in results["kernel"]["pend"][-1]])
+    replay = results["kernel"]["hits"][-1]
     print(f"[main] replayed calibration batch: layer-0 hit fraction "
-          f"{replay[0].float().mean().item():.4f}, all layers "
-          f"{replay.float().mean().item():.4f}")
-
-    # kernel vs bucket on the same state: equal decisions except within
-    # SIM_MARGIN of the threshold, logits within MODE_GAP where equal
-    worst, flips, rows = 0.0, 0, 0
-    for ok_, ob, pk, pb in zip(results["kernel"]["outs"],
-                               results["bucket"]["outs"],
-                               results["kernel"]["pend"],
-                               results["bucket"]["pend"]):
-        hk = torch.stack([p[2] for p in pk])
-        hb = torch.stack([p[2] for p in pb])
-        sk = torch.stack([p[1] for p in pk])
-        sb = torch.stack([p[1] for p in pb])
-        differ = hk != hb
-        if differ.any():
-            near = ((sk - thr).abs() < SIM_MARGIN) | ((sb - thr).abs()
-                                                       < SIM_MARGIN)
-            require(bool(near[differ].all()), "a far-from-threshold flip")
-            flips += int(differ.sum())
-        same = ~differ.any(0)
-        rows += int(same.sum())
-        if same.any():
-            worst = max(worst, (ok_[same] - ob[same]).abs().max().item())
-    print(f"[main] kernel vs bucket: {rows}/{len(requests) * BATCH} rows "
-          f"with equal decisions, max|dlogits| {worst:.3e} (int8 gap "
-          f"{MODE_GAP:.0e}); {flips} near-threshold decision flips")
-    require(worst <= MODE_GAP, f"kernel vs bucket gap {worst}")
-    return sess, per_path, captured, requests[0]
+          f"{replay[0].mean():.4f}, all layers {replay.mean():.4f}")
+    compare_decisions(torch, "kernel", results["kernel"], "bucket",
+                      results["bucket"], thr, MODE_GAP, "int8 gap")
+    return sess, per_path, captured, dict(
+        requests=requests, thr=thr, plain=plain, plain_ms=plain_ms,
+        **results)
 
 
 # ------------------------------------------------------------ phase 4
@@ -887,6 +961,223 @@ def device_profile(torch, label, fn):
 def profile_batch(torch, sess, batch):
     sess.spec.runtime.mode = "kernel"
     device_profile(torch, "kernel-mode batch", lambda: sess.infer(batch))
+
+
+# ------------------------------------------------------------ phase 5b
+def admission_read_back(torch, store, slots):
+    """Writes read back from the device tier the next batch serves (the
+    store's snapshot): each admitted slot's codec parts, index row and
+    length on the device equal the host tier's bytes, and ``nn_search``
+    over the device table, queried with the slot's embedding, returns the
+    slot or an equal entry: one whose row lies within 1e-6 of the scale
+    of the terms the matmul form cancels (|q|² + |d|²), measured in f64,
+    at a d² within the same bound. (A replayed input is captured again
+    beside its earlier entry with an embedding equal to the last bits of
+    f32; the search may return the older, lower slot.) Returns the
+    largest d² / scale and how many queries returned another slot."""
+    import numpy as np
+    from repro_torch.kernels.nn_search.ops import nn_search
+    snap = store.snapshot
+    dev = snap.lengths.device
+    sl = torch.from_numpy(np.asarray(slots, np.int64)).to(dev)
+    for part, host in zip(snap.db_parts, store.db.parts_at(slots)):
+        require(part.index_select(0, sl).cpu().numpy().tobytes()
+                == np.ascontiguousarray(host).tobytes(),
+                "device arena bytes differ from the host arena's")
+    emb = store.embeddings_at(slots)
+    table, norms = snap.search_args
+    require(np.array_equal(table.index_select(0, sl).cpu().numpy(), emb),
+            "device index rows differ from the host embeddings")
+    require(np.array_equal(snap.lengths.index_select(0, sl).cpu().numpy(),
+                           store.entry_lengths(slots)),
+            "device entry lengths differ from the host's")
+    q = torch.from_numpy(emb).to(dev)
+    d, i = nn_search(q, table, db_norms=norms)
+    i = i.long()
+    rows, qd = table.index_select(0, i).double(), q.double()
+    scale = ((qd * qd).sum(-1) + (rows * rows).sum(-1)).clamp(min=1.0)
+    exact = ((rows - qd) ** 2).sum(-1) / scale
+    other = int((i != sl).sum())
+    require(bool((exact <= 1e-6).all()),
+            f"nn_search returned a row that is not the admitted entry: "
+            f"{other} other slots, max exact d2/scale "
+            f"{exact.max().item():.3e}")
+    worst = (d.double() / scale).max().item()
+    require(worst <= 1e-6, f"admitted entry found at d2/scale {worst}")
+    return worst, other
+
+
+def serve_policies(torch, dev, sess, main, per_path):
+    """The engine's other serving policies on the session of phase 3, over
+    the same requests: select mode, the host-synchronous bucket and
+    kernel paths, the bucket fast path with ``device_quanta=4``, the
+    selective-memoization profiler, and online admission (last: it
+    changes the store). Returns the per-path results for the JSON."""
+    import numpy as np
+    eng, spec, store = sess.engine, sess.spec, sess.store
+    rt = spec.runtime
+    requests, thr, plain = main["requests"], main["thr"], main["plain"]
+    out = {}
+
+    # select mode and the host-synchronous bucket / kernel paths
+    host = {}
+    for name, mode, fast_path in (("select", "select", None),
+                                  ("host_bucket", "bucket", False),
+                                  ("host_kernel", "kernel", False)):
+        rt.mode, rt.device_fast_path = mode, fast_path
+        r = host[name] = drive(torch, sess, requests, name, per_path)
+        st, nb = r["stats"], len(requests)
+        print(f"[policy] {name}: hit rate {r['rate']:.4f}, median "
+              f"{r['ms']:.2f} ms/batch (memo-free {main['plain_ms']:.2f}, "
+              f"kernel fast path {main['kernel']['ms']:.2f}); per batch "
+              f"embed {st.t_embed / nb * 1e3:.2f} ms, host search "
+              f"{st.t_search / nb * 1e3:.2f}, host arena gather "
+              f"{st.t_fetch / nb * 1e3:.2f}, layers "
+              f"{st.t_attn / nb * 1e3:.2f}; agreement with the plain path "
+              f"{agreement(r['outs'], plain):.4f}")
+        for o in r["outs"]:
+            require(o.shape == plain[0].shape, f"{name} shape {o.shape}")
+            require(bool(torch.isfinite(o).all()), f"{name}: non-finite")
+    rt.mode, rt.device_fast_path = "select", None
+    device_profile(torch, "select-mode batch (host-synchronous path)",
+                   lambda: sess.infer(requests[0]))
+    require(per_path["host_kernel"]["memo_attention"] > 0,
+            f"host kernel mode never launched memo_attention: {per_path}")
+    out["select_vs_kernel"] = compare_decisions(
+        torch, "select", host["select"], "kernel", main["kernel"], thr,
+        MODE_GAP, "int8 gap")
+    out["host_bucket_vs_select"] = compare_decisions(
+        torch, "host_bucket", host["host_bucket"], "select",
+        host["select"], thr, MODE_GAP, "f32 reassociation")
+    out["host_kernel_vs_select"] = compare_decisions(
+        torch, "host_kernel", host["host_kernel"], "select",
+        host["select"], thr, MODE_GAP, "int8 gap")
+    for name, r in host.items():
+        out[name] = dict(ms=r["ms"], hit_rate=r["rate"])
+    # the host path's per-layer copy: one decoded f16 APM batch
+    apm = store.db.get(np.arange(BATCH), count_reuse=False)
+    times = []
+    for _ in range(6):
+        t = time.perf_counter()
+        torch.from_numpy(apm).to(dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    copy_ms = sorted(times[1:])[2]
+    print(f"[policy] host path APM copy per memoized layer: "
+          f"{apm.nbytes / 1e6:.2f} MB (f16 {tuple(apm.shape)}) host to "
+          f"device in {copy_ms:.3f} ms ({apm.nbytes / copy_ms / 1e6:.2f} "
+          f"GB/s, pageable memory; median of 5)")
+    out["apm_copy"] = dict(mb=apm.nbytes / 1e6, ms=copy_ms)
+    del host
+
+    # the bucket fast path with rows sorted hit-first into 4 quanta
+    rt.mode, rt.device_quanta = "bucket", 4
+    r = drive(torch, sess, requests, "quanta", per_path)
+    device_profile(torch, "bucket fast-path batch, device_quanta=4",
+                   lambda: sess.infer(requests[0]))
+    rt.device_quanta = 1
+    require(per_path["quanta"]["nn_search"] > 0,
+            f"device_quanta=4 never launched nn_search: {per_path}")
+    print(f"[policy] bucket fast path, device_quanta=4: hit rate "
+          f"{r['rate']:.4f}, median {r['ms']:.2f} ms/batch (quanta 1: "
+          f"{main['bucket']['ms']:.2f}; run_layers under "
+          f"set_sync_debug_mode('error'))")
+    out["quanta"] = dict(ms=r["ms"], hit_rate=r["rate"],
+                         **compare_decisions(torch, "quanta=4", r,
+                                             "quanta=1", main["bucket"],
+                                             thr, 1e-4, "f32 reassociation"))
+    del r
+
+    # selective memoization: the profiler, then kernel mode over its
+    # active layers beside all layers and memo-free
+    rt.mode = "kernel"
+    zero_counts()
+    perf = sess.profile(requests[0])
+    per_path["profile"] = read_counts()
+    require(per_path["profile"]["nn_search"] > 0,
+            f"the profiler's lookup probe never launched nn_search: "
+            f"{per_path}")
+    require(sorted(perf.profiles) == eng.layers, "profile misses a layer")
+    for line in perf.summary().splitlines():
+        print(f"[profile-pb] {line}")
+    active = perf.active_layers()
+    print(f"[profile-pb] active layers (PB > 0): {active or 'none'}")
+    lat = {}
+    for label, kw in (("all layers", {}), ("active layers",
+                                           {"active_layers": active}),
+                      ("memo-free", {"use_memo": False})):
+        times = []
+        for batch in [requests[0]] + requests:
+            t = time.perf_counter()
+            sess.infer(batch, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        lat[label] = sorted(times[1:])[len(requests) // 2]
+    print(f"[profile-pb] kernel mode median ms/batch: all layers "
+          f"{lat['all layers']:.2f}, active layers {lat['active layers']:.2f}"
+          f"{' (no layer active: no layer memoized)' if not active else ''}"
+          f", memo-free {lat['memo-free']:.2f}")
+    out["profile"] = dict(
+        active_layers=active, latency_ms=lat,
+        layers={li: dict(t_attn_ms=p.t_attn * 1e3,
+                         t_overhead_ms=p.t_overhead * 1e3, alpha=p.alpha,
+                         pb_ms=perf.benefit(li) * 1e3)
+                for li, p in perf.profiles.items()})
+
+    # online admission, kernel mode: the flat device index, a budget
+    # ADMIT_HEADROOM entries above the built store (so it evicts),
+    # recalibration every second flush
+    spec.admission.enabled, spec.admission.every = True, 1
+    spec.admission.recal_every = 2
+    spec.index.device = store.device_index_kind = "flat"
+    budget = (len(store) + ADMIT_HEADROOM + 0.5) * store.entry_nbytes
+    spec.admission.budget_mb = budget / 1e6
+    store.budget_bytes = int(budget)
+    before, cal0 = sess.stats()["store"], store.sim_cal
+    admitted = []
+    real_admit = store.admit
+
+    def admit(*a, **k):
+        slots = real_admit(*a, **k)
+        admitted.append(slots)
+        return slots
+    store.admit = admit
+    r = drive(torch, sess, requests, "admission", per_path)
+    del store.admit
+    after = sess.stats()["store"]
+    delta = {k: after[k] - before[k] for k in ("admitted", "evicted",
+                                               "delta_syncs", "full_syncs")}
+    require(per_path["admission"]["memo_attention"] > 0,
+            f"admission never launched memo_attention: {per_path}")
+    require(r["stats"].n_admitted > 0 and delta["evicted"] > 0
+            and delta["delta_syncs"] > 0,
+            f"admission: {r['stats'].n_admitted} admitted, {delta}")
+    # a sample of the entries this phase admitted that are still live
+    # (a slot evicted and reused holds its later admission)
+    live = np.unique(np.concatenate(admitted))
+    live = live[store.db.live_mask[live]]
+    sample = np.random.default_rng(0).choice(live, size=min(64, len(live)),
+                                             replace=False)
+    worst, other = admission_read_back(torch, store, sample)
+    device_profile(torch, "admission batch (kernel mode, capture on, "
+                   "maintenance inline)", lambda: sess.infer(requests[1]))
+    spec.admission.enabled = False
+    print(f"[policy] admission (kernel mode, admit_every=1, recal_every=2, "
+          f"flat device index, budget {store.budget_entries} entries): hit "
+          f"rate {r['rate']:.4f}, median {r['ms']:.2f} ms/batch "
+          f"(run_layers with capture under set_sync_debug_mode('error')); "
+          f"{r['stats'].n_admitted} admitted in {len(admitted)} flushes, "
+          f"store {delta}, live {after['live_entries']}; sim_cal "
+          f"{cal0} -> {store.sim_cal}; read-back of {len(sample)} admitted "
+          f"slots: device bytes equal the host's, nn_search finds each "
+          f"({other} as an equal earlier entry; max d2/(|q|^2+|d|^2) "
+          f"{worst:.2e})")
+    out["admission"] = dict(ms=r["ms"], hit_rate=r["rate"],
+                            n_admitted=r["stats"].n_admitted, store=delta,
+                            sim_cal=[list(cal0), list(store.sim_cal)],
+                            read_back_max_d2_rel=worst,
+                            read_back_other_slot=other)
+    return out
 
 
 # ------------------------------------------------------------ phase 6
@@ -1192,10 +1483,12 @@ def main() -> int:
         require(r["local_bytes"] == 0, f"nn_search {kind} kernel spills")
 
     errs = check_kernels(torch, dev)
-    sess, per_path, captured, request = serve_main_path(torch, dev)
+    sess, per_path, captured, main_path = serve_main_path(torch, dev)
     times = time_kernels(torch, dev, sess, captured, errs)
-    profile_batch(torch, sess, request)
-    del sess, captured, request
+    profile_batch(torch, sess, main_path["requests"][0])
+    policies = serve_policies(torch, dev, sess, main_path, per_path)
+    print(json.dumps({"policies": policies}))
+    del sess, captured, main_path
     torch.cuda.empty_cache()
     launches = {"memo_attention": per_path["kernel"]["memo_attention"],
                 "nn_search": per_path["bucket"]["nn_search"]}

@@ -1,12 +1,15 @@
 """AttMemo online inference engine (paper §5.1 Fig. 5), the counterpart
-of the reference's ``core/engine.py``: the device fast path of
-``bucket`` and ``kernel`` mode, the memo-free plain loop, build and
-calibration.
+of the reference's ``core/engine.py``: every serving mode and policy a
+decoder or encoder-only model uses, build and calibration.
 
-Per memoizable layer the fast path runs, on device and with no host
-synchronization: norm → embedding → top-1 search over the device table
-→ calibrated similarity threshold and length gate → memoized attention →
-output projection → residual → MLP.
+Per memoizable layer the engine runs: norm → embedding → top-1 search →
+calibrated similarity threshold and length gate → memoized attention →
+output projection → residual → MLP. Two executors do it.
+
+**The device fast path** (``bucket`` and ``kernel`` with the device
+store; ``prepare_batch`` → ``run_layers`` → ``finalize``) is device work
+only: no host synchronization inside ``run_layers``, one barrier in
+``finalize``, then the stats drain.
 
 * ``kernel`` — q/k/v projections feed the ``memo_attention`` kernel,
   which gathers its own APM tiles from the device DB by hit index (int8
@@ -15,22 +18,48 @@ output projection → residual → MLP.
 * ``bucket`` — the search goes through the ``nn_search`` kernel; the
   batch's APM rows are gathered and decoded (through f16, like the host
   decode) and attention runs the mixed formulation (``gqa_apply`` with a
-  ``Memo`` override) for every row. The reference picks all-hit /
-  all-miss / mixed with ``lax.cond`` on a device scalar; eager PyTorch
-  would need a host read for that branch, so the port computes the
-  mixed form unconditionally — the same values within f32
-  reassociation, without the hit-skip.
+  ``Memo`` override). With ``device_quanta > 1`` rows are sorted
+  hit-first on the device and each quantum runs the mixed form. The
+  reference picks all-hit / all-miss / mixed per quantum with
+  ``lax.cond`` on a device scalar; eager PyTorch would need a host read
+  for that branch, so the port computes the mixed form for every row —
+  the same values within f32 reassociation, without the hit-skip.
+
+**The host-synchronous path** (``select``, and ``bucket``/``kernel``
+with ``device_fast_path=False`` or the host store): per layer, embed on
+the device, search the host index, gate on the host and gather the APM
+batch from the host arena (``_lookup``). ``select`` combines both
+attention branches per row; ``bucket`` splits the batch into padded
+hit/miss buckets, so hit rows skip QKᵀ and softmax (``_layer_bucket``);
+``kernel`` runs ``memo_attention`` over the device DB
+(``_layer_kernel``). Variable-length batches are served everywhere but
+on the host bucket path.
+
+**Online admission** (``admit=True``): misses of every ``admit_every``-th
+served batch are captured (their true APM and embedding; on the fast
+path staged on the device, drained in ``finalize``), admitted under the
+byte budget at the batch boundary and delta-synced, and every
+``recal_every`` flushes ``sim_cal`` is refit from recent captures. The
+delta sync patches the device tensors in place (``core/store.py``), so
+a published snapshot sees the next batch's admissions: that is safe
+only while maintenance runs inline after ``finalize``, as ``infer``
+runs it. A ``PreparedBatch`` must not outlive the next
+``apply_maintenance``.
+
+**Selective memoization** (``profile``): per-layer attention time,
+lookup overhead and memo rate feed ``PerfModel``; serve its
+``active_layers()`` through ``infer(active_layers=...)``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its slice):
-``select`` mode's host lookup, ``device_quanta > 1``, miss capture and
-online admission, prefill, the capacity tier and the sharded store.
+prefill, the lowrank codec, the clustered/IVF indexes, the capacity
+tier (and its promotion of misses), the sharded store and enc-dec.
 """
 from __future__ import annotations
 
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +67,7 @@ import torch
 from repro_torch.core.database import AttentionDB
 from repro_torch.core.embedding import Embedder, embed_apply, train_embedder
 from repro_torch.core.faults import FaultInjector
+from repro_torch.core.selective import LayerProfile, PerfModel, timeit_median
 from repro_torch.core.similarity import similarity_score
 from repro_torch.core.store import MemoStore, StoreSnapshot
 from repro_torch.device import synchronize
@@ -109,7 +139,11 @@ class MemoStats:
     n_layer_attempts: int = 0
     n_hits: int = 0
     sims: SimReservoir = field(default_factory=SimReservoir)
+    t_embed: float = 0.0
+    t_search: float = 0.0
+    t_fetch: float = 0.0
     t_attn: float = 0.0
+    t_other: float = 0.0
     t_total: float = 0.0            # whole-batch wall time (fast path)
     per_layer_hits: Dict[int, int] = field(default_factory=dict)
     n_admitted: int = 0
@@ -125,7 +159,11 @@ class MemoStats:
             self.n_inputs += other.n_inputs
             self.n_layer_attempts += other.n_layer_attempts
             self.n_hits += other.n_hits
+            self.t_embed += other.t_embed
+            self.t_search += other.t_search
+            self.t_fetch += other.t_fetch
             self.t_attn += other.t_attn
+            self.t_other += other.t_other
             self.t_total += other.t_total
             self.n_admitted += other.n_admitted
             for li, nh in other.per_layer_hits.items():
@@ -133,18 +171,26 @@ class MemoStats:
         self.sims.extend(other.sims)
         return self
 
+    def add_admitted(self, n: int) -> None:
+        """Maintenance-side counter bump, guarded like ``merge``."""
+        with self._lock:
+            self.n_admitted += int(n)
+
 
 @dataclass
 class PreparedBatch:
     """Everything ``run_layers``/``finalize`` need for one device-resident
     batch — produced by ``prepare_batch``."""
+    tokens: torch.Tensor
     h: torch.Tensor
     positions: torch.Tensor
     kpad: Optional[torch.Tensor]          # (B, S) bool key-validity mask
     lengths_dev: Optional[torch.Tensor]   # (B,) int32 true lengths
+    lengths: Optional[np.ndarray]         # host copy (drain/admission)
     n_valid: int                          # real rows; the rest are padding
     thr: float
     active: set
+    capture: bool                         # stage misses for admission
     view: StoreSnapshot                   # the store generation served
     t0: float = 0.0
     pend: list = field(default_factory=list)
@@ -153,7 +199,9 @@ class PreparedBatch:
 @dataclass
 class MaintenancePayload:
     """Host-tier store work drained from one finished batch."""
-    reuse_slots: Optional[np.ndarray] = None
+    reuse_slots: Optional[np.ndarray] = None         # device-tier hits
+    admissions: List[Tuple] = field(default_factory=list)  # (apms, embs,
+    #                                                         lens) blocks
     generation: int = -1
 
 
@@ -169,11 +217,20 @@ class MemoEngine:
             self.layers = self.layers[: self.mc.max_layers]
         self.store: Optional[MemoStore] = None
         self.embedder: Optional[Embedder] = None
+        self.perf: Optional[PerfModel] = None
         self._layers_cache = None
+        self._serve_batches = 0          # admission-sampling counter
+        self._pending_admissions: List = []   # host-path capture staging
+        self._recal_buf: List = []       # rolling (apms, embs) captures
+        self._flush_count = 0
         self.faults = FaultInjector.from_spec(self.mc.runtime.faults)
         self._check_ported()
 
     def _check_ported(self):
+        """Refuse the opt-ins of slices not ported yet. The rest of what
+        is unported raises where it is reached: the lowrank codec and the
+        ivf host index when the store is made, the clustered device index
+        at its first sync, MLA and MoE layers in the layer forms."""
         mc = self.mc
         if mc.shard.shards:
             raise _later("the sharded store (shards > 0)", "sharded-store")
@@ -190,6 +247,10 @@ class MemoEngine:
     @property
     def index(self):
         return self.store.index if self.store is not None else None
+
+    @property
+    def device_db(self):
+        return self.store.device_db if self.store is not None else None
 
     @property
     def sim_cal(self):
@@ -339,38 +400,70 @@ class MemoEngine:
               stats: Optional[MemoStats] = None, use_memo: bool = True):
         """Memoized forward. Returns (logits, stats). ``batch`` may carry
         ``lengths`` (B,) for padded variable-length inputs and
-        ``n_valid`` (trailing rows are shape filler)."""
+        ``n_valid`` (trailing rows are shape filler, excluded from stats
+        and admission). Variable length is served by every path but the
+        host-synchronous bucket path."""
         thr = self.mc.threshold if threshold is None else threshold
         active = set(self.layers if active_layers is None else active_layers)
         st = stats or MemoStats()
         cfg = self.cfg
         if use_memo and self._use_fast_path():
+            # inline maintenance: the snapshot this batch served is
+            # patched only after it is finished (module docstring)
             prep = self.prepare_batch(batch, threshold=thr,
                                       active_layers=active)
             self.run_layers(prep)
             out, st, payload = self.finalize(prep, stats=st)
             self.apply_maintenance(payload, stats=st)
             return out, st
-        if use_memo and self.db is not None:
-            raise _later(f"the host-synchronous lookup path (mode "
-                         f"{self.mc.mode!r}, store {self.mc.store!r})",
-                         "select-mode")
+        capture = self._capture_now(use_memo)
+        if use_memo:
+            self._serve_batches += 1
         tokens = self._tensor(batch["tokens"])
         lengths = batch.get("lengths")
+        if lengths is not None and use_memo and self.mc.mode == "bucket":
+            raise ValueError(
+                "variable-length batches are served by the device fast "
+                "path, the select reference, or kernel mode (the "
+                "memo_attention lengths operand); the host-synchronous "
+                "bucket path is fixed-length")
         B, S = tokens.shape[0], tokens.shape[1]
-        st.n_inputs += int(batch.get("n_valid", B))
+        n_valid = int(batch.get("n_valid", B))
+        st.n_inputs += n_valid
         h = bb.embed_tokens(self.params, tokens, cfg)
         positions = self._positions(B, S)
         kpad = None
         if lengths is not None:
+            lengths = np.asarray(lengths, np.int32)
             kpad = (torch.arange(S, dtype=torch.int32, device=self.device)
-                    [None, :] < self._tensor(lengths, torch.int32)[:, None])
-        t0 = time.perf_counter()
+                    [None, :] < self._tensor(lengths)[:, None])
+        memoize = use_memo and self.db is not None
+        t_loop = time.perf_counter()
         for li, kind, lp in self._iter_layers():
-            h = self._layer_plain(lp, h, kind, li, None, positions,
-                                  kpad=kpad)
-        synchronize(self.device)
-        st.t_attn += time.perf_counter() - t0
+            memo = None
+            if memoize and li in active and kind in ("attn", "mla"):
+                memo = self._lookup(lp, h, kind, thr, st, li,
+                                    positions=positions, capture=capture,
+                                    lengths=lengths, kpad=kpad,
+                                    n_valid=n_valid)
+            t0 = time.perf_counter()
+            if memo is not None and self.mc.mode == "bucket":
+                h = self._layer_bucket(lp, h, kind, li, memo, positions)
+            elif memo is not None and self.mc.mode == "kernel" \
+                    and kind == "attn":
+                h = self._layer_kernel(lp, h, li, memo, positions,
+                                       lengths=lengths)
+            else:
+                h = self._layer_plain(lp, h, kind, li,
+                                      self._device_memo(memo), positions,
+                                      kpad=kpad)
+            if memoize:                   # per-layer time on the host path
+                synchronize(self.device)
+                st.t_attn += time.perf_counter() - t0
+        if not memoize:                   # the memo-free loop: one barrier
+            synchronize(self.device)
+            st.t_attn += time.perf_counter() - t_loop
+        self._flush_admissions(st)        # batch boundary: admit + sync
         if cfg.n_classes:
             return bb.classify_from_hidden(self.params, h, cfg,
                                            kpad=kpad), st
@@ -381,24 +474,24 @@ class MemoEngine:
     def prepare_batch(self, batch, *, threshold: Optional[float] = None,
                       active_layers: Optional[Sequence[int]] = None
                       ) -> PreparedBatch:
-        """Stage one device-resident batch: freeze the policy inputs,
-        read the store snapshot the whole batch serves against, and move
-        every host input to the device. ``run_layers`` then issues no
-        host↔device copy at all."""
+        """Stage one device-resident batch: freeze the policy inputs
+        (threshold, active layers, admission sampling), read the store
+        snapshot the whole batch serves against, and move every host
+        input to the device. ``run_layers`` then issues no host↔device
+        copy at all."""
         if not self._use_fast_path():
             raise RuntimeError(
                 "prepare_batch drives the device fast path; build() the "
-                "engine in bucket/kernel mode")
-        if self.mc.admit:
-            raise _later("miss capture and online admission", "admission")
-        if self.mc.device_quanta > 1:
-            raise _later("device_quanta > 1", "select-mode")
+                "engine in bucket/kernel mode (select and host paths go "
+                "through infer())")
         cfg = self.cfg
         tokens = self._tensor(batch["tokens"])
         lengths = batch.get("lengths")
         thr = self.mc.threshold if threshold is None else float(threshold)
         active = set(self.layers if active_layers is None
                      else active_layers)
+        capture = self._capture_now(True)
+        self._serve_batches += 1
         self.store.sync()         # generation-counted: no-op unless stale
         view = self.store.snapshot
         B, S = tokens.shape[0], tokens.shape[1]
@@ -408,26 +501,29 @@ class MemoEngine:
         positions = self._positions(B, S)
         len_dev, kpad = None, None
         if lengths is not None:
-            len_dev = self._tensor(np.asarray(lengths), torch.int32)
+            lengths = np.asarray(lengths)
+            len_dev = self._tensor(lengths, torch.int32)
             kpad = (torch.arange(S, dtype=torch.int32, device=self.device)
                     [None, :] < len_dev[:, None])
         return PreparedBatch(
-            h=h, positions=positions, kpad=kpad,
-            lengths_dev=len_dev, n_valid=n_valid, thr=thr,
-            active=active, view=view, t0=t0)
+            tokens=tokens, h=h, positions=positions, kpad=kpad,
+            lengths_dev=len_dev, lengths=lengths, n_valid=n_valid, thr=thr,
+            active=active, capture=capture, view=view, t0=t0)
 
     @torch.no_grad()
     def run_layers(self, prep: PreparedBatch) -> PreparedBatch:
         """The device-resident serving loop: every layer is device work
         only — no host synchronization, no host↔device copy (the one
         barrier lives in ``finalize``). Hit masks, predicted sims and
-        matched slots accumulate as device tensors in ``prep.pend``."""
+        matched slots accumulate as device tensors in ``prep.pend``; under
+        ``prep.capture`` so do the embeddings and true APMs."""
         h = prep.h
         for li, kind, lp in self._iter_layers():
             if li in prep.active and kind in ("attn", "mla"):
                 h, *rest = self._layer_fused(
                     lp, h, kind, li, prep.thr, prep.positions,
-                    view=prep.view, kpad=prep.kpad, qlen=prep.lengths_dev)
+                    view=prep.view, kpad=prep.kpad, qlen=prep.lengths_dev,
+                    capture=prep.capture)
                 prep.pend.append((li, *rest))
             else:
                 h = self._layer_plain(lp, h, kind, li, None, prep.positions,
@@ -455,9 +551,10 @@ class MemoEngine:
         return out, st, payload
 
     def _layer_fused(self, lp, h, kind, li, thr: float, positions, view,
-                     kpad=None, qlen=None):
+                     kpad=None, qlen=None, capture: bool = False):
         """The serving layer (see the module docstring). Returns
-        (h', sims, hits, slots), all device tensors."""
+        (h', sims, hits, slots) — plus (embs, apms_f16) under ``capture``
+        — all device tensors."""
         cfg = self.cfg
         if kind != "attn":
             raise bb._not_ported(kind)
@@ -478,40 +575,82 @@ class MemoEngine:
         # captured at the query's own true length (S when fixed-length)
         ent_len = view.lengths.index_select(0, idx0)
         hit = hit & (ent_len == (qlen if varlen else S))
-        codec = self.store.codec
         if kernel_path:
             qq, kk, vv = attn_mod._qkv(lp["mix"], x, cfg, positions)
-            kw = dict(causal=cfg.causal, window=cfg.sliding_window,
-                      lengths=qlen if varlen else None)
-            if codec.name == "int8":
-                out = memo_attention(qq, kk, vv, view.db_parts[0], idx0,
-                                     hit.to(torch.int32),
-                                     db_scales=view.db_parts[1], **kw)
-            elif codec.name == "f16":
-                out = memo_attention(qq, kk, vv, view.db_parts[0], idx0,
-                                     hit.to(torch.int32), **kw)
-            else:
-                raise _later(f"kernel mode over the {codec.name!r} codec",
-                             "lowrank-codec")
+            out = self._memo_attention(qq, kk, vv, view.db_parts, idx0, hit,
+                                       lengths=qlen)
             y = torch.einsum("bshe,hed->bsd", out, lp["mix"]["wo"])
         else:
             # compressed gather + decode through f16 (host-decode parity)
             rows = tuple(p.index_select(0, idx0) for p in view.db_parts)
-            apm = codec.decode_rows(rows).float()
+            apm = self.store.codec.decode_rows(rows).float()
             if apm.shape[-1] != S:
                 apm = apm[..., :S, :S]
-            y, _ = attn_mod.gqa_apply(
-                lp["mix"], x, cfg, positions=positions,
-                mask_kind="causal" if cfg.causal else "bidir",
-                window=cfg.sliding_window, kpad=kpad,
-                memo=attn_mod.Memo(apm=apm, hit=hit))
-        return self._chan_tail(lp, h + y, li), sim, hit, idx0
+            y = self._bucketed(lp, x, apm, hit, positions, kpad)
+        out = (self._chan_tail(lp, h + y, li), sim, hit, idx0)
+        if capture:
+            # miss capture for online admission: the TRUE APM of this
+            # input, computed exactly like the miss path, staged on the
+            # device in the arena dtype beside its embedding
+            out = out + (emb, self._apm_probe(lp, x, kind, positions,
+                                              kpad=kpad))
+        return out
+
+    def _bucketed(self, lp, x, apm, hit, positions, kpad):
+        """Bucket mode's attention over the batch: one mixed quantum, or
+        with ``device_quanta`` > 1 (dividing the batch) rows sorted
+        hit-first on the device, each quantum mixed, then un-permuted."""
+        B = x.shape[0]
+        nq = self.mc.device_quanta
+        if not (1 < nq <= B and B % nq == 0):
+            return self._mixed(lp, x, apm, hit, positions, kpad)
+        order = torch.argsort((~hit).to(torch.int32), stable=True)
+        take = (lambda t: None if t is None          # noqa: E731
+                else t.index_select(0, order))
+        x_s, apm_s, hit_s, pos_s, kp_s = map(take, (x, apm, hit, positions,
+                                                    kpad))
+        qs = B // nq
+        parts = [self._mixed(lp, x_s[g * qs:(g + 1) * qs],
+                             apm_s[g * qs:(g + 1) * qs],
+                             hit_s[g * qs:(g + 1) * qs],
+                             pos_s[g * qs:(g + 1) * qs],
+                             None if kp_s is None
+                             else kp_s[g * qs:(g + 1) * qs])
+                 for g in range(nq)]
+        return torch.cat(parts, 0).index_select(0, torch.argsort(order))
+
+    def _mixed(self, lp, x, apm, hit, positions, kpad):
+        return self._gqa(lp, x, "attn", positions, kpad=kpad,
+                         memo=attn_mod.Memo(apm=apm, hit=hit))[0]
+
+    def _memo_attention(self, q, k, v, parts, idx, hit, lengths=None):
+        """``memo_attention`` over the device DB's codec parts: int8
+        codes + f16 row scales (dequantized in the kernel) or f16."""
+        codec = self.store.codec
+        kw = dict(causal=self.cfg.causal, window=self.cfg.sliding_window,
+                  lengths=lengths)
+        hit = hit.to(torch.int32)
+        if codec.name == "int8":
+            return memo_attention(q, k, v, parts[0], idx, hit,
+                                  db_scales=parts[1], **kw)
+        if codec.name == "f16":
+            return memo_attention(q, k, v, parts[0], idx, hit, **kw)
+        raise _later(f"kernel mode over the {codec.name!r} codec",
+                     "lowrank-codec")
+
+    def _capture_now(self, use_memo: bool) -> bool:
+        """Admission sampling: capture misses on every Nth served batch
+        (``admit_every``) when online admission is enabled."""
+        return (use_memo and self.mc.admit and self.store is not None
+                and self._serve_batches % max(1, self.mc.admit_every) == 0)
 
     def _drain_stats(self, prep: PreparedBatch,
                      st: MemoStats) -> MaintenancePayload:
-        """Materialize the per-layer device counters in two stacked
-        transfers per batch (sims+hits as one f32 block, slots as one
-        i32 block), after the trailing barrier."""
+        """Materialize the per-layer device counters after the trailing
+        barrier in stacked transfers: sims+hits as one f32 block, slots
+        as one i32 block, and under capture the embeddings and the f16
+        APMs. Rows past ``n_valid`` are dropped. Returns the payload
+        without touching the store."""
         pend = prep.pend
         out = MaintenancePayload(
             generation=getattr(prep.view, "generation", -1))
@@ -532,24 +671,163 @@ class MemoEngine:
             st.sims.extend(s_row.tolist())
         if hits.any():
             out.reuse_slots = slots[hits]
+        if prep.capture and len(pend[0]) > 4:
+            embs = torch.stack([p[4] for p in pend]).cpu().numpy()[:, :nv]
+            apms = torch.stack([p[5] for p in pend]).cpu().numpy()[:, :nv]
+            lens = None if prep.lengths is None else prep.lengths[:nv]
+            for l in range(embs.shape[0]):
+                miss = ~hits[l]
+                if miss.any():
+                    out.admissions.append(self._stage_capture(
+                        apms[l][miss], embs[l][miss],
+                        None if lens is None else lens[miss]))
         return out
+
+    def _stage_capture(self, apms, embs, lens):
+        """Normalize one captured miss block for admission: pad the APMs
+        to the arena (calibration) length and zero the pad-query rows, so
+        a stored entry is the same whichever bucket captured it; only its
+        true length matters (the length gate replays it only there)."""
+        S_max = self.store.apm_shape[-1]
+        B, H, S = apms.shape[:3]
+        lens = (np.full(B, S, np.int32) if lens is None
+                else np.asarray(lens).astype(np.int32, copy=False))
+        if S < S_max:
+            padded = np.zeros((B, H, S_max, S_max), apms.dtype)
+            padded[:, :, :S, :S] = apms
+            apms = padded
+        if (lens < S_max).any():
+            row_ok = np.arange(S_max)[None, :] < lens[:, None]
+            apms = apms * row_ok[:, None, :, None].astype(apms.dtype)
+        return apms, embs, lens
 
     def apply_maintenance(self, payload: Optional[MaintenancePayload],
                           stats: Optional[MemoStats] = None) -> None:
-        """Run one batch's host-tier store work (reuse-clock feeding and
-        a generation-counted sync when the tiers diverged). Payload
-        fields are consumed as they land, so a retry cannot double-count."""
+        """Run one batch's host-tier store work: reuse-clock feeding,
+        budgeted admission + eviction, the generation-counted delta sync
+        and periodic recalibration. Payload fields are consumed as they
+        land, so a retry cannot double-count or double-admit."""
         if payload is None or self.store is None:
             return
+        st = stats or MemoStats()
         if payload.reuse_slots is not None and payload.reuse_slots.size:
             slots, payload.reuse_slots = payload.reuse_slots, None
             self.store.note_reuse(slots)
+        if payload.admissions:
+            adds, payload.admissions = payload.admissions, []
+            self._pending_admissions.extend(adds)
+        self._flush_admissions(st)
         if self.store.device_stale:
             self.store.sync()
 
+    def _flush_admissions(self, st: MemoStats):
+        """Batch-boundary admission: push captured misses into the host
+        tier under the byte budget, then delta-sync the device tier."""
+        if not self._pending_admissions:
+            return
+        pend, self._pending_admissions = self._pending_admissions, []
+        apms = np.concatenate([p[0] for p in pend], 0)
+        embs = np.concatenate([p[1] for p in pend], 0)
+        lens = np.concatenate([p[2] for p in pend], 0)
+        if apms.shape[0]:
+            slots = self.store.admit(apms, embs, lens)
+            st.add_admitted(int(slots.size))
+            self.store.sync()
+            self._flush_count += 1
+            if self.mc.recal_every:
+                self._recal_buf.append((apms, embs))
+                self._recal_buf = self._recal_buf[-16:]   # rolling window
+                if self._flush_count % self.mc.recal_every == 0:
+                    self._recalibrate_online()
+                    # re-publish so the next batch serves the new sim_cal
+                    self.store.publish()
+
+    def _recalibrate_online(self, n_pairs: int = 192, blend: float = 0.5):
+        """Refit sim ≈ a·dist + b from recently captured misses (each
+        carries its embedding and its true APM, the data build-time
+        ``_calibrate`` uses), blended with the old fit (EMA)."""
+        apms = np.concatenate([a for a, _ in self._recal_buf], 0)
+        embs = np.concatenate([e for _, e in self._recal_buf], 0)
+        n = apms.shape[0]
+        if n < 8:
+            return
+        rng = np.random.default_rng(self._serve_batches)
+        ia, ib = rng.integers(0, n, n_pairs), rng.integers(0, n, n_pairs)
+        dist = np.linalg.norm(embs[ia] - embs[ib], axis=-1)
+        if np.std(dist) < 1e-9:
+            return
+        sim = similarity_score(torch.from_numpy(apms[ia]).float(),
+                               torch.from_numpy(apms[ib]).float()).numpy()
+        a, b = np.polyfit(dist, sim, 1)
+        a0, b0 = self.sim_cal
+        self.sim_cal = (blend * float(a) + (1 - blend) * a0,
+                        blend * float(b) + (1 - blend) * b0)
+
+    # ----------------------------------------- host-synchronous lookup
+    def _lookup(self, lp, h, kind, thr, st: MemoStats, li, positions=None,
+                capture: bool = False, lengths=None, kpad=None,
+                n_valid: Optional[int] = None) -> attn_mod.Memo:
+        """Embed on the device, search the host index, apply the
+        threshold and the length gate on the host, gather the APM batch
+        from the host arena. Returns a ``Memo`` of HOST arrays (the f16
+        APM batch, hits, slots); each layer form copies what it needs."""
+        cfg = self.cfg
+        S = h.shape[1]
+        nv = h.shape[0] if n_valid is None else n_valid
+        t0 = time.perf_counter()
+        x = norm_apply(lp["norm1"], h, cfg.norm)
+        emb = self._embed(x, lengths=None if lengths is None
+                          else self._tensor(lengths, torch.int32))
+        synchronize(self.device)
+        t1 = time.perf_counter()
+        emb_np = emb.cpu().numpy()
+        dist, idx = self.store.lookup(emb_np, 1)
+        sim_est = self.predict_sim(dist[:, 0])
+        hit = sim_est > thr
+        # length gate (host leg), ALWAYS on — a fixed-length batch's true
+        # length is S
+        ent = self.store.entry_lengths(idx[:, 0])
+        hit = hit & (ent == (lengths if lengths is not None else S))
+        t2 = time.perf_counter()
+        apm = self.db.get(idx[:, 0])                     # host arena gather
+        if apm.shape[-1] != S:
+            apm = apm[:, :, :S, :S]      # arena rows sliced to the bucket
+        t3 = time.perf_counter()
+        st.t_embed += t1 - t0
+        st.t_search += t2 - t1
+        st.t_fetch += t3 - t2
+        st.n_layer_attempts += nv
+        nh = int(hit[:nv].sum())
+        st.n_hits += nh
+        st.per_layer_hits[li] = st.per_layer_hits.get(li, 0) + nh
+        st.sims.extend(sim_est[:nv].tolist())
+        if capture and positions is not None and (~hit[:nv]).any():
+            apm_true = self._apm_probe(lp, x, kind, positions,
+                                       kpad=kpad).cpu().numpy()
+            miss = ~hit[:nv]
+            self._pending_admissions.append(self._stage_capture(
+                apm_true[:nv][miss], emb_np[:nv][miss],
+                None if lengths is None else lengths[:nv][miss]))
+        return attn_mod.Memo(apm=apm, hit=hit, idx=idx[:, 0])
+
+    def _device_memo(self, memo: Optional[attn_mod.Memo]):
+        """A host ``Memo`` on the device for the select layer: the f16
+        APM batch is copied once (``_sdpa`` casts it there)."""
+        if memo is None:
+            return None
+        return attn_mod.Memo(apm=self._tensor(memo.apm),
+                             hit=self._tensor(memo.hit))
+
+    def _apm_probe(self, lp, x, kind, positions, kpad=None):
+        """The true APM of the normed input with the exact miss-path
+        semantics, in the arena dtype (f16): the capture of admission."""
+        return self._gqa(lp, x, kind, positions, kpad=kpad,
+                         return_apm=True)[1].half()
+
     # -- layer application --------------------------------------------------
     def _chan_tail(self, lp, h, li):
-        """norm2 + MLP tail shared by the fused and plain layers."""
+        """norm2 + MLP tail shared by every layer form (the reference's
+        ``_chan_only`` too)."""
         cfg = self.cfg
         if bb._chan_kind(cfg, li) != "mlp":
             raise bb._not_ported(bb._chan_kind(cfg, li))
@@ -560,3 +838,149 @@ class MemoEngine:
         out, _ = bb._layer_apply(lp, h, self.cfg, kind, li, mode="full",
                                  positions=positions, memo=memo, kpad=kpad)
         return out
+
+    def _layer_bucket(self, lp, h, kind, li, memo, positions):
+        """Split rows into hit/miss buckets, each padded to a power-of-2
+        multiple of ``bucket_quantum``: hits run the memo-only attention
+        (no Q/K projection, QKᵀ or softmax), misses run normally; only the
+        hit rows' APMs are copied to the device. Fixed-length only."""
+        cfg = self.cfg
+        hit = np.asarray(memo.hit)
+        B = h.shape[0]
+        hit_idx = np.nonzero(hit)[0]
+        miss_idx = np.nonzero(~hit)[0]
+        if hit_idx.size == 0:
+            return self._layer_plain(lp, h, kind, li, None, positions)
+        q = self.mc.bucket_quantum
+
+        def pad_to(n):
+            p = q
+            while p < n:
+                p *= 2
+            return min(p, B)
+
+        def bucket(idx):
+            """Row ids padded to ``pad_to`` (filler rows repeat row 0) and
+            their 0/1 keep weights."""
+            size = pad_to(idx.size)
+            sel = np.concatenate([idx, np.zeros(size - idx.size, np.int64)])
+            keep = (np.arange(size) < idx.size).astype(np.float32)
+            return sel, self._tensor(sel), self._tensor(keep)[:, None, None]
+
+        sel_np, sel_h, keep_h = bucket(hit_idx)
+        x = norm_apply(lp["norm1"], h, cfg.norm)
+        y = torch.zeros_like(h)
+        # ship only the hit APMs, in the arena dtype (f16); cast there
+        apm_hit = self._tensor(memo.apm[sel_np]).float()
+        y_hit = self._memo_only(lp, x.index_select(0, sel_h), kind, apm_hit)
+        y.index_add_(0, sel_h, y_hit * keep_h)
+        if miss_idx.size:
+            _, sel_m, keep_m = bucket(miss_idx)
+            y_miss = self._attn_only(lp, x.index_select(0, sel_m), kind,
+                                     positions.index_select(0, sel_m))
+            y.index_add_(0, sel_m, y_miss * keep_m)
+        return self._chan_tail(lp, h + y, li)
+
+    def _layer_kernel(self, lp, h, li, memo, positions, lengths=None):
+        """The host-synchronous kernel-mode layer: ``memo_attention`` over
+        the device DB by the host lookup's slots and hits; ``lengths``
+        (host, (B,)) masks padded keys per sequence."""
+        cfg = self.cfg
+        self.store.sync()        # generation-counted: no-op unless stale
+        x = norm_apply(lp["norm1"], h, cfg.norm)
+        q, k, v = attn_mod._qkv(lp["mix"], x, cfg, positions)
+        out = self._memo_attention(
+            q, k, v, self.device_db.parts,
+            self._tensor(memo.idx, torch.int32), self._tensor(memo.hit),
+            lengths=None if lengths is None
+            else self._tensor(lengths, torch.int32))
+        y = torch.einsum("bshe,hed->bsd", out, lp["mix"]["wo"])
+        return self._chan_tail(lp, h + y, li)
+
+    def _gqa(self, lp, x, kind, positions, *, kpad=None, memo=None,
+             return_apm=False):
+        """``gqa_apply`` with the model's mask kind and window: every full
+        attention the engine runs beside the memoized forms. Returns
+        (y, apm or None)."""
+        cfg = self.cfg
+        if kind != "attn":
+            raise bb._not_ported(kind)
+        return attn_mod.gqa_apply(
+            lp["mix"], x, cfg, positions=positions,
+            mask_kind="causal" if cfg.causal else "bidir",
+            window=cfg.sliding_window, kpad=kpad, memo=memo,
+            return_apm=return_apm)
+
+    def _memo_only(self, lp, x, kind, apm):
+        """Memo-only attention (V and APM·V): the hit branch's cost."""
+        if kind != "attn":
+            raise bb._not_ported(kind)
+        return attn_mod.gqa_apply_memo(lp["mix"], x, self.cfg, apm)
+
+    def _attn_only(self, lp, x, kind, positions):
+        """Full attention with projections: the miss branch's cost."""
+        return self._gqa(lp, x, kind, positions)[0]
+
+    # ------------------------------------------------------------- selective
+    def _fused_lookup_probe(self, x):
+        """The memo overhead the fast path pays, minus the attention both
+        branches share: embed → device search (``nn_search``) →
+        compressed gather → decode. Returns (sims, f32 APM rows)."""
+        store, e = self.store, self.embedder
+        emb = embed_apply(e.params, x, e.pool, e.act)
+        di = store.device_index
+        d2, idx = di.search_device(emb, args=di.search_args)
+        idx0 = idx[:, 0].to(torch.int32)
+        rows = tuple(p.index_select(0, idx0) for p in store.device_db.parts)
+        a, b = self.sim_cal
+        dist = torch.sqrt(torch.clamp(d2[:, 0], min=0.0))
+        return a * dist + b, store.codec.decode_rows(rows).float()
+
+    @torch.no_grad()
+    def profile(self, batch, *, alpha_from: Optional[MemoStats] = None
+                ) -> PerfModel:
+        """Offline profiler (paper §5.4): per-layer attention time and
+        memo overhead on a calibration batch; α from ``alpha_from`` or a
+        dry ``infer``. The overhead is measured on the path that will
+        serve: the device lookup when the fast path is active, the host
+        chain otherwise."""
+        cfg = self.cfg
+        fast = self._use_fast_path()
+        if fast:
+            self.store.sync()      # materialize the tier the probe times
+        tokens = self._tensor(batch["tokens"])
+        h = bb.embed_tokens(self.params, tokens, cfg)
+        positions = self._positions(tokens.shape[0], tokens.shape[1])
+        if alpha_from is None:
+            st = MemoStats()
+            self.infer(batch, stats=st)
+            alpha_from = st
+        dev = self.device
+        profiles = {}
+        for li, kind, lp in self._iter_layers():
+            if li not in self.layers:
+                h = self._layer_plain(lp, h, kind, li, None, positions)
+                continue
+            t_attn = timeit_median(
+                lambda lp=lp, h=h, k=kind: self._attn_only(lp, h, k,
+                                                           positions),
+                reps=3, device=dev)
+            if fast:
+                t_over = timeit_median(
+                    lambda h=h: self._fused_lookup_probe(h), reps=3,
+                    device=dev)
+            else:
+                t_over = timeit_median(lambda h=h: self._embed(h), reps=3,
+                                       device=dev)
+                emb = self._embed(h).cpu().numpy()
+                t0 = time.perf_counter()
+                dist, idx = self.index.search(emb, 1)
+                self.db.get(idx[:, 0], count_reuse=False)
+                t_over += time.perf_counter() - t0
+            alpha = (alpha_from.per_layer_hits.get(li, 0)
+                     / max(1, alpha_from.n_inputs))
+            profiles[li] = LayerProfile(t_attn=t_attn, t_overhead=t_over,
+                                        alpha=min(1.0, alpha))
+            h = self._layer_plain(lp, h, kind, li, None, positions)
+        self.perf = PerfModel(profiles)
+        return self.perf

@@ -163,6 +163,12 @@ class MemoStore:
     def default_len(self) -> int:
         return int(self.apm_shape[-1])
 
+    def entry_lengths(self, slots) -> np.ndarray:
+        """Valid sequence length per slot (−1 for dead slots): the host
+        leg of the length gate; the device leg rides in the snapshot."""
+        slots = np.asarray(slots).reshape(-1)
+        return self._lens_host[slots]
+
     def embeddings_at(self, slots) -> np.ndarray:
         slots = np.asarray(slots).reshape(-1)
         return self._embs_host[slots].copy()

@@ -1,6 +1,7 @@
 """MemoSession — the facade over the memoization stack, the counterpart
 of the reference's ``memo/session.py`` (build / infer / stats /
-suggest_levels; ``save``/``load`` and ``serve`` wait for later slices)::
+suggest_levels / autotune / profile; ``save``/``load`` and ``serve`` wait
+for later slices)::
 
     from repro_torch.memo import MemoSession, MemoSpec
 
@@ -85,6 +86,10 @@ class MemoSession:
         levels = self.suggest_levels(batches)
         self.spec.runtime.threshold = float(levels[level])
         return levels
+
+    def profile(self, batch, **kwargs):
+        """Selective-memoization profiler (paper §5.4) → ``PerfModel``."""
+        return self.engine.profile(batch, **kwargs)
 
     def stats(self) -> Dict[str, object]:
         """One summary dict across serving and store lifecycle."""

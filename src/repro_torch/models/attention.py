@@ -6,7 +6,8 @@ tree's (``wq (d,H,dh)``, ``wo (H,dh,d)``). Each full-sequence apply can
   * capture the attention-probability matrix (APM) — AttMemo's memoized
     quantity — via ``return_apm=True``;
   * consume a memoized APM override via ``memo=Memo(apm, hit)`` where
-    ``apm: (B, H, S, S)`` and ``hit: (B,) bool``.
+    ``apm: (B, H, S, S)`` and ``hit: (B,) bool`` (``idx``, the matched
+    slots, rides along for the engine's kernel-mode layer).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.models.layers import apply_rope, dense_init
 class Memo(NamedTuple):
     apm: torch.Tensor          # (B, H, Sq, Sk) memoized probabilities
     hit: torch.Tensor          # (B,) bool
+    idx: Optional[torch.Tensor] = None   # (B,) matched slots
 
 
 # ---------------------------------------------------------------------------

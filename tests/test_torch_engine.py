@@ -207,18 +207,23 @@ def test_session_end_to_end_on_cpu(codec):
 
 
 def test_unported_paths_raise(built, monkeypatch):
-    _, teng, queries = built
-    spec = teng.mc
-    for field, value, match in (("mode", "select", "select-mode"),
-                                ("device_quanta", 2, "select-mode"),
-                                ("admit", True, "admission")):
-        old = getattr(spec, field)
+    """What later slices still own raises ``NotImplementedError`` naming
+    it: the lowrank codec and the ivf host index when the store is made,
+    the clustered device index when it is synced. (Select mode,
+    ``device_quanta > 1`` and admission serve now:
+    ``tests/test_torch_select.py``, ``tests/test_torch_admission.py``.)"""
+    jeng, teng, queries = built
+    for field, value, match in (("apm_codec", "lowrank", "lowrank-codec"),
+                                ("index_kind", "ivf", "'ivf' index"),
+                                ("device_index", "clustered",
+                                 "'clustered' index")):
+        spec = teng.mc.copy()
+        spec.mode = "kernel"
         setattr(spec, field, value)
-        try:
-            with pytest.raises(NotImplementedError, match=match):
-                teng.infer({"tokens": queries[0]})
-        finally:
-            setattr(spec, field, old)
+        with pytest.raises(NotImplementedError, match=match):
+            eng = engine_from_reference(jeng, teng.model, device="cpu",
+                                        spec=spec)
+            eng.infer({"tokens": queries[0]})
     cfg, _ = _cfgs()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -3,6 +3,9 @@ card (``pytest -m gpu tests/test_torch_kernels_gpu.py``). No JAX here:
 the machine with the card has none. Without a card every test skips.
 Inputs come from ``chip_smoke.attention_case``, ``flash_case``,
 ``nn_case`` and ``wkv_case``, the generators the chip smoke test uses.
+Two tests drive a small bert_base session on the card through the
+engine's host-synchronous kernel mode and online admission, with
+chip_smoke's checks (``compare_decisions``, ``admission_read_back``).
 
 Tolerances (``chip_smoke.ATOL``, ``WKV_RTOL``): attention outputs within
 2e-5 absolute — both sides compute in f32 and differ only in summation
@@ -12,9 +15,10 @@ search indices must be EQUAL (ties → the lowest index)."""
 import pytest
 import torch
 
-from chip_smoke import (ATOL, TILE_EDGES, attention_case, flash_case,
-                        nn_case, nn_tie_ok, trace, wkv_case, wkv_cases,
-                        wkv_err)
+from chip_smoke import (ATOL, TILE_EDGES, admission_read_back,
+                        attention_case, compare_decisions, drive,
+                        flash_case, nn_case, nn_tie_ok, trace, wkv_case,
+                        wkv_cases, wkv_err)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.memo_attention.ops import memo_attention
@@ -234,3 +238,83 @@ def test_wkv6_against_plain(cuda, B, S, nh, N, decay_mean, chunk):
     print(f"rwkv6 S={S} N={N} chunk={chunk} max|err|={err:.3e} "
           f"(tolerance {tol:.1e})")
     assert err <= tol
+
+
+def _small_session(cuda, **spec):
+    """A 2-layer, d 128 bert_base session built on the card from 3
+    calibration batches of 16 (96 entries)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import TemplateCorpus
+    from repro_torch.memo import MemoSpec
+    from repro_torch.memo.session import MemoSession
+    from repro_torch.models import build_model
+    cfg = get_reduced("bert_base").replace(n_layers=2, d_model=128,
+                                           d_ff=256)
+    corpus = TemplateCorpus(vocab=cfg.vocab, seq_len=32, n_templates=6,
+                            slot_fraction=0.2)
+    model = build_model(cfg, device=cuda)
+    calib = [{"tokens": corpus.sample(16)[0]} for _ in range(3)]
+    sess = MemoSession.build(model, model.init(0),
+                             MemoSpec.flat(embed_steps=20, **spec),
+                             batches=calib, device=cuda)
+    return sess, corpus, calib
+
+
+@pytest.mark.parametrize("level", ["all_hit", "moderate"])
+def test_host_kernel_mode_matches_select(cuda, level):
+    """Host-synchronous kernel mode (``memo_attention`` over the device
+    DB by the host lookup's slots) against select mode on the same f16
+    store: decisions equal except within SIM_MARGIN of the threshold,
+    logits within 1e-4 (both replay the same f16 APMs; only the f32
+    summation order differs); one launch per memoized layer and batch."""
+    sess, corpus, calib = _small_session(cuda, device_fast_path=False,
+                                         apm_codec="f16")
+    requests = [calib[0], {"tokens": corpus.sample(16)[0]}]
+    if level == "moderate":
+        sess.autotune([{"tokens": corpus.sample(16)[0]}], "moderate")
+    else:
+        sess.spec.runtime.threshold = -1e9
+    runs, per_path = {}, {}
+    for mode in ("select", "kernel"):
+        sess.spec.runtime.mode = mode
+        runs[mode] = drive(torch, sess, requests, mode, per_path)
+    assert per_path["kernel"]["memo_attention"] == 2 * len(requests)
+    assert per_path["select"]["memo_attention"] == 0
+    res = compare_decisions(torch, "host kernel", runs["kernel"], "select",
+                            runs["select"], sess.spec.runtime.threshold,
+                            1e-4, "f16 store: summation order")
+    assert res["rows"] > 0
+    if level == "all_hit":
+        assert runs["kernel"]["rate"] == 1.0
+
+
+def test_admission_reads_back(cuda):
+    """Kernel-mode admission on the card: ``run_layers`` with capture on
+    makes no host sync (``drive`` runs it under
+    ``set_sync_debug_mode("error")``), every miss is admitted under a
+    budget of 8 entries above the built store (so it evicts), and the
+    last flush's entries read back from the device tier."""
+    sess, corpus, _ = _small_session(cuda, mode="kernel", admit=True,
+                                     recal_every=1, device_index="flat")
+    store = sess.store
+    store.budget_bytes = int((len(store) + 8.5) * store.entry_nbytes)
+    admitted = []
+    real_admit = store.admit
+
+    def admit(*a, **k):
+        slots = real_admit(*a, **k)
+        admitted.append(slots)
+        return slots
+    store.admit = admit
+    cal0 = store.sim_cal
+    requests = [{"tokens": corpus.sample(8)[0]} for _ in range(3)]
+    per_path = {}
+    r = drive(torch, sess, requests, "admission", per_path, threshold=1e9)
+    ss = store.stats
+    assert per_path["admission"]["memo_attention"] == 2 * len(requests)
+    assert r["stats"].n_admitted == 2 * 8 * len(requests)   # all missed
+    assert ss.n_evicted > 0 and ss.n_delta_syncs > 0
+    assert store.live_count == store.budget_entries
+    assert store.sim_cal != cal0                            # recalibrated
+    worst, _ = admission_read_back(torch, store, admitted[-1])
+    assert worst <= 1e-6
