@@ -89,6 +89,10 @@ SEQ, BATCH, CALIB_BATCHES, FRESH_BATCHES = 128, 32, 8, 6
 # H100 (PERF.md), held here with a 10x margin.
 MODE_GAP = 2e-3
 SIM_MARGIN = 1e-3    # a decision within this of the threshold may flip
+# two paths that replay the same f16-decoded APMs (host bucket vs select,
+# device_quanta 4 vs 1) differ by f32 reassociation alone: 5.96e-6 and
+# 9.30e-6 measured on the H100 (PERF.md), held here with a 10x margin
+REPLAY_GAP = 1e-4
 # the admission phase's byte budget, in entries above the built store: a
 # batch admits ~230 misses, so the second batch already evicts
 ADMIT_HEADROOM = 256
@@ -575,6 +579,40 @@ class SyncFreeRunLayers:
         del self.eng.run_layers
 
 
+class TimeCalls:
+    """While active, sums the host seconds and counts the calls of each
+    ``label: (obj, attr)`` method, wrapped on the instance (an earlier
+    instance wrapper is restored on exit)."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.secs = {k: 0.0 for k in targets}
+        self.calls = {k: 0 for k in targets}
+
+    def __enter__(self):
+        self.saved = {}
+        for label, (obj, attr) in self.targets.items():
+            self.saved[label] = obj.__dict__.get(attr)
+            real = getattr(obj, attr)
+
+            def timed(*a, _l=label, _r=real, **k):
+                t = time.perf_counter()
+                try:
+                    return _r(*a, **k)
+                finally:
+                    self.secs[_l] += time.perf_counter() - t
+                    self.calls[_l] += 1
+            setattr(obj, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (obj, attr) in self.targets.items():
+            if self.saved[label] is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, self.saved[label])
+
+
 class HostLookups:
     """While active, records each host lookup's hits ((L, B) per batch)."""
 
@@ -1048,7 +1086,8 @@ def serve_policies(torch, dev, sess, main, per_path):
         MODE_GAP, "int8 gap")
     out["host_bucket_vs_select"] = compare_decisions(
         torch, "host_bucket", host["host_bucket"], "select",
-        host["select"], thr, MODE_GAP, "f32 reassociation")
+        host["select"], thr, REPLAY_GAP,
+        "same f16 APMs, f32 reassociation")
     out["host_kernel_vs_select"] = compare_decisions(
         torch, "host_kernel", host["host_kernel"], "select",
         host["select"], thr, MODE_GAP, "int8 gap")
@@ -1070,7 +1109,8 @@ def serve_policies(torch, dev, sess, main, per_path):
     out["apm_copy"] = dict(mb=apm.nbytes / 1e6, ms=copy_ms)
     del host
 
-    # the bucket fast path with rows sorted hit-first into 4 quanta
+    # the bucket fast path at device_quanta=4 (served as one mixed
+    # quantum: the same values as quanta 1, no host read)
     rt.mode, rt.device_quanta = "bucket", 4
     r = drive(torch, sess, requests, "quanta", per_path)
     device_profile(torch, "bucket fast-path batch, device_quanta=4",
@@ -1085,7 +1125,8 @@ def serve_policies(torch, dev, sess, main, per_path):
     out["quanta"] = dict(ms=r["ms"], hit_rate=r["rate"],
                          **compare_decisions(torch, "quanta=4", r,
                                              "quanta=1", main["bucket"],
-                                             thr, 1e-4, "f32 reassociation"))
+                                             thr, REPLAY_GAP,
+                                             "f32 reassociation"))
     del r
 
     # selective memoization: the profiler, then kernel mode over its
@@ -1142,8 +1183,25 @@ def serve_policies(torch, dev, sess, main, per_path):
         admitted.append(slots)
         return slots
     store.admit = admit
-    r = drive(torch, sess, requests, "admission", per_path)
+    # host time of the maintenance steps, summed over the warm-up and the
+    # counted batches (one drain each); admit holds encode, CRC and evict
+    db = store.db
+    timers = TimeCalls({
+        "drain": (eng, "_drain_stats"), "admit": (store, "admit"),
+        "encode": (db.codec, "encode"), "crc": (db, "_crc_rows"),
+        "evict": (store, "evict"), "sync": (store, "sync"),
+        "recalibrate": (eng, "_recalibrate_online")})
+    with timers:
+        r = drive(torch, sess, requests, "admission", per_path)
     del store.admit
+    n_drain = max(1, timers.calls["drain"])
+    maint = {k: dict(ms_per_batch=v * 1e3 / n_drain,
+                     calls=timers.calls[k])
+             for k, v in timers.secs.items()}
+    print("[policy] admission host time per batch (" + ", ".join(
+        f"{k} {m['ms_per_batch']:.2f} ms in {m['calls']} calls"
+        for k, m in maint.items()) + f"; {n_drain} batches; admit holds "
+        f"encode, crc and evict)")
     after = sess.stats()["store"]
     delta = {k: after[k] - before[k] for k in ("admitted", "evicted",
                                                "delta_syncs", "full_syncs")}
@@ -1175,7 +1233,7 @@ def serve_policies(torch, dev, sess, main, per_path):
     out["admission"] = dict(ms=r["ms"], hit_rate=r["rate"],
                             n_admitted=r["stats"].n_admitted, store=delta,
                             sim_cal=[list(cal0), list(store.sim_cal)],
-                            read_back_max_d2_rel=worst,
+                            read_back_max_d2_rel=worst, host_ms=maint,
                             read_back_other_slot=other)
     return out
 

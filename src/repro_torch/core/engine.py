@@ -18,19 +18,19 @@ only: no host synchronization inside ``run_layers``, one barrier in
 * ``bucket`` — the search goes through the ``nn_search`` kernel; the
   batch's APM rows are gathered and decoded (through f16, like the host
   decode) and attention runs the mixed formulation (``gqa_apply`` with a
-  ``Memo`` override). With ``device_quanta > 1`` rows are sorted
-  hit-first on the device and each quantum runs the mixed form. The
-  reference picks all-hit / all-miss / mixed per quantum with
-  ``lax.cond`` on a device scalar; eager PyTorch would need a host read
-  for that branch, so the port computes the mixed form for every row —
-  the same values within f32 reassociation, without the hit-skip.
+  ``Memo`` override) over the whole batch. ``device_quanta > 1`` is
+  served the same way: the reference sorts rows hit-first into quanta
+  and picks all-hit / all-miss / mixed per quantum with ``lax.cond`` on
+  a device scalar; eager PyTorch would need a host read for that branch,
+  and without it every quantum runs the mixed form, so the port runs one
+  mixed quantum — the same values, no hit-skip (ROADMAP known gaps).
 
 **The host-synchronous path** (``select``, and ``bucket``/``kernel``
 with ``device_fast_path=False`` or the host store): per layer, embed on
 the device, search the host index, gate on the host and gather the APM
 batch from the host arena (``_lookup``). ``select`` combines both
-attention branches per row; ``bucket`` splits the batch into padded
-hit/miss buckets, so hit rows skip QKᵀ and softmax (``_layer_bucket``);
+attention branches per row; ``bucket`` splits the batch into hit and
+miss rows, so hit rows skip QKᵀ and softmax (``_layer_bucket``);
 ``kernel`` runs ``memo_attention`` over the device DB
 (``_layer_kernel``). Variable-length batches are served everywhere but
 on the host bucket path.
@@ -586,7 +586,8 @@ class MemoEngine:
             apm = self.store.codec.decode_rows(rows).float()
             if apm.shape[-1] != S:
                 apm = apm[..., :S, :S]
-            y = self._bucketed(lp, x, apm, hit, positions, kpad)
+            y = self._gqa(lp, x, "attn", positions, kpad=kpad,
+                          memo=attn_mod.Memo(apm=apm, hit=hit))[0]
         out = (self._chan_tail(lp, h + y, li), sim, hit, idx0)
         if capture:
             # miss capture for online admission: the TRUE APM of this
@@ -595,33 +596,6 @@ class MemoEngine:
             out = out + (emb, self._apm_probe(lp, x, kind, positions,
                                               kpad=kpad))
         return out
-
-    def _bucketed(self, lp, x, apm, hit, positions, kpad):
-        """Bucket mode's attention over the batch: one mixed quantum, or
-        with ``device_quanta`` > 1 (dividing the batch) rows sorted
-        hit-first on the device, each quantum mixed, then un-permuted."""
-        B = x.shape[0]
-        nq = self.mc.device_quanta
-        if not (1 < nq <= B and B % nq == 0):
-            return self._mixed(lp, x, apm, hit, positions, kpad)
-        order = torch.argsort((~hit).to(torch.int32), stable=True)
-        take = (lambda t: None if t is None          # noqa: E731
-                else t.index_select(0, order))
-        x_s, apm_s, hit_s, pos_s, kp_s = map(take, (x, apm, hit, positions,
-                                                    kpad))
-        qs = B // nq
-        parts = [self._mixed(lp, x_s[g * qs:(g + 1) * qs],
-                             apm_s[g * qs:(g + 1) * qs],
-                             hit_s[g * qs:(g + 1) * qs],
-                             pos_s[g * qs:(g + 1) * qs],
-                             None if kp_s is None
-                             else kp_s[g * qs:(g + 1) * qs])
-                 for g in range(nq)]
-        return torch.cat(parts, 0).index_select(0, torch.argsort(order))
-
-    def _mixed(self, lp, x, apm, hit, positions, kpad):
-        return self._gqa(lp, x, "attn", positions, kpad=kpad,
-                         memo=attn_mod.Memo(apm=apm, hit=hit))[0]
 
     def _memo_attention(self, q, k, v, parts, idx, hit, lengths=None):
         """``memo_attention`` over the device DB's codec parts: int8
@@ -756,8 +730,8 @@ class MemoEngine:
         dist = np.linalg.norm(embs[ia] - embs[ib], axis=-1)
         if np.std(dist) < 1e-9:
             return
-        sim = similarity_score(torch.from_numpy(apms[ia]).float(),
-                               torch.from_numpy(apms[ib]).float()).numpy()
+        sim = similarity_score(self._tensor(apms[ia]).float(),
+                               self._tensor(apms[ib]).float()).cpu().numpy()
         a, b = np.polyfit(dist, sim, 1)
         a0, b0 = self.sim_cal
         self.sim_cal = (blend * float(a) + (1 - blend) * a0,
@@ -840,45 +814,30 @@ class MemoEngine:
         return out
 
     def _layer_bucket(self, lp, h, kind, li, memo, positions):
-        """Split rows into hit/miss buckets, each padded to a power-of-2
-        multiple of ``bucket_quantum``: hits run the memo-only attention
-        (no Q/K projection, QKᵀ or softmax), misses run normally; only the
-        hit rows' APMs are copied to the device. Fixed-length only."""
+        """Split rows into hit and miss buckets: hits run the memo-only
+        attention (no Q/K projection, QKᵀ or softmax), misses run
+        normally; only the hit rows' APMs are copied to the device.
+        Buckets are exact-size: the reference pads them to powers of two
+        of ``bucket_quantum`` to bound its compiled shapes, which eager
+        PyTorch does not have. Fixed-length only."""
         cfg = self.cfg
         hit = np.asarray(memo.hit)
-        B = h.shape[0]
         hit_idx = np.nonzero(hit)[0]
         miss_idx = np.nonzero(~hit)[0]
         if hit_idx.size == 0:
             return self._layer_plain(lp, h, kind, li, None, positions)
-        q = self.mc.bucket_quantum
-
-        def pad_to(n):
-            p = q
-            while p < n:
-                p *= 2
-            return min(p, B)
-
-        def bucket(idx):
-            """Row ids padded to ``pad_to`` (filler rows repeat row 0) and
-            their 0/1 keep weights."""
-            size = pad_to(idx.size)
-            sel = np.concatenate([idx, np.zeros(size - idx.size, np.int64)])
-            keep = (np.arange(size) < idx.size).astype(np.float32)
-            return sel, self._tensor(sel), self._tensor(keep)[:, None, None]
-
-        sel_np, sel_h, keep_h = bucket(hit_idx)
         x = norm_apply(lp["norm1"], h, cfg.norm)
-        y = torch.zeros_like(h)
+        y = torch.empty_like(h)
+        sel_h = self._tensor(hit_idx)
         # ship only the hit APMs, in the arena dtype (f16); cast there
-        apm_hit = self._tensor(memo.apm[sel_np]).float()
-        y_hit = self._memo_only(lp, x.index_select(0, sel_h), kind, apm_hit)
-        y.index_add_(0, sel_h, y_hit * keep_h)
+        apm_hit = self._tensor(memo.apm[hit_idx]).float()
+        y.index_copy_(0, sel_h, self._memo_only(
+            lp, x.index_select(0, sel_h), kind, apm_hit))
         if miss_idx.size:
-            _, sel_m, keep_m = bucket(miss_idx)
-            y_miss = self._attn_only(lp, x.index_select(0, sel_m), kind,
-                                     positions.index_select(0, sel_m))
-            y.index_add_(0, sel_m, y_miss * keep_m)
+            sel_m = self._tensor(miss_idx)
+            y.index_copy_(0, sel_m, self._attn_only(
+                lp, x.index_select(0, sel_m), kind,
+                positions.index_select(0, sel_m)))
         return self._chan_tail(lp, h + y, li)
 
     def _layer_kernel(self, lp, h, li, memo, positions, lengths=None):

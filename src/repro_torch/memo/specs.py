@@ -135,8 +135,10 @@ class RuntimeSpec:
     mode: str = "select"            # select | bucket | kernel
     store: str = "device"           # serving store: device | host
     device_fast_path: Optional[bool] = None   # None → auto by mode/store
-    device_quanta: int = 1          # fused-path bucket granularity
+    device_quanta: int = 1          # fused-path bucket granularity (the
+    #                                 port serves one mixed quantum)
     bucket_quantum: int = 4         # host-path hit-bucket padding quantum
+    #                                 (the port's buckets are exact-size)
     max_layers: Optional[int] = None
     device_slack: float = 1.0       # device-arena slack for delta sync
     # fault injection (DESIGN.md §2.9): None = production (no injector is

@@ -186,7 +186,7 @@ def test_run_layers_with_capture_or_quanta_makes_no_host_transfer(
     """The zero-per-layer-sync rule of the fast path (see
     ``test_torch_engine.py::test_run_layers_makes_no_host_transfer``)
     with miss capture on (kernel mode) and with ``device_quanta=4``
-    (bucket mode's hit-first sort): no ``.item()``, ``.cpu()``,
+    (bucket mode): no ``.item()``, ``.cpu()``,
     ``.numpy()``, ``.tolist()`` or synchronize in ``run_layers``."""
     import repro_torch.core.engine as engine_mod
     jeng, teng0, queries = built

@@ -109,7 +109,8 @@ def test_host_paths_match_reference(built, path, which):
 @pytest.mark.parametrize("quanta", [2, 4])
 @pytest.mark.parametrize("which", ["all_hit", "all_miss", "mid"])
 def test_device_quanta_match_reference(built, quanta, which):
-    """The bucket fast path with rows sorted hit-first into quanta."""
+    """The bucket fast path at ``device_quanta`` > 1, which the port serves
+    as one mixed quantum, against the reference's hit-first quanta."""
     jeng, teng, queries = built
     thr = _threshold(jeng, teng, which, queries[0])
     _set(jeng, teng, mode="bucket", device_fast_path=None,
