@@ -27,6 +27,18 @@ and read just after:
   online admission in kernel mode with a budget that evicts
   (``memo_attention``), its writes read back from the device tier; each
   held to kernel mode, select or quanta 1 on decisions and logits;
+* the serving runtime (phase 5c) — ``MemoServer`` on full-width
+  ``bert_base`` through the launcher's entry points
+  (``repro_torch.launch.server``: ``build_session``, ``probe_rate``,
+  ``make_workload``, ``serve_trace``): one open-loop Poisson trace with a
+  corpus drift served with synchronous, then asynchronous maintenance
+  (``nn_search``; the sync leg's ``run_layers`` under
+  ``set_sync_debug_mode("error")``, the async leg's with a count of the
+  serving thread's host reads), then async against sync with admission
+  off, async admission landing, a held snapshot unchanged while the
+  worker delta-syncs under it, the ``maint_crash`` fault ladder down to
+  exact attention and back through ``recover()``, and one traced async
+  window;
 * ``gpt2_small`` and ``rwkv6_3b`` — ``Model(attn_impl="kernel").forward``
   at full width and depth (random weights from a seed, made on the card;
   tokens from numpy) under ``set_sync_debug_mode("error")``
@@ -904,10 +916,17 @@ def time_kernels(torch, dev, sess, captured, errs):
           f"{t['bound_by']}), plain {t['plain_ms']:.4f} ms, cdist+min "
           f"{t['library_ms']:.4f} ms; {sess.engine.cfg.n_layers} launches "
           f"per bucket-mode batch")
-    # one device kernel per call, no memset or reduction launch beside it
+    # one device kernel per call, no memset or reduction launch beside it;
+    # a trace that recorded no device event at all (the profiler missed
+    # the window, seen once in 13 runs on the H100) is taken again
     reps = 10
-    _, rows = trace(torch, lambda: nn_search(emb, table, db_norms=norms),
-                    reps)
+    for attempt in range(3):
+        _, rows = trace(torch, lambda: nn_search(emb, table,
+                                                 db_norms=norms), reps)
+        if rows:
+            break
+        print(f"[profile] nn_search: the trace recorded no device event "
+              f"(attempt {attempt + 1}); tracing again")
     kernels = sum(count for _, count, _ in rows)
     names = sorted({name for _, _, name in rows})
     print(f"[profile] nn_search: {kernels} device kernels in {reps} calls "
@@ -1238,6 +1257,514 @@ def serve_policies(torch, dev, sess, main, per_path):
     return out
 
 
+# ------------------------------------------------------------ phase 5c
+# the serving runtime, driven through the launcher's entry points: length
+# buckets (pow2_buckets(SEQ)), rows per batch, the rows' padding quantum,
+# the batching delay, the trace's size and the share of probed capacity
+# its Poisson arrivals ask for
+SERVER_BUCKETS = (32, 64, 128)
+SERVER_MAX_BATCH, SERVER_QUANTUM, SERVER_DELAY = 32, 4, 4e-3
+SERVER_REQUESTS, SERVER_UTILIZATION = 256, 0.7
+# async vs sync runtime with admission off: the same kernels on the same
+# snapshot (the tolerance of tests/test_runtime.py)
+SERVER_TOL = 1e-5
+# lengths no trace request has (the trace draws b - b//8 < len <= b per
+# bucket b, calibration is all SEQ): a batch of them misses at the length
+# gate and is admitted fresh
+FRESH_LEN, FRESH_LEN_B = 100, 96
+
+
+class ServerLeg:
+    """While active, instruments one engine for a serving leg: every
+    launch count (and ``timers``) set to 0 when ``MemoServer.run``
+    starts, after the warm-up; each served
+    batch's host interval (``MemoServer._execute``); each maintenance
+    apply's host interval; the serving thread's ``finalize`` barrier
+    (``engine.synchronize``) times; the first ``nn_search`` call of each
+    row count (cloned, held against the plain version afterwards); and
+    ``run_layers`` either under ``set_sync_debug_mode("error")``
+    (``sync_debug``: no worker runs) or, with a worker, with a count of
+    the host reads (``item``, ``cpu``, ``numpy``, ``tolist``,
+    synchronize) the serving thread makes inside it: sync debug mode is
+    process-wide and the worker's copies are legitimate syncs."""
+
+    def __init__(self, torch, eng, sync_debug, timers=None):
+        self.torch, self.eng, self.sync_debug = torch, eng, sync_debug
+        self.timers = timers
+        self.batches, self.maint, self.barrier = [], [], []
+        self.layer_reads, self.nn_args = [], {}
+
+    def __enter__(self):
+        import threading
+        import repro_torch.core.engine as engine_mod
+        import repro_torch.core.index as index_mod
+        from repro_torch.core.runtime import MemoServer
+        torch, eng, me = self.torch, self.eng, self
+        serving = threading.get_ident()
+        inside = threading.local()
+        self.saved = [(MemoServer, "run", MemoServer.run),
+                      (MemoServer, "_execute", MemoServer._execute),
+                      (engine_mod, "synchronize", engine_mod.synchronize),
+                      (index_mod, "nn_search", index_mod.nn_search)]
+        run, execute = MemoServer.run, MemoServer._execute
+        sync, nn = engine_mod.synchronize, index_mod.nn_search
+        run_layers, apply = eng.run_layers, eng.apply_maintenance
+
+        def timed(fn, log):
+            def call(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    log.append((t, time.perf_counter()))
+            return call
+
+        def run_counted(server, workload):
+            zero_counts()
+            if me.timers is not None:
+                for k in me.timers.secs:
+                    me.timers.secs[k], me.timers.calls[k] = 0.0, 0
+            return run(server, workload)
+
+        def synchronize(device):
+            t = time.perf_counter()
+            sync(device)
+            if threading.get_ident() == serving:
+                me.barrier.append((time.perf_counter() - t) * 1e3)
+
+        def nn_search(q, db, **kw):
+            if q.shape[0] not in me.nn_args:
+                me.nn_args[q.shape[0]] = (
+                    q.clone(), db, kw.get("db_norms"))
+            return nn(q, db, **kw)
+
+        def layers(prep):
+            if me.sync_debug:
+                torch.cuda.set_sync_debug_mode("error")
+            inside.on = True
+            try:
+                return run_layers(prep)
+            finally:
+                inside.on = False
+                if me.sync_debug:
+                    torch.cuda.set_sync_debug_mode(0)
+        MemoServer.run = run_counted
+        MemoServer._execute = timed(execute, self.batches)
+        engine_mod.synchronize = synchronize
+        index_mod.nn_search = nn_search
+        eng.run_layers = layers
+        eng.apply_maintenance = timed(apply, self.maint)
+        if not self.sync_debug:
+            for name in ("item", "cpu", "numpy", "tolist"):
+                real = getattr(torch.Tensor, name)
+                self.saved.append((torch.Tensor, name, real))
+
+                def read(t, *a, _n=name, _r=real, **k):
+                    if getattr(inside, "on", False) and \
+                            threading.get_ident() == serving:
+                        me.layer_reads.append(_n)
+                    return _r(t, *a, **k)
+                setattr(torch.Tensor, name, read)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, real in self.saved:
+            setattr(obj, name, real)
+        del self.eng.run_layers, self.eng.apply_maintenance
+
+    def overlap_ms(self):
+        """Host ms of maintenance that ran while a batch was being
+        served (the batches are disjoint: one serving thread)."""
+        return sum(max(0.0, min(a1, b1) - max(a0, b0))
+                   for a0, a1 in self.maint
+                   for b0, b1 in self.batches) * 1e3
+
+
+def server_args(dev, entry_nbytes, n_built, fault=None):
+    """The launcher's arguments for full-width bert_base at phase 3's
+    store shape (int8, a flat device index with phase 3's slack, the
+    moderate level) under phase 5b's admission budget."""
+    from repro_torch.launch.server import parse_args
+    budget_mb = (n_built + ADMIT_HEADROOM + 0.5) * entry_nbytes / 1e6
+    args = parse_args([
+        "--device", str(dev), "--batch", str(SERVER_MAX_BATCH),
+        "--seq", str(SEQ), "--calib-batches", str(CALIB_BATCHES),
+        "--level", "moderate", "--codec", "int8", "--admit-every", "1",
+        "--budget-mb", repr(budget_mb), "--device-slack", "1.0",
+        "--device-index", "flat", "--requests", str(SERVER_REQUESTS),
+        "--max-delay-ms", repr(SERVER_DELAY * 1e3),
+        "--buckets", ",".join(map(str, SERVER_BUCKETS))]
+        + (["--fault", fault] if fault else []))
+    return args
+
+
+def serve_all(server, requests):
+    """Submit every request, then serve until the queues are empty."""
+    for toks in requests:
+        server.submit(toks)
+    comps = []
+    while server.queued:
+        comps.extend(server.step(flush=True))
+    return comps
+
+
+def padded_batch(requests, bucket):
+    """The batch MemoServer assembles from ``requests`` (one bucket,
+    a row count it needs no filler for)."""
+    import numpy as np
+    toks = np.zeros((len(requests), bucket), np.int32)
+    for i, r in enumerate(requests):
+        toks[i, :r.size] = r
+    return {"tokens": toks, "n_valid": len(requests),
+            "lengths": np.asarray([r.size for r in requests], np.int32)}
+
+
+def serve_runtime(torch, dev, per_path, smi):
+    """Phase 5c: ``MemoServer`` on full-width bert_base through the
+    launcher (``build_session``, ``probe_rate``, ``make_workload``,
+    ``serve_trace``): one open-loop trace with a mid-run corpus drift,
+    served with synchronous and then asynchronous maintenance on freshly
+    built sessions; then async against sync with admission off, async
+    admission landing, the snapshot a batch holds staying unchanged
+    while the worker delta-syncs under it, the maint_crash fault ladder,
+    and one traced async window. Returns the JSON fields."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.codec import get_codec
+    from repro_torch.core.runtime import (Health, MemoMaintenanceError,
+                                          pow2_buckets)
+    from repro_torch.data import TemplateCorpus
+    from repro_torch.kernels.nn_search.ops import nn_search
+    from repro_torch.kernels.nn_search.ref import nn_search_ref
+    from repro_torch.launch.server import (build_session, make_workload,
+                                           probe_rate, serve_trace)
+    from repro_torch.memo import CHAOS_PRESETS, MemoSpec
+
+    require(pow2_buckets(SEQ) == SERVER_BUCKETS, "buckets")
+    cfg = get_config("bert_base")
+    entry = (get_codec("int8", (cfg.n_heads, SEQ, SEQ)).entry_nbytes
+             + MemoSpec().embed_dim * 4)
+    n_built = CALIB_BATCHES * SERVER_MAX_BATCH * cfg.n_layers
+    args = server_args(dev, entry, n_built)
+    out = {}
+
+    # the rate: probed on a throwaway session, which also carries the
+    # fault injector the ladder below arms
+    t0 = time.perf_counter()
+    probe_sess, corpus = build_session(
+        server_args(dev, entry, n_built, fault="maint_crash"), cfg=cfg)
+    torch.cuda.synchronize()
+    require(len(probe_sess.store) == n_built, "store size")
+    print(f"[server] bert_base session built in "
+          f"{time.perf_counter() - t0:.1f}s: {len(probe_sess.store)} int8 "
+          f"entries, {probe_sess.store.device_index.capacity}-row flat "
+          f"device index, budget {probe_sess.store.budget_entries} "
+          f"entries, threshold (moderate) "
+          f"{probe_sess.spec.runtime.threshold:.6f}")
+    t0 = time.perf_counter()
+    rate = probe_rate(probe_sess, buckets=SERVER_BUCKETS,
+                      max_batch=SERVER_MAX_BATCH, seq=SEQ,
+                      utilization=SERVER_UTILIZATION)
+    phases = [corpus, TemplateCorpus(vocab=cfg.vocab, seq_len=SEQ, seed=117,
+                                     n_templates=corpus.n_templates,
+                                     slot_fraction=corpus.slot_fraction)]
+    workload = make_workload(phases, SERVER_REQUESTS, rate, SERVER_BUCKETS,
+                             seed=7)
+    print(f"[server] probe_rate: {rate:.2f} req/s at utilization "
+          f"{SERVER_UTILIZATION} ({time.perf_counter() - t0:.1f}s); trace "
+          f"of {SERVER_REQUESTS} requests, Poisson arrivals over "
+          f"{workload[-1][0]:.2f}s, buckets {SERVER_BUCKETS}, max_batch "
+          f"{SERVER_MAX_BATCH}, quantum {SERVER_QUANTUM}, max_delay "
+          f"{SERVER_DELAY * 1e3:.0f} ms, 2 corpus phases")
+
+    legs, sessions = {}, {}
+    for mode in ("sync", "async"):
+        sess, _ = build_session(args, cfg=cfg)
+        eng, store = sess.engine, sess.store
+        # host time of the maintenance steps (the drain on the serving
+        # thread, the rest wherever maintenance runs); admit holds
+        # encode, crc and evict
+        timers = TimeCalls({
+            "drain": (eng, "_drain_stats"), "admit": (store, "admit"),
+            "encode": (store.db.codec, "encode"),
+            "crc": (store.db, "_crc_rows"), "sync": (store, "sync"),
+            "recalibrate": (eng, "_recalibrate_online")})
+        with timers, ServerLeg(torch, eng, sync_debug=mode == "sync",
+                               timers=timers) as leg:
+            r = serve_trace(sess, workload, buckets=SERVER_BUCKETS,
+                            max_batch=SERVER_MAX_BATCH,
+                            max_delay=SERVER_DELAY,
+                            async_maintenance=mode == "async")
+            per_path[f"server_{mode}"] = read_counts()
+        del eng, store
+        server, comps = r.pop("server"), r.pop("completions")
+        require(sorted(c.rid for c in comps) == list(range(SERVER_REQUESTS)),
+                f"{mode}: not every request served exactly once")
+        require(all(np.isfinite(c.logits).all()
+                    and c.logits.shape == (4,) for c in comps),
+                f"{mode}: logits not finite or of the wrong shape")
+        require(not server.maintenance_errors,
+                f"{mode}: {server.maintenance_errors}")
+        require(server.health is Health.HEALTHY,
+                f"{mode}: health {server.health} {list(server.health_log)}")
+        require(not leg.layer_reads, f"{mode}: host reads inside "
+                f"run_layers on the serving thread: {leg.layer_reads}")
+        n_nn = per_path[f"server_{mode}"]["nn_search"]
+        require(n_nn == cfg.n_layers * r["n_batches"],
+                f"{mode}: {n_nn} nn_search launches for {r['n_batches']} "
+                f"batches")
+        for B, (q, db, dn) in sorted(leg.nn_args.items()):
+            err, tol, _ = nn_check(nn_search, nn_search_ref, q, db, dn,
+                                   f"server {mode} B={B}")
+            print(f"[server-args] nn_search {mode} B={B} dim={q.shape[1]} "
+                  f"N={db.shape[0]}: indices equal the plain version's, "
+                  f"max|d2 err| {err:.3e} (tolerance {tol:.1e})")
+        busy = sum(b - a for a, b in leg.maint) * 1e3
+        r.update(health=server.health.value,
+                 transitions=server.n_health_transitions,
+                 shed=server.n_maint_shed, retries=server.n_maint_retries,
+                 generation=sess.store.generation,
+                 nn_search_launches=n_nn, maint_busy_ms=busy,
+                 maint_calls=len(leg.maint),
+                 maint_overlap_ms=leg.overlap_ms(),
+                 maint_steps_ms={k: v * 1e3 for k, v in timers.secs.items()},
+                 maint_steps_calls=dict(timers.calls),
+                 barrier_ms_mean=float(np.mean(leg.barrier)),
+                 barrier_ms_max=float(np.max(leg.barrier)),
+                 serve_ms=sum(b - a for a, b in leg.batches) * 1e3,
+                 card=smi)
+        legs[mode] = r
+        print(f"[server] {mode} maintenance: {r['n_requests']} requests, "
+              f"{r['throughput_rps']:.2f} req/s, latency p50 "
+              f"{r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} mean "
+              f"{r['mean_ms']:.2f}; hit rate {r['hit_rate']:.4f}, admitted "
+              f"{r['n_admitted']}, {r['n_batches']} batches, "
+              f"{r['filler_rows']} filler rows; health {r['health']} "
+              f"({r['transitions']} transitions), shed {r['shed']}, retries "
+              f"{r['retries']}, store generation {r['generation']}; "
+              f"nn_search launches {n_nn}; maintenance host time "
+              f"{busy:.1f} ms in {len(leg.maint)} applies, "
+              + ("inline in the batches" if mode == "sync" else
+                 f"{r['maint_overlap_ms']:.1f} ms of it on the worker while "
+                 f"a batch was served")
+              + " (host ms: " + ", ".join(
+                  f"{k} {v * 1e3:.1f} in {timers.calls[k]} calls"
+                  for k, v in timers.secs.items())
+              + f"); serving host time {r['serve_ms']:.1f} ms; finalize "
+              f"barrier mean {r['barrier_ms_mean']:.2f} ms, max "
+              f"{r['barrier_ms_max']:.2f}; run_layers "
+              + ("under set_sync_debug_mode('error')" if mode == "sync"
+                 else "made no host read on the serving thread")
+              + f" ({smi})")
+        if mode == "sync":
+            del sess, server, comps
+        else:
+            sessions[mode] = sess
+        torch.cuda.empty_cache()
+    out["legs"] = legs
+    s, a = legs["sync"], legs["async"]
+    print(f"[server] async vs sync: p50 {a['p50_ms'] / s['p50_ms']:.3f}x, "
+          f"p99 {a['p99_ms'] / s['p99_ms']:.3f}x, throughput "
+          f"{a['throughput_rps'] / s['throughput_rps']:.3f}x ({smi})")
+
+    sess = sessions.pop("async")
+    eng, store = sess.engine, sess.store
+    rng = np.random.default_rng(11)
+
+    def requests(lengths, source=corpus):
+        return [source.sample(1, rng)[0][0, :n] for n in lengths]
+
+    def server(**kw):
+        return sess.serve(buckets=SERVER_BUCKETS, max_batch=SERVER_MAX_BATCH,
+                          max_delay=SERVER_DELAY, **kw)
+
+    # async against sync with admission off: the same serving machine
+    eng.mc.admit = False
+    mixed = requests(rng.integers(8, SEQ + 1, 16))
+    logits = {}
+    for mode in (False, True):
+        with server(async_maintenance=mode) as srv:
+            logits[mode] = {c.rid: c.logits for c in serve_all(srv, mixed)}
+    worst = max(float(np.abs(logits[False][k] - logits[True][k]).max())
+                for k in logits[False])
+    for k in logits[False]:
+        require(np.allclose(logits[True][k], logits[False][k],
+                            rtol=SERVER_TOL, atol=SERVER_TOL),
+                f"async vs sync logits differ on request {k}")
+    print(f"[server] admission off, {len(mixed)} mixed-length requests: "
+          f"async logits equal sync's within {SERVER_TOL:.0e} (max "
+          f"|dlogits| {worst:.3e})")
+    out["async_vs_sync_max_dlogits"] = worst
+
+    # async admission lands: a length no entry has misses at the gate in
+    # every layer, is admitted off-thread, and its replay hits everywhere
+    eng.mc.admit = True
+    thr, eng.mc.threshold = eng.mc.threshold, -1e9
+    fresh = requests([FRESH_LEN] * 4)
+    with server(async_maintenance=True) as srv:
+        gen0, n0 = store.snapshot.generation, store.stats.n_admitted
+        serve_all(srv, fresh)
+        srv.drain_maintenance()
+        gen1, n1 = store.snapshot.generation, store.stats.n_admitted
+        require(gen1 > gen0 and n1 > n0,
+                f"async admission did not land: generation {gen0}->{gen1}, "
+                f"admitted {n0}->{n1}")
+        before = dict(srv.stats.per_layer_hits)
+        serve_all(srv, fresh)
+        hits = {li: srv.stats.per_layer_hits.get(li, 0) - before.get(li, 0)
+                for li in eng.layers}
+    require(all(h == len(fresh) for h in hits.values()),
+            f"the replay did not hit in every layer: {hits}")
+    print(f"[server] async admission: generation {gen0} -> {gen1}, "
+          f"{n1 - n0} entries admitted at length {FRESH_LEN} off-thread; "
+          f"the replay hit in all {len(hits)} layers")
+    out["async_admission"] = dict(generation=[gen0, gen1],
+                                  admitted=n1 - n0)
+
+    # the snapshot a batch holds never changes: its run_layers is queued,
+    # the worker admits and delta-syncs a payload under it, publishes
+    admitted = []
+    real_admit = store.admit
+
+    def admit(*a, **k):
+        slots = real_admit(*a, **k)
+        admitted.append(slots)
+        return slots
+    store.admit = admit
+    with server(async_maintenance=True) as srv:
+        prep = eng.prepare_batch(padded_batch(requests([FRESH_LEN_B] * 4),
+                                              SEQ), sync_store=False)
+        eng.run_layers(prep)
+        _, _, payload = eng.finalize(prep)
+        require(len(payload.admissions) == cfg.n_layers, "no payload")
+        prep = eng.prepare_batch(padded_batch(requests([FRESH_LEN_B] * 4),
+                                              SEQ), sync_store=False)
+        view = prep.view
+        held = (*view.db_parts, *view.search_args, view.lengths)
+        clones = [t.clone() for t in held]
+        deltas = store.stats.n_delta_syncs
+        eng.run_layers(prep)                 # queued on the stream
+        srv._enqueue_payload(payload)        # the worker syncs under it
+        srv.drain_maintenance()
+        eng.finalize(prep)
+        new = store.snapshot
+    del store.admit
+    require(store.stats.n_delta_syncs > deltas, "no delta sync")
+    require(new.generation > view.generation, "no new generation")
+    same = [bool(torch.equal(c, t)) for c, t in zip(clones, held)]
+    require(all(same), f"a held snapshot tensor changed: {same}")
+    slots = np.concatenate(admitted)
+    worst_d2, _ = admission_read_back(torch, store, slots)
+    print(f"[server] snapshot immutability: generation {view.generation} "
+          f"held by a queued batch while the worker delta-synced "
+          f"{len(slots)} entries and published generation "
+          f"{new.generation}: its {len(held)} tensors (arena parts, index "
+          f"table, row norms, lengths) equal clones taken before; the new "
+          f"snapshot reads the admitted rows back (max d2/scale "
+          f"{worst_d2:.2e})")
+    out["snapshot_immutable"] = dict(held_generation=view.generation,
+                                     new_generation=new.generation,
+                                     admitted=len(slots))
+    del prep, view, held, clones, new, payload
+    eng.mc.threshold = thr
+
+    # one traced async window: requests drawn as the trace draws them but
+    # fresh (a replay of the trace's own would hit its admissions), all
+    # queued at once, served and drained (the worker's applies inside the
+    # window); trace() serves one window to warm up, then traces another
+    windows = [[toks for _, toks in make_workload(
+        phases[1:], 4 * SERVER_MAX_BATCH, rate, SERVER_BUCKETS, seed=s)]
+        for s in (21, 22)]
+    srv = server(async_maintenance=True)
+    with ServerLeg(torch, eng, sync_debug=False) as leg:
+        def serve_window():
+            leg.batches.clear(), leg.maint.clear()
+            serve_all(srv, windows.pop())
+            srv.drain_maintenance()
+        wall_ms, rows = trace(torch, serve_window)
+    srv.close()
+    busy = sum(r[0] for r in rows)
+    maint = sum(b - a for a, b in leg.maint) * 1e3
+    idle = (1 - busy / wall_ms) if busy else None
+    print(f"[profile] async server window ({4 * SERVER_MAX_BATCH} requests, "
+          f"{len(leg.batches)} batches, {len(leg.maint)} maintenance "
+          f"applies): wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
+          + (f"idle share {idle:.3f}" if busy else "no device time: "
+             "not measured")
+          + f"; maintenance host time {maint:.1f} ms, "
+          f"{leg.overlap_ms():.1f} ms of it while a batch was served "
+          f"({smi})")
+    for ms, count, name in sorted(rows, reverse=True)[:8]:
+        print(f"[profile] {ms:8.3f} ms {ms / max(busy, 1e-9):6.1%} "
+              f"x{count:<4d} {name[:90]}")
+    out["traced_window"] = dict(requests=4 * SERVER_MAX_BATCH,
+                                wall_ms=wall_ms,
+                                busy_ms=busy, idle_share=idle,
+                                maint_ms=maint,
+                                maint_overlap_ms=leg.overlap_ms())
+    del sess, eng, store
+    torch.cuda.empty_cache()
+
+    # the fault ladder on the probe's session: maint_crash until
+    # MEMO_DISABLED, an exact batch there, recover()
+    eng = probe_sess.engine
+    (point, kw), = CHAOS_PRESETS["maint_crash"].items()
+    eng.faults.arm(point, **kw)
+    disable_after = 2
+    srv = probe_sess.serve(buckets=SERVER_BUCKETS,
+                           max_batch=SERVER_MAX_BATCH,
+                           max_delay=SERVER_DELAY, async_maintenance=True,
+                           maint_retries=1, maint_backoff_s=0.005,
+                           disable_after=disable_after)
+    payloads, errors, crashed = 0, 0, requests([SEQ] * 8)
+    while srv.health is not Health.MEMO_DISABLED:
+        require(payloads < disable_after,
+                f"not MEMO_DISABLED after {payloads} failed payloads: "
+                f"{list(srv.health_log)}")
+        serve_all(srv, crashed if payloads == 0 else requests([SEQ] * 8))
+        payloads += 1
+        try:
+            srv.drain_maintenance(timeout=60)
+        except MemoMaintenanceError:
+            errors += 1
+    exact = requests([SEQ - k for k in (0, 1, 3, 7, 8, 10, 12, 15)])
+    zero_counts()
+    got = serve_all(srv, exact)
+    per_path["server_memo_disabled"] = read_counts()
+    require(per_path["server_memo_disabled"]["nn_search"] == 0,
+            f"MEMO_DISABLED launched nn_search: {per_path}")
+    ref = eng.infer(padded_batch(exact, SEQ),
+                    use_memo=False)[0].cpu().numpy()
+    require(srv.n_exact_batches == 1 and all(
+        np.array_equal(c.logits, ref[i]) for i, c in enumerate(got)),
+        "MEMO_DISABLED logits differ from infer(use_memo=False)")
+    eng.faults.disarm()
+    info = srv.recover()
+    require(srv.health is Health.HEALTHY, f"recover(): {srv.health}")
+    hits0 = srv.stats.n_hits
+    zero_counts()
+    serve_all(srv, crashed)
+    per_path["server_recovered"] = read_counts()
+    srv.drain_maintenance(timeout=60)
+    srv.close()
+    require(srv.stats.n_hits > hits0 and srv.health is Health.HEALTHY,
+            f"after recover(): {srv.stats.n_hits - hits0} hits, health "
+            f"{srv.health}")
+    print(f"[server] fault ladder (maint_crash, disable_after "
+          f"{disable_after}): MEMO_DISABLED after {payloads} payloads "
+          f"({errors} recorded errors, "
+          f"{[h for _, h, _ in srv.health_log]}); its batch's logits equal "
+          f"infer(use_memo=False) bit for bit with 0 nn_search launches; "
+          f"recover() {info} -> healthy, the first crashed batch replayed hit "
+          f"{srv.stats.n_hits - hits0} times")
+    out["fault_ladder"] = dict(payloads_to_disabled=payloads,
+                               recover=info,
+                               replay_hits=srv.stats.n_hits - hits0)
+    del probe_sess, eng, srv
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------ phase 6
 # the kernel forward: (arch, batch, seq, the kernel it reaches, where the
 # model calls that kernel's wrapper)
@@ -1548,6 +2075,8 @@ def main() -> int:
     print(json.dumps({"policies": policies}))
     del sess, captured, main_path
     torch.cuda.empty_cache()
+    runtime = serve_runtime(torch, dev, per_path, smi)
+    print(json.dumps({"server": runtime}))
     launches = {"memo_attention": per_path["kernel"]["memo_attention"],
                 "nn_search": per_path["bucket"]["nn_search"]}
     for arch, B, S, kname, site in FORWARDS:

@@ -5,11 +5,11 @@ the counterpart of the reference's ``core/database.py``.
   preallocated arena per codec part, LIFO free-list recycling, per-row
   CRC32 checksums), so both packages hold byte-identical arenas.
 * ``DeviceDB`` — the device-resident tier on torch tensors: each codec
-  part is one preallocated tensor with slack, patched by delta syncs.
-  Unlike the reference's immutable jnp arrays, ``update`` writes in place
-  (``index_copy_``): a published snapshot sees the patch. That is safe
-  while maintenance runs inline between batches; a runtime that overlaps
-  maintenance with serving must double-buffer.
+  part is one preallocated tensor with slack. A delta sync is
+  copy-on-write, the counterpart of the reference's functional
+  ``.at[].set``: ``update`` writes the rows into fresh tensors and swaps
+  ``parts``, so a published snapshot's tensors never change and a batch
+  still serving an older generation keeps reading its own.
 """
 from __future__ import annotations
 
@@ -338,10 +338,12 @@ class DeviceDB:
                    codec=db.codec, device=device)
 
     def update(self, slots, values) -> int:
-        """Delta sync: scatter compressed rows into ``slots`` in place.
-        ``values``: a parts tuple (or a bare decoded array, identity
-        codec only). Returns the bytes shipped (the power-of-2 padded
-        delta, as the reference counts them)."""
+        """Delta sync: scatter compressed rows into ``slots`` of fresh
+        copies of the parts (copy-on-write; the old tensors stay as they
+        were for whoever still holds them). ``values``: a parts tuple (or
+        a bare decoded array, identity codec only). Returns the bytes
+        shipped (the power-of-2 padded delta, as the reference counts
+        them)."""
         slots = np.asarray(slots).reshape(-1)
         if slots.size == 0:
             return 0
@@ -354,11 +356,13 @@ class DeviceDB:
         slots, parts = pad_delta_parts(slots, values)
         slots_dev = torch.from_numpy(slots.astype(np.int64)).to(self.device)
         shipped = int(slots.size * 4)
+        fresh = []
         for arr, p in zip(self.parts, parts):
             p = torch.from_numpy(np.ascontiguousarray(p)).to(
                 self.device, arr.dtype)
-            arr.index_copy_(0, slots_dev, p)
+            fresh.append(arr.index_copy(0, slots_dev, p))
             shipped += int(p.nbytes)
+        self.parts = tuple(fresh)
         self._n = max(self._n, n_max + 1)
         self.transfer_bytes += shipped
         return shipped

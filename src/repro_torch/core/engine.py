@@ -40,11 +40,10 @@ served batch are captured (their true APM and embedding; on the fast
 path staged on the device, drained in ``finalize``), admitted under the
 byte budget at the batch boundary and delta-synced, and every
 ``recal_every`` flushes ``sim_cal`` is refit from recent captures. The
-delta sync patches the device tensors in place (``core/store.py``), so
-a published snapshot sees the next batch's admissions: that is safe
-only while maintenance runs inline after ``finalize``, as ``infer``
-runs it. A ``PreparedBatch`` must not outlive the next
-``apply_maintenance``.
+delta sync is copy-on-write (``core/store.py``): a published snapshot
+never changes, so a ``PreparedBatch`` keeps serving its generation while
+``apply_maintenance`` runs inline after ``finalize`` (``infer``) or on
+``MemoServer``'s worker thread (``core/runtime.py``).
 
 **Selective memoization** (``profile``): per-layer attention time,
 lookup overhead and memo rate feed ``PerfModel``; serve its
@@ -408,8 +407,7 @@ class MemoEngine:
         st = stats or MemoStats()
         cfg = self.cfg
         if use_memo and self._use_fast_path():
-            # inline maintenance: the snapshot this batch served is
-            # patched only after it is finished (module docstring)
+            # inline maintenance at the batch boundary
             prep = self.prepare_batch(batch, threshold=thr,
                                       active_layers=active)
             self.run_layers(prep)
@@ -472,18 +470,27 @@ class MemoEngine:
     # ------------------------------------- step-wise fast-path executor
     @torch.no_grad()
     def prepare_batch(self, batch, *, threshold: Optional[float] = None,
-                      active_layers: Optional[Sequence[int]] = None
-                      ) -> PreparedBatch:
+                      active_layers: Optional[Sequence[int]] = None,
+                      sync_store: bool = True,
+                      prefill: bool = False) -> PreparedBatch:
         """Stage one device-resident batch: freeze the policy inputs
         (threshold, active layers, admission sampling), read the store
         snapshot the whole batch serves against, and move every host
         input to the device. ``run_layers`` then issues no host↔device
-        copy at all."""
+        copy at all.
+
+        ``sync_store=False`` is the async-maintenance contract: the
+        serving thread never mutates the store; it reads the latest
+        published snapshot and leaves sync to the worker (a store with
+        no snapshot yet is synced once). ``prefill=True`` waits for the
+        prefill slice."""
         if not self._use_fast_path():
             raise RuntimeError(
                 "prepare_batch drives the device fast path; build() the "
                 "engine in bucket/kernel mode (select and host paths go "
                 "through infer())")
+        if prefill:
+            raise _later("prefill serving", "prefill")
         cfg = self.cfg
         tokens = self._tensor(batch["tokens"])
         lengths = batch.get("lengths")
@@ -492,8 +499,12 @@ class MemoEngine:
                      else active_layers)
         capture = self._capture_now(True)
         self._serve_batches += 1
-        self.store.sync()         # generation-counted: no-op unless stale
+        if sync_store:
+            self.store.sync()     # generation-counted: no-op unless stale
         view = self.store.snapshot
+        if view is None:          # bootstrap: materialize + publish once
+            self.store.sync()
+            view = self.store.snapshot
         B, S = tokens.shape[0], tokens.shape[1]
         n_valid = int(batch.get("n_valid", B))
         t0 = time.perf_counter()

@@ -87,7 +87,10 @@ class DeviceIndex:
 
     The table is preallocated (slack rows are TOMBSTONE) and lives on
     ``device``; ``search_device`` is device-only tensor work, so the
-    engine's per-layer lookup never synchronizes with the host."""
+    engine's per-layer lookup never synchronizes with the host. Every
+    mutation is copy-on-write (the reference's functional ``.at[].set``):
+    it swaps in a fresh table, so a ``search_args`` pair a snapshot
+    captured never changes."""
 
     def __init__(self, dim: int, *, capacity: int = 0, device=None):
         self.dim = dim
@@ -133,13 +136,15 @@ class DeviceIndex:
         embs = torch.as_tensor(np.asarray(embs, np.float32)).to(self.device)
         b = embs.shape[0]
         self._ensure_capacity(self._n + b)
-        self._table[self._n: self._n + b] = embs
+        rows = torch.arange(self._n, self._n + b, device=self.device)
+        self._table = self._table.index_copy(0, rows, embs)
         self._norms = None
         self._n += b
         self.transfer_bytes += int(embs.nbytes)
 
     def assign(self, slots: Sequence[int], embs):
-        """Slot-aligned delta write, in place (see ``DeviceDB.update``)."""
+        """Slot-aligned delta write into a fresh table (copy-on-write,
+        see ``DeviceDB.update``)."""
         from repro_torch.core.database import pad_delta_pow2
         slots = np.asarray(slots).reshape(-1)
         if slots.size == 0:
@@ -147,7 +152,7 @@ class DeviceIndex:
         n_max = int(slots.max())
         self._ensure_capacity(n_max + 1)
         slots, values = pad_delta_pow2(slots, np.asarray(embs, np.float32))
-        self._table.index_copy_(
+        self._table = self._table.index_copy(
             0, torch.from_numpy(slots.astype(np.int64)).to(self.device),
             torch.from_numpy(np.ascontiguousarray(values)).to(self.device))
         self._norms = None
@@ -155,12 +160,14 @@ class DeviceIndex:
         self.transfer_bytes += int(values.nbytes + slots.size * 4)
 
     def remove(self, slots: Sequence[int]):
+        """Tombstone slots in a fresh table (copy-on-write)."""
         from repro_torch.core.database import pad_delta_pow2
         slots = np.asarray(slots).reshape(-1)
         if slots.size and self._table is not None:
             slots, _ = pad_delta_pow2(slots)
-            self._table[torch.from_numpy(slots.astype(np.int64)).to(
-                self.device)] = TOMBSTONE
+            self._table = self._table.index_fill(
+                0, torch.from_numpy(slots.astype(np.int64)).to(self.device),
+                TOMBSTONE)
             self._norms = None
             self.transfer_bytes += int(slots.size * 4)
 
@@ -181,9 +188,11 @@ class DeviceIndex:
     def search_device(self, q, k: int = 1, *, args=None, fused: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """q: (B, dim) device tensor → (sq_dists (B, k), idx (B, k)) —
-        SQUARED L2. Top-1 goes through the nn_search kernel wrapper;
-        ``fused=True`` is the reference's kernel-mode prologue contract
-        (one matmul with the cached norms, no search kernel)."""
+        SQUARED L2. ``args`` is the ``search_args`` pair a snapshot
+        captured (the serving path always passes it); ``None`` searches
+        the current table. Top-1 goes through the nn_search kernel
+        wrapper; ``fused=True`` is the reference's kernel-mode prologue
+        contract (one matmul with the cached norms, no search kernel)."""
         table, norms = args if args is not None else self.search_args
         q = q.float()
         if k == 1:

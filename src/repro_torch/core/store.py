@@ -11,17 +11,20 @@ byte-identical arrays in both packages (``state_dict``). The device tier
                           free slots (stable slot ids, no compaction).
 * ``evict(n)``          — the registered eviction policy (CLOCK).
 * ``sync()``            — generation-counted incremental device sync: a
-                          no-op when clean, in-place deltas of the dirty
-                          slots when the device slack holds them, a full
+                          no-op when clean, deltas of the dirty slots
+                          when the device slack holds them, a full
                           re-materialization otherwise. Ends by
                           publishing a ``StoreSnapshot``.
 
-Snapshots: the reference's snapshot holds immutable jnp arrays, so a
-published generation stays valid while the next one is built. Here a
-delta sync patches the device tensors IN PLACE (``index_copy_``), which
-mutates every snapshot that shares them. That is harmless while
-maintenance runs inline between batches (``MemoEngine.infer``); a
-runtime that overlaps maintenance with serving must double-buffer.
+Snapshots never change once published, as the reference's immutable jnp
+arrays do not. A delta sync is copy-on-write: the device arena parts,
+the index table (and so its row norms) and the entry lengths are written
+into fresh tensors (``DeviceDB.update``, ``DeviceIndex.assign`` /
+``remove``) and ``publish()`` swaps the references. A generation stays
+alive until the last ``PreparedBatch`` holding it is dropped, so a
+maintenance worker may sync while a batch is still serving the previous
+snapshot (``core/runtime.py``). Its price is one copy of the device tier
+per delta sync.
 """
 from __future__ import annotations
 
@@ -117,6 +120,16 @@ class MemoStore:
         self.stats = StoreStats()
         self.device_db: Optional[DeviceDB] = None
         self.device_index = None
+        # the reference's capacity-tier state with no capacity directory:
+        # no disk tier attached, so none can detach (MemoServer reads it)
+        self._capacity_dir: Optional[str] = None
+        self.capacity_error: Optional[str] = None
+
+    @property
+    def capacity_ok(self) -> bool:
+        """A capacity tier is attached and healthy (never, until the
+        capacity-tier slice)."""
+        return False
 
     # ------------------------------------------------------------ accounting
     @property
@@ -348,7 +361,7 @@ class MemoStore:
         shipped += self.device_index.transfer_bytes - b0
         if slots.size:
             sl, vals = pad_delta_pow2(slots, self._lens_host[slots])
-            self._dev_lens.index_copy_(
+            self._dev_lens = self._dev_lens.index_copy(
                 0, torch.from_numpy(sl.astype(np.int64)).to(self.device),
                 torch.from_numpy(vals).to(self.device))
             shipped += int(vals.nbytes + sl.size * 4)

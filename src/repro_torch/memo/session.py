@@ -1,18 +1,21 @@
 """MemoSession — the facade over the memoization stack, the counterpart
-of the reference's ``memo/session.py`` (build / infer / stats /
-suggest_levels / autotune / profile; ``save``/``load`` and ``serve`` wait
-for later slices)::
+of the reference's ``memo/session.py`` (build / infer / serve / stats /
+suggest_levels / autotune / profile; ``save``/``load`` wait for the
+save/load slice)::
 
     from repro_torch.memo import MemoSession, MemoSpec
 
     sess = MemoSession.build(model, params, spec, batches=calib)
     logits, stats = sess.infer({"tokens": toks})
+    with sess.serve(buckets=(64, 128), max_batch=32) as server:
+        completions = server.run(workload)
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
 from repro_torch.core.engine import LEVELS, MemoEngine, MemoStats
+from repro_torch.core.runtime import MemoServer
 from repro_torch.device import resolve_device
 from repro_torch.memo.specs import MemoSpec
 
@@ -72,6 +75,14 @@ class MemoSession:
         if kwargs.get("stats") is None:
             self._stats.merge(st)
         return out, st
+
+    def serve(self, **kwargs) -> MemoServer:
+        """An open-loop continuous-batching server over this session —
+        the raw ``MemoServer``; use it as a context manager. Serving
+        stats live on ``server.stats``; store-lifecycle effects
+        (admissions, evictions, sync bytes) land on the shared store and
+        show up in ``session.stats()['store']``."""
+        return MemoServer(self.engine, **kwargs)
 
     def suggest_levels(self, batches) -> Dict[str, float]:
         return self.engine.suggest_levels(batches)

@@ -173,10 +173,19 @@ class RuntimeSpec:
 
 @dataclass
 class CapacitySpec:
-    """The big-memory capacity tier (DESIGN.md §2.11). Only its opt-in is
-    carried over: a ``dir`` makes the engine raise until the
-    capacity-tier slice lands with the fields that tune it."""
+    """The big-memory capacity tier (DESIGN.md §2.11). Its opt-in and
+    the checkpoint cadence ``MemoServer`` reads are carried over: a
+    ``dir`` makes the engine raise until the capacity-tier slice lands
+    with the fields that tune it."""
     dir: Optional[str] = None       # tier directory (None = no disk tier)
+    checkpoint_every: int = 8       # WAL→manifest every N applied payloads
+    #                                 (MemoServer's cadence; inert until the
+    #                                 capacity tier is ported)
+
+    def __post_init__(self):
+        _require(int(self.checkpoint_every) >= 1,
+                 f"capacity checkpoint_every must be >= 1: "
+                 f"{self.checkpoint_every}")
 
 
 @dataclass

@@ -267,7 +267,9 @@ def test_port_imports_neither_jax_nor_reference():
         "assert len(names) > 20, names\n"
         "assert {'repro_torch.models.rwkv',\n"
         "        'repro_torch.kernels.flash_attention.ops',\n"
-        "        'repro_torch.kernels.rwkv6.ops'} <= set(names), names\n"
+        "        'repro_torch.kernels.rwkv6.ops',\n"
+        "        'repro_torch.core.runtime',\n"
+        "        'repro_torch.launch.server'} <= set(names), names\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
     res = subprocess.run([sys.executable, "-c", code], env=env,

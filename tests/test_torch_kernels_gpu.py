@@ -3,9 +3,11 @@ card (``pytest -m gpu tests/test_torch_kernels_gpu.py``). No JAX here:
 the machine with the card has none. Without a card every test skips.
 Inputs come from ``chip_smoke.attention_case``, ``flash_case``,
 ``nn_case`` and ``wkv_case``, the generators the chip smoke test uses.
-Two tests drive a small bert_base session on the card through the
-engine's host-synchronous kernel mode and online admission, with
-chip_smoke's checks (``compare_decisions``, ``admission_read_back``).
+Three tests drive a small bert_base session on the card: the engine's
+host-synchronous kernel mode and online admission, with chip_smoke's
+checks (``compare_decisions``, ``admission_read_back``), and
+``MemoServer`` with asynchronous maintenance (a held snapshot stays
+unchanged while the worker delta-syncs under it).
 
 Tolerances (``chip_smoke.ATOL``, ``WKV_RTOL``): attention outputs within
 2e-5 absolute — both sides compute in f32 and differ only in summation
@@ -17,8 +19,8 @@ import torch
 
 from chip_smoke import (ATOL, TILE_EDGES, admission_read_back,
                         attention_case, compare_decisions, drive,
-                        flash_case, nn_case, nn_tie_ok, trace, wkv_case,
-                        wkv_cases, wkv_err)
+                        flash_case, nn_case, nn_tie_ok, padded_batch,
+                        serve_all, trace, wkv_case, wkv_cases, wkv_err)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.memo_attention.ops import memo_attention
@@ -318,3 +320,51 @@ def test_admission_reads_back(cuda):
     assert store.sim_cal != cal0                            # recalibrated
     worst, _ = admission_read_back(torch, store, admitted[-1])
     assert worst <= 1e-6
+
+
+def test_server_async_keeps_held_snapshots(cuda):
+    """``MemoServer`` with asynchronous maintenance on the card: a batch
+    prepared against one snapshot has its ``run_layers`` queued while the
+    worker admits another batch's misses and delta-syncs them; the held
+    snapshot's tensors stay equal to clones taken before, the new one
+    reads the admitted rows back, and serving a few more requests leaves
+    no maintenance error and the server healthy."""
+    from repro_torch.core.runtime import Health
+    sess, corpus, _ = _small_session(cuda, mode="bucket", admit=True,
+                                     recal_every=1, device_index="flat")
+    eng, store = sess.engine, sess.store
+    eng.mc.threshold = 1e9                          # every row misses
+    admitted = []
+    real_admit = store.admit
+
+    def admit(*a, **k):
+        slots = real_admit(*a, **k)
+        admitted.append(slots)
+        return slots
+    store.admit = admit
+
+    def batch(n):
+        return padded_batch([corpus.sample(1)[0][0, :30] for _ in range(n)],
+                            32)
+    with sess.serve(buckets=(16, 32), max_batch=8,
+                    async_maintenance=True) as srv:
+        prep = eng.prepare_batch(batch(4), sync_store=False)
+        eng.run_layers(prep)
+        _, _, payload = eng.finalize(prep)
+        prep = eng.prepare_batch(batch(4), sync_store=False)
+        view = prep.view
+        held = (*view.db_parts, *view.search_args, view.lengths)
+        clones = [t.clone() for t in held]
+        eng.run_layers(prep)
+        srv._enqueue_payload(payload)
+        srv.drain_maintenance()
+        out, _, _ = eng.finalize(prep)
+        assert store.snapshot.generation > view.generation
+        for c, t in zip(clones, held):
+            assert torch.equal(c, t)
+        admission_read_back(torch, store, admitted[-1])
+        comps = serve_all(srv, [corpus.sample(1)[0][0, :n]
+                                for n in (32, 30, 16, 12, 31)])
+        srv.drain_maintenance()
+    assert len(comps) == 5 and torch.isfinite(out).all()
+    assert not srv.maintenance_errors and srv.health is Health.HEALTHY
