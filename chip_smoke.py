@@ -39,6 +39,19 @@ and read just after:
   worker delta-syncs under it, the ``maint_crash`` fault ladder down to
   exact attention and back through ``recover()``, and one traced async
   window;
+* the big-memory tier (phase 5d) — phase 3's session saved in format 3
+  and 2 and loaded (format 3 mapped and read, format 2), each served in
+  ``kernel`` and ``bucket`` mode with hit masks, slots and ``sim_cal``
+  equal to the saved session's and logits bit-equal (``memo_attention``,
+  ``nn_search``); a session built over a capacity tier, demoted to a
+  host budget of 1024 entries, whose replayed misses promote their disk
+  rows (byte-equal on the device, CRC intact) and hit them on the next
+  replay (``memo_attention``); recovery through
+  ``MemoSession.load(<dir>)`` after a child appending to the tier is
+  SIGKILLed; and ``MemoServer`` over the tier (checkpoints, the
+  ``disk_write_io`` chaos class down to DISK_DEGRADED, ``recover()``).
+  It fails when the temporary directory has less free space than its
+  files need;
 * ``gpt2_small`` and ``rwkv6_3b`` — ``Model(attn_impl="kernel").forward``
   at full width and depth (random weights from a seed, made on the card;
   tokens from numpy) under ``set_sync_debug_mode("error")``
@@ -652,8 +665,8 @@ def drive(torch, sess, requests, name, per_path, **kw):
     runs under ``set_sync_debug_mode("error")``. Hits and sims per batch
     come from the fast path's ``prep.pend`` or, on the host path, from
     ``_lookup`` and ``MemoStats.sims`` (none memo-free). Returns outs,
-    hits, sims, the median ms per batch, the hit rate and the summed
-    stats."""
+    hits, sims, the fast path's matched slots, the median ms per batch,
+    the hit rate and the summed stats."""
     import numpy as np
     from repro_torch.core.engine import MemoStats
     eng = sess.engine
@@ -661,7 +674,7 @@ def drive(torch, sess, requests, name, per_path, **kw):
     fast = use_memo and eng._use_fast_path()
     ctx = SyncFreeRunLayers(torch, eng) if fast else HostLookups(eng)
     total = MemoStats()
-    outs, hits, sims, times = [], [], [], []
+    outs, hits, sims, slots, times = [], [], [], [], []
     with ctx:
         sess.infer(requests[0], **kw)
         torch.cuda.synchronize()
@@ -678,13 +691,14 @@ def drive(torch, sess, requests, name, per_path, **kw):
                 pend = ctx.pends.pop()
                 hits.append(np.stack([p[2].cpu().numpy() for p in pend]))
                 sims.append(np.stack([p[1].cpu().numpy() for p in pend]))
+                slots.append(np.stack([p[3].cpu().numpy() for p in pend]))
             elif use_memo:
                 hits.append(np.stack(ctx.memos))
                 ctx.memos.clear()
                 sims.append(np.asarray(list(st.sims)).reshape(
                     len(hits[-1]), -1))
         per_path[name] = read_counts()
-    return dict(outs=outs, hits=hits, sims=sims,
+    return dict(outs=outs, hits=hits, sims=sims, slots=slots,
                 ms=sorted(times)[len(times) // 2], rate=total.memo_rate,
                 stats=total)
 
@@ -811,8 +825,8 @@ def serve_main_path(torch, dev):
     compare_decisions(torch, "kernel", results["kernel"], "bucket",
                       results["bucket"], thr, MODE_GAP, "int8 gap")
     return sess, per_path, captured, dict(
-        requests=requests, thr=thr, plain=plain, plain_ms=plain_ms,
-        **results)
+        requests=requests, calib=calib, thr=thr, plain=plain,
+        plain_ms=plain_ms, **results)
 
 
 # ------------------------------------------------------------ phase 4
@@ -1254,6 +1268,496 @@ def serve_policies(torch, dev, sess, main, per_path):
                             sim_cal=[list(cal0), list(store.sim_cal)],
                             read_back_max_d2_rel=worst, host_ms=maint,
                             read_back_other_slot=other)
+    return out
+
+
+# ------------------------------------------------------------ phase 5d
+# the big-memory tier: save/load (formats 3 and 2, mmap) of phase 3's
+# session, a capacity-tier session that demotes to disk and promotes
+# back, recovery after a SIGKILL mid-append, and MemoServer over the tier
+# with the disk_write_io chaos class. Free space the phase's files need
+# in the temporary directory (two save files, a tier and its copy)
+BIGMEM_FREE_BYTES = 6 << 30
+# the capacity session's host budget, in entries: the build's 3072
+# entries live on disk and all but this many are demoted
+CAPACITY_HOST_ENTRIES = 1024
+# the SIGKILL child: opens a copy of the session's tier, appends two
+# random rows at a time (acked once journaled), checkpoints every other
+KILL_CHILD = """\
+import json, sys
+import numpy as np
+from repro_torch.core.capacity import CapacityTier
+from repro_torch.core.codec import get_codec
+
+root, shape, emb, codec_name = (sys.argv[1], tuple(json.loads(sys.argv[2])),
+                                int(sys.argv[3]), sys.argv[4])
+codec = get_codec(codec_name, shape)
+t = CapacityTier(root, codec=codec, embed_dim=emb, capacity=8)
+rng = np.random.default_rng(int(sys.argv[5]))
+print("READY", flush=True)
+i = 0
+while True:
+    apms = rng.random((2, *shape)).astype(np.float16)
+    t.append(codec.encode(apms), rng.normal(size=(2, emb)).astype(np.float32),
+             np.full(2, shape[-1], np.int32))
+    print("A", flush=True)
+    if i % 2 == 0:
+        t.checkpoint()
+    i += 1
+"""
+
+
+def kill_mid_append(root, store, acks, delay, seed):
+    """Run KILL_CHILD on the tier at ``root`` and SIGKILL it ``delay``
+    seconds after its ``acks``-th acked append, while it appends on.
+    Returns the appends it acked."""
+    import os
+    import signal
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", KILL_CHILD, root,
+         json.dumps(list(store.apm_shape)), str(store.embed_dim),
+         store.codec.name, str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env)
+    try:
+        for want in [b"READY"] + [b"A"] * acks:
+            if proc.stdout.readline().strip() != want:
+                proc.kill()
+                require(False, f"kill child: {proc.stderr.read()[-2000:]}")
+        time.sleep(delay)
+        proc.send_signal(signal.SIGKILL)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return acks + sum(1 for ln in out.splitlines() if ln.strip() == b"A")
+
+
+def same_state(a, b, what):
+    """Two stores' ``state_dict`` arrays: equal bytes, shapes, dtypes."""
+    import numpy as np
+    sa, sb = a.state_dict(), b.state_dict()
+    require(set(sa) == set(sb), f"{what}: state keys differ")
+    for k in sa:
+        x, y = (np.ascontiguousarray(v).reshape(-1).view(np.uint8)
+                for v in (sa[k], sb[k]))
+        require(np.asarray(sa[k]).dtype == np.asarray(sb[k]).dtype
+                and np.shape(sa[k]) == np.shape(sb[k])
+                and np.array_equal(x, y),
+                f"{what}: state array {k!r} differs")
+
+
+def save_and_load(torch, sess, requests, tmp, per_path, tag=""):
+    """Save ``sess`` in format 3 and 2, load format 3 mapped and read and
+    format 2, and serve ``requests`` through the saved and each loaded
+    session in kernel and bucket mode: equal store state, ``sim_cal``,
+    hit masks and slots, logits bit-equal, memo_attention (kernel) and
+    nn_search (bucket) launched on every loaded session. The saved
+    session is re-materialized first (a forced full sync), so its device
+    tier and a loaded one's are built by the same code from the same
+    bytes. Returns the timings and sizes."""
+    import os
+    from repro_torch.core.database import AttentionDB, DeviceDB
+    from repro_torch.core.store import MemoStore
+    from repro_torch.memo.session import MemoSession
+    spec = sess.spec
+    spec.admission.enabled = False
+    out = dict(slots=len(sess.store), live=sess.store.live_count)
+    loaded = {}
+    for fmt in (3, 2):
+        path = os.path.join(tmp, f"session.f{fmt}")
+        t = time.perf_counter()
+        sess.save(path, save_format=fmt)
+        out[f"save_f{fmt}_ms"] = (time.perf_counter() - t) * 1e3
+        out[f"file_f{fmt}_mb"] = os.path.getsize(path) / 1e6
+    for name, fmt, mmap in (("f3_mmap", 3, True), ("f3_ram", 3, False),
+                            ("f2", 2, False)):
+        torch.cuda.synchronize()
+        # the first sync's legs: the integrity gate (every live row's
+        # CRC) and the device arenas' upload
+        legs = TimeCalls({"sync": (MemoStore, "sync"),
+                          "verify": (AttentionDB, "verify"),
+                          "upload": (DeviceDB, "__init__")})
+        with legs:
+            t = time.perf_counter()
+            ld = MemoSession.load(os.path.join(tmp, f"session.f{fmt}"),
+                                  sess.model, sess.params, mmap=mmap,
+                                  device=sess.engine.device)
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t) * 1e3
+        require(legs.calls["sync"] == 1,
+                f"{name}: {legs.calls['sync']} syncs on load")
+        sync_ms = legs.secs["sync"] * 1e3
+        out[f"open_{name}_ms"] = total - sync_ms
+        out[f"first_sync_{name}_ms"] = sync_ms
+        out[f"first_sync_{name}_crc_ms"] = legs.secs["verify"] * 1e3
+        out[f"first_sync_{name}_upload_ms"] = legs.secs["upload"] * 1e3
+        same_state(ld.store, sess.store, f"{name} load")
+        require(ld.store.sim_cal == sess.store.sim_cal,
+                f"{name}: sim_cal {ld.store.sim_cal} != {sess.store.sim_cal}")
+        loaded[name] = ld
+    sess.store.sync(force_full=True)
+    for mode in ("kernel", "bucket"):
+        runs = {}
+        for name, s in [("saved", sess)] + list(loaded.items()):
+            s.spec.runtime.mode = mode
+            runs[name] = drive(torch, s, requests, f"{tag}{name}-{mode}",
+                               per_path)
+        ref = runs.pop("saved")
+        for name, r in runs.items():
+            for b, (oa, ob, ha, hb, sa, sb) in enumerate(zip(
+                    r["outs"], ref["outs"], r["hits"], ref["hits"],
+                    r["slots"], ref["slots"])):
+                require((ha == hb).all(),
+                        f"{name} {mode} batch {b}: hit masks differ")
+                require((sa == sb).all(),
+                        f"{name} {mode} batch {b}: slots differ")
+                if not torch.equal(oa, ob):
+                    d = (oa - ob).abs().max().item()
+                    print(f"[bigmem] {name} {mode} batch {b}: logits not "
+                          f"bit-equal, max|d| {d:.3e}")
+                    require(False, f"{name} {mode}: logits not bit-equal")
+            kname = "memo_attention" if mode == "kernel" else "nn_search"
+            n = per_path[f"{tag}{name}-{mode}"][kname]
+            require(n > 0, f"{name} {mode}: {kname} never launched")
+            out[f"launches_{name}_{mode}"] = n
+        out[f"hit_rate_{mode}"] = ref["rate"]
+        print(f"[bigmem] {mode}: the sessions loaded from format 3 (mapped "
+              f"and read) and format 2 serve {len(requests)} batches with "
+              f"hit masks, slots and sim_cal equal to the saved session's "
+              f"and logits bit-equal (hit rate {ref['rate']:.4f}; "
+              f"{'memo_attention' if mode == 'kernel' else 'nn_search'} "
+              f"launches {[out[f'launches_{n}_{mode}'] for n in runs]})")
+    # the upload of a mapped arena: the port's (device-zeroed tensor, one
+    # copy of the live prefix) against a host-staged full-capacity array
+    store = loaded["f3_mmap"].store
+    cap = store.device_db.capacity
+    import numpy as np
+
+    def staged():
+        for p in store.db.parts_prefix(len(store.db)):
+            full = np.zeros((cap,) + p.shape[1:], p.dtype)
+            full[:p.shape[0]] = p
+            torch.from_numpy(full).to(store.device)
+        torch.cuda.synchronize()
+
+    def direct():
+        DeviceDB.from_host(store.db, capacity=cap, device=store.device)
+        torch.cuda.synchronize()
+    for label, fn in (("direct", direct), ("staged", staged),
+                      ("direct", direct), ("staged", staged)):
+        t = time.perf_counter()
+        fn()
+        out.setdefault(f"upload_{label}_ms", []).append(
+            (time.perf_counter() - t) * 1e3)
+    del loaded, store
+    return out
+
+
+def capacity_promotion(torch, sess, replay, per_path, tag=""):
+    """Demote the capacity session to its host budget, replay a batch
+    whose entries went to disk with admission on (kernel mode): its
+    misses promote their disk rows; the promoted device rows must equal
+    the disk rows byte for byte and pass their CRC; the next replay must
+    hit them, launching memo_attention. The check runs under a
+    calibration that only a near-exact match clears — sim = 1 − distance,
+    threshold 1 − δ with δ a tenth of the median distance from a stored
+    entry to its nearest other one — so that a replayed row whose entry
+    is on disk misses in the host tier and finds that entry on disk (with
+    random weights the fitted slope is positive: the nearest entry
+    predicts the LOWEST similarity). Returns the JSON fields."""
+    import numpy as np
+    store, spec = sess.store, sess.spec
+    entries = len(store)
+    embs = store.embeddings_at(store.capacity.live_slots)
+    d2, _ = store.capacity.search(embs, 2)
+    others = np.sqrt(np.maximum(d2[:, 1], 0.0))
+    delta = 0.1 * float(np.median(others))
+    scale = float(np.sqrt(np.median(np.sum(embs * embs, -1))))
+    require(delta > 1e-3 * scale, f"entries too close to tell a replay "
+            f"from a neighbour: delta {delta}, |e| {scale}")
+    cal, thr = store.sim_cal, spec.runtime.threshold
+    store.sim_cal = (-1.0, 1.0)
+    budget = CAPACITY_HOST_ENTRIES * store.entry_nbytes
+    store.budget_bytes = budget
+    spec.admission.budget_mb = budget / 1e6
+    t = time.perf_counter()
+    demoted = store.demote_to_budget()
+    demote_ms = (time.perf_counter() - t) * 1e3
+    store.sync()
+    require(len(demoted) == entries - CAPACITY_HOST_ENTRIES
+            and store.capacity.live_count == entries,
+            f"demotion: {len(demoted)} demoted, disk "
+            f"{store.capacity.live_count} of {entries}")
+    require(store.capacity.n_appended == entries,
+            f"demotion appended again: {store.capacity.n_appended}")
+    promoted = []
+    real = store._adopt_disk_rows_locked
+
+    def adopt(*a):
+        slots = real(*a)
+        promoted.append(slots)
+        return slots
+    store._adopt_disk_rows_locked = adopt
+    spec.runtime.mode = "kernel"
+    spec.admission.enabled, spec.admission.every = True, 1
+    spec.runtime.threshold = 1.0 - delta
+    store.publish()
+    secs0 = dict(store.promote_secs)
+    zero_counts()
+    t = time.perf_counter()
+    sess.infer(replay)
+    torch.cuda.synchronize()
+    flush_ms = (time.perf_counter() - t) * 1e3
+    per_path[f"{tag}promotion"] = read_counts()
+    del store._adopt_disk_rows_locked
+    spec.admission.enabled = False
+    require(store.stats.n_promoted > 0 and promoted,
+            f"no promotion: {store.stats}")
+    hslots = np.unique(np.concatenate(promoted))
+    hslots = hslots[store.db.live_mask[hslots]]
+    dslots = np.asarray([store._host_to_disk[int(h)] for h in hslots])
+    parts, _, _, csums = store.capacity.rows_at(dslots)
+    snap = store.snapshot
+    idx = torch.from_numpy(hslots).to(sess.engine.device)
+    for k, (dev_part, disk, csum) in enumerate(zip(snap.db_parts, parts,
+                                                   csums)):
+        got = dev_part.index_select(0, idx).cpu().numpy()
+        require(got.tobytes() == disk.tobytes(),
+                f"promoted device rows differ from the disk rows (part {k})")
+        from repro_torch.core.database import AttentionDB
+        require((AttentionDB._crc_rows(disk) == csum).all(),
+                f"promoted disk rows fail their CRC (part {k})")
+    require(store.capacity.verify(dslots).size == 0, "disk rows fail CRC")
+    # the next replay hits the promoted rows, in kernel mode
+    with SyncFreeRunLayers(torch, sess.engine) as ctx:
+        zero_counts()
+        sess.infer(replay)
+        torch.cuda.synchronize()
+        per_path[f"{tag}promoted-replay"] = read_counts()
+        pend = ctx.pends.pop()
+    spec.runtime.threshold, store.sim_cal = thr, cal
+    store.publish()
+    hits = np.stack([p[2].cpu().numpy() for p in pend])
+    slots = np.stack([p[3].cpu().numpy() for p in pend])
+    on_promoted = int((hits & np.isin(slots, hslots)).sum())
+    n_ma = per_path[f"{tag}promoted-replay"]["memo_attention"]
+    require(on_promoted > 0, "the replay after promotion never hit a "
+            "promoted row")
+    require(n_ma > 0, "the replay after promotion launched no "
+            "memo_attention")
+    secs = {k: (v - secs0[k]) * 1e3 for k, v in store.promote_secs.items()}
+    print(f"[bigmem] capacity tier: {entries} entries on disk, host budget "
+          f"{CAPACITY_HOST_ENTRIES}, near-exact threshold 1 - {delta:.4g} "
+          f"(median nearest-other distance {np.median(others):.4g}, "
+          f"|e| {scale:.4g}), {len(demoted)} demoted in "
+          f"{demote_ms:.1f} ms (no re-append); replay with admission: "
+          f"{store.stats.n_promoted} promoted, {len(hslots)} still live, "
+          f"device rows byte-equal to the disk rows, CRC intact; the next "
+          f"replay hit promoted rows {on_promoted} times in kernel mode "
+          f"({n_ma} memo_attention launches); promote_for host ms in the "
+          f"flush: search {secs['search']:.1f}, crc {secs['crc']:.1f}, "
+          f"put_parts {secs['put_parts']:.1f} (the flush "
+          f"{flush_ms:.1f} ms with the batch)")
+    return dict(entries=entries, delta=delta, demoted=len(demoted),
+                demote_ms=demote_ms,
+                promoted=int(store.stats.n_promoted),
+                hits_on_promoted=on_promoted, memo_attention_launches=n_ma,
+                promote_ms=secs, flush_batch_ms=flush_ms)
+
+
+def crash_recovery(torch, sess, tmp, batch, per_path):
+    """A copy of the capacity session's tier, appended to by a child
+    process that is SIGKILLed mid-append, reopens through
+    ``MemoSession.load(<dir>)``: every live row verifies and the session
+    serves with finite logits. Returns the JSON fields."""
+    import os
+    import shutil
+    from repro_torch.core.capacity import CapacityTier
+    from repro_torch.memo.session import MemoSession
+    store = sess.store
+    require(store.checkpoint(), f"checkpoint: {store.capacity_error}")
+    copy = os.path.join(tmp, "tier_copy")
+    shutil.copytree(store.capacity.root, copy)
+    os.remove(os.path.join(copy, CapacityTier.LOCKFILE))
+    acked = kill_mid_append(copy, store, acks=8, delay=0.01, seed=0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rec = MemoSession.load(copy, sess.model, sess.params,
+                           device=sess.engine.device)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    tier = rec.store.capacity
+    require(rec.store.capacity_ok and tier.recovery is not None,
+            f"recovery: {rec.store.capacity_error}")
+    bad_disk = tier.verify()
+    bad_host = rec.store.verify_integrity()
+    require(bad_disk.size == 0 and bad_host == [],
+            f"after recovery {bad_disk.size} disk and {len(bad_host)} host "
+            f"rows fail their CRC")
+    require(tier.live_count >= len(store.capacity.live_slots) + 2 * acked,
+            f"recovery lost acked rows: {tier.live_count}")
+    rec.spec.runtime.mode = "kernel"
+    zero_counts()
+    logits, _ = rec.infer(batch)
+    torch.cuda.synchronize()
+    per_path["recovered"] = read_counts()
+    require(per_path["recovered"]["memo_attention"] > 0,
+            "the recovered session launched no memo_attention")
+    require(bool(torch.isfinite(logits).all()), "recovered: non-finite")
+    print(f"[bigmem] crash: a child appended to a copy of the tier and was "
+          f"SIGKILLed after {acked} acked appends; MemoSession.load(<dir>) "
+          f"recovered in {ms:.1f} ms ({tier.recovery}), all "
+          f"{tier.live_count} live disk rows and {rec.store.live_count} "
+          f"host rows verify, a kernel-mode batch has finite logits")
+    tier.close()
+    del rec
+    shutil.rmtree(copy)
+    return dict(acked=acked, recovery_ms=ms, recovery=tier.recovery,
+                live=int(tier.live_count))
+
+
+def capacity_server(torch, sess, corpus, per_path):
+    """MemoServer over the capacity session (bucket mode, asynchronous
+    maintenance, checkpoint every payload): checkpoints land; the
+    disk_write_io chaos class walks health to DISK_DEGRADED while every
+    request is served with finite logits; ``recover()`` reattaches the
+    tier. Returns the JSON fields."""
+    import numpy as np
+    from repro_torch.core.runtime import Health
+    from repro_torch.launch.server import make_workload
+    store, spec, inj = sess.store, sess.spec, sess.engine.faults
+    spec.runtime.mode = "bucket"
+    spec.admission.enabled, spec.admission.every = True, 1
+    spec.capacity.checkpoint_every = 1
+    rng = np.random.default_rng(5)
+
+    def requests(n):
+        return [w[1] for w in make_workload([corpus], n, 1e3,
+                                            SERVER_BUCKETS,
+                                            seed=int(rng.integers(1 << 30)))]
+    secs0 = dict(store.promote_secs)
+    timers = TimeCalls({"checkpoint": (store, "checkpoint")})
+    zero_counts()
+    with timers, sess.serve(buckets=SERVER_BUCKETS,
+                            max_batch=SERVER_MAX_BATCH) as srv:
+        comps = serve_all(srv, requests(64))
+        srv.drain_maintenance(timeout=120)
+        require(srv.n_checkpoints > 0, "no checkpoint in the trace")
+        n_ckpt = srv.n_checkpoints
+        inj.arm("capacity.disk_write_io", p=1.0)
+        comps += serve_all(srv, requests(64))
+        srv.drain_maintenance(timeout=120, raise_errors=False)
+        degraded = srv.health
+        ok_while = store.capacity_ok
+        inj.disarm()
+        report = srv.recover()
+        healthy = srv.health
+        comps += serve_all(srv, requests(32))
+        srv.drain_maintenance(timeout=120)
+        flushes = max(1, srv.n_batches)
+    per_path["capacity-server"] = read_counts()
+    require(per_path["capacity-server"]["nn_search"] > 0,
+            "the server over the tier launched no nn_search")
+    for c in comps:
+        require(bool(np.isfinite(c.logits).all()), "non-finite logits")
+    require(len(comps) == 160, f"{len(comps)} of 160 requests served")
+    require(degraded is Health.DISK_DEGRADED and not ok_while,
+            f"disk_write_io: health {degraded}, capacity_ok {ok_while}")
+    require(report["capacity_ok"] is True and healthy is Health.HEALTHY
+            and store.capacity_ok, f"recover(): {report}, {healthy}")
+    ckpt_ms = timers.secs["checkpoint"] * 1e3 / max(1,
+                                                     timers.calls["checkpoint"])
+    secs = {k: (v - secs0[k]) * 1e3 / flushes
+            for k, v in store.promote_secs.items()}
+    print(f"[bigmem] server: 160 requests over the tier, {n_ckpt} "
+          f"checkpoints before the fault ({ckpt_ms:.1f} ms each, "
+          f"{timers.calls['checkpoint']} in all); disk_write_io -> "
+          f"{degraded.value} with every request served (finite logits); "
+          f"recover() -> {report}; promote_for host ms per batch: search "
+          f"{secs['search']:.2f}, crc {secs['crc']:.2f}, put_parts "
+          f"{secs['put_parts']:.2f}; {store.stats.n_promoted} promoted in "
+          f"all, {store.stats.n_disk_errors} disk errors")
+    return dict(checkpoints=n_ckpt, checkpoint_ms=ckpt_ms,
+                degraded=degraded.value, recover=report,
+                promote_ms_per_batch=secs)
+
+
+def big_memory(torch, dev, sess, main, per_path, smi):
+    """Phase 5d: the big-memory tier on full-width bert_base — phase 3's
+    session saved and loaded (``save_and_load``), a session built over a
+    capacity tier that demotes to disk and promotes back
+    (``capacity_promotion``), recovery after a SIGKILL mid-append
+    (``crash_recovery``) and MemoServer over the tier
+    (``capacity_server``). Returns the JSON fields."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.data import TemplateCorpus
+    from repro_torch.memo import MemoSpec
+    from repro_torch.memo.session import MemoSession
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bigmem_")
+    free = shutil.disk_usage(tmp).free
+    print(f"[bigmem] temporary directory {tmp}: {free / 2**30:.1f} GiB "
+          f"free, {BIGMEM_FREE_BYTES / 2**30:.0f} GiB needed")
+    require(free >= BIGMEM_FREE_BYTES, f"{free} bytes free in {tmp}")
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        out["save_load"] = r = save_and_load(torch, sess, main["requests"],
+                                             tmp, per_path)
+        print(f"[bigmem] {smi}: {r['slots']} slots ({r['live']} live): "
+              f"format 3 {r['file_f3_mb']:.1f} MB saved in "
+              f"{r['save_f3_ms']:.0f} ms, format 2 {r['file_f2_mb']:.1f} MB "
+              f"in {r['save_f2_ms']:.0f} ms; open (without its sync) "
+              f"format 3 mapped {r['open_f3_mmap_ms']:.1f} ms, read "
+              f"{r['open_f3_ram_ms']:.1f} ms, format 2 "
+              f"{r['open_f2_ms']:.1f} ms; first sync() from the map "
+              f"{r['first_sync_f3_mmap_ms']:.1f} ms (its CRC gate "
+              f"{r['first_sync_f3_mmap_crc_ms']:.1f}, device upload "
+              f"{r['first_sync_f3_mmap_upload_ms']:.1f}), from RAM "
+              f"{r['first_sync_f3_ram_ms']:.1f} ms (CRC "
+              f"{r['first_sync_f3_ram_crc_ms']:.1f}, upload "
+              f"{r['first_sync_f3_ram_upload_ms']:.1f}), format 2 "
+              f"{r['first_sync_f2_ms']:.1f}; upload of the mapped arena, "
+              f"direct {r['upload_direct_ms']} ms vs staged through a "
+              f"full-capacity host array {r['upload_staged_ms']} ms")
+        for name in ("f3", "f2"):
+            os.remove(os.path.join(tmp, f"session.{name}"))
+        # a session built over a capacity tier, with phase 3's weights,
+        # calibration and threshold
+        t = time.perf_counter()
+        cap = MemoSession.build(
+            sess.model, sess.params,
+            MemoSpec.flat(mode="kernel", apm_codec="int8",
+                          device_index="flat", threshold=main["thr"],
+                          faults={},
+                          capacity_dir=os.path.join(tmp, "tier"),
+                          capacity_checkpoint_every=1),
+            batches=main["calib"], device=dev)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t) * 1e3
+        require(cap.store.capacity_ok
+                and cap.store.capacity.live_count == len(cap.store),
+                f"capacity build: {cap.store.capacity_error}")
+        print(f"[bigmem] built {len(cap.store)} entries over a capacity "
+              f"tier in {build_ms:.0f} ms (write-through of every entry)")
+        out["capacity"] = capacity_promotion(torch, cap, main["calib"][0],
+                                             per_path)
+        out["capacity"]["build_ms"] = build_ms
+        out["crash"] = crash_recovery(torch, cap, tmp, main["requests"][0],
+                                      per_path)
+        corpus = TemplateCorpus(vocab=cap.engine.cfg.vocab, seq_len=SEQ,
+                                seed=3)
+        out["server"] = capacity_server(torch, cap, corpus, per_path)
+        cap.store.capacity.close()
+        del cap
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[bigmem] phase 5d took {out['phase_s']:.1f} s")
     return out
 
 
@@ -2073,6 +2577,8 @@ def main() -> int:
     profile_batch(torch, sess, main_path["requests"][0])
     policies = serve_policies(torch, dev, sess, main_path, per_path)
     print(json.dumps({"policies": policies}))
+    bigmem = big_memory(torch, dev, sess, main_path, per_path, smi)
+    print(json.dumps({"big_memory": bigmem}))
     del sess, captured, main_path
     torch.cuda.empty_cache()
     runtime = serve_runtime(torch, dev, per_path, smi)

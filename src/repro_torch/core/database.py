@@ -322,9 +322,18 @@ class DeviceDB:
         capacity = max(int(capacity or 0), n)
         parts = []
         for p in host_parts:
-            full = np.zeros((capacity,) + p.shape[1:], p.dtype)
-            full[:n] = p
-            parts.append(torch.from_numpy(full).to(self.device))
+            # zero-filled where it lives, then one copy of the live prefix
+            # from the host rows as they are: no full-capacity staging
+            # array on the host, and a memory-mapped arena (a loaded file)
+            # is read once, straight into the upload
+            dtype = torch.from_numpy(np.empty(0, p.dtype)).dtype
+            full = torch.zeros((capacity,) + p.shape[1:], dtype=dtype,
+                               device=self.device)
+            if n:
+                if not p.flags.writeable:     # a read-only map ('r' mode)
+                    p = np.array(p)
+                full[:n].copy_(torch.from_numpy(np.ascontiguousarray(p)))
+            parts.append(full)
         self.parts: Tuple[torch.Tensor, ...] = tuple(parts)
         self._n = n
         self.transfer_bytes = sum(int(p.nbytes) for p in self.parts)

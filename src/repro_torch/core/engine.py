@@ -45,13 +45,19 @@ never changes, so a ``PreparedBatch`` keeps serving its generation while
 ``apply_maintenance`` runs inline after ``finalize`` (``infer``) or on
 ``MemoServer``'s worker thread (``core/runtime.py``).
 
+With a capacity tier (``MemoSpec(capacity_dir=...)``) the flush first
+asks the disk tier for the captured misses (``MemoStore.promote_for``):
+a miss whose nearest disk row clears the threshold is satisfied by
+promoting that row bit-identically, and only the rest are admitted. The
+promoted rows ride the same delta sync as the admissions.
+
 **Selective memoization** (``profile``): per-layer attention time,
 lookup overhead and memo rate feed ``PerfModel``; serve its
 ``active_layers()`` through ``infer(active_layers=...)``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its slice):
-prefill, the lowrank codec, the clustered/IVF indexes, the capacity
-tier (and its promotion of misses), the sharded store and enc-dec.
+prefill, the lowrank codec, the clustered/IVF indexes, the sharded store
+and enc-dec.
 """
 from __future__ import annotations
 
@@ -235,8 +241,6 @@ class MemoEngine:
             raise _later("the sharded store (shards > 0)", "sharded-store")
         if mc.prefill.enabled:
             raise _later("prefill memoization", "prefill")
-        if mc.capacity.dir is not None:
-            raise _later("the capacity tier", "capacity-tier")
 
     # --- store delegation ------------------------------------------------
     @property
@@ -269,7 +273,8 @@ class MemoEngine:
         return self._layers_cache
 
     def _make_store(self, apm_shape, *, capacity: int) -> MemoStore:
-        """Construct the MemoStore exactly as the spec describes."""
+        """Construct the MemoStore exactly as the spec describes — the
+        one construction path of ``build()`` and ``MemoSession.load``."""
         mc = self.mc
         budget = (None if mc.budget_mb is None
                   else int(mc.budget_mb * 1e6))
@@ -280,7 +285,10 @@ class MemoEngine:
             device_index_kind=mc.device_index,
             cluster_crossover=mc.cluster_crossover,
             eviction=mc.eviction.kind, faults=self.faults,
-            capacity_dir=mc.capacity.dir)
+            capacity_dir=mc.capacity.dir,
+            capacity_budget_mb=mc.capacity.budget_mb,
+            capacity_fsync=mc.capacity.fsync,
+            capacity_stall_s=mc.capacity.stall_s)
 
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -706,14 +714,28 @@ class MemoEngine:
             self.store.sync()
 
     def _flush_admissions(self, st: MemoStats):
-        """Batch-boundary admission: push captured misses into the host
-        tier under the byte budget, then delta-sync the device tier."""
+        """Batch-boundary admission: promote the captured misses the disk
+        tier can satisfy, push the rest into the host tier under the byte
+        budget, then delta-sync the device tier."""
         if not self._pending_admissions:
             return
         pend, self._pending_admissions = self._pending_admissions, []
         apms = np.concatenate([p[0] for p in pend], 0)
         embs = np.concatenate([p[1] for p in pend], 0)
         lens = np.concatenate([p[2] for p in pend], 0)
+        cspec = self.mc.capacity
+        if (apms.shape[0] and cspec.promote
+                and self.store.capacity is not None):
+            # misses the disk tier can satisfy are re-admitted
+            # bit-identically from their durable copies instead of
+            # re-encoded from the fresh capture; the promoted rows ride
+            # the same delta sync as the admissions
+            promoted = self.store.promote_for(
+                embs, lens, threshold=float(self.mc.threshold),
+                max_promote=int(cspec.promote_max))
+            if promoted.any():
+                keep = ~promoted
+                apms, embs, lens = apms[keep], embs[keep], lens[keep]
         if apms.shape[0]:
             slots = self.store.admit(apms, embs, lens)
             st.add_admitted(int(slots.size))

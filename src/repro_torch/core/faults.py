@@ -4,9 +4,12 @@ AttMemo's contract is acceleration "with negligible loss in inference
 accuracy" — which obligates the serving stack to a stronger one: a memo
 fault may cost hit rate, never correctness or availability. This module
 is the *testable* half of that contract: a registry of named fault
-points threaded through the store (``core/store.py``). This is a copy
-of the reference's ``core/faults.py``; the serving runtime and session
-persistence that fire the other points come with later slices.
+points threaded through the store (``core/store.py``), the capacity
+tier (``core/capacity.py``), the serving runtime (``core/runtime.py``)
+and session persistence (``memo/session.py``), so the chaos classes of
+``repro_torch.launch.server --fault`` and the tests drive every failure
+mode deterministically. This is a copy of the reference's
+``core/faults.py``.
 
 Zero cost in production: faults are enabled through
 ``RuntimeSpec(faults={...})``. When that field is ``None`` (the

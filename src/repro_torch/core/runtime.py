@@ -38,6 +38,13 @@ variable-length sequences arriving open-loop. MemoServer owns the gap:
   ``timeout`` and checks worker liveness, and ``recover()``
   re-materializes the device tier from the host mirrors (quarantining
   entries that fail their checksums).
+* **the capacity tier** (``MemoSpec(capacity_dir=...)``) — the
+  maintenance actor checkpoints the disk tier every ``checkpoint_every``
+  applied payloads (and re-compacts it past ``compact_ratio``), and once
+  more on ``close()``. A detached tier (disk I/O error, stalled
+  promotion, failed checkpoint) walks HEALTHY to DISK_DEGRADED: serving
+  goes on RAM-only and nothing heals it but ``recover()``, which
+  reattaches the tier (journal replay + CRC sweep) and re-checkpoints.
 
 On a CUDA device the worker runs under ``torch.no_grad()`` on the device
 and stream the server was made on (grad mode, the current device and
@@ -45,9 +52,8 @@ the current stream are per thread), so its copies and the serving
 thread's kernels are ordered by one stream: an old generation's memory
 is reused only after the kernels queued before its release.
 ``finalize``'s barrier synchronizes the whole device, so it also waits
-for the worker's queued copies. The capacity tier is not ported: the
-store reports none attached, so ``DISK_DEGRADED`` is defined but not
-reached, and prefill requests are refused in ``submit``.
+for the worker's queued copies, promotions' delta syncs among them.
+Prefill requests are refused in ``submit`` until the prefill slice.
 """
 from __future__ import annotations
 
@@ -72,8 +78,8 @@ class Health(enum.Enum):
     step gives up store durability, then freshness, then the memo path,
     never the request."""
     HEALTHY = "healthy"
-    DISK_DEGRADED = "disk_degraded"  # capacity tier detached (the
-    #                                  capacity-tier slice)
+    DISK_DEGRADED = "disk_degraded"  # capacity tier detached: serve
+    #                                  RAM-only until recover()
     DEGRADED = "degraded"            # serve last snapshot; shed maintenance
     MEMO_DISABLED = "memo_disabled"  # exact attention; no maintenance
 
@@ -176,11 +182,17 @@ class MemoServer:
         # total count past the ring's horizon
         self.health_log: deque = deque(maxlen=max(1, int(health_log_cap)))
         self.n_health_transitions = 0
-        # the capacity tier's checkpoint cadence (used once that tier is
-        # ported; the store reports none attached)
+        # capacity-tier checkpoint cadence: fold the WAL into a fresh
+        # shadow manifest every N applied payloads
         self.checkpoint_every = int(
             engine.mc.capacity.checkpoint_every if checkpoint_every is None
             else checkpoint_every)
+        self._applies_since_ckpt = 0
+        self.n_checkpoints = 0
+        # re-compaction: past this retired-hole fraction the maintenance
+        # actor rewrites the tier densely right after a checkpoint
+        self.compact_ratio = engine.mc.capacity.compact_ratio
+        self.n_compactions = 0
         self.n_maint_shed = 0             # payloads dropped, never requests
         self.n_maint_retries = 0
         self.n_exact_batches = 0          # batches served in MEMO_DISABLED
@@ -353,8 +365,20 @@ class MemoServer:
 
     def _after_apply(self) -> None:
         """Post-payload bookkeeping on the maintenance actor: the
-        disk-health probe (the capacity tier's checkpoint cadence joins
-        here with that tier)."""
+        capacity checkpoint cadence and the disk-health probe. A failed
+        checkpoint detaches the tier inside ``store.checkpoint`` (never
+        raises)."""
+        store = self.engine.store
+        if store.capacity_ok:
+            self._applies_since_ckpt += 1
+            if self._applies_since_ckpt >= max(1, self.checkpoint_every):
+                self._applies_since_ckpt = 0
+                if store.checkpoint():
+                    self.n_checkpoints += 1
+                if self.compact_ratio is not None \
+                        and store.compact_capacity(
+                            self.compact_ratio) is not None:
+                    self.n_compactions += 1
         self._note_disk()
 
     def _check_worker(self) -> None:
@@ -534,8 +558,14 @@ class MemoServer:
         mirrors with a forced full sync, restart the worker if it died,
         and reset health to HEALTHY. The host tier survives worker
         crashes and shed payloads untouched, so the hit rate returns to
-        the fault-free level (minus quarantined entries)."""
+        the fault-free level (minus quarantined entries). A detached
+        capacity tier is re-opened (journal replay + CRC sweep) and
+        re-checkpointed; if the disk stays broken it stays detached and
+        serving goes on RAM-only (DISK_DEGRADED again at once)."""
         store = self.engine.store
+        if store.capacity_error is not None:
+            if store.reattach_capacity():
+                store.checkpoint()
         quarantined = store.verify_integrity(quarantine=True)
         store.sync(force_full=True)
         if self.async_maintenance and self._maint_q is not None \
@@ -567,6 +597,11 @@ class MemoServer:
                     continue
             w.join(timeout=30)
             self._worker = None
+        # parting durability: fold the WAL tail into a clean manifest so
+        # a reopen replays nothing (failures just detach the tier)
+        store = self.engine.store
+        if store is not None and store.capacity_ok:
+            store.checkpoint()
 
     def __enter__(self):
         return self

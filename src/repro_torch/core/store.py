@@ -1,11 +1,13 @@
-"""MemoStore — the lifecycle-managed two-tier memo subsystem, the
-counterpart of the reference's ``core/store.py`` (without the capacity
-tier, which waits for a later slice).
+"""MemoStore — the lifecycle-managed memo subsystem, the counterpart of
+the reference's ``core/store.py``.
 
 The host tier (``AttentionDB`` arena + slot-aligned host index) is the
 reference's numpy code, so the same admit/evict/sync sequence leaves
 byte-identical arrays in both packages (``state_dict``). The device tier
-(``DeviceDB`` + ``DeviceIndex``) is torch tensors on ``device``.
+(``DeviceDB`` + ``DeviceIndex``) is torch tensors on ``device``. The
+capacity tier (``core/capacity.py``, opt-in with ``capacity_dir``) is the
+durable mmap-backed disk tier behind the host budget, numpy like the
+reference's.
 
 * ``admit(apms, embs)`` — admission under a byte budget, recycling
                           free slots (stable slot ids, no compaction).
@@ -15,6 +17,16 @@ byte-identical arrays in both packages (``state_dict``). The device tier
                           when the device slack holds them, a full
                           re-materialization otherwise. Ends by
                           publishing a ``StoreSnapshot``.
+
+With a capacity tier every admission is written through to the disk
+(journal first, then the arenas), so eviction becomes demotion (the host
+copy is dropped, the disk copy stays live) and ``promote_for`` brings
+disk rows whose calibrated similarity clears the threshold back into the
+host arena bit-identically (``put_parts``). Promoted slots are dirty
+host slots like admitted ones: they reach the device through the
+copy-on-write delta sync, never by a write into a published snapshot.
+Any disk error or stall detaches the tier (``capacity_error``) and
+serving goes on RAM-only until ``reattach_capacity``.
 
 Snapshots never change once published, as the reference's immutable jnp
 arrays do not. A delta sync is copy-on-write: the device arena parts,
@@ -29,12 +41,14 @@ per delta sync.
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.capacity import CapacityTier
 from repro_torch.core.database import AttentionDB, DeviceDB, pad_delta_pow2
 from repro_torch.core.faults import FaultInjector, MemoStoreError, fire
 from repro_torch.core.index import TOMBSTONE, DeviceIndex
@@ -66,6 +80,11 @@ class StoreStats:
     bytes_full: int = 0           # bytes moved by full re-materializations
     n_quarantined: int = 0        # entries tombstoned on checksum mismatch
     n_evict_rejected: int = 0     # bogus policy slots the store refused
+    # capacity tier (DESIGN.md §2.11)
+    n_demoted: int = 0            # evictions that kept a disk copy (cooled)
+    n_promoted: int = 0           # disk rows re-admitted into the host tier
+    n_disk_quarantined: int = 0   # disk rows retired on checksum mismatch
+    n_disk_errors: int = 0        # tier ops that failed (→ RAM-only)
 
     @property
     def bytes_total(self) -> int:
@@ -83,11 +102,10 @@ class MemoStore:
                  device_index_kind: str = "auto",
                  cluster_crossover: int = 4096, eviction: str = "clock",
                  faults: Optional[FaultInjector] = None,
-                 capacity_dir: Optional[str] = None):
-        if capacity_dir is not None:
-            raise NotImplementedError(
-                "the capacity (disk) tier waits for the capacity-tier "
-                "slice; leave capacity_dir unset")
+                 capacity_dir: Optional[str] = None,
+                 capacity_budget_mb: Optional[float] = None,
+                 capacity_fsync: bool = True,
+                 capacity_stall_s: float = 5.0):
         self.apm_shape = tuple(apm_shape)
         self.embed_dim = embed_dim
         self.index_kind = index_kind
@@ -120,16 +138,26 @@ class MemoStore:
         self.stats = StoreStats()
         self.device_db: Optional[DeviceDB] = None
         self.device_index = None
-        # the reference's capacity-tier state with no capacity directory:
-        # no disk tier attached, so none can detach (MemoServer reads it)
-        self._capacity_dir: Optional[str] = None
+        # capacity tier: any disk error detaches it (``capacity_error``
+        # set) and serving goes on RAM-only; ``reattach_capacity``
+        # re-opens it
+        self._capacity_dir = capacity_dir
+        self._capacity_budget_mb = capacity_budget_mb
+        self._capacity_fsync = capacity_fsync
+        self._capacity_stall_s = float(capacity_stall_s)
+        self.capacity: Optional[CapacityTier] = None
         self.capacity_error: Optional[str] = None
-
-    @property
-    def capacity_ok(self) -> bool:
-        """A capacity tier is attached and healthy (never, until the
-        capacity-tier slice)."""
-        return False
+        self._host_to_disk: Dict[int, int] = {}
+        self._disk_to_host: Dict[int, int] = {}
+        # host seconds of promote_for's legs, summed over its calls
+        # (search over the disk embeddings, the CRC re-check, put_parts)
+        self.promote_secs: Dict[str, float] = {"search": 0.0, "crc": 0.0,
+                                               "put_parts": 0.0}
+        if capacity_dir is not None:
+            try:
+                self._open_capacity_locked()
+            except Exception as e:       # noqa: BLE001 — degrade, don't die
+                self._capacity_fail(e)
 
     # ------------------------------------------------------------ accounting
     @property
@@ -186,6 +214,319 @@ class MemoStore:
         slots = np.asarray(slots).reshape(-1)
         return self._embs_host[slots].copy()
 
+    # ------------------------------------------------------- capacity tier
+    @property
+    def capacity_ok(self) -> bool:
+        """True while the disk tier is attached and error-free."""
+        return self.capacity is not None and self.capacity_error is None
+
+    def _open_capacity_locked(self) -> None:
+        budget = (None if self._capacity_budget_mb is None
+                  else int(float(self._capacity_budget_mb) * 1e6))
+        self.capacity = CapacityTier(
+            self._capacity_dir, codec=self.db.codec,
+            embed_dim=self.embed_dim, capacity=self.db.capacity,
+            budget_bytes=budget, faults=self._faults,
+            fsync=self._capacity_fsync)
+        self.capacity.on_retire = self._on_disk_retire
+        self.capacity.on_compact = self._on_disk_compact
+        # a recovered manifest carries the calibration it was
+        # checkpointed under: a dir-load serves with the sim map its
+        # entries were admitted against
+        cal = (self.capacity.extra_meta or {}).get("sim_cal")
+        if cal is not None and len(cal) == 2:
+            self.sim_cal = (float(cal[0]), float(cal[1]))
+
+    def _capacity_fail(self, e: BaseException) -> None:
+        """Disk fault: flag the tier offline (RAM-only serving); never
+        raise into admission, eviction or serving."""
+        self.capacity_error = f"{type(e).__name__}: {e}"
+        self.stats.n_disk_errors += 1
+
+    def _on_disk_retire(self, slots) -> None:
+        """Tier callback: disk rows retired (budget/quarantine); drop any
+        host↔disk mapping so a recycled disk slot cannot alias."""
+        for d in np.asarray(slots).reshape(-1):
+            h = self._disk_to_host.pop(int(d), None)
+            if h is not None:
+                self._host_to_disk.pop(h, None)
+
+    def _on_disk_compact(self, old_slots, new_slots) -> None:
+        """Tier callback: compaction renumbered every live disk slot;
+        rewrite the host↔disk maps so mirrored entries stay linked."""
+        remap = {int(o): int(w) for o, w in zip(
+            np.asarray(old_slots).reshape(-1),
+            np.asarray(new_slots).reshape(-1))}
+        h2d, d2h = {}, {}
+        for h, d in self._host_to_disk.items():
+            w = remap.get(int(d))
+            if w is not None:
+                h2d[h] = w
+                d2h[w] = h
+        self._host_to_disk, self._disk_to_host = h2d, d2h
+
+    def _capacity_op(self, fn, *args, **kwargs):
+        """Run one tier op under the stall watchdog: an op slower than
+        ``capacity_stall_s`` (a ``stall_s`` rider, a hung disk) fails the
+        tier like an IO error, so a stalled promotion degrades to
+        RAM-only serving instead of blocking it."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        dt = time.perf_counter() - t0
+        if dt > self._capacity_stall_s:
+            raise TimeoutError(
+                f"capacity tier op {getattr(fn, '__name__', fn)!r} took "
+                f"{dt:.3f}s (stall threshold {self._capacity_stall_s}s)")
+        return out
+
+    def _mirror_to_capacity_locked(self, slots) -> None:
+        """Write-through: durably append the given host slots' encoded
+        rows (and their recorded checksums) to the disk tier. Slots
+        already mirrored are skipped, so demotion is free."""
+        fresh = [int(s) for s in np.asarray(slots).reshape(-1)
+                 if int(s) not in self._host_to_disk]
+        if not fresh:
+            return
+        arr = np.asarray(fresh, np.int64)
+        parts = self.db.parts_at(arr)
+        csums = [c[arr] for c in self.db.checksums]
+        dslots = self._capacity_op(
+            self.capacity.append, parts, self._embs_host[arr],
+            self._lens_host[arr], csums)
+        for h, d in zip(fresh, dslots):
+            self._host_to_disk[h] = int(d)
+            self._disk_to_host[int(d)] = h
+
+    def _adopt_disk_rows_locked(self, parts, dembs, dlens, dcsums,
+                                dslots) -> np.ndarray:
+        """Land disk rows in the host arena bit-identically (their bytes
+        and recorded checksums, ``put_parts``), mirror them into the
+        slot-aligned staging and the host index, mark them dirty for the
+        next delta sync and link them to their disk slots."""
+        slots = self.db.put_parts(parts, dcsums)
+        self._ensure_emb_capacity(int(slots.max()) + 1)
+        self._embs_host[slots] = dembs
+        self._lens_host[slots] = dlens
+        if self.index is not self.device_index:
+            self.index.assign(slots, dembs)
+        self._dirty.update(int(s) for s in slots)
+        self.generation += 1
+        self.capacity.note_reuse(dslots)
+        for h, d in zip(slots, dslots):
+            self._host_to_disk[int(h)] = int(d)
+            self._disk_to_host[int(d)] = int(h)
+        return slots
+
+    def promote_for(self, embs, lengths=None, *, threshold: float,
+                    max_promote: int = 64) -> np.ndarray:
+        """Promotion disk → host → device: search the disk tier for the
+        given miss embeddings; rows whose calibrated predicted similarity
+        clears ``threshold`` (and whose stored length matches) come back
+        into the host arena bit-identically after a per-row CRC re-check
+        (corrupt disk rows are retired). Promoted slots are dirty; the
+        next delta sync ships them to the device tier. Returns a (B,)
+        bool mask of queries a disk-resident entry satisfies (a match
+        already resident counts: its capture need not be admitted)."""
+        embs = np.asarray(embs, np.float32)
+        B = embs.shape[0]
+        satisfied = np.zeros(B, bool)
+        if B == 0 or not self.capacity_ok:
+            return satisfied
+        secs = self.promote_secs
+        with self._lock:
+            tier = self.capacity
+            lens = (np.full(B, self.default_len, np.int32)
+                    if lengths is None
+                    else np.asarray(lengths, np.int32).reshape(-1))
+            t0 = time.perf_counter()
+            try:
+                d2, dslots = self._capacity_op(tier.search, embs, 1)
+            except Exception as e:      # noqa: BLE001 — degrade
+                self._capacity_fail(e)
+                return satisfied
+            finally:
+                secs["search"] += time.perf_counter() - t0
+            a, b = self.sim_cal
+            sim = a * np.sqrt(np.maximum(d2[:, 0], 0.0)) + b
+            chosen = np.full(B, -1, np.int64)   # query → disk slot
+            picks: List[int] = []               # unique disk slots to pull
+            for i in range(B):
+                d = int(dslots[i, 0])
+                if d < 0 or sim[i] < float(threshold) \
+                        or int(tier._lens[d]) != int(lens[i]):
+                    continue
+                h = self._disk_to_host.get(d)
+                if h is not None and self.db._live[h]:
+                    satisfied[i] = True         # already resident
+                    continue
+                if d in picks or len(picks) < int(max_promote):
+                    satisfied[i] = True
+                    chosen[i] = d
+                    if d not in picks:
+                        picks.append(d)
+            if not picks:
+                return satisfied
+            dlist = np.asarray(picks, np.int64)
+            t0 = time.perf_counter()
+            try:
+                parts, dembs, dlens, dcsums = self._capacity_op(
+                    tier.rows_at, dlist)
+            except Exception as e:      # noqa: BLE001 — degrade
+                self._capacity_fail(e)
+                return np.zeros(B, bool)
+            good = np.ones(dlist.size, bool)
+            for p, c in zip(parts, dcsums):
+                good &= AttentionDB._crc_rows(p) == c
+            secs["crc"] += time.perf_counter() - t0
+            if not good.all():
+                bad = dlist[~good]
+                try:
+                    tier.retire(bad)
+                except Exception as e:  # noqa: BLE001
+                    self._capacity_fail(e)
+                self.stats.n_disk_quarantined += int(bad.size)
+                satisfied[np.isin(chosen, bad)] = False
+                dlist = dlist[good]
+                parts = tuple(p[good] for p in parts)
+                dembs, dlens = dembs[good], dlens[good]
+                dcsums = tuple(c[good] for c in dcsums)
+            if dlist.size == 0:
+                return satisfied
+            cap = self.budget_entries
+            if cap is not None:
+                over = self.live_count + int(dlist.size) - cap
+                if over > 0:
+                    self.evict(over)
+            t0 = time.perf_counter()
+            slots = self._adopt_disk_rows_locked(parts, dembs, dlens,
+                                                 dcsums, dlist)
+            secs["put_parts"] += time.perf_counter() - t0
+            self.stats.n_promoted += int(slots.size)
+        return satisfied
+
+    def checkpoint(self) -> bool:
+        """Flush the disk tier's WAL into a fresh shadow manifest (the
+        maintenance actor calls this every ``checkpoint_every`` applied
+        payloads). Failures detach the tier, never raise."""
+        with self._lock:
+            if not self.capacity_ok:
+                return False
+            try:
+                self._capacity_op(
+                    self.capacity.checkpoint,
+                    {"sim_cal": [float(self.sim_cal[0]),
+                                 float(self.sim_cal[1])]})
+                return True
+            except Exception as e:      # noqa: BLE001 — degrade
+                self._capacity_fail(e)
+                return False
+
+    def compact_capacity(self, min_retired: float = 0.0) -> Optional[dict]:
+        """Re-compact the disk tier when at least ``min_retired`` of its
+        allocated slots are retired holes. Returns the tier's compaction
+        report, or ``None`` below the threshold or with the tier
+        detached. Failures detach the tier, never raise."""
+        with self._lock:
+            if not self.capacity_ok:
+                return None
+            tier = self.capacity
+            if tier.retired_fraction < float(min_retired):
+                return None
+            try:
+                # not under the stall watchdog: rewriting every live row
+                # is proportional to the arena, not a hung-disk signal
+                return tier.compact()
+            except Exception as e:      # noqa: BLE001 — degrade
+                self._capacity_fail(e)
+                return None
+
+    def reattach_capacity(self) -> bool:
+        """Re-open the capacity tier after a disk fault (the
+        ``MemoServer.recover`` path): recover the directory, clear the
+        error, rebuild the host↔disk mapping by checksum and write
+        through whatever the disk missed during the outage."""
+        with self._lock:
+            if self._capacity_dir is None:
+                return False
+            old, self.capacity = self.capacity, None
+            if old is not None:
+                try:
+                    old.close()
+                except Exception:       # noqa: BLE001 — already failed
+                    pass
+            self.capacity_error = None
+            self._host_to_disk.clear()
+            self._disk_to_host.clear()
+            try:
+                self._open_capacity_locked()
+                self._remirror_locked()
+                return True
+            except Exception as e:      # noqa: BLE001 — stay detached
+                self._capacity_fail(e)
+                return False
+
+    def _remirror_locked(self) -> None:
+        """Reconcile host tier → disk tier: map host entries to disk rows
+        whose primary-part checksum matches (no duplicate appends), then
+        write through the rest."""
+        tier = self.capacity
+        by_csum: Dict[int, int] = {}
+        for d in tier.live_slots:
+            by_csum.setdefault(int(tier._csums[0][d]), int(d))
+        unmapped: List[int] = []
+        for h in np.flatnonzero(self.db.live_mask):
+            h = int(h)
+            if h in self._host_to_disk:
+                continue
+            d = by_csum.get(int(self.db.checksums[0][h]))
+            if d is not None and d not in self._disk_to_host:
+                self._host_to_disk[h] = d
+                self._disk_to_host[d] = h
+            else:
+                unmapped.append(h)
+        if unmapped:
+            self._mirror_to_capacity_locked(unmapped)
+
+    def demote_to_budget(self) -> List[int]:
+        """Cool the host tier down to its byte budget (a plain evict with
+        no disk tier; with one, every evicted entry keeps its disk
+        copy)."""
+        cap = self.budget_entries
+        if cap is None:
+            return []
+        over = self.live_count - cap
+        return self.evict(over) if over > 0 else []
+
+    def adopt_capacity(self, max_entries: Optional[int] = None) -> int:
+        """Populate an EMPTY host tier from the recovered disk tier (the
+        ``MemoSession.load(<capacity dir>)`` warm start): hottest disk
+        rows first, up to ``max_entries`` and the byte budget, admitted
+        bit-identically. Returns the number of entries taken; the rest
+        stay on disk, promotable on demand."""
+        with self._lock:
+            if not self.capacity_ok:
+                return 0
+            tier = self.capacity
+            live = tier.live_slots
+            if live.size == 0:
+                return 0
+            order = live[np.argsort(-tier._reuse[live], kind="stable")]
+            cap = self.budget_entries
+            take = live.size if max_entries is None else int(max_entries)
+            if cap is not None:
+                take = min(take, max(0, cap - self.live_count))
+            order = order[:take]
+            if order.size == 0:
+                return 0
+            try:
+                parts, dembs, dlens, dcsums = tier.rows_at(order)
+            except Exception as e:      # noqa: BLE001 — degrade
+                self._capacity_fail(e)
+                return 0
+            slots = self._adopt_disk_rows_locked(parts, dembs, dlens,
+                                                 dcsums, order)
+            return int(slots.size)
+
     # --------------------------------------------------------------- admit
     def _ensure_emb_capacity(self, need: int) -> None:
         cap = self._embs_host.shape[0]
@@ -233,6 +574,15 @@ class MemoStore:
         self._dirty.update(int(s) for s in slots)
         self.generation += 1
         self.stats.n_admitted += n_new
+        # write-through: journal and append every admission to the disk
+        # tier now, so demotion later is free. Before the corrupt_row
+        # fault site: the disk keeps the bytes as encoded, like the
+        # recorded checksums
+        if self.capacity_ok:
+            try:
+                self._mirror_to_capacity_locked(slots)
+            except Exception as e:      # noqa: BLE001 — degrade
+                self._capacity_fail(e)
         if fire(self._faults, "store.corrupt_row") is not None:
             row = self.db._arenas[0][int(slots[-1])]
             row.view(np.uint8)[...] ^= 0xFF
@@ -268,9 +618,24 @@ class MemoStore:
             self.stats.n_evicted += len(evicted)
         return evicted
 
-    def _retire_slots_locked(self, slots: List[int]) -> None:
+    def _retire_slots_locked(self, slots: List[int],
+                             demote: bool = True) -> None:
         """Release the arena slots and tombstone every index row, so a
-        hit on them is impossible."""
+        hit on them is impossible. With a healthy capacity tier and
+        ``demote=True`` (eviction) the entries are cooled, not lost: any
+        not yet mirrored are written through first, and only the host
+        copy goes. Quarantine passes ``demote=False`` (its host bytes are
+        corrupt; a disk copy written at admission survives)."""
+        if demote and self.capacity_ok:
+            try:
+                self._mirror_to_capacity_locked(slots)
+                self.stats.n_demoted += len(slots)
+            except Exception as e:      # noqa: BLE001 — plain eviction
+                self._capacity_fail(e)
+        for h in slots:                 # host slots recycle; unlink maps
+            d = self._host_to_disk.pop(int(h), None)
+            if d is not None:
+                self._disk_to_host.pop(d, None)
         self.db.release(slots)
         self.index.remove(slots)
         self._ensure_emb_capacity(max(slots) + 1)
@@ -283,13 +648,25 @@ class MemoStore:
     def _quarantine_locked(self, bad: np.ndarray) -> List[int]:
         bad = [int(s) for s in np.asarray(bad).reshape(-1)]
         if bad:
-            self._retire_slots_locked(bad)
+            self._retire_slots_locked(bad, demote=False)
             self.stats.n_quarantined += len(bad)
         return bad
 
     def verify_integrity(self, quarantine: bool = True) -> List[int]:
-        """Recompute every live entry's checksums; quarantine mismatches."""
+        """Recompute every live entry's checksums; quarantine mismatches.
+        With a capacity tier attached the sweep extends to every live
+        disk row (mismatches retired there, counted in
+        ``stats.n_disk_quarantined``); the returned ids stay host
+        slots."""
         with self._lock:
+            if self.capacity_ok:
+                try:
+                    dbad = self.capacity.verify()
+                    if dbad.size and quarantine:
+                        self.capacity.retire(dbad)
+                        self.stats.n_disk_quarantined += int(dbad.size)
+                except Exception as e:  # noqa: BLE001 — degrade
+                    self._capacity_fail(e)
             bad = self.db.verify()
             if quarantine:
                 return self._quarantine_locked(bad)
@@ -452,18 +829,35 @@ class MemoStore:
                 out["index_embs"] = np.asarray(embs).copy()
             return out
 
-    def load_state_dict(self, state: Dict[str, np.ndarray]) -> None:
+    def load_state_dict(self, state: Dict[str, np.ndarray],
+                        adopt_arenas: bool = False) -> None:
         """Restore ``state_dict`` output — this package's or the
         reference's — into this freshly constructed, identically
         configured store. The device tier stays unmaterialized; the next
-        ``sync()`` performs the full upload."""
+        ``sync()`` performs the full upload.
+
+        ``adopt_arenas=True`` (``MemoSession.load(..., mmap=True)``)
+        installs the given part arrays AS the arenas instead of copying
+        rows in: with format-3 copy-on-write memmaps the arena bytes stay
+        on disk until first read or written."""
         with self._lock:
             n = int(np.asarray(state["n"]).reshape(-1)[0])
             db = self.db
             db._grow_to(n)
+            parts_state = [state.get(f"part_{spec.name}")
+                           for spec in self.codec.parts]
+            adopted = (adopt_arenas and n > 0 and db.capacity == n
+                       and all(p is not None
+                               and p.shape == a.shape and p.dtype == a.dtype
+                               for p, a in zip(parts_state, db._arenas)))
+            if adopted:
+                db._arenas = [p if isinstance(p, np.memmap)
+                              else np.ascontiguousarray(p)
+                              for p in parts_state]
             for spec, arena, csum in zip(self.codec.parts, db._arenas,
                                          db.checksums):
-                arena[:n] = state[f"part_{spec.name}"]
+                if not adopted:
+                    arena[:n] = state[f"part_{spec.name}"]
                 saved = state.get(f"csum_{spec.name}")
                 csum[:n] = (saved if saved is not None
                             else db._crc_rows(arena[:n]))
@@ -494,6 +888,14 @@ class MemoStore:
             self.device_index = None
             self._dev_lens = None
             self._snapshot = None
+            # a capacity dir attached to a file-load: reconcile the two
+            # (checksum-matched mapping, write-through for the rest) so
+            # the disk tier mirrors the loaded host tier from the start
+            if self.capacity_ok:
+                try:
+                    self._remirror_locked()
+                except Exception as e:  # noqa: BLE001 — degrade
+                    self._capacity_fail(e)
 
 
 # ------------------------------------------------------ eviction policies

@@ -14,14 +14,24 @@ compute/maintenance overlap that the async runtime buys. ``--fault``
 runs a warm → fault → recover trace instead, narrating the health
 ladder.
 
+``--capacity-dir ROOT`` attaches the capacity (disk) tier: each session
+the run builds gets its own directory under ROOT (``probe``, ``sync``,
+``async``, ``fault``), checkpointed after every applied payload, and
+left there for ``MemoSession.load(<dir>, ...)``. The disk chaos classes
+(``--fault disk_write_io`` and the other ``capacity.*`` presets) need a
+tier: without ``--capacity-dir`` they serve over a temporary directory,
+removed at the end.
+
 The model is the architecture's reduced config. Options of slices not
-ported yet raise ``NotImplementedError`` naming the slice: a capacity
-directory (and the disk chaos classes), shards, prefill, the lowrank
-codec and the ivf / clustered indexes.
+ported yet raise ``NotImplementedError`` naming the slice: shards,
+prefill, the lowrank codec and the ivf / clustered indexes.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
@@ -54,16 +64,39 @@ def make_workload(corpora, n_requests: int, rate: float, buckets,
     return wl
 
 
-def build_session(args, seed: int = 0, cfg=None):
-    """A freshly built session per A/B leg: both legs must start from the
-    identical calibration store (serving mutates it). ``cfg`` replaces
-    the reduced config of ``args.arch`` (a full-width config, say)."""
+def capacity_dir_for(args, leg: str):
+    """The capacity-tier directory of one session the run builds:
+    ``<--capacity-dir>/<leg>``, or a fresh temporary directory when a
+    disk chaos class needs a tier and none was given (``None`` when
+    neither)."""
+    if args.capacity_dir:
+        return os.path.join(args.capacity_dir, leg)
     fault = getattr(args, "fault", None)
     if fault and any(p.startswith("capacity.")
                      for p in CHAOS_PRESETS.get(fault, {})):
-        raise NotImplementedError(
-            f"chaos class {fault!r} fires in the capacity tier, which waits "
-            f"for the capacity-tier slice of the port")
+        return tempfile.mkdtemp(prefix="memo_fault_capacity_")
+    return None
+
+
+def release_session(args, sess) -> None:
+    """Close a session's capacity tier (checkpoint, unlock) and remove its
+    directory when the run made it as a temporary one."""
+    store = sess.store
+    if store.capacity is not None:
+        store.checkpoint()
+        store.capacity.close()
+    d = sess.spec.capacity.dir
+    if d and not args.capacity_dir:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def build_session(args, seed: int = 0, cfg=None, leg: str = "serve"):
+    """A freshly built session per A/B leg: both legs must start from the
+    identical calibration store (serving mutates it). ``cfg`` replaces
+    the reduced config of ``args.arch`` (a full-width config, say);
+    ``leg`` names the session's capacity-tier directory
+    (``capacity_dir_for``)."""
+    fault = getattr(args, "fault", None)
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_reduced(args.arch)
@@ -80,7 +113,8 @@ def build_session(args, seed: int = 0, cfg=None):
         admit_every=args.admit_every, recal_every=2,
         device_slack=args.device_slack, embed_steps=args.embed_steps,
         index_kind=args.index, device_index=args.device_index,
-        capacity_dir=args.capacity_dir, shards=args.shards,
+        capacity_dir=capacity_dir_for(args, leg),
+        capacity_checkpoint_every=1, shards=args.shards,
         prefill_enabled=args.prefill, faults=({} if fault else None))
     calib = [{"tokens": corpus.sample(args.batch)[0]}
              for _ in range(args.calib_batches)]
@@ -164,12 +198,13 @@ def run_fault_demo(args):
         raise SystemExit(
             f"unknown chaos class {args.fault!r}; known classes: "
             f"{sorted(CHAOS_PRESETS)}") from None
-    sess, corpus = build_session(args)
     rate = args.rate
     if rate is None:
+        sess, corpus = build_session(args, leg="probe")
         rate = probe_rate(sess, buckets=args.bucket_list,
                           max_batch=args.batch, seq=args.seq)
-        sess, corpus = build_session(args)   # the probe mutated the store
+        release_session(args, sess)         # the probe mutated the store
+    sess, corpus = build_session(args, leg="fault")
     inj = sess.engine.faults
     n = max(3, args.requests // 3)
     server = sess.serve(buckets=args.bucket_list, max_batch=args.batch,
@@ -202,17 +237,23 @@ def run_fault_demo(args):
                 for point, kw in preset.items():
                     inj.arm(point, **kw)
             elif phase == "recovered":
-                inj.disarm()
+                # the fault phase's payloads are applied while the fault
+                # is still armed, then it is disarmed and recovered from
                 try:
                     server.drain_maintenance(timeout=10,
                                              raise_errors=False)
                 except (TimeoutError, RuntimeError) as e:
                     # a stalled or dead worker: recover() restarts it
                     print(f"[server] drain before recover(): {e}")
+                inj.disarm()
                 info = server.recover()
                 print(f"[server] recover(): {info}")
+            # the fault phase serves fresh requests (misses to admit and
+            # write through under the fault); the recovered phase replays
+            # the warm one
             comps = server.run(make_workload([corpus], n, rate,
-                                             args.bucket_list, seed=7))
+                                             args.bucket_list,
+                                             seed=8 if armed else 7))
             completed += len(comps)
             flush_health()
             print(f"[server] {phase:9s}: {len(comps)}/{n} completed, "
@@ -230,9 +271,19 @@ def run_fault_demo(args):
           f"health transition(s):")
     for t, health, why in tail:
         print(f"[server]   t={t:7.3f}s  -> {health}: {why}")
+    store = sess.store
+    disk = None
+    if sess.spec.capacity.dir:
+        disk = {"capacity_ok": store.capacity_ok,
+                "checkpoints": server.n_checkpoints,
+                "disk_errors": store.stats.n_disk_errors,
+                "demoted": store.stats.n_demoted,
+                "promoted": store.stats.n_promoted}
+        print(f"[server] capacity tier: {disk}")
+    release_session(args, sess)
     return {"completed": completed, "requests": 3 * n,
             "health": server.health.value, "shed": server.n_maint_shed,
-            "exact_batches": server.n_exact_batches}
+            "exact_batches": server.n_exact_batches, "capacity": disk}
 
 
 def parse_args(argv=None):
@@ -273,7 +324,8 @@ def parse_args(argv=None):
                     choices=["auto", "flat", "clustered"],
                     help="device index (clustered: clustered/IVF slice)")
     ap.add_argument("--capacity-dir", default=None,
-                    help="capacity tier directory (capacity-tier slice)")
+                    help="root of the capacity (disk) tier directories, "
+                         "one per session the run builds")
     ap.add_argument("--shards", type=int, default=0,
                     help="sharded device tier (sharded-store slice)")
     ap.add_argument("--prefill", action="store_true",
@@ -303,7 +355,7 @@ def main(argv=None):
              else [args.maintenance])
     workload = None
     for mode in modes:
-        sess, corpus = build_session(args)
+        sess, corpus = build_session(args, leg=mode)
         if workload is None:
             phases = [corpus] + [
                 TemplateCorpus(vocab=sess.engine.cfg.vocab,
@@ -314,11 +366,13 @@ def main(argv=None):
                 for i in range(1, args.phases)]
             rate = args.rate
             if rate is None:
-                rate = probe_rate(sess, buckets=args.bucket_list,
+                probe, _ = build_session(args, leg="probe")
+                rate = probe_rate(probe, buckets=args.bucket_list,
                                   max_batch=args.batch, seq=args.seq)
-                # the probe admitted its misses: rebuild so every A/B
-                # leg starts from the identical calibration store
-                sess, corpus = build_session(args)
+                # the probe admitted its misses: it serves on its own
+                # session so that every A/B leg starts from the
+                # identical calibration store
+                release_session(args, probe)
             workload = make_workload(phases, args.requests, rate,
                                      args.bucket_list, seed=7)
             print(f"[server] {args.requests} requests, Poisson "
@@ -330,6 +384,7 @@ def main(argv=None):
                         max_delay=args.max_delay_ms * 1e-3,
                         async_maintenance=(mode == "async"))
         r.pop("server"), r.pop("completions")
+        release_session(args, sess)
         results[mode] = r
         print(f"[server] {mode:5s} maintenance: "
               f"{r['throughput_rps']:6.1f} req/s  "

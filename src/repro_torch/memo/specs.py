@@ -16,9 +16,10 @@ that select JAX implementations (``RuntimeSpec.interpret``,
 ``RuntimeSpec.kernel_impl`` — a kernel wrapper here picks its path from
 the tensor's device) or tune the clustered index (``IndexSpec.nprobe``,
 ``n_clusters``), which waits for a later slice. String-keyed fields
-validate against this package's registries. The capacity, shard and
-prefill specs keep only their opt-in field, which makes the engine
-raise until the slice that reads the rest lands.
+validate against this package's registries. ``CapacitySpec`` has every
+field of the reference's; the shard and prefill specs keep only their
+opt-in field, which makes the engine raise until the slice that reads
+the rest lands.
 """
 from __future__ import annotations
 
@@ -173,19 +174,36 @@ class RuntimeSpec:
 
 @dataclass
 class CapacitySpec:
-    """The big-memory capacity tier (DESIGN.md §2.11). Its opt-in and
-    the checkpoint cadence ``MemoServer`` reads are carried over: a
-    ``dir`` makes the engine raise until the capacity-tier slice lands
-    with the fields that tune it."""
+    """The big-memory capacity tier (DESIGN.md §2.11): an mmap-backed,
+    crash-consistent third storage tier under the host arena
+    (``core/capacity.py``). ``dir`` is the opt-in — ``None`` (the
+    default) attaches no disk tier and every other field is inert."""
     dir: Optional[str] = None       # tier directory (None = no disk tier)
+    budget_mb: Optional[float] = None   # disk byte budget (None = ∞)
+    promote: bool = True            # serve misses from disk when similar
+    promote_max: int = 64           # promotions per maintenance flush
     checkpoint_every: int = 8       # WAL→manifest every N applied payloads
-    #                                 (MemoServer's cadence; inert until the
-    #                                 capacity tier is ported)
+    stall_s: float = 5.0            # disk-op watchdog → DISK_DEGRADED
+    fsync: bool = True              # fsync WAL frames + checkpoints (off:
+    #                                 survive crashes, not power loss)
+    # re-compaction: past this retired fraction of the arenas the
+    # maintenance actor rewrites them dense. None = never compact.
+    compact_ratio: Optional[float] = None
 
     def __post_init__(self):
+        _require(self.budget_mb is None or float(self.budget_mb) > 0,
+                 f"capacity budget_mb must be None or > 0: {self.budget_mb}")
+        _require(int(self.promote_max) >= 1,
+                 f"capacity promote_max must be >= 1: {self.promote_max}")
         _require(int(self.checkpoint_every) >= 1,
                  f"capacity checkpoint_every must be >= 1: "
                  f"{self.checkpoint_every}")
+        _require(float(self.stall_s) > 0,
+                 f"capacity stall_s must be > 0: {self.stall_s}")
+        _require(self.compact_ratio is None
+                 or 0 < float(self.compact_ratio) <= 1,
+                 f"capacity compact_ratio must be None or in (0, 1]: "
+                 f"{self.compact_ratio}")
 
 
 @dataclass
@@ -237,8 +255,16 @@ FLAT_FIELDS: Dict[str, Tuple[str, str]] = {
     "eviction_kind": ("eviction", "kind"),
     # new in the fault-tolerance layer (DESIGN.md §2.9)
     "faults": ("runtime", "faults"),
-    # opt-ins of later slices (DESIGN.md §2.11-2.13); the engine raises
+    # the capacity tier (DESIGN.md §2.11)
     "capacity_dir": ("capacity", "dir"),
+    "capacity_budget_mb": ("capacity", "budget_mb"),
+    "capacity_promote": ("capacity", "promote"),
+    "capacity_promote_max": ("capacity", "promote_max"),
+    "capacity_checkpoint_every": ("capacity", "checkpoint_every"),
+    "capacity_stall_s": ("capacity", "stall_s"),
+    "capacity_fsync": ("capacity", "fsync"),
+    "capacity_compact_ratio": ("capacity", "compact_ratio"),
+    # opt-ins of later slices (DESIGN.md §2.12-2.13); the engine raises
     "shards": ("shard", "shards"),
     "prefill_enabled": ("prefill", "enabled"),
 }

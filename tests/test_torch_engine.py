@@ -233,8 +233,7 @@ def test_unported_paths_raise(built, monkeypatch):
 
 @pytest.mark.parametrize("field, value, match", [
     ("shards", 2, "sharded-store"),
-    ("prefill_enabled", True, "prefill"),
-    ("capacity_dir", "/nonexistent", "capacity-tier")])
+    ("prefill_enabled", True, "prefill")])
 def test_later_slice_opt_ins_raise(field, value, match):
     """A reference spec that opts into a later slice crosses over with its
     opt-in kept (the fields that tune it are dropped), and the engine
@@ -269,6 +268,9 @@ def test_port_imports_neither_jax_nor_reference():
         "        'repro_torch.kernels.flash_attention.ops',\n"
         "        'repro_torch.kernels.rwkv6.ops',\n"
         "        'repro_torch.core.runtime',\n"
+        "        'repro_torch.core.capacity',\n"
+        "        'repro_torch.memo.registry',\n"
+        "        'repro_torch.memo.session',\n"
         "        'repro_torch.launch.server'} <= set(names), names\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))

@@ -11,14 +11,25 @@ HEALTHY → DEGRADED → MEMO_DISABLED, where every batch is served exact
 a transient sync failure is retried; queue overflow sheds payloads, not
 requests; ``drain_maintenance`` times out under a stall and raises on a
 dead worker with payloads pending.
+
+The session-persistence cases follow: ``MemoSession.load`` fails with an
+actionable ``MemoStoreError`` on truncated, bit-flipped and
+spec-mismatched files and on an unknown format, the
+``session.load_bitflip`` point hits the checksum gate, and a torn save
+(``session.save_truncate``) never clobbers a good file in either format.
 """
+import json
+import os
+import shutil
 import time
 
 import numpy as np
 import pytest
 
 from repro_torch.configs import get_reduced
+from repro_torch.core.capacity import is_format3, read_format3, write_format3
 from repro_torch.core.engine import MemoStats
+from repro_torch.core.faults import FaultInjector, MemoStoreError
 from repro_torch.core.runtime import Health, MemoMaintenanceError, MemoServer
 from repro_torch.data import TemplateCorpus
 from repro_torch.memo import MemoSession, MemoSpec
@@ -200,3 +211,115 @@ def test_drain_raises_on_dead_worker_with_pending_payloads(fault_engine,
         srv._maint_q.task_done()
     finally:
         srv.close()
+
+
+# --------------------------------------------- session persistence faults
+
+@pytest.fixture(scope="module")
+def saved_store(fault_engine, tmp_path_factory):
+    eng, _ = fault_engine
+    eng.faults.disarm()
+    path = str(tmp_path_factory.mktemp("faults") / "store.npz")
+    MemoSession(eng).save(path)
+    return path, eng.model, eng.params
+
+
+def _load(path, m, params, **kw):
+    return MemoSession.load(path, m, params, device="cpu", **kw)
+
+
+def test_load_roundtrip(saved_store):
+    path, m, params = saved_store
+    sess = _load(path, m, params)
+    assert sess.store.live_count > 0
+
+
+def test_load_rejects_truncated_file(saved_store, tmp_path):
+    path, m, params = saved_store
+    torn = str(tmp_path / "torn.npz")
+    shutil.copy(path, torn)
+    with open(torn, "rb+") as f:
+        f.truncate(os.path.getsize(torn) // 2)
+    with pytest.raises(MemoStoreError, match="truncated or corrupt"):
+        _load(torn, m, params)
+
+
+def test_load_rejects_bitflip_on_disk(saved_store, tmp_path):
+    path, m, params = saved_store
+    flipped = str(tmp_path / "flip.npz")
+    data = bytearray(open(path, "rb").read())
+    data[len(data) // 2] ^= 0xFF
+    open(flipped, "wb").write(bytes(data))
+    with pytest.raises(MemoStoreError):
+        _load(flipped, m, params)
+
+
+def test_load_bitflip_fault_point_hits_checksum_gate(saved_store):
+    path, m, params = saved_store
+    inj = FaultInjector()
+    inj.arm("session.load_bitflip", at=1, count=1)
+    with pytest.raises(MemoStoreError, match="checksum mismatch"):
+        _load(path, m, params, faults=inj)
+    # the injector is spent: the same file loads cleanly afterwards
+    sess = _load(path, m, params, faults=inj)
+    assert sess.store.live_count > 0
+
+
+def test_save_truncate_fault_produces_torn_write(fault_engine,
+                                                 clean_faults, tmp_path):
+    eng, _ = fault_engine
+    clean_faults.arm("session.save_truncate", at=1, count=1)
+    torn = str(tmp_path / "torn.npz")
+    MemoSession(eng).save(torn)
+    with pytest.raises(MemoStoreError, match="truncated or corrupt"):
+        _load(torn, eng.model, eng.params)
+
+
+@pytest.mark.parametrize("save_format", [2, 3])
+def test_torn_save_never_clobbers_existing_file(fault_engine, clean_faults,
+                                                tmp_path, save_format):
+    """Atomic save: the crash window between temp write and publish
+    (session.save_truncate) leaves a previously saved GOOD file
+    loadable."""
+    eng, _ = fault_engine
+    clean_faults.disarm()
+    sess = MemoSession(eng)
+    path = str(tmp_path / f"good_{save_format}.bin")
+    sess.save(path, save_format=save_format)
+    before = open(path, "rb").read()
+    clean_faults.arm("session.save_truncate", at=1, count=1)
+    sess.save(path, save_format=save_format)       # torn re-save
+    assert open(path, "rb").read() == before       # old bytes intact
+    loaded = _load(path, eng.model, eng.params)
+    assert loaded.store.live_count == sess.store.live_count
+
+
+def _rewrite_meta(path, out, mutate):
+    if is_format3(path):
+        meta, arrays = read_format3(path)
+        mutate(meta)
+        write_format3(out, meta, arrays)
+        return
+    with np.load(path, allow_pickle=False) as data:
+        meta = json.loads(str(data["meta"]))
+        arrays = {k: data[k] for k in data.files if k != "meta"}
+    mutate(meta)
+    with open(out, "wb") as f:
+        np.savez_compressed(f, meta=json.dumps(meta), **arrays)
+
+
+def test_load_rejects_spec_mismatch(saved_store, tmp_path):
+    path, m, params = saved_store
+    bad = str(tmp_path / "mismatch.npz")
+    _rewrite_meta(path, bad,
+                  lambda meta: meta["spec"]["embed"].update(dim=999))
+    with pytest.raises(MemoStoreError, match="saved under a different"):
+        _load(bad, m, params)
+
+
+def test_load_rejects_unknown_format(saved_store, tmp_path):
+    path, m, params = saved_store
+    bad = str(tmp_path / "fmt.npz")
+    _rewrite_meta(path, bad, lambda meta: meta.update(format=999))
+    with pytest.raises(MemoStoreError, match="format"):
+        _load(bad, m, params)

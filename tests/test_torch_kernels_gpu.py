@@ -7,7 +7,11 @@ Three tests drive a small bert_base session on the card: the engine's
 host-synchronous kernel mode and online admission, with chip_smoke's
 checks (``compare_decisions``, ``admission_read_back``), and
 ``MemoServer`` with asynchronous maintenance (a held snapshot stays
-unchanged while the worker delta-syncs under it).
+unchanged while the worker delta-syncs under it). Two more drive the
+big-memory tier with chip_smoke's phase-5d checks: a session saved and
+loaded (format 3 mapped and read, format 2) serves with logits
+bit-equal to the original, and a capacity-tier session promotes demoted
+rows from disk whose next batch launches ``memo_attention`` over them.
 
 Tolerances (``chip_smoke.ATOL``, ``WKV_RTOL``): attention outputs within
 2e-5 absolute — both sides compute in f32 and differ only in summation
@@ -18,9 +22,10 @@ import pytest
 import torch
 
 from chip_smoke import (ATOL, TILE_EDGES, admission_read_back,
-                        attention_case, compare_decisions, drive,
-                        flash_case, nn_case, nn_tie_ok, padded_batch,
-                        serve_all, trace, wkv_case, wkv_cases, wkv_err)
+                        attention_case, capacity_promotion,
+                        compare_decisions, drive, flash_case, nn_case,
+                        nn_tie_ok, padded_batch, save_and_load, serve_all,
+                        trace, wkv_case, wkv_cases, wkv_err)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.memo_attention.ops import memo_attention
@@ -368,3 +373,38 @@ def test_server_async_keeps_held_snapshots(cuda):
         srv.drain_maintenance()
     assert len(comps) == 5 and torch.isfinite(out).all()
     assert not srv.maintenance_errors and srv.health is Health.HEALTHY
+
+
+def test_saved_session_loads_and_serves_bit_equal(cuda, tmp_path):
+    """``save_and_load``: the session saved in format 3 and 2, loaded
+    (format 3 mapped and read, format 2), serves the same batches in
+    kernel and bucket mode with equal state, hit masks and slots and
+    logits bit-equal, launching memo_attention / nn_search."""
+    sess, corpus, calib = _small_session(cuda, mode="kernel",
+                                         device_index="flat")
+    sess.autotune([{"tokens": corpus.sample(16)[0]}], "moderate")
+    requests = [calib[0], {"tokens": corpus.sample(16)[0]}]
+    out = save_and_load(torch, sess, requests, str(tmp_path), {})
+    for name in ("f3_mmap", "f3_ram", "f2"):
+        assert out[f"launches_{name}_kernel"] == 2 * len(requests)
+        assert out[f"launches_{name}_bucket"] == 2 * len(requests)
+
+
+def test_capacity_promotion_launches_memo_attention(cuda, tmp_path):
+    """``capacity_promotion`` at 16 host entries: the build's 96 entries
+    are on disk, 80 demoted; a replay promotes its rows back (device rows
+    byte-equal to the disk rows, CRC intact) and the next replay hits
+    them with memo_attention launches."""
+    import chip_smoke
+    sess, _, calib = _small_session(cuda, mode="kernel",
+                                    device_index="flat",
+                                    capacity_dir=str(tmp_path / "tier"))
+    real = chip_smoke.CAPACITY_HOST_ENTRIES
+    chip_smoke.CAPACITY_HOST_ENTRIES = 16
+    try:
+        out = capacity_promotion(torch, sess, calib[0], {})
+    finally:
+        chip_smoke.CAPACITY_HOST_ENTRIES = real
+    assert out["demoted"] == 80 and out["promoted"] > 0
+    assert out["hits_on_promoted"] > 0 and out["memo_attention_launches"] > 0
+    sess.store.capacity.close()

@@ -1,8 +1,14 @@
 """The port's serving launcher (``repro_torch.launch.server``) end to end
 on the CPU at the reduced config with a few requests: the sync/async A/B
 over one open-loop trace (the arrival rate probed, as by default), the
-chaos demo of one fault class, and the refusal of every option whose
+chaos demo of one fault class, the disk chaos classes over a temporary
+capacity tier (DISK_DEGRADED through ``recover()``; the directory
+removed afterwards), the A/B with ``--capacity-dir`` (one reopenable
+tier directory per session), and the refusal of every option whose
 slice is not ported."""
+import os
+import tempfile
+
 import pytest
 
 from repro_torch.launch.server import main
@@ -35,9 +41,49 @@ def test_server_fault_demo_recovers(capsys):
     (["--index", "ivf"], "clustered/IVF index"),
     (["--device-index", "clustered"], "clustered/IVF index"),
     (["--shards", "2"], "sharded-store"),
-    (["--prefill"], "prefill"),
-    (["--capacity-dir", "unused"], "capacity-tier"),
-    (["--fault", "disk_write_io"], "capacity-tier")])
+    (["--prefill"], "prefill")])
 def test_server_refuses_unported_options(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         main(SMALL + ["--calib-batches", "1", "--embed-steps", "2"] + flags)
+
+
+@pytest.mark.parametrize("fault", ["disk_write_io", "checkpoint_crash",
+                                   "journal_torn"])
+def test_server_disk_fault_demo_recovers(capsys, fault):
+    """A disk chaos class detaches the capacity tier mid-trace: health
+    walks to DISK_DEGRADED while every request is still served, and
+    ``recover()`` reattaches the tier. The temporary tier directory is
+    gone afterwards."""
+    before = set(os.listdir(tempfile.gettempdir()))
+    res = main(SMALL + ["--fault", fault, "--rate", "200"])
+    assert res["completed"] == res["requests"] == 12
+    assert res["health"] == "healthy"
+    assert res["capacity"]["capacity_ok"] is True
+    assert res["capacity"]["disk_errors"] >= 1
+    assert res["capacity"]["checkpoints"] > 0
+    out = capsys.readouterr().out
+    assert "-> disk_degraded" in out and "'capacity_ok': True" in out
+    left = {d for d in set(os.listdir(tempfile.gettempdir())) - before
+            if d.startswith("memo_fault_capacity_")}
+    assert not left
+
+
+def test_server_capacity_dir_reopens(tmp_path):
+    """``--capacity-dir``: each served leg writes its own tier directory,
+    checkpointed, which reopens as a session."""
+    from repro_torch.memo import MemoSession
+    root = str(tmp_path / "tiers")
+    res = main(SMALL + ["--maintenance", "async", "--rate", "200",
+                        "--capacity-dir", root])
+    assert res["async"]["n_requests"] == 12
+    assert sorted(os.listdir(root)) == ["async"]
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    cfg = get_reduced("bert_base").replace(n_classes=4)
+    m = build_model(cfg, device="cpu")
+    sess = MemoSession.load(os.path.join(root, "async"), m, m.init(0),
+                            device="cpu")
+    assert sess.store.capacity_ok
+    assert sess.store.capacity.recovery["n_replayed"] == 0
+    assert sess.store.live_count == sess.store.capacity.live_count > 0
+    assert sess.store.verify_integrity() == []

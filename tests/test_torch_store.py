@@ -174,9 +174,14 @@ def test_store_load_state_dict_from_reference():
     assert t.verify_integrity() == []
 
 
-def test_store_refuses_what_waits():
-    with pytest.raises(NotImplementedError, match="capacity"):
-        MemoStore(SHAPE, 16, capacity_dir="/nonexistent")
+def test_store_refuses_what_waits(tmp_path):
+    # the capacity tier is ported: a directory that cannot be made
+    # detaches the tier (RAM-only serving) instead of raising
+    blocker = tmp_path / "file"
+    blocker.write_text("")
+    s = MemoStore(SHAPE, 16, capacity_dir=str(blocker / "tier"))
+    assert not s.capacity_ok and s.capacity is None
+    assert "Error" in s.capacity_error and s.stats.n_disk_errors == 1
     s = MemoStore(SHAPE, 16, capacity=4, cluster_crossover=4)
     rng = np.random.default_rng(5)
     s.admit(_apms(rng, 4), rng.standard_normal((4, 16)).astype(np.float32))
