@@ -52,6 +52,20 @@ and read just after:
   ``disk_write_io`` chaos class down to DISK_DEGRADED, ``recover()``).
   It fails when the temporary directory has less free space than its
   files need;
+* the store's scale options (phase 5e, ``[scale]`` lines) — the default
+  spec built from 16 calibration batches (6144 int8 entries) lands on
+  the ``ClusteredDeviceIndex`` and serves ``kernel`` mode
+  (``memo_attention``) and ``bucket`` mode with ``run_layers`` under
+  ``set_sync_debug_mode("error")``, beside a flat index of the same
+  store (``nn_search``) and the memo-free path, with recall@1 against
+  ``nn_search`` on every layer's queries; the ``lowrank`` codec served
+  in kernel mode (``memo_attention`` over the batch's decoded rows as a
+  B-row f16 DB, held against its plain version) and bucket mode
+  (``nn_search``); both sessions saved in format 3, loaded mapped and
+  served bit-equal; ``MemoServer`` over the clustered store (packed
+  patches, overflow, a rebuild, a held snapshot unchanged); and the
+  clustered search against ``nn_search`` over tables of 4096 to
+  1,048,576 rows made on the card;
 * ``gpt2_small`` and ``rwkv6_3b`` — ``Model(attn_impl="kernel").forward``
   at full width and depth (random weights from a seed, made on the card;
   tokens from numpy) under ``set_sync_debug_mode("error")``
@@ -1198,12 +1212,12 @@ def serve_policies(torch, dev, sess, main, per_path):
                          pb_ms=perf.benefit(li) * 1e3)
                 for li, p in perf.profiles.items()})
 
-    # online admission, kernel mode: the flat device index, a budget
-    # ADMIT_HEADROOM entries above the built store (so it evicts),
+    # online admission, kernel mode: a budget ADMIT_HEADROOM entries
+    # above the built store (so it evicts and the store stays below the
+    # clustered crossover: the read-back below reads the flat table),
     # recalibration every second flush
     spec.admission.enabled, spec.admission.every = True, 1
     spec.admission.recal_every = 2
-    spec.index.device = store.device_index_kind = "flat"
     budget = (len(store) + ADMIT_HEADROOM + 0.5) * store.entry_nbytes
     spec.admission.budget_mb = budget / 1e6
     store.budget_bytes = int(budget)
@@ -1249,6 +1263,8 @@ def serve_policies(torch, dev, sess, main, per_path):
     live = live[store.db.live_mask[live]]
     sample = np.random.default_rng(0).choice(live, size=min(64, len(live)),
                                              replace=False)
+    require(type(store.device_index).__name__ == "DeviceIndex",
+            f"admission crossed to {type(store.device_index).__name__}")
     worst, other = admission_read_back(torch, store, sample)
     device_profile(torch, "admission batch (kernel mode, capture on, "
                    "maintenance inline)", lambda: sess.infer(requests[1]))
@@ -1731,7 +1747,7 @@ def big_memory(torch, dev, sess, main, per_path, smi):
         cap = MemoSession.build(
             sess.model, sess.params,
             MemoSpec.flat(mode="kernel", apm_codec="int8",
-                          device_index="flat", threshold=main["thr"],
+                          threshold=main["thr"],
                           faults={},
                           capacity_dir=os.path.join(tmp, "tier"),
                           capacity_checkpoint_every=1),
@@ -1758,6 +1774,516 @@ def big_memory(torch, dev, sess, main, per_path, smi):
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t0
     print(f"[bigmem] phase 5d took {out['phase_s']:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------ phase 5e
+# the store's scale options on full-width bert_base at SEQ and BATCH: the
+# default spec past the clustered crossover (16 calibration batches:
+# 16 x 32 x 12 = 6144 entries >= 4096), the lowrank codec (rank L/8 = 16),
+# the clustered search against nn_search over tables made on the card,
+# MemoServer over the clustered store, and save/load of both. The lowrank
+# build encodes on the host, one numpy SVD per (entry, head): 5.56 ms
+# each on the H100's host, 205 s for 8 calibration batches (PERF.md), so
+# it takes 2 (768 entries, 9216 SVDs)
+SCALE_CALIB_BATCHES, LOWRANK_CALIB_BATCHES = 16, 2
+# rows at dim 128, B = 32; 262,144 and 524,288 bracket the crossover with
+# nn_search (between 65,536 and 1,048,576 in PERF.md's first runs)
+SCALE_SWEEP = (4096, 65536, 1 << 18, 1 << 19, 1 << 20)
+SCALE_SERVER_REQUESTS, SCALE_SERVER_RATE = 64, 100.0
+# the server leg's admission headroom (entries above the built store, so
+# it evicts and recycled slots patch packed rows) and the clustered
+# index's rebuild trigger (growth past 2% of N, so the trace rebuilds)
+SCALE_HEADROOM, SCALE_REBUILD_FRAC = 128, 0.02
+
+
+def lowrank_case(torch, dev, *, B, S, H, dh, L, N, seed, rank=None):
+    """memo_attention over a B-row f16 DB decoded from lowrank factors,
+    as kernel mode serves the lowrank codec: N softmax APMs (H, L, L)
+    encoded on the host (``LowRankCodec``, numpy), the rows of B random
+    slots gathered and decoded on the card (``decode_rows``) and cut to
+    S x S; hit_idx = arange(B), each row a hit with probability 1/2."""
+    import numpy as np
+    from repro_torch.core.codec import LowRankCodec
+    rng = np.random.default_rng(seed)
+    x = 3 * rng.normal(size=(N, H, L, L))
+    e = np.exp(x - x.max(-1, keepdims=True))
+    codec = LowRankCodec((H, L, L), rank=rank)
+    parts = [torch.from_numpy(p).to(dev) for p in codec.encode(
+        (e / e.sum(-1, keepdims=True)).astype(np.float16))]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    slots = torch.randint(0, N, (B,), generator=g, device=dev)
+    db = codec.decode_rows(tuple(p.index_select(0, slots) for p in parts))
+    db = db[..., :S, :S].contiguous()
+    hit = (torch.rand(B, generator=g, device=dev) < 0.5).to(torch.int32)
+    return ((rand(B, S, H, dh), rand(B, S, H, dh), rand(B, S, H, dh), db,
+             torch.arange(B, dtype=torch.int32, device=dev), hit),
+            dict(db_scales=None, lengths=None))
+
+
+def scale_table(torch, dev, N, dim, seed):
+    """N rows around isqrt(N) centers (scale 5, unit noise) made on the
+    card, and three query batches of 32: ``hit`` — 4 perturbed copies
+    (0.1 noise) of each of 8 rows (a serving batch, the memo-hit regime);
+    ``scattered`` — 32 perturbed rows drawn across the table; ``random``
+    — 32 fresh draws from the same mixture (misses)."""
+    import math
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_c = math.isqrt(N)
+    centers = 5 * torch.randn((n_c, dim), generator=g, device=dev)
+    table = centers[torch.randint(0, n_c, (N,), generator=g, device=dev)]
+    table += torch.randn((N, dim), generator=g, device=dev)
+
+    def near(rows):
+        return table[rows] + 0.1 * torch.randn((len(rows), dim),
+                                               generator=g, device=dev)
+    pick = torch.randint(0, N, (8,), generator=g, device=dev)
+    queries = dict(
+        hit=near(pick.repeat_interleave(4)),
+        scattered=near(torch.randint(0, N, (32,), generator=g, device=dev)),
+        random=centers[torch.randint(0, n_c, (32,), generator=g,
+                                     device=dev)]
+        + torch.randn((32, dim), generator=g, device=dev))
+    return table, queries
+
+
+def clustered_recall(torch, di, args, q, table, norms):
+    """Top-1 of the clustered search against nn_search over the flat
+    table: (recall@1, share equal up to ties). A tie: the two picks'
+    exact f64 d2 within 1e-6 of |q|^2 + |d|^2 (equal rows)."""
+    from repro_torch.kernels.nn_search.ops import nn_search
+    _, ci = di.search_device(q, args=args)
+    _, fi = nn_search(q, table, db_norms=norms)
+    ci, fi = ci[:, 0].long(), fi.long()
+    qd = q.double()
+
+    def exact(i):
+        r = table.index_select(0, i.clamp(min=0)).double()
+        return ((r - qd) ** 2).sum(-1), (r * r).sum(-1)
+    (dc, nc), (df, nf) = exact(ci), exact(fi)
+    scale = (qd * qd).sum(-1) + torch.maximum(nc, nf)
+    same = ci == fi
+    tie = (ci >= 0) & ((dc - df).abs() <= 1e-6 * scale)
+    return same.double().mean().item(), (same | tie).double().mean().item()
+
+
+def scale_reload(torch, sess, requests, tmp, tag, per_path):
+    """Save ``sess`` in format 3 and load it mapped; the saved session is
+    re-materialized (a forced full sync, which rebuilds a clustered index
+    from its mirror as the load does) and both serve ``requests`` in
+    kernel and bucket mode: equal state, hit masks and slots, logits
+    bit-equal. Returns the sizes, times and launches."""
+    import os
+    from repro_torch.memo.session import MemoSession
+    path = os.path.join(tmp, f"{tag}.f3")
+    t = time.perf_counter()
+    sess.save(path)
+    out = dict(save_ms=(time.perf_counter() - t) * 1e3,
+               file_mb=os.path.getsize(path) / 1e6)
+    t = time.perf_counter()
+    ld = MemoSession.load(path, sess.model, sess.params, mmap=True,
+                          device=sess.engine.device)
+    torch.cuda.synchronize()
+    out["load_ms"] = (time.perf_counter() - t) * 1e3
+    same_state(ld.store, sess.store, f"{tag} load")
+    require(type(ld.store.device_index) is type(sess.store.device_index)
+            and ld.store.codec.key == sess.store.codec.key,
+            f"{tag}: the loaded store's layout differs")
+    sess.store.sync(force_full=True)
+    for mode in ("kernel", "bucket"):
+        runs = {}
+        for name, s in (("saved", sess), ("loaded", ld)):
+            s.spec.runtime.mode = mode
+            runs[name] = drive(torch, s, requests,
+                               f"scale_{tag}_{name}_{mode}", per_path)
+        a, b = runs["saved"], runs["loaded"]
+        for i in range(len(requests)):
+            require((a["hits"][i] == b["hits"][i]).all()
+                    and (a["slots"][i] == b["slots"][i]).all(),
+                    f"{tag} {mode} batch {i}: hits or slots differ")
+            require(torch.equal(a["outs"][i], b["outs"][i]),
+                    f"{tag} {mode} batch {i}: logits not bit-equal")
+        kname = "memo_attention" if mode == "kernel" else "nn_search"
+        if tag == "clustered" and mode == "bucket":
+            kname = None         # the clustered search launches no kernel
+        if kname:
+            n = per_path[f"scale_{tag}_loaded_{mode}"][kname]
+            require(n > 0, f"{tag} loaded {mode}: {kname} never launched")
+        out[f"hit_rate_{mode}"] = a["rate"]
+    print(f"[scale] {tag} session saved in format 3 ({out['file_mb']:.1f} "
+          f"MB, {out['save_ms']:.0f} ms) and loaded mapped "
+          f"({out['load_ms']:.0f} ms, its first sync included): equal "
+          f"state; kernel and bucket mode serve {len(requests)} batches with "
+          f"hit masks and slots equal and logits bit-equal to the saved "
+          f"session's (hit rate kernel {out['hit_rate_kernel']:.4f}, bucket "
+          f"{out['hit_rate_bucket']:.4f})")
+    del ld
+    return out
+
+
+def scale_default_index(torch, dev, model, params, corpus, per_path):
+    """Phase 5e(a): the default spec (``MemoSpec.flat(mode="kernel")``:
+    int8, device index ``auto``) built from SCALE_CALIB_BATCHES batches
+    lands on a ClusteredDeviceIndex; kernel and bucket mode served over
+    it, then over a flat index of the same store, and memo-free."""
+    import numpy as np
+    from repro_torch.core.index import ClusteredDeviceIndex
+    from repro_torch.memo import MemoSpec
+    from repro_torch.memo.session import MemoSession
+    calib = [{"tokens": corpus.sample(BATCH)[0]}
+             for _ in range(SCALE_CALIB_BATCHES)]
+    fresh = [{"tokens": corpus.sample(BATCH)[0]}
+             for _ in range(FRESH_BATCHES)]
+    timers = TimeCalls({"rebuild": (ClusteredDeviceIndex, "rebuild")})
+    t = time.perf_counter()
+    with timers:
+        sess = MemoSession.build(model, params, MemoSpec.flat(mode="kernel"),
+                                 batches=calib, device=dev)
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    store, spec = sess.store, sess.spec
+    di = store.device_index
+    require(isinstance(di, ClusteredDeviceIndex),
+            f"the default spec's index at {len(store)} entries is "
+            f"{type(di).__name__}")
+    C, m_pad = di._pvecs.shape[:2]
+    out = dict(entries=len(store), arena_gb=len(store)
+               * store.codec.entry_nbytes / 1e9, build_s=build_s,
+               rebuild_s=timers.secs["rebuild"],
+               rebuilds=timers.calls["rebuild"], clusters=C, m_pad=m_pad,
+               overflow=len(di._overflow))
+    print(f"[scale] default spec (int8, device index auto, crossover "
+          f"{store.cluster_crossover}): {len(store)} entries "
+          f"({out['arena_gb']:.2f} GB int8 arena) built in {build_s:.1f}s; "
+          f"{type(di).__name__} C={C} m_pad={m_pad} overflow "
+          f"{len(di._overflow)} nprobe {di.nprobe}, rebuild "
+          f"{timers.secs['rebuild']:.2f}s in {timers.calls['rebuild']} "
+          f"call(s)")
+    sess.autotune(fresh[:2], "moderate")
+    thr = spec.runtime.threshold
+    requests = fresh + [calib[0]]
+    # every layer's search queries of one batch, for recall@1 below
+    queries, real = [], di.search_device
+
+    def record(q, *a, **k):
+        queries.append(q.detach().clone())
+        return real(q, *a, **k)
+    di.search_device = record
+    spec.runtime.mode = "bucket"
+    sess.infer(requests[0])
+    del di.search_device
+    cl_args = store.snapshot.search_args
+    runs = {}
+    for mode in ("kernel", "bucket"):
+        spec.runtime.mode = mode
+        runs[mode] = drive(torch, sess, requests, f"scale_{mode}", per_path)
+    require(per_path["scale_kernel"]["memo_attention"] > 0,
+            f"kernel mode over the clustered index never launched "
+            f"memo_attention: {per_path['scale_kernel']}")
+    out["kernel_vs_bucket"] = compare_decisions(
+        torch, "clustered kernel", runs["kernel"], "clustered bucket",
+        runs["bucket"], thr, MODE_GAP, "int8 gap")
+    # the same store over a flat index (a forced full sync each way)
+    spec.index.device = store.device_index_kind = "flat"
+    store.sync(force_full=True)
+    table, norms = store.snapshot.search_args
+    for mode in ("kernel", "bucket"):
+        spec.runtime.mode = mode
+        runs[f"flat_{mode}"] = drive(torch, sess, requests,
+                                     f"scale_flat_{mode}", per_path)
+    r = drive(torch, sess, requests, "scale_memo_free", per_path,
+              use_memo=False)
+    plain, plain_ms = r["outs"], r["ms"]
+    rec = [clustered_recall(torch, di, cl_args, q, table, norms)
+           for q in queries]
+    out["recall_at_1"] = [a for a, _ in rec]
+    out["recall_at_1_ties"] = [b for _, b in rec]
+    for mode in ("kernel", "bucket"):
+        a, b = runs[mode], runs[f"flat_{mode}"]
+        hits = np.mean([(x == y).mean() for x, y in zip(a["hits"],
+                                                        b["hits"])])
+        slots = np.mean([(x == y).mean() for x, y in zip(a["slots"],
+                                                         b["slots"])])
+        out[mode] = dict(ms=a["ms"], flat_ms=b["ms"], hit_rate=a["rate"],
+                         flat_hit_rate=b["rate"], hits_agree=hits,
+                         slots_agree=slots,
+                         agreement_memo_free=agreement(a["outs"], plain))
+        print(f"[scale] {mode}: clustered {a['ms']:.2f} ms/batch vs flat "
+              f"{b['ms']:.2f} vs memo-free {plain_ms:.2f}; hit rate "
+              f"{a['rate']:.4f} (flat {b['rate']:.4f}); hit decisions "
+              f"agree on {hits:.4f} and slots on {slots:.4f} of (layer, "
+              f"row); prediction agreement with memo-free "
+              f"{out[mode]['agreement_memo_free']:.4f} (run_layers under "
+              f"set_sync_debug_mode('error'): one host sync per batch)")
+    out["memo_free_ms"] = plain_ms
+    out["memo_attention_launches"] = per_path["scale_kernel"][
+        "memo_attention"]
+    print(f"[scale] recall@1 of the clustered search against nn_search on "
+          f"each layer's {queries[0].shape[0]} queries: "
+          f"{[round(a, 4) for a in out['recall_at_1']]} "
+          f"(up to equal-distance ties "
+          f"{[round(b, 4) for b in out['recall_at_1_ties']]}); "
+          f"memo_attention launches {out['memo_attention_launches']}")
+    spec.index.device = store.device_index_kind = "auto"
+    store.sync(force_full=True)
+    require(isinstance(store.device_index, ClusteredDeviceIndex),
+            "auto did not return to the clustered index")
+    return sess, calib, requests, plain, out
+
+
+def scale_lowrank(torch, dev, model, params, calib, requests, plain,
+                  per_path, errs):
+    """Phase 5e(b): a lowrank store (rank L/8) built from the first
+    LOWRANK_CALIB_BATCHES of 5e(a)'s calibration batches, served on
+    5e(a)'s requests (the last one a replayed calibration batch) in
+    kernel mode (memo_attention over the B-row f16 DB of the decoded
+    matched rows, held against its plain version on every layer's call)
+    and bucket mode."""
+    import repro_torch.core.engine as engine_mod
+    from repro_torch.core.codec import LowRankCodec, get_codec
+    from repro_torch.kernels.memo_attention.ops import memo_attention
+    from repro_torch.kernels.memo_attention.ref import memo_attention_ref
+    from repro_torch.memo import MemoSpec
+    from repro_torch.memo.session import MemoSession
+    timers = TimeCalls({"encode": (LowRankCodec, "encode")})
+    t = time.perf_counter()
+    with timers:
+        sess = MemoSession.build(model, params, MemoSpec.flat(
+            mode="kernel", apm_codec="lowrank", device_index="flat"),
+            batches=calib[:LOWRANK_CALIB_BATCHES], device=dev)
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    store, spec = sess.store, sess.spec
+    n_svd = len(store) * store.apm_shape[0]
+    out = dict(entries=len(store), entry_bytes=store.codec.entry_nbytes,
+               int8_entry_bytes=get_codec("int8",
+                                          store.apm_shape).entry_nbytes,
+               rank=store.codec.rank, build_s=build_s,
+               encode_s=timers.secs["encode"], svds=n_svd,
+               ms_per_svd=timers.secs["encode"] / n_svd * 1e3)
+    h, l, _ = store.apm_shape
+    r = store.codec.rank
+    require(out["entry_bytes"] == 2 * (h * l * r + 2 * h * l),
+            f"lowrank entry {out}")     # bert_base at SEQ 128: 55296 B
+    print(f"[scale] lowrank (rank {out['rank']}): {len(store)} entries of "
+          f"{out['entry_bytes']} B (int8 {out['int8_entry_bytes']} B, "
+          f"{out['int8_entry_bytes'] / out['entry_bytes']:.2f}x more "
+          f"entries per GB); built in {build_s:.1f}s, of it the host "
+          f"encode {timers.secs['encode']:.1f}s ({n_svd} SVDs of "
+          f"{store.apm_shape[1]}x{store.apm_shape[2]}, "
+          f"{out['ms_per_svd']:.2f} ms each) and the rest "
+          f"{build_s - timers.secs['encode']:.1f}s; "
+          f"{type(store.device_index).__name__} index")
+    sess.autotune(requests[:2], "moderate")
+    thr = spec.runtime.threshold
+    captured, real = [], engine_mod.memo_attention
+
+    def record(*a, **k):
+        captured.append((a, k))
+        return real(*a, **k)
+    engine_mod.memo_attention = record
+    spec.runtime.mode = "kernel"
+    sess.infer(requests[0])
+    engine_mod.memo_attention = real
+    worst = 0.0
+    for li, (a, k) in enumerate(captured):
+        require(a[3].dtype == torch.float16
+                and a[3].shape[0] == a[0].shape[0],
+                f"layer {li}: not a B-row f16 DB: {a[3].dtype} "
+                f"{tuple(a[3].shape)}")
+        err = (memo_attention(*a, **k)
+               - memo_attention_ref(*a, **k)).abs().max().item()
+        require(err <= ATOL, f"lowrank memo_attention error {err} layer {li}")
+        worst = max(worst, err)
+    errs["memo_attention"] = max(errs["memo_attention"], worst)
+    a, k = captured[len(captured) // 2]
+    out["kernel_ms"] = event_ms(lambda: memo_attention(*a, **k))
+    out["plain_ms"] = event_ms(lambda: memo_attention_ref(*a, **k))
+    # the B-row gather and decode that precede each launch
+    out["decode_ms"] = event_ms(lambda: store.codec.decode_rows(tuple(
+        p.index_select(0, a[4]) for p in store.device_db.parts)))
+    out["max_abs_err"] = worst
+    print(f"[scale] lowrank memo_attention over the B-row f16 DB "
+          f"{tuple(a[3].shape)} on {len(captured)} layers: max|err| "
+          f"{worst:.3e} (tolerance {ATOL:.0e}); {out['kernel_ms']:.4f} ms "
+          f"vs plain {out['plain_ms']:.4f} ms, the B-row gather+decode "
+          f"{out['decode_ms']:.4f} ms")
+    runs = {}
+    for mode in ("kernel", "bucket"):
+        spec.runtime.mode = mode
+        runs[mode] = drive(torch, sess, requests, f"lowrank_{mode}",
+                           per_path)
+        out[mode] = dict(ms=runs[mode]["ms"], hit_rate=runs[mode]["rate"],
+                         agreement_memo_free=agreement(runs[mode]["outs"],
+                                                       plain))
+    require(per_path["lowrank_kernel"]["memo_attention"] > 0,
+            f"lowrank kernel mode never launched memo_attention")
+    require(per_path["lowrank_bucket"]["nn_search"] > 0,
+            f"lowrank bucket mode never launched nn_search")
+    out["kernel_vs_bucket"] = compare_decisions(
+        torch, "lowrank kernel", runs["kernel"], "lowrank bucket",
+        runs["bucket"], thr, MODE_GAP, "the same f16 decode")
+    print(f"[scale] lowrank: kernel {out['kernel']['ms']:.2f} ms/batch, "
+          f"bucket {out['bucket']['ms']:.2f}; hit rate "
+          f"{out['kernel']['hit_rate']:.4f}; prediction agreement with "
+          f"memo-free {out['kernel']['agreement_memo_free']:.4f} (kernel), "
+          f"{out['bucket']['agreement_memo_free']:.4f} (bucket)")
+    return sess, out
+
+
+def scale_sweep(torch, dev):
+    """Phase 5e(c): the clustered index against nn_search on tables of
+    SCALE_SWEEP rows (dim 128) made on the card: the host rebuild, the
+    search's device time and kernels per call, recall@1 on each query
+    batch, nn_search's time on the same table."""
+    from repro_torch.core.index import ClusteredDeviceIndex
+    from repro_torch.kernels.nn_search.ops import nn_search
+    from repro_torch.kernels.nn_search.ref import nn_search_ref
+    rows = []
+    for j, N in enumerate(SCALE_SWEEP):
+        table, queries = scale_table(torch, dev, N, 128, seed=700 + j)
+        norms = (table * table).sum(-1)
+        di = ClusteredDeviceIndex(128, device=dev)
+        t = time.perf_counter()
+        di.add(table.cpu().numpy())
+        di.rebuild()
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t
+        args = di.search_args
+        q = queries["hit"]
+        ms = event_ms(lambda: di.search_device(q, args=args))
+        reps = 10
+        for attempt in range(3):
+            _, prof = trace(torch, lambda: di.search_device(q, args=args),
+                            reps)
+            if prof:
+                break
+        kernels = sum(c for _, c, _ in prof) / reps
+        nn = nn_time(torch, nn_search, nn_search_ref, q, table, norms)
+        recall = {k: clustered_recall(torch, di, args, v, table, norms)
+                  for k, v in queries.items()}
+        C, m_pad = di._pvecs.shape[:2]
+        row = dict(N=N, dim=128, B=32, rebuild_s=rebuild_s, clusters=C,
+                   m_pad=m_pad, overflow=len(di._overflow), nprobe=di.nprobe,
+                   ms=ms, kernels_per_call=kernels, nn_search_ms=nn["ms"],
+                   nn_search_bound_ms=nn["bound_ms"],
+                   recall_at_1={k: v[0] for k, v in recall.items()},
+                   recall_at_1_ties={k: v[1] for k, v in recall.items()})
+        rows.append(row)
+        print(f"[scale] sweep N={N} dim=128 B=32: rebuild {rebuild_s:.2f}s "
+              f"(C={C} m_pad={m_pad} overflow {len(di._overflow)}), "
+              f"clustered search {ms:.4f} ms in {kernels:.1f} device "
+              f"kernels per call vs nn_search {nn['ms']:.4f} ms (bound "
+              f"{nn['bound_ms']:.4f}); recall@1 "
+              + ", ".join(f"{k} {v[0]:.4f} ({v[1]:.4f} with ties)"
+                          for k, v in recall.items()))
+        del di, table, queries, norms, args
+        torch.cuda.empty_cache()
+    wins = [r["N"] for r in rows if r["ms"] < r["nn_search_ms"]]
+    print(f"[scale] the clustered search is faster than nn_search at "
+          f"N = {wins or 'none of'} {list(SCALE_SWEEP) if not wins else ''}")
+    return rows
+
+
+def scale_server(torch, sess, corpus, per_path):
+    """Phase 5e(d): MemoServer (bucket mode: the runtime serves variable
+    lengths there; async maintenance, admission on, a budget that evicts)
+    over the clustered store on a make_workload trace: delta syncs patch
+    packed rows and grow the overflow buffer, growth past
+    SCALE_REBUILD_FRAC rebuilds, no maintenance error, and a snapshot
+    held across it all stays bit-equal. The path's search and attention
+    are torch ops: it launches no kernel of the port."""
+    from repro_torch.launch.server import make_workload, serve_trace
+    store, spec = sess.store, sess.spec
+    di = store.device_index
+    di.rebuild_frac = SCALE_REBUILD_FRAC
+    spec.runtime.mode = "bucket"
+    spec.admission.enabled, spec.admission.every = True, 1
+    budget = (len(store) + SCALE_HEADROOM + 0.5) * store.entry_nbytes
+    spec.admission.budget_mb = budget / 1e6
+    store.budget_bytes = int(budget)
+    held = store.snapshot
+    frozen = (*held.db_parts, *held.search_args, held.lengths)
+    clones = [t.clone() for t in frozen]
+    syncs0, rebuilds0 = store.stats.n_delta_syncs, di.n_rebuilds
+    workload = make_workload([corpus], SCALE_SERVER_REQUESTS,
+                             SCALE_SERVER_RATE, SERVER_BUCKETS, seed=11)
+    timers = TimeCalls({"patch": (di, "_patch_packed"),
+                        "overflow": (di, "_sync_overflow"),
+                        "rebuild": (di, "rebuild")})
+    zero_counts()
+    with timers:
+        r = serve_trace(sess, workload, buckets=SERVER_BUCKETS,
+                        max_batch=SERVER_MAX_BATCH, max_delay=SERVER_DELAY,
+                        async_maintenance=True)
+    per_path["scale_server"] = read_counts()
+    srv = r.pop("server")
+    r.pop("completions")
+    spec.admission.enabled = False
+    require(store.device_index is di, "the server leg re-materialized")
+    same = [bool(torch.equal(c, t)) for c, t in zip(clones, frozen)]
+    require(all(same), f"a held snapshot tensor changed: {same}")
+    errors = len(srv.maintenance_errors)
+    out = dict(r, delta_syncs=store.stats.n_delta_syncs - syncs0,
+               patch_calls=timers.calls["patch"],
+               overflow_calls=timers.calls["overflow"],
+               rebuilds=di.n_rebuilds - rebuilds0,
+               rebuild_s=timers.secs["rebuild"], overflow=len(di._overflow),
+               maint_errors=errors, evicted=store.stats.n_evicted,
+               launches=per_path["scale_server"])
+    require(errors == 0, f"{errors} maintenance errors")
+    require(out["delta_syncs"] > 0 and out["patch_calls"] > 0
+            and out["overflow_calls"] > 0 and out["rebuilds"] > 0,
+            f"the server leg did not exercise the clustered sync: {out}")
+    print(f"[scale] MemoServer (async, admission on, budget "
+          f"{store.budget_entries} entries) over the clustered store: "
+          f"{r['n_requests']} requests, {r['throughput_rps']:.1f} req/s, "
+          f"p50 {r['p50_ms']:.1f} ms p99 {r['p99_ms']:.1f} ms, hit rate "
+          f"{r['hit_rate']:.4f}, {r['n_admitted']} admitted; "
+          f"{out['delta_syncs']} delta syncs ({out['patch_calls']} packed "
+          f"patches, {out['overflow_calls']} overflow uploads, overflow now "
+          f"{out['overflow']}), {out['rebuilds']} rebuild(s) in "
+          f"{out['rebuild_s']:.2f}s, {errors} maintenance errors; the "
+          f"snapshot held across it ({len(frozen)} tensors) is unchanged")
+    return out
+
+
+def store_scale(torch, dev, per_path, errs, smi):
+    """Phase 5e: the store's scale options on full-width bert_base (phase
+    3's weights and corpus seed). Returns the JSON fields."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import TemplateCorpus
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    cfg = get_config("bert_base")
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    corpus = TemplateCorpus(vocab=cfg.vocab, seq_len=SEQ, seed=0)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scale_")
+    try:
+        sess, calib, requests, plain, out["default_index"] = \
+            scale_default_index(torch, dev, model, params, corpus, per_path)
+        out["default_index"]["reload"] = scale_reload(
+            torch, sess, requests[-3:], tmp, "clustered", per_path)
+        out["server"] = scale_server(torch, sess, corpus, per_path)
+        del sess
+        torch.cuda.empty_cache()
+        lr, out["lowrank"] = scale_lowrank(torch, dev, model, params,
+                                           calib, requests, plain,
+                                           per_path, errs)
+        out["lowrank"]["reload"] = scale_reload(torch, lr, requests[-3:],
+                                                tmp, "lowrank", per_path)
+        del lr
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["sweep"] = scale_sweep(torch, dev)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[scale] {smi}: phase 5e took {out['phase_s']:.1f} s")
     return out
 
 
@@ -2580,6 +3106,9 @@ def main() -> int:
     bigmem = big_memory(torch, dev, sess, main_path, per_path, smi)
     print(json.dumps({"big_memory": bigmem}))
     del sess, captured, main_path
+    torch.cuda.empty_cache()
+    scale = store_scale(torch, dev, per_path, errs, smi)
+    print(json.dumps({"scale": scale}))
     torch.cuda.empty_cache()
     runtime = serve_runtime(torch, dev, per_path, smi)
     print(json.dumps({"server": runtime}))

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core.embedding import Embedder
 from repro_torch.core.engine import MemoEngine
+from repro_torch.core.index import ClusteredDeviceIndex
 from repro_torch.memo.specs import MemoSpec
 
 
@@ -38,11 +39,38 @@ def spec_from_reference(spec) -> MemoSpec:
     return MemoSpec.from_dict(spec.to_dict())
 
 
+def clustered_index_from_reference(ref_index, device
+                                   ) -> ClusteredDeviceIndex:
+    """A built reference ``ClusteredDeviceIndex`` → the port's, with the
+    same layout: centroids, packed arrays, overflow table, host mirror
+    and slot locations (k-means cannot match across frameworks bit for
+    bit, so a search parity test carries the built layout across)."""
+    r = ref_index
+    t = ClusteredDeviceIndex(
+        r.dim, n_clusters=r.n_clusters, nprobe=r.nprobe,
+        kmeans_iters=r.kmeans_iters, rebuild_frac=r.rebuild_frac,
+        balance_cap=r.balance_cap, seed=r.seed, device=device)
+    t._host = np.array(r._host)
+    t._slot_loc = np.array(r._slot_loc)
+    t._n, t._built, t.n_rebuilds = r._n, r._built, r.n_rebuilds
+    t._overflow = list(r._overflow)
+    t._opos = dict(r._opos)
+    t._overflow_base = r._overflow_base
+    for name in ("_centroids", "_pvecs", "_pscales", "_pids", "_ovecs",
+                 "_oscales", "_oids"):
+        setattr(t, name, torch.from_numpy(np.array(getattr(r, name)))
+                .to(device))
+    t._republish()
+    return t
+
+
 def engine_from_reference(ref_engine, model, *, device,
                           spec: MemoSpec = None) -> MemoEngine:
     """A built reference ``MemoEngine`` → a port engine serving the same
     weights, embedder, store state and ``sim_cal`` on ``device`` (the
-    store's device tier is re-materialized by a full sync)."""
+    store's device tier is re-materialized by a full sync; a clustered
+    device index is then replaced by the reference's layout, carried
+    across by ``clustered_index_from_reference``)."""
     eng = MemoEngine(model, tree_to_torch(ref_engine.params, device),
                      spec if spec is not None
                      else spec_from_reference(ref_engine.mc))
@@ -54,4 +82,13 @@ def engine_from_reference(ref_engine, model, *, device,
     eng.sim_cal = tuple(float(v) for v in ref_engine.sim_cal)
     if eng.mc.store == "device" and eng.mc.mode in ("bucket", "kernel"):
         eng.store.sync()
+        ref_di, store = ref_engine.store.device_index, eng.store
+        if isinstance(store.device_index, ClusteredDeviceIndex) \
+                and type(ref_di).__name__ == "ClusteredDeviceIndex":
+            di = clustered_index_from_reference(ref_di, store.device)
+            di._registry_kind = "clustered"
+            if store.index is store.device_index:
+                store.index = di
+            store.device_index = di
+            store.publish()
     return eng

@@ -1,14 +1,17 @@
 """APM codecs — compressed storage formats for both memo tiers (the
 reference's ``core/codec.py``).
 
-* ``f16``  — identity: one float16 arena.
-* ``int8`` — symmetric per-row int8 codes with float16 scales.
+* ``f16``     — identity: one float16 arena.
+* ``int8``    — symmetric per-row int8 codes with float16 scales.
+* ``lowrank`` — rank-r factors APM ≈ U·Vᵀ (√Σ split between them), each
+                factor per-row int8 with float16 scales: four parts.
 
 Host ``encode``/``decode`` are numpy copies of the reference, so encoded
 bytes are identical across the two packages. ``decode_rows`` is torch on
 whatever device the parts live and performs the reference's
-float32-multiply → float16-round sequence, so it is bit-equal to
-``decode``. The ``lowrank`` codec waits for a later slice.
+float32-multiply → float16-round sequence: bit-equal to ``decode`` for
+``int8``; for ``lowrank`` the factor product sums in another order, so
+the two agree within float tolerance (one f16 ulp after the round).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -123,10 +127,56 @@ class Int8Codec(ApmCodec):
         return (codes.float() * scales.float()[..., None]).half()
 
 
-def _lowrank_later(shape, **_):
-    raise NotImplementedError(
-        "the lowrank APM codec waits for the lowrank-codec slice; use "
-        "'int8' or 'f16'")
+class LowRankCodec(ApmCodec):
+    """Rank-r factorization with int8-quantized factors: APM ≈ U·Vᵀ where
+    U, V absorb √Σ from the SVD, each factor row per-row int8 quantized.
+    Decoded rows sum to 1 only approximately (the truncated singular
+    mass); the memo kernel does not renormalize them."""
+
+    name = "lowrank"
+
+    def __init__(self, apm_shape, rank=None):
+        super().__init__(apm_shape)
+        l = self.apm_shape[-1]
+        # clamp to [1, L]: an (L, L) matrix has L singular values
+        self.rank = min(l, max(1, int(rank))) if rank else min(
+            l, max(4, l // 8))
+
+    @property
+    def key(self):
+        return (self.name, self.apm_shape, self.rank)
+
+    @property
+    def parts(self):
+        h, l, _ = self.apm_shape
+        r = self.rank
+        return (PartSpec("u", (h, l, r), np.dtype(np.int8)),
+                PartSpec("us", (h, l), np.dtype(np.float16)),
+                PartSpec("v", (h, l, r), np.dtype(np.int8)),
+                PartSpec("vs", (h, l), np.dtype(np.float16)))
+
+    def encode(self, apms, aux=None):
+        x = np.asarray(apms, np.float32)
+        u, s, vt = np.linalg.svd(x)                    # batched over (B, H)
+        r = self.rank
+        root = np.sqrt(s[..., :r])
+        uf = u[..., :, :r] * root[..., None, :]        # (..., L, r)
+        vf = np.swapaxes(vt[..., :r, :], -1, -2) * root[..., None, :]
+        uq, us = _quantize_rows(uf)
+        vq, vs = _quantize_rows(vf)
+        return uq, us, vq, vs
+
+    def decode(self, parts):
+        uq, us, vq, vs = parts
+        u = np.asarray(uq, np.float32) * np.asarray(us, np.float32)[..., None]
+        v = np.asarray(vq, np.float32) * np.asarray(vs, np.float32)[..., None]
+        return np.einsum("...qr,...kr->...qk", u, v).astype(np.float16)
+
+    def decode_rows(self, parts):
+        uq, us, vq, vs = parts
+        u = uq.float() * us.float()[..., None]
+        v = vq.float() * vs.float()[..., None]
+        return torch.einsum("...qr,...kr->...qk", u, v).half()
 
 
 from repro_torch.core.registry import CODECS  # noqa: E402
@@ -137,7 +187,9 @@ CODECS.register("f16",
 CODECS.register("int8",
                 lambda shape, *, rank=None, dtype=None, **_:
                 Int8Codec(shape))
-CODECS.register("lowrank", _lowrank_later)
+CODECS.register("lowrank",
+                lambda shape, *, rank=None, dtype=None, **_:
+                LowRankCodec(shape, rank=rank))
 
 
 def get_codec(name, apm_shape, *, rank=None, dtype=np.float16) -> ApmCodec:

@@ -13,8 +13,10 @@ only: no host synchronization inside ``run_layers``, one barrier in
 
 * ``kernel`` — q/k/v projections feed the ``memo_attention`` kernel,
   which gathers its own APM tiles from the device DB by hit index (int8
-  codes + scales, or f16); the search is the one-matmul form with the
-  snapshot's cached row norms (the reference's ``fused=True``).
+  codes + scales, or f16); the flat search is the one-matmul form with
+  the snapshot's cached row norms (the reference's ``fused=True``). A
+  factorized codec (``lowrank``) is decoded for the batch's B matched
+  rows first, and the kernel runs over that B-row f16 DB.
 * ``bucket`` — the search goes through the ``nn_search`` kernel; the
   batch's APM rows are gathered and decoded (through f16, like the host
   decode) and attention runs the mixed formulation (``gqa_apply`` with a
@@ -34,6 +36,11 @@ miss rows, so hit rows skip QKᵀ and softmax (``_layer_bucket``);
 ``kernel`` runs ``memo_attention`` over the device DB
 (``_layer_kernel``). Variable-length batches are served everywhere but
 on the host bucket path.
+
+Every codec (``f16``, ``int8``, ``lowrank``) and index (host ``exact``,
+``ivf``, ``device``; device ``flat``, ``clustered``, ``auto``) serves on
+every path: the device search is the snapshot index's ``search_device``
+and the host paths decode through ``codec.decode``.
 
 **Online admission** (``admit=True``): misses of every ``admit_every``-th
 served batch are captured (their true APM and embedding; on the fast
@@ -56,8 +63,7 @@ lookup overhead and memo rate feed ``PerfModel``; serve its
 ``active_layers()`` through ``infer(active_layers=...)``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its slice):
-prefill, the lowrank codec, the clustered/IVF indexes, the sharded store
-and enc-dec.
+prefill, the sharded store and enc-dec.
 """
 from __future__ import annotations
 
@@ -232,10 +238,9 @@ class MemoEngine:
         self._check_ported()
 
     def _check_ported(self):
-        """Refuse the opt-ins of slices not ported yet. The rest of what
-        is unported raises where it is reached: the lowrank codec and the
-        ivf host index when the store is made, the clustered device index
-        at its first sync, MLA and MoE layers in the layer forms."""
+        """Refuse the opt-ins of slices not ported yet (the sharded store,
+        prefill). Enc-dec, MLA and MoE layers raise where they are
+        reached, in the layer forms."""
         mc = self.mc
         if mc.shard.shards:
             raise _later("the sharded store (shards > 0)", "sharded-store")
@@ -272,18 +277,26 @@ class MemoEngine:
             self._layers_cache = list(bb.iter_layers(self.params, self.cfg))
         return self._layers_cache
 
-    def _make_store(self, apm_shape, *, capacity: int) -> MemoStore:
+    def _make_store(self, apm_shape, *, capacity: int,
+                    n_lists: Optional[int] = None) -> MemoStore:
         """Construct the MemoStore exactly as the spec describes — the
-        one construction path of ``build()`` and ``MemoSession.load``."""
+        one construction path of ``build()`` and ``MemoSession.load``.
+        ``n_lists`` (the ivf host index's list count, derived from the
+        calibration size at build, which a grown store no longer knows)
+        is what a load hands back."""
         mc = self.mc
         budget = (None if mc.budget_mb is None
                   else int(mc.budget_mb * 1e6))
         return MemoStore(
             tuple(apm_shape), mc.embed_dim, index_kind=mc.index_kind,
             budget_bytes=budget, capacity=capacity, device=self.device,
-            device_slack=mc.device_slack, codec=mc.apm_codec, apm_rank=mc.apm_rank,
+            device_slack=mc.device_slack,
+            n_lists=(n_lists if n_lists is not None
+                     else max(4, int(np.sqrt(max(1, capacity))))),
+            codec=mc.apm_codec, apm_rank=mc.apm_rank,
             device_index_kind=mc.device_index,
             cluster_crossover=mc.cluster_crossover,
+            nprobe=mc.nprobe, n_clusters=mc.n_clusters,
             eviction=mc.eviction.kind, faults=self.faults,
             capacity_dir=mc.capacity.dir,
             capacity_budget_mb=mc.capacity.budget_mb,
@@ -618,7 +631,11 @@ class MemoEngine:
 
     def _memo_attention(self, q, k, v, parts, idx, hit, lengths=None):
         """``memo_attention`` over the device DB's codec parts: int8
-        codes + f16 row scales (dequantized in the kernel) or f16."""
+        codes + f16 row scales (dequantized in the kernel) or f16. A
+        factorized codec decodes the B matched rows (not the DB) and
+        feeds them as a B-row f16 DB with ``hit_idx = arange(B)``: the
+        reference casts the same f16 decode to f32 first, so the kernel
+        sees the same values."""
         codec = self.store.codec
         kw = dict(causal=self.cfg.causal, window=self.cfg.sliding_window,
                   lengths=lengths)
@@ -628,8 +645,14 @@ class MemoEngine:
                                   db_scales=parts[1], **kw)
         if codec.name == "f16":
             return memo_attention(q, k, v, parts[0], idx, hit, **kw)
-        raise _later(f"kernel mode over the {codec.name!r} codec",
-                     "lowrank-codec")
+        B, S = q.shape[:2]
+        apm = codec.decode_rows(tuple(p.index_select(0, idx)
+                                      for p in parts))
+        if apm.shape[-1] != S:
+            apm = apm[..., :S, :S]
+        return memo_attention(q, k, v, apm.contiguous(),
+                              torch.arange(B, dtype=torch.int32,
+                                           device=q.device), hit, **kw)
 
     def _capture_now(self, use_memo: bool) -> bool:
         """Admission sampling: capture misses on every Nth served batch

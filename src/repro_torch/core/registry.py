@@ -13,10 +13,11 @@ context via ``**_``):
 
 * codec:        ``factory(apm_shape, *, rank=None, dtype=np.float16)``
                 → ``ApmCodec``
-* host index:   ``factory(embed_dim, *, device=None)``
+* host index:   ``factory(embed_dim, *, n_lists=None, device=None)``
                 → object with the ``search/assign/remove`` host-index API
-* device index: ``factory(embed_dim, *, capacity=0, device=None)``
-                → ``DeviceIndex``-API object
+* device index: ``factory(embed_dim, *, capacity=0, nprobe=16,
+                n_clusters=None, device=None)`` → ``DeviceIndex``-API
+                object
 * eviction:     ``policy(store, n)`` → sequence of arena slots to evict;
                 called under the store lock, selection only (the store
                 does the release/tombstone/dirty bookkeeping)

@@ -4,10 +4,11 @@ the reference's ``core/store.py``.
 The host tier (``AttentionDB`` arena + slot-aligned host index) is the
 reference's numpy code, so the same admit/evict/sync sequence leaves
 byte-identical arrays in both packages (``state_dict``). The device tier
-(``DeviceDB`` + ``DeviceIndex``) is torch tensors on ``device``. The
-capacity tier (``core/capacity.py``, opt-in with ``capacity_dir``) is the
-durable mmap-backed disk tier behind the host budget, numpy like the
-reference's.
+(``DeviceDB`` + a ``DeviceIndex``, flat or clustered — ``auto`` takes
+the clustered layout from ``cluster_crossover`` entries on) is torch
+tensors on ``device``. The capacity tier (``core/capacity.py``, opt-in
+with ``capacity_dir``) is the durable mmap-backed disk tier behind the
+host budget, numpy like the reference's.
 
 * ``admit(apms, embs)`` — admission under a byte budget, recycling
                           free slots (stable slot ids, no compaction).
@@ -30,8 +31,9 @@ serving goes on RAM-only until ``reattach_capacity``.
 
 Snapshots never change once published, as the reference's immutable jnp
 arrays do not. A delta sync is copy-on-write: the device arena parts,
-the index table (and so its row norms) and the entry lengths are written
-into fresh tensors (``DeviceDB.update``, ``DeviceIndex.assign`` /
+the index's arrays (the flat table and its row norms, or the clustered
+index's packed and overflow arrays) and the entry lengths are written
+into fresh tensors (``DeviceDB.update``, the index's ``assign`` /
 ``remove``) and ``publish()`` swaps the references. A generation stays
 alive until the last ``PreparedBatch`` holding it is dropped, so a
 maintenance worker may sync while a batch is still serving the previous
@@ -51,7 +53,8 @@ import torch
 from repro_torch.core.capacity import CapacityTier
 from repro_torch.core.database import AttentionDB, DeviceDB, pad_delta_pow2
 from repro_torch.core.faults import FaultInjector, MemoStoreError, fire
-from repro_torch.core.index import TOMBSTONE, DeviceIndex
+from repro_torch.core.index import (TOMBSTONE, ClusteredDeviceIndex,
+                                    DeviceIndex)
 from repro_torch.core.registry import DEVICE_INDEXES, EVICTIONS, HOST_INDEXES
 
 
@@ -60,7 +63,10 @@ class StoreSnapshot(NamedTuple):
     generation: int
     db_parts: Tuple[torch.Tensor, ...]    # DeviceDB codec parts
     index: object                         # the DeviceIndex of search_args
-    search_args: object                   # (table, row_norms)
+    search_args: object                   # flat: (table, row_norms);
+    #                                       clustered: (centroids, pvecs,
+    #                                       pscales, pids, ovecs, oscales,
+    #                                       oids)
     index_key: str
     codec_key: object
     lengths: torch.Tensor                 # (cap,) int32 entry lengths
@@ -97,10 +103,11 @@ class MemoStore:
     def __init__(self, apm_shape: Tuple[int, int, int], embed_dim: int, *,
                  index_kind: str = "exact", budget_bytes: Optional[int] = None,
                  capacity: int = 64, device=None, device_slack: float = 1.0,
-                 codec: str = "f16",
+                 n_lists: Optional[int] = None, codec: str = "f16",
                  apm_rank: Optional[int] = None,
                  device_index_kind: str = "auto",
-                 cluster_crossover: int = 4096, eviction: str = "clock",
+                 cluster_crossover: int = 4096, nprobe: int = 16,
+                 n_clusters: Optional[int] = None, eviction: str = "clock",
                  faults: Optional[FaultInjector] = None,
                  capacity_dir: Optional[str] = None,
                  capacity_budget_mb: Optional[float] = None,
@@ -114,6 +121,8 @@ class MemoStore:
         self.device = torch.device(device if device is not None else "cpu")
         self.device_index_kind = device_index_kind  # flat|clustered|auto
         self.cluster_crossover = cluster_crossover
+        self.nprobe = nprobe
+        self.n_clusters = n_clusters
         self.db = AttentionDB(self.apm_shape, capacity=capacity,
                               codec=codec, rank=apm_rank)
         self.eviction_kind = eviction
@@ -121,7 +130,7 @@ class MemoStore:
         if device_index_kind != "auto":
             DEVICE_INDEXES.resolve(device_index_kind)   # fail-fast only
         self.index = HOST_INDEXES.resolve(index_kind)(
-            embed_dim, device=self.device)
+            embed_dim, n_lists=n_lists, device=self.device)
         self.sim_cal: Tuple[float, float] = (-1.0, 1.0)
         self._embs_host = np.full((capacity, embed_dim), TOMBSTONE,
                                   np.float32)
@@ -674,9 +683,21 @@ class MemoStore:
 
     # ---------------------------------------------------------------- sync
     def _device_index_kind(self, n: int) -> str:
+        """flat | clustered: ``auto`` flips to the clustered index once
+        the entry count reaches ``cluster_crossover``."""
         if self.device_index_kind == "auto":
             return ("clustered" if n >= self.cluster_crossover else "flat")
         return self.device_index_kind
+
+    @staticmethod
+    def _device_index_kind_of(index) -> Optional[str]:
+        if index is None:
+            return None
+        kind = getattr(index, "_registry_kind", None)
+        if kind is not None:
+            return kind
+        return ("clustered" if isinstance(index, ClusteredDeviceIndex)
+                else "flat")
 
     def _absorb_external_growth(self) -> None:
         """Backstop for out-of-band ``db.add``/``index.add`` growth."""
@@ -705,15 +726,21 @@ class MemoStore:
                 or self.device_index is None
                 or n > self.device_index.capacity
                 or self._device_index_kind(n)
-                != getattr(self.device_index, "_registry_kind", None))
+                != self._device_index_kind_of(self.device_index))
 
     def _full_sync_device_locked(self, n: int) -> int:
         cap = n + max(8, int(n * self.device_slack))
         kind = self._device_index_kind(n)
-        di = DEVICE_INDEXES.resolve(kind)(self.embed_dim, capacity=cap,
-                                          device=self.device)
+        di = DEVICE_INDEXES.resolve(kind)(
+            self.embed_dim, capacity=cap, nprobe=self.nprobe,
+            n_clusters=self.n_clusters, device=self.device)
         di._registry_kind = kind
         di.add(self._embs_host[:n])
+        if isinstance(di, ClusteredDeviceIndex):
+            # build eagerly: the k-means belongs on the sync boundary, not
+            # in the first serving batch, and the full-sync receipt must
+            # include the shipped clusters
+            di.rebuild()
         self.device_db = DeviceDB.from_host(self.db, capacity=cap,
                                             device=self.device)
         if isinstance(self.index, DeviceIndex):
@@ -824,6 +851,9 @@ class MemoStore:
                                          self.db.checksums):
                 out[f"part_{spec.name}"] = arena[:n].copy()
                 out[f"csum_{spec.name}"] = csum[:n].copy()
+            # the host index's staging array at its FULL grown shape: the
+            # ivf index's k-means runs over the slack rows too, so its
+            # searches reproduce only from the exact array
             embs = getattr(self.index, "_embs", None)
             if embs is not None:
                 out["index_embs"] = np.asarray(embs).copy()
@@ -872,10 +902,15 @@ class MemoStore:
                 np.asarray(state["clock_hand"]).reshape(-1)[0])
             self.sim_cal = tuple(
                 float(v) for v in np.asarray(state["sim_cal"]).reshape(-1))
+            # the host index from the saved staging array at its EXACT
+            # shape (ivf k-means over the slack rows; assign()'s growth
+            # would change it)
             embs = state.get("index_embs")
             if embs is not None and len(embs):
                 try:
                     self.index._embs = np.asarray(embs, np.float32).copy()
+                    if hasattr(self.index, "_built"):
+                        self.index._built = False
                 except AttributeError:     # computed staging view
                     self.index.assign(np.arange(len(embs)), embs)
             elif n:

@@ -22,9 +22,10 @@ left there for ``MemoSession.load(<dir>, ...)``. The disk chaos classes
 tier: without ``--capacity-dir`` they serve over a temporary directory,
 removed at the end.
 
-The model is the architecture's reduced config. Options of slices not
-ported yet raise ``NotImplementedError`` naming the slice: shards,
-prefill, the lowrank codec and the ivf / clustered indexes.
+The model is the architecture's reduced config. ``--codec``, ``--index``
+and ``--device-index`` serve every codec and index of the package.
+Options of slices not ported yet raise ``NotImplementedError`` naming the
+slice: shards and prefill.
 """
 from __future__ import annotations
 
@@ -319,10 +320,11 @@ def parse_args(argv=None):
                     help="device-arena slack for delta syncs")
     ap.add_argument("--index", default="exact",
                     choices=["exact", "ivf", "device"],
-                    help="host index (ivf: clustered/IVF slice)")
+                    help="host index")
     ap.add_argument("--device-index", default="auto",
                     choices=["auto", "flat", "clustered"],
-                    help="device index (clustered: clustered/IVF slice)")
+                    help="device index (auto: clustered from "
+                         "4096 entries on)")
     ap.add_argument("--capacity-dir", default=None,
                     help="root of the capacity (disk) tier directories, "
                          "one per session the run builds")

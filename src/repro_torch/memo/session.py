@@ -198,8 +198,8 @@ class MemoSession:
             "embedder": {"pool": eng.embedder.pool,
                          "act": eng.embedder.act},
             "apm_shape": list(self.store.apm_shape),
-            # the ivf host index's list count, which the reference reads
-            # back (None for the exact index)
+            # the ivf host index's list count, read back by load (None
+            # for the exact index)
             "n_lists": getattr(self.store.index, "n_lists", None),
             # per-array CRC32 of the exact bytes being written: load's
             # integrity gate
@@ -342,7 +342,8 @@ class MemoSession:
         state = {k[len("store_"):]: v for k, v in arrays.items()
                  if k.startswith("store_")}
         n = int(state["n"])
-        eng.store = eng._make_store(meta["apm_shape"], capacity=max(1, n))
+        eng.store = eng._make_store(meta["apm_shape"], capacity=max(1, n),
+                                    n_lists=meta.get("n_lists"))
         try:
             eng.store.load_state_dict(state, adopt_arenas=mmap)
         except MemoStoreError:
@@ -379,7 +380,8 @@ class MemoSession:
         if faults is not None:
             eng.faults = faults
         eng.embedder = _embedder_from_arrays(meta, arrays, device)
-        eng.store = eng._make_store(meta["apm_shape"], capacity=1)
+        eng.store = eng._make_store(meta["apm_shape"], capacity=1,
+                                    n_lists=meta.get("n_lists"))
         if not eng.store.capacity_ok:
             raise MemoStoreError(
                 f"capacity dir {path!r} failed recovery: "

@@ -14,9 +14,8 @@ has no use for are dropped).
 Not carried over: the deprecated ``MemoConfig`` shim, and the fields
 that select JAX implementations (``RuntimeSpec.interpret``,
 ``RuntimeSpec.kernel_impl`` — a kernel wrapper here picks its path from
-the tensor's device) or tune the clustered index (``IndexSpec.nprobe``,
-``n_clusters``), which waits for a later slice. String-keyed fields
-validate against this package's registries. ``CapacitySpec`` has every
+the tensor's device). String-keyed fields validate against this
+package's registries. ``IndexSpec`` and ``CapacitySpec`` have every
 field of the reference's; the shard and prefill specs keep only their
 opt-in field, which makes the engine raise until the slice that reads
 the rest lands.
@@ -68,6 +67,8 @@ class IndexSpec:
     host: str = "exact"       # calibration/lookup tier (registry: host)
     device: str = "auto"      # serving tier: auto | flat | clustered | …
     cluster_crossover: int = 4096   # auto: clustered when n >= this
+    nprobe: int = 16
+    n_clusters: Optional[int] = None   # clustered: None = sqrt(N)
 
     def __post_init__(self):
         reg = _registries()
@@ -81,6 +82,10 @@ class IndexSpec:
                 f"{['auto'] + list(reg.DEVICE_INDEXES.choices())}")
         _require(int(self.cluster_crossover) >= 1,
                  f"cluster_crossover must be >= 1: {self.cluster_crossover}")
+        _require(int(self.nprobe) >= 1,
+                 f"nprobe must be >= 1: {self.nprobe}")
+        _require(self.n_clusters is None or int(self.n_clusters) >= 1,
+                 f"n_clusters must be None or >= 1: {self.n_clusters}")
 
 
 @dataclass
@@ -240,6 +245,8 @@ FLAT_FIELDS: Dict[str, Tuple[str, str]] = {
     "index_kind": ("index", "host"),
     "device_index": ("index", "device"),
     "cluster_crossover": ("index", "cluster_crossover"),
+    "nprobe": ("index", "nprobe"),
+    "n_clusters": ("index", "n_clusters"),
     "apm_codec": ("codec", "name"),
     "apm_rank": ("codec", "rank"),
     "embed_dim": ("embed", "dim"),

@@ -8,10 +8,11 @@ mapped): host-tier lookups are BIT-identical (distances and slots),
 entry lengths, ``sim_cal`` and codec round-trip, and both sessions
 serve the same batch with equal hit rates and EQUAL logits (the same
 arrays through the same code), then admit the same misses to equal
-store state (over mapped arenas, growth copies them into RAM). A loaded session serves under
+store state (over mapped arenas, growth copies them into RAM). The
+reference's scale cases round-trip the same way: the lowrank codec, the
+forced clustered device index (f16 and int8) and the ivf host index,
+whose k-means layout must come back. A loaded session serves under
 ``MemoServer`` with the pre-save session's hit count on the same trace.
-The reference's lowrank, clustered and ivf cases wait for those slices
-of the port.
 """
 import json
 
@@ -21,7 +22,7 @@ import pytest
 from repro_torch.configs import get_reduced
 from repro_torch.data import TemplateCorpus
 from repro_torch.memo import (AdmissionPolicy, CodecSpec, EmbedSpec,
-                              MemoSession, MemoSpec, RuntimeSpec)
+                              IndexSpec, MemoSession, MemoSpec, RuntimeSpec)
 from repro_torch.memo import registry as memo_registry
 from repro_torch.models import build_model
 
@@ -40,12 +41,15 @@ def tiny_setup():
     return m, params, corpus
 
 
-def _build_session(tiny_setup, codec):
+def _build_session(tiny_setup, codec, device_index="auto", crossover=4096,
+                   host_index="exact"):
     m, params, corpus = tiny_setup
     spec = MemoSpec(
         runtime=RuntimeSpec(threshold=0.6, mode="bucket"),
         embed=EmbedSpec(steps=30),
         codec=CodecSpec(name=codec),
+        index=IndexSpec(host=host_index, device=device_index,
+                        cluster_crossover=crossover),
         admission=AdmissionPolicy(enabled=True, budget_mb=64.0))
     batches = [{"tokens": corpus.sample(16)[0]} for _ in range(3)]
     return MemoSession.build(m, params, spec, batches=batches, seed=1,
@@ -56,8 +60,32 @@ def _build_session(tiny_setup, codec):
 @pytest.mark.parametrize("fmt,mmap", [(3, False), (3, True), (2, False)])
 def test_save_load_roundtrip_bit_identical(tiny_setup, tmp_path, codec,
                                            fmt, mmap):
+    _roundtrip(tiny_setup, tmp_path, fmt, mmap, codec)
+
+
+@pytest.mark.parametrize("codec,device_index,crossover,host", [
+    ("lowrank", "auto", 4096, "exact"),
+    ("int8", "clustered", 1, "exact"),   # forced clustered device index
+    ("f16", "clustered", 1, "exact"),
+    ("int8", "auto", 4096, "ivf")])      # the k-means layout round-trips
+@pytest.mark.parametrize("fmt,mmap", [(3, True), (2, False)])
+def test_save_load_scale_options_roundtrip(tiny_setup, tmp_path, codec,
+                                           device_index, crossover, host,
+                                           fmt, mmap):
+    sess, loaded = _roundtrip(tiny_setup, tmp_path, fmt, mmap, codec,
+                              device_index, crossover, host)
+    for tier in ("index", "device_index"):
+        assert type(getattr(loaded.store, tier)) is \
+            type(getattr(sess.store, tier))
+    if host == "ivf":
+        assert loaded.store.index.n_lists == sess.store.index.n_lists
+
+
+def _roundtrip(tiny_setup, tmp_path, fmt, mmap, codec, *index):
+    """Build, serve, save, load; the two sessions must answer lookups
+    and serve bit-identically and admit the same misses alike."""
     m, params, corpus = tiny_setup
-    sess = _build_session(tiny_setup, codec)
+    sess = _build_session(tiny_setup, codec, *index)
     toks = corpus.sample(8)[0]
     sess.infer({"tokens": toks})           # mutate: admissions land
 
@@ -97,6 +125,7 @@ def test_save_load_roundtrip_bit_identical(tiny_setup, tmp_path, codec,
     if mmap:
         assert not any(isinstance(a, np.memmap)
                        for a in loaded.store.db._arenas)
+    return sess, loaded
 
 
 def test_loaded_session_serves_with_equal_hit_rate(tiny_setup, tmp_path):

@@ -14,9 +14,8 @@ hypothesis property test, corrupt-row quarantine through the retire
 path, the stall watchdog), the DISK_DEGRADED health rung + bounded
 ``health_log`` ring, and fail-fast unknown chaos-preset names. The
 SIGKILL children import ``repro_torch`` and never ``jax``. Where the
-reference reaches a slice the port has not yet (the lowrank codec in the
-demote → promote property, the chaos benchmark's class check) the case
-runs on what the port has: f16 and int8, and the launcher's own check.
+reference reaches what the port does not have (the chaos benchmark's
+class check) the case runs the launcher's own check.
 The property test makes its directories inside the test body with
 ``tempfile.TemporaryDirectory()`` (hypothesis refuses function-scoped
 fixtures under ``@given``).
@@ -25,7 +24,10 @@ Cross-package cases: a format-3 and a format-2 file saved by the JAX
 ``MemoSession`` load in the port and serve with EQUAL store arrays, hit
 masks and slots, and logits within ``LOGIT_ATOL`` (1e-4, the engine
 parity tests' tolerance: f32 layers in two frameworks, ~1e-6 measured);
-a file the port saves loads in the JAX package with equal arrays; a
+a file the port saves loads in the JAX package with equal arrays; the
+same both ways for a session with the lowrank codec, an ivf host index
+and the clustered device index (``nprobe``, ``n_clusters`` and
+``n_lists`` survive each trip); a
 capacity directory written by either package's ``CapacityTier``
 (checkpointed rows, journal-only rows and a retire) recovers in the
 other with equal rows and recovery report, and promotes there
@@ -598,11 +600,11 @@ def test_write_through_then_demotion_is_free(tmp_path):
 
 
 @settings(max_examples=6, deadline=None)
-@given(codec_name=st.sampled_from(["f16", "int8"]),
+@given(codec_name=st.sampled_from(["f16", "int8", "lowrank"]),
        n=st.integers(2, 5), seed=st.integers(0, 10_000))
 def test_demote_promote_roundtrip_bit_identical(codec_name, n, seed):
     """Property: demote → promote round-trips every codec part
-    bit-identically, for the port's codecs."""
+    bit-identically, for every codec (lowrank: four parts)."""
     with tempfile.TemporaryDirectory() as d:
         rng = np.random.default_rng(seed)
         s = MemoStore(APM, EMB, capacity=16, codec=codec_name,
@@ -1103,6 +1105,80 @@ def test_port_save_loads_in_reference(ref_sess, tmp_path, fmt):
     assert _hold_serving(back.engine, sess.engine, queries) > 0
 
 
+@pytest.fixture(scope="module")
+def ref_scale_sess(ref_sess):
+    """A JAX session on ``ref_sess``'s weights with the store's scale
+    options: the lowrank codec, an ivf host index and the clustered
+    device index (nprobe 8, 12 clusters)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.data import TemplateCorpus as JaxCorpus
+    from repro.memo import MemoSession as JaxSession, MemoSpec as JaxSpec
+    _, jm, jparams, _, _, _ = ref_sess
+    corpus = JaxCorpus(vocab=jm.cfg.vocab, seq_len=SEQ, n_templates=6,
+                       slot_fraction=0.2)
+    return JaxSession.build(
+        jm, jparams, JaxSpec.flat(
+            threshold=0.6, embed_steps=40, mode="kernel",
+            apm_codec="lowrank", index_kind="ivf",
+            device_index="clustered", nprobe=8, n_clusters=12),
+        batches=[{"tokens": jnp.asarray(corpus.sample(16)[0])}
+                 for _ in range(3)], key=jax.random.PRNGKey(1))
+
+
+def _same_scale_session(a, b, queries):
+    """Two sessions (either package) with the scale options: equal spec
+    index and codec fields, equal ``n_lists``, equal host-index lookups
+    and equal fast-path serving (the JAX one first)."""
+    for sess in (a, b):
+        assert sess.spec.index.nprobe == 8 and sess.spec.index.n_clusters \
+            == 12 and sess.spec.index.host == "ivf"
+        assert sess.spec.codec.name == "lowrank"
+        assert type(sess.store.device_index).__name__ == \
+            "ClusteredDeviceIndex"
+        assert sess.store.device_index.nprobe == 8
+    assert a.store.index.n_lists == b.store.index.n_lists
+    n = len(a.store)
+    q = a.store._embs_host[:n:5] + 0.01
+    np.testing.assert_array_equal(np.asarray(a.store.lookup(q)[1]),
+                                  np.asarray(b.store.lookup(q)[1]))
+    return _hold_serving(a.engine, b.engine, queries)
+
+
+@pytest.mark.parametrize("fmt,mmap", [(3, True), (2, False)])
+def test_reference_scale_save_loads_in_port(ref_sess, ref_scale_sess,
+                                            tmp_path, fmt, mmap):
+    """The JAX-saved scale session loads in the port (four lowrank parts
+    mapped from format 3, or read from format 2) with equal store
+    arrays and serves with equal hits and slots over its own clustered
+    rebuild."""
+    _, _, _, tm, tparams, queries = ref_sess
+    path = str(tmp_path / f"ref.f{fmt}")
+    ref_scale_sess.save(path, save_format=fmt)
+    sess = MemoSession.load(path, tm, tparams, mmap=mmap, device="cpu")
+    _states_equal(sess.store.state_dict(), ref_scale_sess.store.state_dict())
+    assert len(sess.store.db._arenas) == 4
+    assert _same_scale_session(ref_scale_sess, sess, queries) > 0
+
+
+def test_port_scale_save_loads_in_reference(ref_sess, ref_scale_sess,
+                                            tmp_path):
+    """The port's save of the scale session loads in the JAX package:
+    equal arrays, spec fields and ``n_lists``, equal serving."""
+    from repro.memo import MemoSession as JaxSession
+    _, jm, jparams, tm, tparams, queries = ref_sess
+    src = str(tmp_path / "ref.m3")
+    ref_scale_sess.save(src)
+    sess = MemoSession.load(src, tm, tparams, device="cpu")
+    path = str(tmp_path / "port.m3")
+    sess.save(path)
+    back = JaxSession.load(path, jm, jparams)
+    _states_equal(back.store.state_dict(), sess.store.state_dict())
+    assert back.spec.to_dict()["index"] == ref_scale_sess.spec.to_dict()[
+        "index"]
+    assert _same_scale_session(back, sess, queries) > 0
+
+
 def _pkg(name):
     """(CapacityTier, get_codec, MemoStore) of one package."""
     if name == "jax":
@@ -1191,6 +1267,22 @@ def test_promotion_under_async_worker(tmp_path):
     rows (bit-identical on the device after its delta sync, each row's
     CRC intact) while the snapshot a batch held stays unchanged, and the
     next replay hits them."""
+    _promotion_under_worker(tmp_path)
+
+
+def test_promotion_under_async_worker_lowrank_clustered(tmp_path):
+    """The same over a lowrank store (four parts on disk and device) and
+    the clustered device index: promoted rows reach the index through
+    its overflow buffer, and the held snapshot's search tuple stays
+    unchanged."""
+    sess = _promotion_under_worker(tmp_path, apm_codec="lowrank",
+                                   device_index="clustered")
+    di = sess.store.device_index
+    assert type(di).__name__ == "ClusteredDeviceIndex"
+    assert len(di._overflow) > di._overflow_base or di.n_rebuilds > 1
+
+
+def _promotion_under_worker(tmp_path, **spec_kw):
     import torch
     cfg = get_reduced("bert_base").replace(n_classes=4, n_layers=2,
                                            d_model=128, d_ff=256, n_heads=4)
@@ -1200,7 +1292,7 @@ def test_promotion_under_async_worker(tmp_path):
     calib = [{"tokens": corpus.sample(16)[0]} for _ in range(3)]
     spec = MemoSpec.flat(embed_steps=40, mode="bucket", device_slack=8.0,
                          admit=True, capacity_dir=str(tmp_path / "t"),
-                         capacity_checkpoint_every=1)
+                         capacity_checkpoint_every=1, **spec_kw)
     sess = MemoSession.build(m, m.init(0), spec, batches=calib, seed=1,
                              device="cpu")
     store = sess.store
@@ -1213,7 +1305,8 @@ def test_promotion_under_async_worker(tmp_path):
     # the host tier and finds its own disk row
     sess.spec.runtime.threshold = store.sim_cal[1] - 1e-3
     held = store.snapshot
-    before = [p.clone() for p in held.db_parts] + [held.lengths.clone()]
+    frozen = list(held.db_parts) + [held.lengths] + list(held.search_args)
+    before = [t.clone() for t in frozen]
     toks = calib[0]["tokens"][:8]
     with sess.serve(buckets=(SEQ,), max_batch=8) as srv:
         for r in range(8):
@@ -1223,7 +1316,7 @@ def test_promotion_under_async_worker(tmp_path):
         assert srv._worker is not None and srv._worker.is_alive()
         hits0 = srv.stats.n_hits
         assert store.stats.n_promoted > 0
-        for t, b in zip(list(held.db_parts) + [held.lengths], before):
+        for t, b in zip(frozen, before):
             assert torch.equal(t, b)              # copy-on-write
         assert store.snapshot.generation > held.generation
         slots = np.asarray(sorted(store._host_to_disk))
@@ -1240,3 +1333,4 @@ def test_promotion_under_async_worker(tmp_path):
         srv.drain_maintenance(timeout=30)
         assert srv.stats.n_hits > hits0
     assert store.verify_integrity() == []
+    return sess

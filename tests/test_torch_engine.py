@@ -70,16 +70,18 @@ def _serve(eng, batch, thr):
     return np.asarray(out), pend
 
 
-def _mid_threshold(jeng, batch):
+def _mid_threshold(jeng, batch, serve=_serve):
     """A threshold inside a gap of the predicted sims, with every layer's
-    sims at least MARGIN away from it and both outcomes present."""
-    _, pend = _serve(jeng, batch, 1e9)
+    sims at least MARGIN away from it and both outcomes present.
+    ``serve(eng, batch, thr)`` returns (logits, per-layer (li, sims, hits,
+    slots)); the fast path's by default."""
+    _, pend = serve(jeng, batch, 1e9)
     s0 = np.sort(pend[0][1])
     mids = [(s0[i] + s0[i + 1]) / 2 for i in range(len(s0) - 1)
             if s0[i + 1] - s0[i] >= 2 * MARGIN]
     mids.sort(key=lambda m: abs(m - np.median(s0)))
     for thr in mids:
-        _, pend = _serve(jeng, batch, float(thr))
+        _, pend = serve(jeng, batch, float(thr))
         sims = np.concatenate([p[1] for p in pend])
         hits = np.concatenate([p[2] for p in pend])
         if np.abs(sims - thr).min() >= MARGIN and 0 < hits.sum() < hits.size:
@@ -206,24 +208,60 @@ def test_session_end_to_end_on_cpu(codec):
     assert s["store"]["full_syncs"] == 1
 
 
+def _reference_variant(jeng, **fields):
+    """A JAX engine with ``jeng``'s weights, embedder and sim_cal whose
+    store, made by the spec with ``fields`` changed, holds the same
+    entries (the decoded APMs re-encoded by the new codec) and is
+    synced."""
+    from repro.core.engine import MemoEngine as JaxEngine
+    spec = jeng.mc.copy()
+    for k, v in fields.items():
+        setattr(spec, k, v)
+    eng = JaxEngine(jeng.model, jeng.params, spec)
+    eng.embedder = jeng.embedder
+    st = jeng.store
+    n = len(st.db)
+    eng.store = eng._make_store(st.apm_shape, capacity=n)
+    eng.store.admit(st.db.get(np.arange(n), count_reuse=False),
+                    st._embs_host[:n])
+    eng.sim_cal = jeng.sim_cal
+    eng.store.sync()
+    return eng
+
+
 def test_unported_paths_raise(built, monkeypatch):
-    """What later slices still own raises ``NotImplementedError`` naming
-    it: the lowrank codec and the ivf host index when the store is made,
-    the clustered device index when it is synced. (Select mode,
-    ``device_quanta > 1`` and admission serve now:
-    ``tests/test_torch_select.py``, ``tests/test_torch_admission.py``.)"""
+    """What used to wait for the store's scale slice serves: a reference
+    engine with the lowrank codec, the ivf host index or the clustered
+    device index crosses over through ``engine_from_reference`` (the
+    clustered one with the reference's built layout) and gives EQUAL
+    hits and slots, sims within 1e-5 and logits within LOGIT_ATOL, on
+    the fast path in kernel and bucket mode (the ivf index on the
+    host-synchronous kernel path, which searches it) at a threshold
+    with every sim ``MARGIN`` away. A build with no card and no device
+    still raises."""
+    from test_torch_select import _compare_host, _serve_host
     jeng, teng, queries = built
-    for field, value, match in (("apm_codec", "lowrank", "lowrank-codec"),
-                                ("index_kind", "ivf", "'ivf' index"),
-                                ("device_index", "clustered",
-                                 "'clustered' index")):
-        spec = teng.mc.copy()
-        spec.mode = "kernel"
-        setattr(spec, field, value)
-        with pytest.raises(NotImplementedError, match=match):
-            eng = engine_from_reference(jeng, teng.model, device="cpu",
-                                        spec=spec)
-            eng.infer({"tokens": queries[0]})
+    batch = {"tokens": queries[0]}
+    jbatch = {"tokens": jnp.asarray(queries[0])}
+    host_serve = lambda e, b, t: _serve_host(e, b, t)[:2]  # noqa: E731
+    for fields in ({"apm_codec": "lowrank"},
+                   {"device_index": "clustered", "nprobe": 4},
+                   {"index_kind": "ivf", "device_fast_path": False}):
+        jv = _reference_variant(jeng, **fields)
+        tv = engine_from_reference(jv, teng.model, device="cpu")
+        assert tv.store.codec.key == jv.store.codec.key
+        for tier in ("index", "device_index"):
+            assert type(getattr(tv.store, tier)).__name__ == \
+                type(getattr(jv.store, tier)).__name__
+        host = fields.get("device_fast_path") is False
+        for mode in ("kernel", "bucket"):
+            jv.mc.mode = tv.mc.mode = mode
+            if host:
+                thr = _mid_threshold(jv, jbatch, serve=host_serve)
+                hits = _compare_host(jv, tv, batch, thr)
+            else:
+                hits = _compare(jv, tv, batch, _mid_threshold(jv, jbatch))
+            assert 0 < hits.sum() < hits.size, (fields, mode)
     cfg, _ = _cfgs()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (``pytest -m gpu tests/test_torch_kernels_gpu.py``). No JAX here:
 the machine with the card has none. Without a card every test skips.
-Inputs come from ``chip_smoke.attention_case``, ``flash_case``,
-``nn_case`` and ``wkv_case``, the generators the chip smoke test uses.
+Inputs come from ``chip_smoke.attention_case``, ``lowrank_case``,
+``flash_case``, ``nn_case`` and ``wkv_case``, the generators the chip
+smoke test uses (``lowrank_case``: the B-row f16 DB that kernel mode
+decodes from lowrank factors for the batch's matched rows).
 Three tests drive a small bert_base session on the card: the engine's
 host-synchronous kernel mode and online admission, with chip_smoke's
 checks (``compare_decisions``, ``admission_read_back``), and
@@ -23,7 +25,8 @@ import torch
 
 from chip_smoke import (ATOL, TILE_EDGES, admission_read_back,
                         attention_case, capacity_promotion,
-                        compare_decisions, drive, flash_case, nn_case,
+                        compare_decisions, drive, flash_case, lowrank_case,
+                        nn_case,
                         nn_tie_ok, padded_batch, save_and_load, serve_all,
                         trace, wkv_case, wkv_cases, wkv_err)
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -64,6 +67,16 @@ def test_memo_attention_serving_shapes(cuda, quant, varlen):
     args, kw = attention_case(torch, cuda, B=32, S=128, H=12, Hkv=12, dh=64,
                               N=3072, L=128, quant=quant, varlen=varlen,
                               seed=1)
+    _check(args, kw, causal=False)
+
+
+@pytest.mark.parametrize("S", [64, 127, 128])
+def test_memo_attention_lowrank_row_db(cuda, S):
+    """Kernel mode over the lowrank codec: the decoded matched rows as a
+    B-row f16 DB (hit_idx = arange(B)), cut to S x S from L = 128."""
+    args, kw = lowrank_case(torch, cuda, B=32, S=S, H=12, dh=64, L=128,
+                            N=8, seed=3)
+    assert args[3].dtype == torch.float16 and args[3].shape == (32, 12, S, S)
     _check(args, kw, causal=False)
 
 

@@ -4,8 +4,9 @@ over one open-loop trace (the arrival rate probed, as by default), the
 chaos demo of one fault class, the disk chaos classes over a temporary
 capacity tier (DISK_DEGRADED through ``recover()``; the directory
 removed afterwards), the A/B with ``--capacity-dir`` (one reopenable
-tier directory per session), and the refusal of every option whose
-slice is not ported."""
+tier directory per session), the store's scale options (the lowrank
+codec, the ivf host index, the clustered device index) served to the
+end, and the refusal of every option whose slice is not ported."""
 import os
 import tempfile
 
@@ -37,14 +38,36 @@ def test_server_fault_demo_recovers(capsys):
 
 
 @pytest.mark.parametrize("flags, match", [
-    (["--codec", "lowrank"], "lowrank-codec"),
-    (["--index", "ivf"], "clustered/IVF index"),
-    (["--device-index", "clustered"], "clustered/IVF index"),
-    (["--shards", "2"], "sharded-store"),
-    (["--prefill"], "prefill")])
+    pytest.param(["--shards", "2"], "sharded-store",
+                 id="flags3-sharded-store"),
+    pytest.param(["--prefill"], "prefill", id="flags4-prefill")])
 def test_server_refuses_unported_options(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         main(SMALL + ["--calib-batches", "1", "--embed-steps", "2"] + flags)
+
+
+@pytest.mark.parametrize("flags, attr, kind", [
+    (["--codec", "lowrank"], "codec", "LowRankCodec"),
+    (["--index", "ivf"], "index", "IVFIndex"),
+    (["--device-index", "clustered"], "device_index",
+     "ClusteredDeviceIndex")])
+def test_server_serves_scale_options(monkeypatch, flags, attr, kind):
+    """The options that used to wait for the scale slice serve a whole
+    async trace; the session's store holds the chosen layout."""
+    import repro_torch.launch.server as server_mod
+    seen = []
+    real = server_mod.release_session
+
+    def release(args, sess):
+        seen.append(type(getattr(sess.store, attr)).__name__)
+        real(args, sess)
+    monkeypatch.setattr(server_mod, "release_session", release)
+    res = main(SMALL + ["--calib-batches", "1", "--embed-steps", "2",
+                        "--maintenance", "async", "--rate", "200"] + flags)
+    r = res["async"]
+    assert r["n_requests"] == 12 and r["n_admitted"] > 0
+    assert r["p99_ms"] >= r["p50_ms"] > 0
+    assert seen == [kind]
 
 
 @pytest.mark.parametrize("fault", ["disk_write_io", "checkpoint_crash",

@@ -2,7 +2,8 @@
 package: the same admit / evict / sync sequence must leave EQUAL host
 arrays (``state_dict``), equal slots and equal device-tier contents.
 Codec bytes are byte-equal and ``decode_rows`` is bit-equal to the numpy
-``decode``; search indices are equal."""
+``decode`` (f16, int8) or within one f16 ulp of it (lowrank, whose factor
+product sums in another order); search indices are equal."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -47,9 +48,74 @@ def test_codec_bytes_and_decode_rows_equal(name):
     assert tc.entry_nbytes == jc.entry_nbytes
 
 
+def _f16_ulp(x):
+    """One float16 ulp at each value of ``x`` (f16 array)."""
+    a = np.abs(x.astype(np.float32))
+    return np.spacing(np.maximum(a, 2.0 ** -14).astype(np.float16)
+                      ).astype(np.float32)
+
+
+@pytest.mark.parametrize("rank", [None, 3])
+def test_lowrank_codes_equal_and_decode_rows_within_one_ulp(rank):
+    """Lowrank codes and scales are the reference's byte for byte (the
+    same numpy SVD and quantizer); ``decode_rows`` is within one f16 ulp
+    of the numpy ``decode`` and of the reference's jnp ``decode_rows``."""
+    rng = np.random.default_rng(0)
+    a = _apms(rng, 5)
+    a[0, 0] = 0.0                          # a zero head: scale floor
+    jc = jcodec.get_codec("lowrank", SHAPE, rank=rank)
+    tc = tcodec.get_codec("lowrank", SHAPE, rank=rank)
+    assert tc.key == jc.key and tc.entry_nbytes == jc.entry_nbytes
+    assert [(p.name, p.shape, p.dtype) for p in tc.parts] == \
+        [(p.name, p.shape, p.dtype) for p in jc.parts]
+    jp, tp = jc.encode(a), tc.encode(a)
+    for x, y in zip(jp, tp):
+        assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
+    host = tc.decode(tp)
+    assert host.tobytes() == jc.decode(jp).tobytes()
+    rows = tc.decode_rows(tuple(torch.from_numpy(p) for p in tp))
+    assert rows.dtype == torch.float16
+    jrows = np.asarray(jc.decode_rows(tuple(jnp.asarray(p) for p in jp)))
+    for other in (host, jrows):
+        gap = np.abs(rows.numpy().astype(np.float32)
+                     - other.astype(np.float32))
+        assert (gap <= _f16_ulp(other)).all(), gap.max()
+
+
+def test_lowrank_roundtrip_error_bounded_by_truncation_energy():
+    """The reference's bound: ‖APM − decode‖_F per (entry, head) is at
+    most the discarded singular mass plus int8 quantization slack."""
+    x = np.random.default_rng(2).normal(size=(8, 2, 16, 16))
+    e = np.exp(x - x.max(-1, keepdims=True))
+    apms = (e / e.sum(-1, keepdims=True)).astype(np.float16)
+    c = tcodec.get_codec("lowrank", apms.shape[1:], rank=6)
+    dec = c.decode(c.encode(apms)).astype(np.float32)
+    x = apms.astype(np.float32)
+    _, s, _ = np.linalg.svd(x)
+    tail = np.sqrt((s[..., c.rank:] ** 2).sum(-1))
+    frob = np.sqrt(((dec - x) ** 2).sum((-1, -2)))
+    assert (frob <= tail + 0.35).all(), (frob.max(), tail.max())
+    rows = c.decode_rows(tuple(torch.from_numpy(p)
+                               for p in c.encode(apms))).float().numpy()
+    assert (np.sqrt(((rows - x) ** 2).sum((-1, -2))) <= tail + 0.35).all()
+
+
 def test_lowrank_waits_and_pad_delta_matches():
-    with pytest.raises(NotImplementedError, match="lowrank"):
-        tcodec.get_codec("lowrank", SHAPE)
+    """A lowrank store follows the reference's admit / evict / sync
+    sequence (four codec parts on the device), and the padded deltas
+    are the reference's."""
+    kw = dict(capacity=4, codec="lowrank", device_index_kind="flat")
+    t, j = MemoStore(SHAPE, 16, **kw), JaxStore(SHAPE, 16, **kw)
+    t.budget_bytes = j.budget_bytes = 7 * j.entry_nbytes
+    ta = _run_sequence(t, np.random.default_rng(3))
+    ja = _run_sequence(j, np.random.default_rng(3))
+    for x, y in zip(ta, ja):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    assert len(t.snapshot.db_parts) == 4
+    for x, y in zip(t.snapshot.db_parts, j.snapshot.db_parts):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    for k, v in j.state_dict().items():
+        np.testing.assert_array_equal(t.state_dict()[k], v, err_msg=k)
     for n in (1, 3, 4, 5):
         s = np.arange(n) * 3
         v = np.arange(n * 2, dtype=np.float32).reshape(n, 2)
@@ -182,13 +248,21 @@ def test_store_refuses_what_waits(tmp_path):
     s = MemoStore(SHAPE, 16, capacity_dir=str(blocker / "tier"))
     assert not s.capacity_ok and s.capacity is None
     assert "Error" in s.capacity_error and s.stats.n_disk_errors == 1
+    # the clustered device index and the ivf host index serve: the
+    # crossover store syncs onto a built clustered index, and the ivf
+    # store's host lookup finds its entries
     s = MemoStore(SHAPE, 16, capacity=4, cluster_crossover=4)
     rng = np.random.default_rng(5)
-    s.admit(_apms(rng, 4), rng.standard_normal((4, 16)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="clustered"):
-        s.sync()
-    with pytest.raises(NotImplementedError, match="ivf"):
-        MemoStore(SHAPE, 16, index_kind="ivf")
+    embs = rng.standard_normal((4, 16)).astype(np.float32)
+    s.admit(_apms(rng, 4), embs)
+    assert s.sync()["kind"] == "full"
+    assert type(s.device_index).__name__ == "ClusteredDeviceIndex"
+    _, idx = s.device_index.search(embs)
+    np.testing.assert_array_equal(idx[:, 0], np.arange(4))
+    s = MemoStore(SHAPE, 16, index_kind="ivf", n_lists=2)
+    s.admit(_apms(rng, 4), embs)
+    assert type(s.index).__name__ == "IVFIndex" and s.index.n_lists == 2
+    np.testing.assert_array_equal(s.lookup(embs)[1][:, 0], np.arange(4))
 
 
 def test_store_fault_points():
