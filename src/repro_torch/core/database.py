@@ -303,7 +303,8 @@ class DeviceDB:
     """Device-resident APM store.
 
     ``capacity`` rows are preallocated (``capacity >= n``): the slack lets
-    MemoStore land admissions as in-place deltas. Every host→device byte
+    MemoStore land admissions as delta syncs, each written into fresh
+    copies of the parts (copy-on-write, ``update``). Every host→device byte
     is tallied in ``transfer_bytes`` at the codec's compressed width; the
     hot path consumes ``parts`` and dequantizes on the fly (inside the
     memo_attention kernel for int8)."""
@@ -377,8 +378,31 @@ class DeviceDB:
         return shipped
 
     @property
+    def apms(self) -> torch.Tensor:
+        """The full arena, decoded. For the identity codec this is the
+        raw tensor; for compressed codecs it materializes the decoded
+        arena — tests and debugging only, never the hot path."""
+        if isinstance(self.codec, F16Codec):
+            return self.parts[0]
+        return self.codec.decode_rows(self.parts)
+
+    @property
     def capacity(self) -> int:
         return self.parts[0].shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def entry_nbytes(self) -> int:
+        """Compressed bytes per entry resident on the device."""
+        return self.codec.entry_nbytes
+
+    @property
+    def nbytes(self) -> int:
+        """Total device bytes of the allocation (all parts, slack too)."""
+        return sum(int(p.nbytes) for p in self.parts)
 
     def __len__(self):
         return self._n

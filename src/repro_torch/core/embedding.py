@@ -42,6 +42,12 @@ class Embedder:
         }
         return Embedder(params, pool, act)
 
+    def __call__(self, hidden, lengths=None):
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths, device=hidden.device)
+        return embed_apply(self.params, hidden, self.pool, self.act,
+                           lengths=lengths)
+
 
 def _maybe_act(x, act):
     return torch.tanh(x) if act == "tanh" else x

@@ -62,8 +62,25 @@ promoted rows ride the same delta sync as the admissions.
 lookup overhead and memo rate feed ``PerfModel``; serve its
 ``active_layers()`` through ``infer(active_layers=...)``.
 
+**Memoized causal prefill** (``prefill_enabled``; AttnCache, DESIGN.md
+§2.13): every entry also carries the layer's post-RoPE K/V
+(``core/prefill.py``), captured at build by ``_kv_probe`` and at
+admission by prefill batches only. ``prefill`` runs the fast path with
+``prepare_batch(prefill=True)``: memoized layers (``_layer_fused_prefill``)
+search through ``nn_search``, decode the matched row's APM and K/V, and
+run the mixed form for every row — a hit row takes the stored APM and
+its decode cache from the stored K/V, a miss row exact attention and its
+fresh K/V, chosen by ``torch.where`` (the reference picks all-hit,
+all-miss or mixed per quantum with ``lax.cond``; eager PyTorch would need
+a host read for that branch; the values are the same). Kernel-mode
+engines take this form too: ``memo_attention`` hands back no K/V, as in
+the reference. Other layers build their caches exactly
+(``_layer_plain_prefill``); ``finalize`` returns the last-token logits
+and the caches ``Model.decode_step`` consumes. ``prefill_exact`` is
+``Model.prefill``, the memo-free leg.
+
 Not ported yet (each raises ``NotImplementedError`` naming its slice):
-prefill, the sharded store and enc-dec.
+the sharded store and enc-dec.
 """
 from __future__ import annotations
 
@@ -74,10 +91,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.database import AttentionDB
 from repro_torch.core.embedding import Embedder, embed_apply, train_embedder
 from repro_torch.core.faults import FaultInjector
+from repro_torch.core.prefill import PrefillCodec, stack_kv, unstack_kv_rows
 from repro_torch.core.selective import LayerProfile, PerfModel, timeit_median
 from repro_torch.core.similarity import similarity_score
 from repro_torch.core.store import MemoStore, StoreSnapshot
@@ -205,15 +224,27 @@ class PreparedBatch:
     view: StoreSnapshot                   # the store generation served
     t0: float = 0.0
     pend: list = field(default_factory=list)
+    # prefill serving: per-layer decode-cache templates split from
+    # model.init_caches, and the caches each layer produced
+    prefill: bool = False
+    cache_len: int = 0
+    cache_tpls: Optional[dict] = None
+    caches_by_li: dict = field(default_factory=dict)
 
 
 @dataclass
 class MaintenancePayload:
     """Host-tier store work drained from one finished batch."""
     reuse_slots: Optional[np.ndarray] = None         # device-tier hits
-    admissions: List[Tuple] = field(default_factory=list)  # (apms, embs,
-    #                                                         lens) blocks
+    admissions: List[Tuple] = field(default_factory=list)
+    #   (apms, embs, lens, kv) blocks — kv is the stacked (B, 2, S, D) K/V
+    #   plane under prefill capture, None for APM-only admissions
     generation: int = -1
+
+    @property
+    def empty(self) -> bool:
+        return not self.admissions and (
+            self.reuse_slots is None or self.reuse_slots.size == 0)
 
 
 class MemoEngine:
@@ -238,14 +269,11 @@ class MemoEngine:
         self._check_ported()
 
     def _check_ported(self):
-        """Refuse the opt-ins of slices not ported yet (the sharded store,
-        prefill). Enc-dec, MLA and MoE layers raise where they are
-        reached, in the layer forms."""
-        mc = self.mc
-        if mc.shard.shards:
+        """Refuse the opt-in of a slice not ported yet (the sharded
+        store). Enc-dec, MLA and MoE layers raise where they are reached,
+        in the layer forms."""
+        if self.mc.shard.shards:
             raise _later("the sharded store (shards > 0)", "sharded-store")
-        if mc.prefill.enabled:
-            raise _later("prefill memoization", "prefill")
 
     # --- store delegation ------------------------------------------------
     @property
@@ -259,6 +287,10 @@ class MemoEngine:
     @property
     def device_db(self):
         return self.store.device_db if self.store is not None else None
+
+    @property
+    def device_index(self):
+        return self.store.device_index if self.store is not None else None
 
     @property
     def sim_cal(self):
@@ -287,13 +319,23 @@ class MemoEngine:
         mc = self.mc
         budget = (None if mc.budget_mb is None
                   else int(mc.budget_mb * 1e6))
+        codec = mc.apm_codec
+        if mc.prefill.enabled:
+            # prefill memoization: wrap the APM codec so every entry
+            # carries per-layer K/V parts — the same store, arenas, sync,
+            # capacity tier and save format serve both
+            from repro_torch.core.codec import get_codec
+            base = get_codec(codec, tuple(apm_shape), rank=mc.apm_rank)
+            codec = PrefillCodec(
+                base, kv_dim=self.cfg.n_kv_heads * self.cfg.head_dim,
+                kv_codec=mc.prefill.kv_codec, kv_rank=mc.prefill.kv_rank)
         return MemoStore(
             tuple(apm_shape), mc.embed_dim, index_kind=mc.index_kind,
             budget_bytes=budget, capacity=capacity, device=self.device,
             device_slack=mc.device_slack,
             n_lists=(n_lists if n_lists is not None
                      else max(4, int(np.sqrt(max(1, capacity))))),
-            codec=mc.apm_codec, apm_rank=mc.apm_rank,
+            codec=codec, apm_rank=mc.apm_rank,
             device_index_kind=mc.device_index,
             cluster_crossover=mc.cluster_crossover,
             nprobe=mc.nprobe, n_clusters=mc.n_clusters,
@@ -309,7 +351,15 @@ class MemoEngine:
     # ------------------------------------------------------------------ build
     @torch.no_grad()
     def _capture(self, batches):
-        hiddens, apms = [], []
+        """Run the calibration batches with APM capture. Returns the
+        memoized layers' attention inputs and f16 APMs, and under prefill
+        memoization their post-RoPE K/V planes (recomputed from the
+        captured input, which is the normed x that ``_qkv`` reads), else
+        None."""
+        prefill = self.mc.prefill.enabled
+        lps = ({li: lp for li, _, lp in self._iter_layers()}
+               if prefill else None)
+        hiddens, apms, kvs = [], [], []
         for batch in batches:
             if self.cfg.n_classes:
                 _, caps = self.model.classify(self.params, batch,
@@ -321,14 +371,22 @@ class MemoEngine:
                 if li in caps:
                     hiddens.append(caps[li]["hidden"])
                     apms.append(caps[li]["apm"].half())
-        return torch.cat(hiddens, 0), torch.cat(apms, 0)
+                    if prefill:
+                        kvs.append(self._kv_probe(lps[li],
+                                                  caps[li]["hidden"]))
+        return (torch.cat(hiddens, 0), torch.cat(apms, 0),
+                torch.cat(kvs, 0) if prefill else None)
 
     def build(self, batches: Sequence[dict], *, seed: int = 0,
               train_pairs: int = 512, verbose: bool = False):
         """Populate the attention + index databases from a calibration
         corpus and train the embedding model. ``seed`` drives the
-        embedder's init and its pair sampling."""
-        hiddens, apms = self._capture(batches)    # on device
+        embedder's init and its pair sampling. With prefill memoization
+        every calibration entry also stores the layer's post-RoPE K/V, so
+        the first epoch serves prefill at once."""
+        if self.mc.prefill.enabled:
+            self._check_prefill_supported()
+        hiddens, apms, kv = self._capture(batches)    # on device
         n, L, H = hiddens.shape
         self.store = self._make_store(apms.shape[1:], capacity=n)
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
@@ -343,7 +401,8 @@ class MemoEngine:
             print(f"embedder loss {hist[0]:.4f} -> {hist[-1]:.4f}")
         with torch.no_grad():
             embs = self._embed(hiddens)
-        self.store.admit(apms.cpu().numpy(), embs.cpu().numpy())
+        self.store.admit(apms.cpu().numpy(), embs.cpu().numpy(),
+                         kv=None if kv is None else kv.cpu().numpy())
         self._calibrate(hiddens, apms)
         if self.mc.store == "device" and self.mc.mode in ("bucket",
                                                           "kernel"):
@@ -503,22 +562,24 @@ class MemoEngine:
         ``sync_store=False`` is the async-maintenance contract: the
         serving thread never mutates the store; it reads the latest
         published snapshot and leaves sync to the worker (a store with
-        no snapshot yet is synced once). ``prefill=True`` waits for the
-        prefill slice."""
+        no snapshot yet is synced once).
+
+        ``prefill=True`` stages a memoized causal prefill: the batch also
+        carries per-layer decode-cache templates, memoized layers run
+        ``_layer_fused_prefill`` and ``finalize`` returns
+        ``(last_logits, caches)``."""
         if not self._use_fast_path():
             raise RuntimeError(
                 "prepare_batch drives the device fast path; build() the "
                 "engine in bucket/kernel mode (select and host paths go "
                 "through infer())")
-        if prefill:
-            raise _later("prefill serving", "prefill")
         cfg = self.cfg
         tokens = self._tensor(batch["tokens"])
         lengths = batch.get("lengths")
         thr = self.mc.threshold if threshold is None else float(threshold)
         active = set(self.layers if active_layers is None
                      else active_layers)
-        capture = self._capture_now(True)
+        capture = self._capture_now(True, prefill=prefill)
         self._serve_batches += 1
         if sync_store:
             self.store.sync()     # generation-counted: no-op unless stale
@@ -528,6 +589,28 @@ class MemoEngine:
             view = self.store.snapshot
         B, S = tokens.shape[0], tokens.shape[1]
         n_valid = int(batch.get("n_valid", B))
+        cache_len, cache_tpls = 0, None
+        if prefill:
+            if not self.mc.prefill.enabled:
+                raise RuntimeError(
+                    "prefill serving needs PrefillSpec(enabled=True) at "
+                    "build time — the store must carry KV-bearing entries")
+            if not isinstance(self.store.codec, PrefillCodec):
+                raise RuntimeError(
+                    "this store's entries carry no KV parts; rebuild (or "
+                    "re-save) it with prefill_enabled=True")
+            self._check_prefill_supported()
+            cache_len = self._prefill_cache_len(S)
+            cache_tpls = self._split_caches(
+                self.model.init_caches(B, cache_len))
+            for li in sorted(set(self.layers) & active):
+                cl = bb.cache_len_from(cache_tpls[li])
+                if cl < S:
+                    raise ValueError(
+                        f"layer {li} decode cache holds {cl} slots < "
+                        f"prompt length {S} (sliding windows shorter "
+                        f"than the prompt cannot replay a stored "
+                        f"prefix)")
         t0 = time.perf_counter()
         h = bb.embed_tokens(self.params, tokens, cfg)
         positions = self._positions(B, S)
@@ -540,7 +623,8 @@ class MemoEngine:
         return PreparedBatch(
             tokens=tokens, h=h, positions=positions, kpad=kpad,
             lengths_dev=len_dev, lengths=lengths, n_valid=n_valid, thr=thr,
-            active=active, capture=capture, view=view, t0=t0)
+            active=active, capture=capture, view=view, t0=t0,
+            prefill=prefill, cache_len=cache_len, cache_tpls=cache_tpls)
 
     @torch.no_grad()
     def run_layers(self, prep: PreparedBatch) -> PreparedBatch:
@@ -548,8 +632,29 @@ class MemoEngine:
         only — no host synchronization, no host↔device copy (the one
         barrier lives in ``finalize``). Hit masks, predicted sims and
         matched slots accumulate as device tensors in ``prep.pend``; under
-        ``prep.capture`` so do the embeddings and true APMs."""
+        ``prep.capture`` so do the embeddings and true APMs (and K/V).
+
+        A prefill batch's memoized layers hand back the layer's decode
+        cache beside h (hits from the stored K/V, misses from the fresh
+        K/V); every other layer runs the backbone's exact prefill step."""
         h = prep.h
+        if prep.prefill:
+            for li, kind, lp in self._iter_layers():
+                if li in prep.active and kind == "attn":
+                    h, ck, cv, *rest = self._layer_fused_prefill(
+                        lp, h, li, prep.thr, prep.positions,
+                        view=prep.view, cache_tpl=prep.cache_tpls[li],
+                        kpad=prep.kpad, qlen=prep.lengths_dev,
+                        capture=prep.capture)
+                    prep.caches_by_li[li] = {"k": ck, "v": cv}
+                    prep.pend.append((li, *rest))
+                else:
+                    h, c = self._layer_plain_prefill(
+                        lp, h, kind, li, prep.positions,
+                        prep.cache_tpls[li], kpad=prep.kpad)
+                    prep.caches_by_li[li] = c
+            prep.h = h
+            return prep
         for li, kind, lp in self._iter_layers():
             if li in prep.active and kind in ("attn", "mla"):
                 h, *rest = self._layer_fused(
@@ -567,13 +672,19 @@ class MemoEngine:
     def finalize(self, prep: PreparedBatch,
                  stats: Optional[MemoStats] = None):
         """Head + the ONE trailing barrier, then the stats drain. Returns
-        ``(outputs, stats, payload)``."""
+        ``(outputs, stats, payload)``; a prefill batch's outputs are
+        ``(last_logits, caches)``, its head that of ``Model.prefill``."""
         st = stats or MemoStats()
         cfg = self.cfg
-        out = (bb.classify_from_hidden(self.params, prep.h, cfg,
-                                       kpad=prep.kpad)
-               if cfg.n_classes
-               else bb.logits_from_hidden(self.params, prep.h, cfg))
+        if prep.prefill:
+            logits = bb.logits_from_hidden(self.params, prep.h[:, -1:],
+                                           cfg)[:, 0]
+            out = (logits, self._merge_caches(prep.caches_by_li))
+        elif cfg.n_classes:
+            out = bb.classify_from_hidden(self.params, prep.h, cfg,
+                                          kpad=prep.kpad)
+        else:
+            out = bb.logits_from_hidden(self.params, prep.h, cfg)
         synchronize(self.device)                           # ONE barrier
         dt = time.perf_counter() - prep.t0
         st.n_inputs += prep.n_valid
@@ -654,19 +765,187 @@ class MemoEngine:
                               torch.arange(B, dtype=torch.int32,
                                            device=q.device), hit, **kw)
 
-    def _capture_now(self, use_memo: bool) -> bool:
+    def _capture_now(self, use_memo: bool, prefill: bool = False) -> bool:
         """Admission sampling: capture misses on every Nth served batch
-        (``admit_every``) when online admission is enabled."""
+        (``admit_every``) when online admission is enabled. With prefill
+        memoization on, ONLY prefill batches capture — an APM-only
+        admission would store zero K/V and a later prefill hit would
+        replay an empty decode cache."""
+        if self.mc.prefill.enabled and not prefill:
+            return False
         return (use_memo and self.mc.admit and self.store is not None
                 and self._serve_batches % max(1, self.mc.admit_every) == 0)
+
+    # ------------------------------------------------------ prefill layers
+    def _layer_fused_prefill(self, lp, h, li, thr: float, positions, view,
+                             cache_tpl, kpad=None, qlen=None,
+                             capture: bool = False):
+        """The memoized-prefill layer: ``_layer_fused``'s lookup (the
+        search through ``nn_search``, the threshold and the length gate,
+        which a replayed K/V prefix doubly needs) plus the K/V leg. The
+        gather decodes the entry's K/V next to its APM; every row runs
+        the mixed form: attention with the stored APM on hit rows, and
+        the decode cache from the stored K/V on hit rows, the exact K/V
+        on miss rows. Both are zero-padded to the template's length, as
+        ``gqa_prefill_cache`` pads, so a hit's cache and the exact cache
+        differ only by the K/V codec's quantization. Returns
+        (h', k_cache, v_cache, sims, hits, slots[, embs, apms, kvs])."""
+        cfg = self.cfg
+        varlen = qlen is not None
+        Sc = bb.cache_len_from(cache_tpl)
+        cdt = cache_tpl["k"].dtype
+        codec = self.store.codec
+        e = self.embedder
+        x = norm_apply(lp["norm1"], h, cfg.norm)
+        emb = embed_apply(e.params, x, e.pool, e.act, lengths=qlen,
+                          full_len=self.store.apm_shape[-1])
+        d2, idx = view.index.search_device(emb, args=view.search_args)
+        dist = torch.sqrt(torch.clamp(d2[:, 0], min=0.0))
+        sim = view.sim_a * dist + view.sim_b
+        hit = sim > thr
+        idx0 = idx[:, 0].to(torch.int32)
+        S = x.shape[1]
+        ent_len = view.lengths.index_select(0, idx0)
+        hit = hit & (ent_len == (qlen if varlen else S))
+        rows = tuple(p.index_select(0, idx0) for p in view.db_parts)
+        apm = codec.decode_rows(rows).float()
+        if apm.shape[-1] != S:
+            apm = apm[..., :S, :S]
+        kv = codec.decode_kv_rows(rows).float()
+        mk, mv = unstack_kv_rows(kv[:, :, :S], cfg.n_kv_heads, cfg.head_dim)
+        y = self._gqa(lp, x, "attn", positions, kpad=kpad,
+                      memo=attn_mod.Memo(apm=apm, hit=hit))[0]
+        k, v = self._true_kv(lp, x, positions, kpad)
+        m = hit[:, None, None, None]
+        pad = (0, 0, 0, 0, 0, Sc - S)
+        ck = F.pad(torch.where(m, mk, k), pad).to(cdt)
+        cv = F.pad(torch.where(m, mv, v), pad).to(cdt)
+        out = (self._chan_tail(lp, h + y, li), ck, cv, sim, hit, idx0)
+        if capture:
+            # miss capture: the true APM and K/V, computed exactly like
+            # the miss path (an admitted entry replays bit for bit)
+            out = out + (emb, self._apm_probe(lp, x, "attn", positions,
+                                              kpad=kpad),
+                         stack_kv(k, v).half())
+        return out
+
+    def _true_kv(self, lp, x, positions, kpad=None):
+        """Exact post-RoPE K/V of a batch in f32, padded rows zeroed (the
+        stored-K/V convention: zeros past the true length)."""
+        _, k, v = attn_mod._qkv(lp["mix"], x, self.cfg, positions)
+        if kpad is not None:
+            m = kpad[:, :, None, None].to(k.dtype)
+            k, v = k * m, v * m
+        return k.float(), v.float()
+
+    def _layer_plain_prefill(self, lp, h, kind, li, positions, cache,
+                             kpad=None):
+        """Non-memoized layers of a prefill batch: the backbone's exact
+        prefill step (attention and its cache, or a recurrent state)."""
+        out, c, _ = bb._layer_apply(lp, h, self.cfg, kind, li,
+                                    mode="prefill", positions=positions,
+                                    cache=cache, kpad=kpad)
+        return out, c
+
+    # ------------------------------------------------------- prefill API
+    @torch.no_grad()
+    def prefill(self, batch, *, threshold: Optional[float] = None,
+                active_layers: Optional[Sequence[int]] = None,
+                stats: Optional[MemoStats] = None):
+        """Memoized causal prefill. Returns (last-token logits (B, V),
+        decode caches, stats): a hit skips the layer's attention and
+        takes that layer's decode cache from the stored K/V entry; a miss
+        runs exact prefill and (under admission sampling) captures APM +
+        K/V. Decode goes on with ``self.model.decode_step``."""
+        st = stats or MemoStats()
+        prep = self.prepare_batch(batch, threshold=threshold,
+                                  active_layers=active_layers,
+                                  prefill=True)
+        self.run_layers(prep)
+        (logits, caches), st, payload = self.finalize(prep, stats=st)
+        self.apply_maintenance(payload, stats=st)
+        return logits, caches, st
+
+    @torch.no_grad()
+    def prefill_exact(self, batch, *, cache_len: Optional[int] = None):
+        """Exact (memo-free) prefill — ``Model.prefill``: the leg
+        ``MemoServer`` falls back to, and the parity reference. Returns
+        (logits (B, V), caches)."""
+        tokens = self._tensor(batch["tokens"])
+        Sc = (int(cache_len) if cache_len
+              else self._prefill_cache_len(int(tokens.shape[1])))
+        return self.model.prefill(self.params, {"tokens": tokens},
+                                  cache_len=Sc)
+
+    # --------------------------------------------------- prefill support
+    def _check_prefill_supported(self):
+        """Prefill memoization's preconditions. The causal requirement IS
+        the mask-kind gate: every stored entry was captured under the
+        causal prefill mask and may only be replayed under it."""
+        if not self.cfg.causal:
+            raise ValueError(
+                "prefill memoization requires a causal model: stored "
+                "entries are causal-prefill states and may only be "
+                "replayed under the same mask kind")
+        bad = sorted(li for li, kind, _ in self._iter_layers()
+                     if li in self.layers and kind != "attn")
+        if bad:
+            raise ValueError(
+                f"prefill memoization serves GQA 'attn' layers only "
+                f"(MLA caches latents, not K/V); memoized layers {bad} "
+                f"are a different mixer kind")
+
+    def _prefill_cache_len(self, S: int) -> int:
+        """Decode-cache length for a prompt of length ``S``:
+        ``prefill_cache_len`` if set, else 2·S headroom."""
+        cl = self.mc.prefill.cache_len
+        Sc = int(cl) if cl else 2 * S
+        if Sc < S:
+            raise ValueError(
+                f"prefill_cache_len={Sc} is shorter than the prompt "
+                f"({S}): the decode cache must hold the whole prefix")
+        return Sc
+
+    def _kv_probe(self, lp, x):
+        """Post-RoPE K/V of one captured block, stacked into the stored
+        (B, 2, S, D) f16 plane. Positions run from 0 (prefill is
+        absolute), so the stored K drops into a decode cache as is."""
+        k, v = self._true_kv(lp, x, self._positions(x.shape[0], x.shape[1]))
+        return stack_kv(k, v).half()
+
+    def _split_caches(self, caches) -> dict:
+        """A ``model.init_caches`` tree → {layer_idx: cache}. A scan
+        segment's leading repeats axis is sliced off here and restacked
+        by ``_merge_caches``."""
+        out = {}
+        for si, seg in enumerate(bb.scan_plan(self.cfg)):
+            grp = caches[f"seg{si}"]
+            n = len(seg.unit)
+            for r in range(seg.reps):
+                rep = grp if seg.kind == "single" else bb._tree_index(grp, r)
+                for u in range(n):
+                    out[seg.start + r * n + u] = rep[f"l{u}"]
+        return out
+
+    def _merge_caches(self, by_li: dict):
+        """Inverse of ``_split_caches``: {layer_idx: cache} → the segment
+        tree ``model.decode_step`` consumes."""
+        caches = {}
+        for si, seg in enumerate(bb.scan_plan(self.cfg)):
+            n = len(seg.unit)
+            groups = [{f"l{u}": by_li[seg.start + r * n + u]
+                       for u in range(n)} for r in range(seg.reps)]
+            caches[f"seg{si}"] = (groups[0] if seg.kind == "single"
+                                  else bb._tree_stack(groups))
+        return caches
 
     def _drain_stats(self, prep: PreparedBatch,
                      st: MemoStats) -> MaintenancePayload:
         """Materialize the per-layer device counters after the trailing
         barrier in stacked transfers: sims+hits as one f32 block, slots
-        as one i32 block, and under capture the embeddings and the f16
-        APMs. Rows past ``n_valid`` are dropped. Returns the payload
-        without touching the store."""
+        as one i32 block, and under capture the embeddings, the f16 APMs
+        and (prefill) the f16 K/V planes. Rows past ``n_valid`` are
+        dropped. Returns the payload without touching the store."""
         pend = prep.pend
         out = MaintenancePayload(
             generation=getattr(prep.view, "generation", -1))
@@ -690,20 +969,25 @@ class MemoEngine:
         if prep.capture and len(pend[0]) > 4:
             embs = torch.stack([p[4] for p in pend]).cpu().numpy()[:, :nv]
             apms = torch.stack([p[5] for p in pend]).cpu().numpy()[:, :nv]
+            # prefill capture stages the K/V plane at pend[6]
+            kvs = (torch.stack([p[6] for p in pend]).cpu().numpy()[:, :nv]
+                   if len(pend[0]) > 6 else None)
             lens = None if prep.lengths is None else prep.lengths[:nv]
             for l in range(embs.shape[0]):
                 miss = ~hits[l]
                 if miss.any():
                     out.admissions.append(self._stage_capture(
                         apms[l][miss], embs[l][miss],
-                        None if lens is None else lens[miss]))
+                        None if lens is None else lens[miss],
+                        None if kvs is None else kvs[l][miss]))
         return out
 
-    def _stage_capture(self, apms, embs, lens):
+    def _stage_capture(self, apms, embs, lens, kv=None):
         """Normalize one captured miss block for admission: pad the APMs
-        to the arena (calibration) length and zero the pad-query rows, so
-        a stored entry is the same whichever bucket captured it; only its
-        true length matters (the length gate replays it only there)."""
+        (and the K/V plane, under prefill capture) to the arena
+        (calibration) length and zero the pad-query rows, so a stored
+        entry is the same whichever bucket captured it; only its true
+        length matters (the length gate replays it only there)."""
         S_max = self.store.apm_shape[-1]
         B, H, S = apms.shape[:3]
         lens = (np.full(B, S, np.int32) if lens is None
@@ -712,10 +996,17 @@ class MemoEngine:
             padded = np.zeros((B, H, S_max, S_max), apms.dtype)
             padded[:, :, :S, :S] = apms
             apms = padded
+            if kv is not None:
+                pk = np.zeros(kv.shape[:2] + (S_max, kv.shape[-1]),
+                              kv.dtype)
+                pk[:, :, :S] = kv
+                kv = pk
         if (lens < S_max).any():
             row_ok = np.arange(S_max)[None, :] < lens[:, None]
             apms = apms * row_ok[:, None, :, None].astype(apms.dtype)
-        return apms, embs, lens
+            if kv is not None:
+                kv = kv * row_ok[:, None, :, None].astype(kv.dtype)
+        return apms, embs, lens, kv
 
     def apply_maintenance(self, payload: Optional[MaintenancePayload],
                           stats: Optional[MemoStats] = None) -> None:
@@ -746,6 +1037,10 @@ class MemoEngine:
         apms = np.concatenate([p[0] for p in pend], 0)
         embs = np.concatenate([p[1] for p in pend], 0)
         lens = np.concatenate([p[2] for p in pend], 0)
+        # K/V planes ride along iff every staged block carries one (APM-
+        # only and prefill captures never mix: _capture_now gates them)
+        kv = (np.concatenate([p[3] for p in pend], 0)
+              if all(p[3] is not None for p in pend) else None)
         cspec = self.mc.capacity
         if (apms.shape[0] and cspec.promote
                 and self.store.capacity is not None):
@@ -759,8 +1054,9 @@ class MemoEngine:
             if promoted.any():
                 keep = ~promoted
                 apms, embs, lens = apms[keep], embs[keep], lens[keep]
+                kv = kv[keep] if kv is not None else None
         if apms.shape[0]:
-            slots = self.store.admit(apms, embs, lens)
+            slots = self.store.admit(apms, embs, lens, kv=kv)
             st.add_admitted(int(slots.size))
             self.store.sync()
             self._flush_count += 1
@@ -865,8 +1161,9 @@ class MemoEngine:
         return h + mlp_apply(lp["chan"], x, cfg.act, cfg.glu)
 
     def _layer_plain(self, lp, h, kind, li, memo, positions, kpad=None):
-        out, _ = bb._layer_apply(lp, h, self.cfg, kind, li, mode="full",
-                                 positions=positions, memo=memo, kpad=kpad)
+        out, _, _ = bb._layer_apply(lp, h, self.cfg, kind, li, mode="full",
+                                    positions=positions, memo=memo,
+                                    kpad=kpad)
         return out
 
     def _layer_bucket(self, lp, h, kind, li, memo, positions):

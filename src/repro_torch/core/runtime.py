@@ -53,7 +53,12 @@ thread's kernels are ordered by one stream: an old generation's memory
 is reused only after the kernels queued before its release.
 ``finalize``'s barrier synchronizes the whole device, so it also waits
 for the worker's queued copies, promotions' delta syncs among them.
-Prefill requests are refused in ``submit`` until the prefill slice.
+Prefill requests (``submit(prefill=True)``, on an engine built with
+``prefill_enabled``) queue apart from the others — queues are keyed by
+(bucket, prefill) — and run the engine's memoized-prefill leg: each
+completion's ``logits`` is the last-token row and its ``caches`` this
+request's decode caches. Under MEMO_DISABLED they serve through
+``prefill_exact``.
 """
 from __future__ import annotations
 
@@ -71,6 +76,14 @@ import torch
 
 from repro_torch.core.engine import MemoEngine, MemoStats
 from repro_torch.core.faults import fire
+
+
+def _tree_rows(tree, i: int):
+    """Batch row ``i`` (kept as a batch of one) of every tensor in a
+    nested dict."""
+    if isinstance(tree, dict):
+        return {k: _tree_rows(v, i) for k, v in tree.items()}
+    return tree[i: i + 1]
 
 
 class Health(enum.Enum):
@@ -96,19 +109,21 @@ class Request:
     tokens: np.ndarray          # (length,) int32
     arrival: float              # runtime-clock seconds (scheduled arrival)
     enqueue: float              # when it actually entered its bucket queue
-    prefill: bool = False       # memoized-prefill request (refused until
-    #                             the prefill slice)
+    prefill: bool = False       # memoized-prefill request (DESIGN.md §2.13)
 
 
 @dataclass
 class Completion:
     rid: int
-    logits: np.ndarray          # unpadded: (n_classes,) or (length, vocab)
+    logits: np.ndarray          # unpadded: (n_classes,) or (length, vocab);
+    #                             prefill requests: (vocab,) last-token row
     latency: float              # completion − arrival (queue + compute)
     length: int
     bucket: int
     batch_rows: int             # real rows in the batch that served it
-    caches: Optional[dict] = None   # prefill decode caches (prefill slice)
+    caches: Optional[dict] = None   # prefill only: this request's decode
+    #                                 caches (batch row i as a batch of
+    #                                 one), ready for model.decode_step
 
 
 def pow2_buckets(max_len: int, n: int = 3, min_len: int = 8
@@ -313,8 +328,12 @@ class MemoServer:
             self._check_worker()
         if self.health is Health.MEMO_DISABLED:
             # the bottom of the ladder: exact attention through the
-            # engine's no-memo path, no store reads, no maintenance
-            out, st = eng.infer(batch, stats=st, use_memo=False)
+            # engine's no-memo path (``prefill_exact`` for prefill), no
+            # store reads, no maintenance
+            if prefill:
+                out = eng.prefill_exact(batch)
+            else:
+                out, st = eng.infer(batch, stats=st, use_memo=False)
             self.n_exact_batches += 1
         else:
             prep = eng.prepare_batch(batch, prefill=prefill,
@@ -331,9 +350,25 @@ class MemoServer:
                 self._after_apply()
         self.stats.merge(st)
         self.n_batches += 1
-        out_np = out.cpu().numpy()
         done = self._now()
         comps = []
+        if prefill:
+            logits_all, caches = out
+            out_np = logits_all.cpu().numpy()           # (rows, vocab)
+            by_li = eng._split_caches(caches)
+            for i, r in enumerate(reqs):
+                # per-request decode caches: slice batch row i out of
+                # every layer's cache, then re-merge into the segment
+                # tree model.decode_step consumes (slicing the merged tree
+                # would cut a scan segment's repeats axis instead)
+                c_i = eng._merge_caches({
+                    li: _tree_rows(c, i) for li, c in by_li.items()})
+                comps.append(Completion(
+                    rid=r.rid, logits=out_np[i], latency=done - r.arrival,
+                    length=int(r.tokens.size), bucket=bucket,
+                    batch_rows=n, caches=c_i))
+            return comps
+        out_np = out.cpu().numpy()
         for i, r in enumerate(reqs):
             logits = (out_np[i] if out_np.ndim == 2
                       else out_np[i, : r.tokens.size])
@@ -637,18 +672,22 @@ class MemoServer:
         # parity 0 captures (when admission is on), parity 1 does not
         parities = ([0, 1] if eng.mc.admit and eng.mc.admit_every > 1
                     else [0])
+        kinds = [False] + ([True] if eng.mc.prefill.enabled else [])
         try:
             for b in self.buckets:
                 for rows in sizes:
                     for parity in parities:
-                        eng._serve_batches = parity
-                        batch = {"tokens": np.zeros((rows, b), np.int32),
-                                 "lengths": np.full((rows,), max(1, b // 2),
-                                                    np.int32),
-                                 "n_valid": rows}
-                        prep = eng.prepare_batch(batch, sync_store=False)
-                        eng.run_layers(prep)
-                        eng.finalize(prep, stats=MemoStats())
+                        for pf in kinds:
+                            eng._serve_batches = parity
+                            batch = {"tokens": np.zeros((rows, b),
+                                                        np.int32),
+                                     "lengths": np.full(
+                                         (rows,), max(1, b // 2), np.int32),
+                                     "n_valid": rows}
+                            prep = eng.prepare_batch(batch, prefill=pf,
+                                                     sync_store=False)
+                            eng.run_layers(prep)
+                            eng.finalize(prep, stats=MemoStats())
         finally:
             eng._serve_batches = serve_counter
 

@@ -179,6 +179,11 @@ class MemoStore:
         return self.db.entry_nbytes + self.embed_dim * 4
 
     @property
+    def logical_entry_nbytes(self) -> int:
+        """What an uncompressed f16 entry would cost (receipt baseline)."""
+        return self.db.logical_entry_nbytes + self.embed_dim * 4
+
+    @property
     def live_count(self) -> int:
         return self.db.live_count
 
@@ -549,16 +554,20 @@ class MemoStore:
         lens[:cap] = self._lens_host
         self._lens_host = lens
 
-    def admit(self, apms, embs, lengths=None) -> np.ndarray:
+    def admit(self, apms, embs, lengths=None, kv=None) -> np.ndarray:
         """Admission under the byte budget. apms: (B, H, L, L), embs:
-        (B, embed_dim), lengths: optional (B,) true lengths. Returns the
-        assigned arena slots (recycled free slots first, then appends)."""
+        (B, embed_dim), lengths: optional (B,) true lengths, kv: the
+        codec's side-channel payload (the (B, 2, S, D) K/V planes under a
+        prefill codec; plain APM codecs ignore it). Returns the assigned
+        arena slots (recycled free slots first, then appends)."""
         with self._lock:
-            return self._admit_locked(apms, embs, lengths)
+            return self._admit_locked(apms, embs, lengths, kv)
 
-    def _admit_locked(self, apms, embs, lengths) -> np.ndarray:
+    def _admit_locked(self, apms, embs, lengths, kv=None) -> np.ndarray:
         apms = np.asarray(apms, self.db.dtype)
         embs = np.asarray(embs, np.float32)
+        if kv is not None:
+            kv = np.asarray(kv)
         lengths = (np.full(apms.shape[0], self.default_len, np.int32)
                    if lengths is None
                    else np.asarray(lengths, np.int32).reshape(-1))
@@ -570,11 +579,13 @@ class MemoStore:
             if n_new > cap:
                 apms, embs = apms[-cap:], embs[-cap:]
                 lengths = lengths[-cap:]
+                if kv is not None:
+                    kv = kv[-cap:]
                 n_new = cap
             over = self.live_count + n_new - cap
             if over > 0:
                 self.evict(over)
-        slots = self.db.put(apms)
+        slots = self.db.put(apms, aux=kv)
         self._ensure_emb_capacity(int(slots.max()) + 1)
         self._embs_host[slots] = embs
         self._lens_host[slots] = lengths

@@ -24,8 +24,9 @@ removed at the end.
 
 The model is the architecture's reduced config. ``--codec``, ``--index``
 and ``--device-index`` serve every codec and index of the package.
-Options of slices not ported yet raise ``NotImplementedError`` naming the
-slice: shards and prefill.
+``--shards`` raises ``NotImplementedError`` naming the sharded-store
+slice. Memoized prefill is served by ``launch/serve.py --prefill``, as in
+the reference, whose ``server.py`` has no such option.
 """
 from __future__ import annotations
 
@@ -116,7 +117,7 @@ def build_session(args, seed: int = 0, cfg=None, leg: str = "serve"):
         index_kind=args.index, device_index=args.device_index,
         capacity_dir=capacity_dir_for(args, leg),
         capacity_checkpoint_every=1, shards=args.shards,
-        prefill_enabled=args.prefill, faults=({} if fault else None))
+        faults=({} if fault else None))
     calib = [{"tokens": corpus.sample(args.batch)[0]}
              for _ in range(args.calib_batches)]
     sess = MemoSession.build(model, params, spec, batches=calib, seed=1,
@@ -330,8 +331,6 @@ def parse_args(argv=None):
                          "one per session the run builds")
     ap.add_argument("--shards", type=int, default=0,
                     help="sharded device tier (sharded-store slice)")
-    ap.add_argument("--prefill", action="store_true",
-                    help="memoized prefill (prefill slice)")
     ap.add_argument("--phases", type=int, default=2,
                     help="corpus drift phases across the trace")
     ap.add_argument("--maintenance", default="both",

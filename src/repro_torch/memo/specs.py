@@ -15,10 +15,10 @@ Not carried over: the deprecated ``MemoConfig`` shim, and the fields
 that select JAX implementations (``RuntimeSpec.interpret``,
 ``RuntimeSpec.kernel_impl`` — a kernel wrapper here picks its path from
 the tensor's device). String-keyed fields validate against this
-package's registries. ``IndexSpec`` and ``CapacitySpec`` have every
-field of the reference's; the shard and prefill specs keep only their
-opt-in field, which makes the engine raise until the slice that reads
-the rest lands.
+package's registries. ``IndexSpec``, ``CapacitySpec`` and
+``PrefillSpec`` have every field of the reference's; the shard spec
+keeps only its opt-in field, which makes the engine raise until the
+sharded-store slice lands with the fields that tune it.
 """
 from __future__ import annotations
 
@@ -225,10 +225,29 @@ class ShardSpec:
 
 @dataclass
 class PrefillSpec:
-    """Memoized causal prefill (DESIGN.md §2.13). Only its opt-in is
-    carried over: ``enabled=True`` makes the engine raise until the
-    prefill slice lands with the fields that tune it."""
+    """Memoized causal prefill (AttnCache; DESIGN.md §2.13): extend each
+    memo entry from "APM only" to "APM + per-layer K/V", so a prefill
+    hit skips the layer's attention AND materializes that layer's decode
+    cache from the stored entry. ``enabled=False`` (the default) keeps
+    the APM-only entry layout and every other field inert."""
     enabled: bool = False
+    # decode-cache length handed back by a memoized prefill (None = 2x
+    # the prompt length)
+    cache_len: Optional[int] = None
+    # stored-KV format: "auto" follows the APM codec (f16 → f16,
+    # int8/lowrank → int8), or force f16|int8|lowrank
+    kv_codec: str = "auto"
+    # lowrank KV rank (None = max(4, S//8), as the APM codec)
+    kv_rank: Optional[int] = None
+
+    def __post_init__(self):
+        _require(self.cache_len is None or int(self.cache_len) >= 1,
+                 f"prefill cache_len must be None or >= 1: {self.cache_len}")
+        _require(self.kv_codec in ("auto", "f16", "int8", "lowrank"),
+                 f"prefill kv_codec must be auto|f16|int8|lowrank: "
+                 f"{self.kv_codec!r}")
+        _require(self.kv_rank is None or int(self.kv_rank) >= 1,
+                 f"prefill kv_rank must be None or >= 1: {self.kv_rank}")
 
 
 # old flat MemoConfig field → (component, field) — the single source of
@@ -271,9 +290,13 @@ FLAT_FIELDS: Dict[str, Tuple[str, str]] = {
     "capacity_stall_s": ("capacity", "stall_s"),
     "capacity_fsync": ("capacity", "fsync"),
     "capacity_compact_ratio": ("capacity", "compact_ratio"),
-    # opt-ins of later slices (DESIGN.md §2.12-2.13); the engine raises
+    # the sharded store's opt-in (DESIGN.md §2.12); the engine raises
     "shards": ("shard", "shards"),
+    # prefill memoization (DESIGN.md §2.13)
     "prefill_enabled": ("prefill", "enabled"),
+    "prefill_cache_len": ("prefill", "cache_len"),
+    "prefill_kv_codec": ("prefill", "kv_codec"),
+    "prefill_kv_rank": ("prefill", "kv_rank"),
 }
 
 

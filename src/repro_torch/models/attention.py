@@ -1,5 +1,7 @@
 """GQA/MQA/MHA attention (the GQA part of the reference's
-``models/attention.py``; MLA comes with the model-zoo slice).
+``models/attention.py``: the full-sequence apply, the memo-only apply,
+one-token decode and the decode-cache builders; MLA comes with the
+model-zoo slice).
 
 Functions over dicts of tensors whose keys and layouts are the JAX
 tree's (``wq (d,H,dh)``, ``wo (H,dh,d)``). Each full-sequence apply can
@@ -14,6 +16,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, dense_init
@@ -137,6 +140,56 @@ def gqa_apply(params, x, cfg, *, positions, mask_kind="causal",
         out = out.reshape(B, S, H, dh)
     y = torch.einsum("bshe,hed->bsd", out, params["wo"])
     return y, apm
+
+
+def gqa_decode(params, x, cfg, cache, pos, *, window=None, use_rope=True):
+    """One-token decode. x: (B,1,D); cache: {'k','v'}: (B,Sc,Hkv,dh).
+    ``pos``: the absolute position, a Python int or a 0-d integer tensor
+    (a device tensor adds no host sync). Rolling buffer: writes at
+    ``pos % Sc`` and masks each slot by the absolute position it holds
+    (and the recency ``window``). Returns (y, new cache); the input
+    cache is left as it was."""
+    B = x.shape[0]
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dev = x.device
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), int(pos), dtype=torch.int64, device=dev)
+    pos = pos.to(device=dev, dtype=torch.int64).reshape(())
+    positions = pos.expand(B, 1)
+    q, k, v = _qkv(params, x, cfg, positions, use_rope)
+    Sc = cache["k"].shape[1]
+    slot = torch.remainder(pos, Sc)
+    ck = cache["k"].index_copy(1, slot.reshape(1), k.to(cache["k"].dtype))
+    cv = cache["v"].index_copy(1, slot.reshape(1), v.to(cache["v"].dtype))
+    # absolute position of each cache slot under rolling writes
+    idx = torch.arange(Sc, device=dev)
+    wrap = torch.div(pos, Sc, rounding_mode="floor") * Sc
+    abs_pos = torch.where(idx <= slot, wrap + idx, wrap - Sc + idx)
+    valid = (abs_pos >= 0) & (abs_pos <= pos)
+    if window is not None:
+        valid &= abs_pos > pos - window
+    qg = q.reshape(B, 1, Hkv, H // Hkv, dh)
+    out, _ = _sdpa(qg, ck, cv, valid[None, None, :], dh ** -0.5)
+    out = out.reshape(B, 1, H, dh)
+    y = torch.einsum("bshe,hed->bsd", out, params["wo"])
+    return y, {"k": ck, "v": cv}
+
+
+def gqa_init_cache(cfg, batch, seq, dtype=torch.float32, device=None):
+    Hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    z = torch.zeros((batch, seq, Hkv, dh), dtype=dtype, device=device)
+    return {"k": z, "v": z}
+
+
+def gqa_prefill_cache(params, x, cfg, positions, seq_total, use_rope=True):
+    """Build the decode cache from a full prompt (cheaper than
+    re-decoding it): post-RoPE K and V, zero-padded to ``seq_total``."""
+    _, k, v = _qkv(params, x, cfg, positions, use_rope)
+    pad = seq_total - k.shape[1]
+    if pad > 0:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    return {"k": k, "v": v}
 
 
 def gqa_apply_memo(params, x, cfg, apm):

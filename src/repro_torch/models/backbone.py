@@ -6,7 +6,9 @@ weights is a name map: ``params["layers"]["seg{i}"]["l{u}"]`` holds one
 segment of ``scan_plan``, and a ``scan`` segment stacks its repeats on a
 leading axis. PyTorch runs eagerly, so every segment is a Python loop
 (the reference's ``layer_loop="unroll"``): per-layer APM capture and
-memo overrides work everywhere.
+memo overrides work everywhere. Caches (``init_caches``) keep the
+reference's layout too, so prefill and decode caches compare leaf for
+leaf across the packages.
 """
 from __future__ import annotations
 
@@ -103,24 +105,37 @@ def _layer_init(gen, cfg, layer_idx, kind, dtype, device):
 
 
 def _layer_apply(lp, h, cfg, kind, layer_idx, *, mode, positions,
-                 memo=None, capture=False, window=None, attn_impl="plain",
-                 kpad=None):
-    """Returns (h, apm) — ``apm`` is ``{"apm", "hidden"}`` under capture."""
-    if mode != "full":
-        raise NotImplementedError(
-            f"mode {mode!r} (prefill/decode) waits for the prefill slice")
+                 pos=None, cache=None, memo=None, capture=False,
+                 window=None, attn_impl="plain", kpad=None):
+    """Returns (h, new_cache, apm) — ``apm`` is ``{"apm", "hidden"}``
+    under capture. ``mode``: "full" (no cache), "prefill" (the prompt,
+    building the layer's decode cache or recurrent state from ``cache``'s
+    template) or "decode" (one token at absolute position ``pos``)."""
     x = norm_apply(lp["norm1"], h, cfg.norm)
     apm = None
     if kind == "attn":
         win = cfg.sliding_window if cfg.sliding_window else window
-        y, apm = attn.gqa_apply(lp["mix"], x, cfg, positions=positions,
-                                mask_kind="causal" if cfg.causal else "bidir",
-                                window=win, memo=memo, return_apm=capture,
-                                attn_impl=attn_impl, kpad=kpad)
+        if mode == "decode":
+            y, cache = attn.gqa_decode(lp["mix"], x, cfg, cache, pos,
+                                       window=win)
+        else:
+            y, apm = attn.gqa_apply(
+                lp["mix"], x, cfg, positions=positions,
+                mask_kind="causal" if cfg.causal else "bidir", window=win,
+                memo=memo, return_apm=capture, attn_impl=attn_impl,
+                kpad=kpad)
+            if mode == "prefill":
+                cache = attn.gqa_prefill_cache(
+                    lp["mix"], x, cfg, positions, cache_len_from(cache))
     elif kind == "rwkv6":
-        y, _ = rwkv_mod.rwkv_time_apply(
+        # the wkv kernel starts from a zero state: prefill and decode
+        # carry a state, so they take the scan
+        y, cache_t = rwkv_mod.rwkv_time_apply(
             lp["mix"], x, cfg,
-            impl="kernel" if attn_impl == "kernel" else "scan")
+            None if mode == "full" else cache and cache.get("time"),
+            impl="kernel" if attn_impl == "kernel" and mode == "full"
+            else "scan")
+        cache = dict(cache or {}, time=cache_t)
     else:
         raise _not_ported(kind)
     if apm is not None:
@@ -130,12 +145,61 @@ def _layer_apply(lp, h, cfg, kind, layer_idx, *, mode, positions,
     x = norm_apply(lp["norm2"], h, cfg.norm)
     ck = _chan_kind(cfg, layer_idx)
     if ck == "rwkvc":
-        y, _ = rwkv_mod.rwkv_channel_apply(lp["chan"], x, cfg)
+        y, cache_c = rwkv_mod.rwkv_channel_apply(
+            lp["chan"], x, cfg,
+            None if mode == "full" else cache and cache.get("chan"))
+        cache = dict(cache or {}, chan=cache_c)
     elif ck == "mlp":
         y = mlp_apply(lp["chan"], x, cfg.act, cfg.glu)
     else:
         raise _not_ported(ck)
-    return h + y, apm
+    return h + y, cache, apm
+
+
+def cache_len_from(cache) -> int:
+    """Total cache slots from a cache template (prefill pads up to this)."""
+    if cache is None:
+        return 0
+    for v in _leaves(cache):
+        return v.shape[1]
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def layer_cache(cfg, kind, layer_idx, batch, seq, dtype, device=None):
+    if kind == "attn":
+        return attn.gqa_init_cache(cfg, batch, seq, dtype, device)
+    if kind == "rwkv6":
+        return {"time": rwkv_mod.rwkv_time_init_state(cfg, batch, dtype,
+                                                      device),
+                "chan": rwkv_mod.rwkv_channel_init_state(cfg, batch, dtype,
+                                                         device)}
+    raise _not_ported(kind)
+
+
+def init_caches(cfg, batch, seq, dtype=torch.float32, window=None,
+                device=None):
+    """Caches per segment, in the reference's layout (a scan segment
+    stacks its repeats on a leading axis). Attention caches are sized
+    min(seq, window)."""
+    caches = {}
+    attn_len = min(seq, window) if window else seq
+    for si, seg in enumerate(scan_plan(cfg)):
+        def one(kind, idx):
+            s = attn_len if kind in ("attn", "mla") else seq
+            if kind == "attn" and cfg.sliding_window:
+                s = min(seq, cfg.sliding_window)
+            return layer_cache(cfg, kind, idx, batch, s, dtype, device)
+        group = {f"l{u}": one(kind, seg.start + u)
+                 for u, kind in enumerate(seg.unit)}
+        if seg.kind == "scan":
+            group = _tree_map(
+                lambda a: a.expand((seg.reps,) + tuple(a.shape)), group)
+        caches[f"seg{si}"] = group
+    return caches
 
 
 # ---------------------------------------------------------------------------
@@ -169,15 +233,29 @@ def backbone_init(gen, cfg, dtype=torch.float32, device=None):
 
 
 def _tree_stack(trees):
+    if trees[0] is None:
+        return None
     if isinstance(trees[0], dict):
         return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
 
 
 def _tree_index(tree, r):
+    return _tree_map(lambda a: a[r], tree)
+
+
+def _tree_map(fn, tree):
     if isinstance(tree, dict):
-        return {k: _tree_index(v, r) for k, v in tree.items()}
-    return tree[r]
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return None if tree is None else fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
 
 
 # ---------------------------------------------------------------------------
@@ -208,23 +286,46 @@ def iter_layers(params, cfg):
 
 
 def forward_hidden(params, h, cfg, *, mode="full", positions=None,
-                   memo_plan=None, capture=False, window=None,
-                   attn_impl="plain"):
-    """Run all layers. Returns (h, apms{layer_idx: apm})."""
+                   pos=None, caches=None, memo_plan=None, capture=False,
+                   window=None, attn_impl="plain"):
+    """Run all layers. Returns (h, new_caches, apms{layer_idx: apm}):
+    ``new_caches`` has ``caches``' layout (None per segment in "full"
+    mode)."""
     apms: Dict[int, Any] = {}
-    if positions is None:
+    new_caches = {}
+    if positions is None and mode != "decode":
         B, S = h.shape[0], h.shape[1]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device).expand(B, S)
-    for li, kind, lp in iter_layers(params, cfg):
-        memo = memo_plan.get(li) if memo_plan else None
-        h, apm = _layer_apply(lp, h, cfg, kind, li, mode=mode,
-                              positions=positions, memo=memo,
-                              capture=capture and kind in ("attn", "mla"),
-                              window=window, attn_impl=attn_impl)
-        if apm is not None:
-            apms[li] = apm
-    return h, apms
+    for si, seg in enumerate(scan_plan(cfg)):
+        sp = params["layers"][f"seg{si}"]
+        sc = caches.get(f"seg{si}") if caches else None
+        reps = []
+        for r in range(seg.reps):
+            gp = sp if seg.kind == "single" else _tree_index(sp, r)
+            gc = sc if sc is None or seg.kind == "single" \
+                else _tree_index(sc, r)
+            out = {}
+            for u, kind in enumerate(seg.unit):
+                li = seg.start + r * len(seg.unit) + u
+                memo = memo_plan.get(li) if memo_plan else None
+                h, c, apm = _layer_apply(
+                    gp[f"l{u}"], h, cfg, kind, li, mode=mode,
+                    positions=positions, pos=pos,
+                    cache=gc.get(f"l{u}") if gc else None, memo=memo,
+                    capture=capture and kind in ("attn", "mla"),
+                    window=window, attn_impl=attn_impl)
+                out[f"l{u}"] = c
+                if apm is not None:
+                    apms[li] = apm
+            reps.append(out)
+        if mode == "full":
+            new_caches[f"seg{si}"] = None
+        elif seg.kind == "single":
+            new_caches[f"seg{si}"] = reps[0]
+        else:
+            new_caches[f"seg{si}"] = _tree_stack(reps)
+    return h, new_caches, apms
 
 
 def logits_from_hidden(params, h, cfg):

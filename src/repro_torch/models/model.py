@@ -1,9 +1,10 @@
 """Model interface over the backbone (the reference's ``models/model.py``
-for decoder-only and encoder configs; enc-dec and prefill/decode come
-with later slices).
+for decoder-only and encoder configs; enc-dec comes with the model-zoo
+slice).
 
 ``attn_impl`` keeps the reference's name and picks what the
-full-sequence forward runs in its kernel-backed layers:
+full-sequence forward and the prompt pass of ``prefill`` run in their
+kernel-backed layers:
 
 * ``"plain"`` — the reference's ``"xla"``: attention through ``_sdpa``,
   the rwkv6 mixer through ``_wkv_scan``;
@@ -11,13 +12,16 @@ full-sequence forward runs in its kernel-backed layers:
   the ``flash_attention`` and ``rwkv6`` kernel wrappers (CUDA kernels on
   CUDA tensors, their plain versions on CPU tensors). Attention keeps
   ``_sdpa`` where a memo, APM capture or a key-padding mask is in play,
-  as the reference does.
+  as the reference does; the rwkv6 mixer keeps the scan wherever it
+  carries a state (prefill and decode), since the kernel starts from a
+  zero state. ``decode_step`` is plain one-token attention either way.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import backbone as bb
@@ -57,21 +61,60 @@ class Model:
         """Returns (logits, apms, aux). ``window`` is a sliding window for
         attention layers of configs that set none."""
         h = bb.embed_tokens(params, self._tokens(batch), self.cfg)
-        h, apms = bb.forward_hidden(params, h, self.cfg, mode="full",
-                                    memo_plan=memo_plan, capture=capture,
-                                    window=window,
-                                    attn_impl=self.attn_impl)
+        h, _, apms = bb.forward_hidden(params, h, self.cfg, mode="full",
+                                       memo_plan=memo_plan, capture=capture,
+                                       window=window,
+                                       attn_impl=self.attn_impl)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return bb.logits_from_hidden(params, h, self.cfg), apms, aux
 
     def classify(self, params, batch, *, memo_plan=None, capture=False):
         """Mean-pool classification (AttMemo accuracy experiments)."""
         h = bb.embed_tokens(params, self._tokens(batch), self.cfg)
-        h, apms = bb.forward_hidden(params, h, self.cfg, mode="full",
-                                    memo_plan=memo_plan, capture=capture,
-                                    attn_impl=self.attn_impl)
+        h, _, apms = bb.forward_hidden(params, h, self.cfg, mode="full",
+                                       memo_plan=memo_plan, capture=capture,
+                                       attn_impl=self.attn_impl)
         logits = bb.classify_from_hidden(params, h, self.cfg)
         return (logits, apms) if capture else logits
+
+    def classify_loss(self, params, batch):
+        """Mean cross-entropy of ``classify`` against ``batch["labels"]``
+        (differentiable: call it with grad enabled)."""
+        logits = self.classify(params, batch).float()
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        return -torch.mean(torch.gather(F.log_softmax(logits, -1), -1,
+                                        labels.long()[:, None]))
+
+    # -- serving ---------------------------------------------------------------
+    def init_caches(self, batch, cache_len, dtype=torch.float32,
+                    window=None):
+        return bb.init_caches(self.cfg, batch, cache_len, dtype,
+                              window=window, device=self.device)
+
+    def prefill(self, params, batch, *, cache_len, window=None,
+                dtype=torch.float32):
+        """Process the prompt; returns (last_token_logits, caches)."""
+        tokens = self._tokens(batch)
+        B = tokens.shape[0]
+        caches = self.init_caches(B, cache_len, dtype, window=window)
+        h = bb.embed_tokens(params, tokens, self.cfg)
+        h, caches, _ = bb.forward_hidden(
+            params, h, self.cfg, mode="prefill", caches=caches,
+            window=window, attn_impl=self.attn_impl)
+        logits = bb.logits_from_hidden(params, h[:, -1:], self.cfg)
+        return logits[:, 0], caches
+
+    def decode_step(self, params, tokens, caches, pos, *, window=None):
+        """tokens: (B,1); ``pos``: the absolute position (an int or a 0-d
+        tensor). Returns (logits (B,V), new_caches)."""
+        h = bb.embed_tokens(params,
+                            torch.as_tensor(tokens, device=self.device),
+                            self.cfg)
+        h, caches, _ = bb.forward_hidden(
+            params, h, self.cfg, mode="decode", caches=caches, pos=pos,
+            window=window, attn_impl=self.attn_impl)
+        logits = bb.logits_from_hidden(params, h, self.cfg)
+        return logits[:, 0], caches
 
 
 def build_model(cfg, *, device=None, attn_impl="plain") -> Model:

@@ -9,8 +9,10 @@ previous token). Output gating g and per-head GroupNorm as in the paper.
 
 ``rwkv_time_apply(impl=...)``: ``"scan"`` runs ``_wkv_scan`` (the
 reference's ``"scan"``), ``"kernel"`` runs the ``rwkv6`` kernel wrapper
-(the reference's ``"pallas_interpret"``) on fresh-state sequences. The
-stateful (prefill/decode) branch waits for the prefill slice.
+(the reference's ``"pallas_interpret"``) on fresh-state sequences: the
+kernel starts from a zero state and returns no final state, so a call
+with a ``state`` (prefill and decode) always takes the scan, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -22,11 +24,6 @@ from repro_torch.kernels.rwkv6.ref import wkv_scan as _wkv_scan
 from repro_torch.models.layers import dense_init
 
 _LORA = 64          # ddlerp / decay low-rank dim
-
-
-def _stateful():
-    return NotImplementedError(
-        "rwkv6 recurrent state (prefill/decode) waits for the prefill slice")
 
 
 def rwkv_time_init(gen, cfg, dtype=torch.float32, device=None):
@@ -52,9 +49,12 @@ def rwkv_time_init(gen, cfg, dtype=torch.float32, device=None):
     }
 
 
-def _shift(x):
-    """The previous token of each position, zeros before the first."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def _shift(x, state=None):
+    """The previous token of each position: zeros before the first, or
+    the state's last token (``state["x_prev"]``) when there is one."""
+    if state is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([state["x_prev"][:, None], x[:, :-1]], 1)
 
 
 def _ddlerp(params, x, x_prev):
@@ -78,16 +78,14 @@ def _groupnorm(x, scale, eps=1e-5):
 
 
 def rwkv_time_apply(params, x, cfg, state=None, impl="scan"):
-    """Full-sequence time-mix. x: (B,S,D); ``state`` must be None (the
-    stateful branch waits for the prefill slice). Returns
-    (y, new_state)."""
-    if state is not None:
-        raise _stateful()
+    """Full-sequence time-mix. x: (B,S,D). state: {'s','x_prev'} or None
+    (a fresh sequence). ``impl="kernel"`` runs the wkv kernel on fresh
+    sequences only. Returns (y, new_state)."""
     if impl not in ("scan", "kernel"):
         raise ValueError(f"impl must be 'scan' or 'kernel', got {impl!r}")
     B, S, d = x.shape
     nh, N = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
-    mixed = _ddlerp(params, x, _shift(x))                   # (B,S,5,D)
+    mixed = _ddlerp(params, x, _shift(x, state))            # (B,S,5,D)
     xr, xk, xv, xw, xg = mixed.unbind(2)
     r = (xr @ params["wr"]).reshape(B, S, nh, N)
     k = (xk @ params["wk"]).reshape(B, S, nh, N)
@@ -96,19 +94,29 @@ def rwkv_time_apply(params, x, cfg, state=None, impl="scan"):
     dec = params["w0"] + torch.tanh(xw @ params["decay_a"]) @ params["decay_b"]
     w = torch.exp(-torch.exp(dec.float())).to(x.dtype).reshape(B, S, nh, N)
     u = params["u"].reshape(nh, N)
-    if impl == "kernel":
+    if impl == "kernel" and state is None:
         o = wkv6(r.float(), k.float(), v.float(), w.float(),
                  u.float()).to(x.dtype)
         sT = None     # the kernel path returns no state (the reference's)
     else:
-        s0 = torch.zeros((B, nh, N, N), dtype=x.dtype, device=x.device)
+        s0 = (torch.zeros((B, nh, N, N), dtype=x.dtype, device=x.device)
+              if state is None else state["s"])
         o, sT = _wkv_scan(r, k, v, w, u, s0)
     o = _groupnorm(o, params["ln_scale"]).reshape(B, S, d) * g
     return o @ params["wo"], {"s": sT, "x_prev": x[:, -1]}
 
 
+def rwkv_time_decode(params, x, cfg, state):
+    """One-token step; x: (B,1,D)."""
+    return rwkv_time_apply(params, x, cfg, state)
+
+
 def rwkv_time_init_state(cfg, batch, dtype=torch.float32, device=None):
-    raise _stateful()
+    d = cfg.d_model
+    nh, N = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    kw = dict(dtype=dtype, device=device)
+    return {"s": torch.zeros((batch, nh, N, N), **kw),
+            "x_prev": torch.zeros((batch, d), **kw)}
 
 
 # ---------------------------------------------------------------------------
@@ -126,9 +134,7 @@ def rwkv_channel_init(gen, cfg, dtype=torch.float32, device=None):
 
 
 def rwkv_channel_apply(params, x, cfg, state=None):
-    if state is not None:
-        raise _stateful()
-    xx = _shift(x) - x
+    xx = _shift(x, state) - x
     xk = x + xx * params["mu_k"]
     xr = x + xx * params["mu_r"]
     k = torch.square(torch.relu(xk @ params["wk"]))
@@ -137,4 +143,5 @@ def rwkv_channel_apply(params, x, cfg, state=None):
 
 
 def rwkv_channel_init_state(cfg, batch, dtype=torch.float32, device=None):
-    raise _stateful()
+    return {"x_prev": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                  device=device)}

@@ -271,11 +271,13 @@ def test_unported_paths_raise(built, monkeypatch):
 
 @pytest.mark.parametrize("field, value, match", [
     ("shards", 2, "sharded-store"),
-    ("prefill_enabled", True, "prefill")])
+    pytest.param("prefill_enabled", True, None,
+                 id="prefill_enabled-True-prefill")])
 def test_later_slice_opt_ins_raise(field, value, match):
     """A reference spec that opts into a later slice crosses over with its
-    opt-in kept (the fields that tune it are dropped), and the engine
-    refuses it."""
+    opt-in kept, and the engine refuses it (``match``). Prefill is ported:
+    its spec crosses over with every prefill field and the engine takes
+    it (its store wraps the APM codec in a ``PrefillCodec``)."""
     from repro.memo import MemoSpec as JaxSpec
     from repro_torch.core.engine import MemoEngine
     spec = MemoSpec.from_dict(JaxSpec.flat(**{field: value}).to_dict())
@@ -284,8 +286,20 @@ def test_later_slice_opt_ins_raise(field, value, match):
     setattr(spec2, field, value)                  # write-through property
     assert spec2 == spec
     cfg, _ = _cfgs()
-    with pytest.raises(NotImplementedError, match=match):
-        MemoEngine(build_model(cfg, device="cpu"), None, spec)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            MemoEngine(build_model(cfg, device="cpu"), None, spec)
+        return
+    from repro_torch.configs import get_reduced as reduced
+    from repro_torch.core.prefill import PrefillCodec
+    assert spec.to_dict()["prefill"] == JaxSpec.flat(
+        **{field: value}).to_dict()["prefill"]
+    gpt = reduced("gpt2_small").replace(n_layers=1, d_model=64, n_heads=2,
+                                        n_kv_heads=2, d_ff=64)
+    eng = MemoEngine(build_model(gpt, device="cpu"), None, spec)
+    store = eng._make_store((gpt.n_heads, 8, 8), capacity=2)
+    assert isinstance(store.codec, PrefillCodec)
+    assert store.codec.kv_dim == gpt.n_kv_heads * gpt.head_dim
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -309,9 +323,51 @@ def test_port_imports_neither_jax_nor_reference():
         "        'repro_torch.core.capacity',\n"
         "        'repro_torch.memo.registry',\n"
         "        'repro_torch.memo.session',\n"
-        "        'repro_torch.launch.server'} <= set(names), names\n"
+        "        'repro_torch.launch.server',\n"
+        "        'repro_torch.core.prefill',\n"
+        "        'repro_torch.launch.serve',\n"
+        "        'repro_torch.train.checkpoint'} <= set(names), names\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_public_attributes_match_reference(built):
+    """The attributes the reference's code, tests and benchmarks read,
+    read the same way on both engines of the bridged pair:
+    ``MemoEngine.device_index``, ``DeviceDB.apms``/``dtype``/
+    ``entry_nbytes``/``nbytes``, ``MemoStore.logical_entry_nbytes``,
+    ``MaintenancePayload.empty`` and ``Embedder.__call__``."""
+    from repro.core.engine import MaintenancePayload as JaxPayload
+    from repro_torch.core.engine import MaintenancePayload
+    jeng, teng, queries = built
+    jeng.mc.mode = teng.mc.mode = "bucket"
+    jeng.store.sync()
+    teng.store.sync()
+    assert type(teng.device_index).__name__ == \
+        type(jeng.device_index).__name__
+    assert teng.device_index is teng.store.device_index
+    assert len(teng.device_index) == len(jeng.device_index)
+    jdb, tdb = jeng.device_db, teng.device_db
+    assert str(tdb.dtype).removeprefix("torch.") == str(jdb.dtype)
+    assert tdb.entry_nbytes == jdb.entry_nbytes
+    assert tdb.nbytes == jdb.nbytes
+    np.testing.assert_array_equal(tdb.apms.cpu().numpy(),
+                                  np.asarray(jdb.apms))
+    assert teng.store.logical_entry_nbytes == \
+        jeng.store.logical_entry_nbytes
+    for P in (JaxPayload, MaintenancePayload):
+        assert P().empty
+        assert P(reuse_slots=np.zeros(0, np.int64)).empty
+        assert not P(reuse_slots=np.array([3])).empty
+        assert not P(admissions=[(None, None, None, None)]).empty
+    hid = np.random.default_rng(3).standard_normal(
+        (4, 32, 128)).astype(np.float32)
+    lens = np.array([32, 20, 9, 32], np.int32)
+    for ln in (None, lens):
+        want = np.asarray(jeng.embedder(
+            jnp.asarray(hid), None if ln is None else jnp.asarray(ln)))
+        got = teng.embedder(torch.from_numpy(hid), ln)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)

@@ -14,6 +14,11 @@ big-memory tier with chip_smoke's phase-5d checks: a session saved and
 loaded (format 3 mapped and read, format 2) serves with logits
 bit-equal to the original, and a capacity-tier session promotes demoted
 rows from disk whose next batch launches ``memo_attention`` over them.
+Three cover memoized prefill: nn_search at its shapes and on a small
+gpt2_small prefill session's calls (``chip_smoke.hold_nn_calls``), that
+session's replay (no host sync, own entries, caches from the stored
+K/V), and full-width gpt2_small prefill + decode against the plain
+forward (``chip_smoke.prefill_decode_check``).
 
 Tolerances (``chip_smoke.ATOL``, ``WKV_RTOL``): attention outputs within
 2e-5 absolute — both sides compute in f32 and differ only in summation
@@ -421,3 +426,108 @@ def test_capacity_promotion_launches_memo_attention(cuda, tmp_path):
     assert out["demoted"] == 80 and out["promoted"] > 0
     assert out["hits_on_promoted"] > 0 and out["memo_attention_launches"] > 0
     sess.store.capacity.close()
+
+
+def test_nn_search_prefill_path_shapes(cuda):
+    """nn_search at memoized prefill's shapes (B=32, dim 128, a flat
+    table of 3,072 entries with as many slack rows) against the plain
+    version, then the calls a memoized prefill batch of a small
+    gpt2_small prefill session makes on the card: one per layer, each
+    held to the plain version (``chip_smoke.hold_nn_calls``)."""
+    from chip_smoke import RecordNN, hold_nn_calls
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import TemplateCorpus
+    from repro_torch.memo import MemoSpec
+    from repro_torch.memo.session import MemoSession
+    from repro_torch.models import build_model
+    q, db, dn, p = nn_case(torch, cuda, B=32, dim=128, N=6144, seed=21)
+    d, i = nn_search(q, db, db_norms=dn)
+    rd, ri = nn_search_ref(q, db, dn)
+    assert torch.equal(i, ri) and nn_tie_ok(db, i, p)
+    assert (d - rd).abs().max().item() <= 1e-3 * max(
+        1.0, rd.abs().max().item())
+    cfg = get_reduced("gpt2_small").replace(n_layers=2)
+    corpus = TemplateCorpus(vocab=cfg.vocab, seq_len=32, seed=0)
+    model = build_model(cfg, device=cuda, attn_impl="kernel")
+    calib = [{"tokens": corpus.sample(32)[0]} for _ in range(2)]
+    sess = MemoSession.build(
+        model, model.init(0), MemoSpec.flat(embed_steps=20, mode="kernel",
+                                            prefill_enabled=True),
+        batches=calib, device=cuda)
+    errs = {"nn_search": 0.0}
+    n0 = nn_search.launches
+    with RecordNN() as rec:
+        sess.engine.prefill({"tokens": corpus.sample(32)[0]})
+    assert nn_search.launches == n0 + cfg.n_layers
+    assert len(rec.calls) == cfg.n_layers
+    assert rec.calls[0][0][0].shape == (32, 128)
+    assert hold_nn_calls(torch, rec.calls, errs, "prefill") <= 1e-3
+
+
+def test_memoized_prefill_on_card(cuda):
+    """A small gpt2_small prefill session on the card: memoized prefill's
+    ``run_layers`` makes no host sync (``drive``'s
+    ``SyncFreeRunLayers``), launches nn_search once per layer and no
+    memo_attention; a replayed calibration batch hits its own entries and
+    takes the decode of their stored K/V as its caches."""
+    from chip_smoke import SyncFreeRunLayers
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.prefill import unstack_kv_rows
+    from repro_torch.data import TemplateCorpus
+    from repro_torch.memo import MemoSpec
+    from repro_torch.memo.session import MemoSession
+    from repro_torch.models import build_model
+    cfg = get_reduced("gpt2_small").replace(n_layers=2)
+    corpus = TemplateCorpus(vocab=cfg.vocab, seq_len=32, seed=0)
+    model = build_model(cfg, device=cuda, attn_impl="kernel")
+    calib = [{"tokens": corpus.sample(16)[0]} for _ in range(2)]
+    sess = MemoSession.build(
+        model, model.init(0), MemoSpec.flat(embed_steps=20, mode="kernel",
+                                            prefill_enabled=True),
+        batches=calib, device=cuda)
+    eng, store = sess.engine, sess.store
+    m0, n0 = memo_attention.launches, nn_search.launches
+    with SyncFreeRunLayers(torch, eng) as ctx:
+        lg, caches, st = eng.prefill(calib[0], threshold=-1e9)
+    torch.cuda.synchronize()
+    assert memo_attention.launches == m0
+    assert nn_search.launches == n0 + cfg.n_layers
+    assert st.n_hits == st.n_layer_attempts == cfg.n_layers * 16
+    slots = torch.stack([p[3] for p in ctx.pends[-1]]).cpu()
+    own = torch.arange(cfg.n_layers)[:, None] * 16 + torch.arange(16)
+    assert torch.equal(slots.long(), own)
+    by_li = eng._split_caches(caches)
+    for li in eng.layers:
+        rows = tuple(p.index_select(0, own[li].to(cuda))
+                     for p in store.device_db.parts)
+        k, v = unstack_kv_rows(store.codec.decode_kv_rows(rows).float(),
+                               cfg.n_kv_heads, cfg.head_dim)
+        assert torch.equal(by_li[li]["k"][:, :32], k)
+        assert torch.equal(by_li[li]["v"][:, :32], v)
+        assert by_li[li]["k"].shape[1] == 64             # 2·S
+    le, _ = eng.prefill_exact(calib[0])
+    assert (lg - le).abs().max().item() <= 2e-2
+
+
+def test_prefill_decode_matches_forward_full_width(cuda):
+    """Full-width gpt2_small (12 layers, d 768, random weights from a
+    seed): ``Model(attn_impl="kernel").prefill`` of 120 tokens and 8
+    ``decode_step``s against the plain full forward at the last 9
+    positions, within chip_smoke's FORWARD_RTOL of the logits' scale."""
+    import numpy as np
+    from chip_smoke import prefill_decode_check
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("gpt2_small")
+    kernel = build_model(cfg, device=cuda, attn_impl="kernel")
+    plain = build_model(cfg, device=cuda)
+    params = kernel.init(0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 128))).to(cuda)
+    n0 = flash_attention.launches
+    with torch.no_grad():
+        full = plain.forward(params, {"tokens": tokens})[0]
+        res = prefill_decode_check(torch, "gpt2_small", kernel, params,
+                                   tokens, full)
+    assert flash_attention.launches == n0 + cfg.n_layers
+    assert res["agreement"] == 1.0

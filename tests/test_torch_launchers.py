@@ -6,7 +6,8 @@ capacity tier (DISK_DEGRADED through ``recover()``; the directory
 removed afterwards), the A/B with ``--capacity-dir`` (one reopenable
 tier directory per session), the store's scale options (the lowrank
 codec, the ivf host index, the clustered device index) served to the
-end, and the refusal of every option whose slice is not ported."""
+end, the refusal of ``--shards`` (a later slice), and memoized prefill,
+which is ``launch/serve.py``'s leg."""
 import os
 import tempfile
 
@@ -40,10 +41,28 @@ def test_server_fault_demo_recovers(capsys):
 @pytest.mark.parametrize("flags, match", [
     pytest.param(["--shards", "2"], "sharded-store",
                  id="flags3-sharded-store"),
-    pytest.param(["--prefill"], "prefill", id="flags4-prefill")])
-def test_server_refuses_unported_options(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        main(SMALL + ["--calib-batches", "1", "--embed-steps", "2"] + flags)
+    pytest.param(["--prefill"], None, id="flags4-prefill")])
+def test_server_refuses_unported_options(flags, match, capsys):
+    """``--shards`` waits for the sharded-store slice. Memoized prefill is
+    ported, and as in the reference it is ``launch/serve.py``'s leg:
+    ``server.py`` has no ``--prefill`` (argparse refuses it) and
+    ``serve.py --prefill`` serves a causal arch to the end."""
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            main(SMALL + ["--calib-batches", "1", "--embed-steps", "2"]
+                 + flags)
+        return
+    with pytest.raises(SystemExit):
+        main(SMALL + flags)
+    from repro_torch.launch import serve
+    res = serve.main(["--device", "cpu", "--arch", "gpt2_small",
+                      "--requests", "4", "--batch", "4", "--seq", "16",
+                      "--calib-batches", "1", "--decode-steps", "2"]
+                     + flags)
+    r = res["prefill"]
+    assert r["attempts"] > 0 and r["total"] == 8
+    out = capsys.readouterr().out
+    assert "[prefill] replay hits" in out and "[prefill] parity" in out
 
 
 @pytest.mark.parametrize("flags, attr, kind", [
