@@ -1,20 +1,33 @@
 #!/usr/bin/env python3
 """Build variants of the attention tile and time them on one card.
 
-    python3 scripts/attention_tile_variants.py
+    python3 scripts/attention_tile_variants.py [--old CSRC] [--dh 64 128]
 
 Each variant is a copy of ``src/repro_torch/csrc`` with a few source
 edits (tile sizes, launch bounds), built under ``build/`` beside the
-port's own library. For each it prints ptxas's registers and spill bytes
-per kernel, then times ``flash_attention`` at gpt2_small's shape (B=8,
-S=1024, H=12, dh=64, causal) and ``memo_attention`` at bert_base's
-serving shape (B=32, S=128, H=12, dh=64, 3072 int8 entries) with mixed,
-all-miss and all-hit rows, each checked against its plain version
-(chip_smoke's inputs, ATOL and event timing). SDPA's times close the
-run. Needs a CUDA card and nvcc.
+port's own library; ``--old CSRC`` adds an earlier ``csrc`` directory
+(unpacked from git under ``build/``) as the variant "old", run before and
+after the others so that the card's drift shows. For each it prints
+ptxas's registers and spill bytes per kernel, then times, at each head
+width asked for (``--dh``):
+
+* dh 64: ``flash_attention`` at gpt2_small's shape (B=8, S=1024, H=12,
+  causal) and ``memo_attention`` at bert_base's serving shape (B=32,
+  S=128, H=12, 3072 int8 entries);
+* dh 128: ``flash_attention`` at qwen2_1_5b's serving shape (B=32,
+  S=128, H=12, Hkv=2, causal) and at qwen3_8b's (B=2, S=1024, H=32,
+  Hkv=8, causal), and ``memo_attention`` at qwen2_1_5b's serving shape
+  (3584 int8 entries, causal);
+
+``memo_attention`` with mixed, all-miss and all-hit rows, everything
+checked against its plain version first (chip_smoke's inputs, ATOL and
+event timing). A variant whose kernels do not take a width (an old tree
+before dh 128) skips that width. SDPA's times close the run. Needs a
+CUDA card and nvcc.
 """
 from __future__ import annotations
 
+import argparse
 import re
 import shutil
 import sys
@@ -29,9 +42,19 @@ sys.path.insert(0, str(ROOT / "src"))
 VARIANTS = {
     "as committed": [],
     "64-key softmax steps": [("attention_tile.cuh", "KC = 32", "KC = 64")],
+    "Q in shared memory at every width": [
+        ("attention_tile.cuh", "Q_SMEM = DH > 64", "Q_SMEM = DH > 0")],
     "3 blocks per SM": [
         (f, "__launch_bounds__(NT)", "__launch_bounds__(NT, 3)")
         for f in ("flash_attention.cu", "memo_attention.cu")],
+}
+
+# dh -> flash_attention shapes (B, S, H, Hkv) and the memo_attention one
+# (B, S, H, Hkv, N, causal)
+SHAPES = {
+    64: ([(8, 1024, 12, 12)], (32, 128, 12, 12, 3072, False)),
+    128: ([(32, 128, 12, 2), (2, 1024, 32, 8)],
+          (32, 128, 12, 2, 3584, True)),
 }
 
 
@@ -54,7 +77,7 @@ def ptxas_summary(log: str) -> str:
     return " ".join(out)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
     import torch.nn.functional as F
 
@@ -65,53 +88,90 @@ def main() -> int:
     from repro_torch.kernels.memo_attention.ops import memo_attention
     from repro_torch.kernels.memo_attention.ref import memo_attention_ref
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--old", help="an earlier csrc directory to time too")
+    ap.add_argument("--dh", type=int, nargs="+", default=[64, 128],
+                    choices=sorted(SHAPES))
+    ap.add_argument("--variants", nargs="+", default=list(VARIANTS),
+                    choices=list(VARIANTS))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("attention_tile_variants: no CUDA device", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     print(cs.nvidia_smi_line())
     build.SOURCES = ("memo_attention.cu", "flash_attention.cu")
     build.SIGNATURES = {k: v for k, v in build.SIGNATURES.items()
                         if "attention" in k}
     csrc = build.CSRC
-    fq = cs.flash_case(torch, dev, B=8, S=1024, H=12, Hkv=12, dh=64, seed=1)
-    (q, k, v, db, hit_idx, hit), kw = cs.attention_case(
-        torch, dev, B=32, S=128, H=12, Hkv=12, dh=64, N=3072, L=128,
-        quant=True, varlen=False, seed=2)
-    masks = {"mixed": hit, "all-miss": torch.zeros_like(hit),
-             "all-hit": torch.ones_like(hit)}
-    for name, edits in VARIANTS.items():
-        src = build.BUILD_DIR / ("variant_" + re.sub(r"\W+", "_", name))
-        shutil.rmtree(src, ignore_errors=True)
-        shutil.copytree(csrc, src)
-        for f, a, b in edits:
-            text = (src / f).read_text()
-            cs.require(a in text, f"{a!r} not in {f}")
-            (src / f).write_text(text.replace(a, b))
+    cases = {}
+    for dh in args.dh:
+        flashes, (B, S, H, Hkv, N, causal) = SHAPES[dh]
+        fq = [(f"({b}, {s}, {h}/{hk}, {dh})",
+               cs.flash_case(torch, dev, B=b, S=s, H=h, Hkv=hk, dh=dh,
+                             seed=1))
+              for b, s, h, hk in flashes]
+        (q, k, v, db, hit_idx, hit), kw = cs.attention_case(
+            torch, dev, B=B, S=S, H=H, Hkv=Hkv, dh=dh, N=N, L=S,
+            quant=True, varlen=False, seed=2)
+        kw["causal"] = causal
+        memo = (f"({B}, {S}, {H}/{Hkv}, {dh}) causal={causal}",
+                (q, k, v, db, hit_idx), kw,
+                {"mixed": hit, "all-miss": torch.zeros_like(hit),
+                 "all-hit": torch.ones_like(hit)})
+        cases[dh] = (fq, memo)
+
+    runs = [(name, VARIANTS[name]) for name in args.variants]
+    if args.old:
+        runs = [("old", None)] + runs + [("old", None)]
+    for name, edits in runs:
+        if edits is None:
+            src = Path(args.old).resolve()
+        else:
+            src = build.BUILD_DIR / ("variant_" + re.sub(r"\W+", "_", name))
+            shutil.rmtree(src, ignore_errors=True)
+            shutil.copytree(csrc, src)
+            for f, a, b in edits:
+                text = (src / f).read_text()
+                cs.require(a in text, f"{a!r} not in {f}")
+                (src / f).write_text(text.replace(a, b))
         build.CSRC, build._State.lib, build._State.log = src, None, ""
         t0 = time.perf_counter()
         info = build.build_info()
         print(f"== {name} (built in {time.perf_counter() - t0:.0f}s): "
               f"{ptxas_summary(info['log'])}")
-        err = (flash_attention(*fq) - flash_attention_ref(*fq)).abs().max()
-        cs.require(err.item() <= cs.ATOL, f"flash_attention error {err}")
-        ms = cs.event_ms(lambda: flash_attention(*fq))
-        line = [f"flash_attention {ms:.4f} ms"]
-        for label, h in masks.items():
-            args = (q, k, v, db, hit_idx, h)
-            err = (memo_attention(*args, **kw)
-                   - memo_attention_ref(*args, **kw)).abs().max()
-            cs.require(err.item() <= cs.ATOL, f"memo_attention error {err}")
-            ms = cs.event_ms(lambda: memo_attention(*args, **kw))
-            line.append(f"memo_attention {label} {ms:.4f} ms")
-        print("   " + ", ".join(line))
-    qt, kt, vt = (x.transpose(1, 2) for x in fq)
-    ms = cs.event_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    print(f"SDPA (8, 1024, 12, 64) causal {ms:.4f} ms")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    ms = cs.event_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    print(f"SDPA (32, 128, 12, 64) {ms:.4f} ms")
+        for dh, (fq, (label, margs, kw, masks)) in cases.items():
+            if f"case {dh}:" not in (src / "flash_attention.cu").read_text():
+                print(f"   dh {dh}: not in this variant")
+                continue
+            line = []
+            for flabel, f in fq:
+                err = (flash_attention(*f) - flash_attention_ref(
+                    *f)).abs().max()
+                cs.require(err.item() <= cs.ATOL,
+                           f"flash_attention error {err}")
+                ms = cs.event_ms(lambda: flash_attention(*f))
+                line.append(f"flash_attention {flabel} {ms:.4f} ms")
+            for mlabel, h in masks.items():
+                a = margs + (h,)
+                err = (memo_attention(*a, **kw)
+                       - memo_attention_ref(*a, **kw)).abs().max()
+                cs.require(err.item() <= cs.ATOL,
+                           f"memo_attention error {err}")
+                ms = cs.event_ms(lambda: memo_attention(*a, **kw))
+                line.append(f"memo_attention {label} {mlabel} {ms:.4f} ms")
+            print(f"   dh {dh}: " + ", ".join(line))
+    for dh, (fq, (label, margs, kw, _)) in cases.items():
+        for flabel, f in fq:
+            qt, kt, vt = cs.sdpa_args(*f)
+            ms = cs.event_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+            print(f"SDPA {flabel} causal {ms:.4f} ms")
+        qt, kt, vt = cs.sdpa_args(*margs[:3])
+        ms = cs.event_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=kw["causal"]))
+        print(f"SDPA {label} {ms:.4f} ms")
     return 0
 
 

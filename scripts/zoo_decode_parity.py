@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Decode parity after memoized prefill on qwen2_1_5b, over seeds and
+against deliberately faulted caches, on one card.
+
+    python3 scripts/zoo_decode_parity.py [--seeds 0 1 2]
+
+For each seed it builds chip_smoke's phase-8b session (qwen2_1_5b at full
+width and depth, random weights and TemplateCorpus from the seed, int8
+APM and K/V over ZOO_CALIB calibration batches), replays the first
+calibration batch through memoized ``prefill`` at threshold -1e9 (every
+row hits its own entry on every layer) and through ``prefill_exact``,
+and runs chip_smoke's ``zoo_decode``: PREFILL_DECODE_STEPS teacher-forced
+greedy steps from both cache sets, max|dlogits| and argmax agreement.
+That is the sound reading. Two controls decode from the same memoized
+caches with a fault put in:
+
+* ``kv_step``: every layer's K/V off by one more int8 step (the codec's
+  row step, amax / 127 over a row's KV heads), in a random sign per
+  element, as a codec or kernel that loses one bit would leave them;
+* ``kv_heads``: the last layer's two KV heads swapped, as a GQA fault
+  that maps query heads to the wrong KV head would leave them.
+
+A bound on the sound reading belongs between the largest sound reading
+and the smallest control. Prints one line per reading and a JSON object
+last. Needs a CUDA card and nvcc.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def _faulted(torch, dev, eng, caches, fault, seed):
+    """A copy of ``caches`` with ``fault`` put into its K/V leaves."""
+    by = {li: dict(c) for li, c in eng._split_caches(caches).items()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for li, c in by.items():
+        if fault == "kv_heads" and li != max(by):
+            continue
+        for name in ("k", "v"):
+            x = c[name]
+            if fault == "kv_heads":
+                c[name] = x.flip(2)
+                continue
+            step = x.flatten(2).abs().amax(-1) / 127.0   # (B, Sc)
+            sign = torch.randint(0, 2, x.shape, generator=gen,
+                                 device=x.device) * 2 - 1
+            c[name] = x + sign * step[:, :, None, None]
+    return eng._merge_caches(by)
+
+
+def main(argv=None) -> int:
+    import torch
+
+    import chip_smoke as cs
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("zoo_decode_parity: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(cs.nvidia_smi_line())
+    out = []
+    for seed in args.seeds:
+        t0 = time.perf_counter()
+        model, params, sess, calib, _, _ = cs.zoo_session(torch, dev, seed)
+        eng = sess.engine
+        lm, cm, st = eng.prefill(calib[0], threshold=-1e9)
+        le, ce = eng.prefill_exact(calib[0])
+        cs.require(st.n_hits == st.n_layer_attempts, f"seed {seed}: misses")
+        row = dict(seed=seed)
+        for label in ("sound", "kv_step", "kv_heads"):
+            caches = cm if label == "sound" else _faulted(
+                torch, dev, eng, cm, label, seed)
+            dmax, agree, n_tok, scale = cs.zoo_decode(
+                torch, model, params, lm, caches, le, ce)
+            row[label] = dict(max_dlogits=dmax, agreement=agree / n_tok,
+                              logit_scale=scale)
+            print(f"seed {seed} {label}: max|dlogits| {dmax:.4e}, greedy "
+                  f"agreement {agree}/{n_tok}, max|logit| {scale:.3f}")
+        out.append(row)
+        del model, params, sess, eng, cm, ce, caches
+        torch.cuda.empty_cache()
+        print(f"seed {seed} took {time.perf_counter() - t0:.1f}s")
+    sound = max(r["sound"]["max_dlogits"] for r in out)
+    control = min(r[c]["max_dlogits"] for r in out
+                  for c in ("kv_step", "kv_heads"))
+    print(f"largest sound reading {sound:.4e}, smallest control "
+          f"{control:.4e}")
+    print(json.dumps({"runs": out, "sound_max": sound,
+                      "control_min": control}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

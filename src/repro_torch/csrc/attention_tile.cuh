@@ -22,7 +22,7 @@
 //   order, the small terms first (3xTF32): f32-level error, where one
 //   TF32 product keeps about 3 decimal digits.
 // * A block of NT = 128 threads (4 warps) owns BQ = 64 query rows; each
-//   warp owns 16 rows, whose Q hi/lo fragments stay in registers for the
+//   warp owns 16 rows, whose Q hi/lo fragments are split once for the
 //   whole key loop. Key tiles hold BK = 64 rows and are computed in two
 //   online-softmax steps of KC = 32 keys, which keeps the score and
 //   per-step P·V accumulators to 16 + DH / 2 registers: at dh = 64 the
@@ -31,6 +31,31 @@
 //   interleave. (64-key steps, and a cap of 170 registers for three
 //   blocks per SM, which spills, both ran slower on an H100:
 //   scripts/attention_tile_variants.py.)
+// * Where the Q fragments live depends on the width (Layout::Q_SMEM).
+//   Up to dh = 64 they stay in registers. At dh = 128 they would take 128
+//   registers beside O's 64, the step's P·V accumulator's 64 and the
+//   scores' 16: past the 255 a thread may have. There each warp stores
+//   its fragments once, in fragment order, to a region of shared memory
+//   past the ring (BQ x DH x 2 words, 65,536 bytes: 200,704 with the
+//   135,168-byte ring, of the 232,448 a block may use; one block of 4
+//   warps per SM) and reads them back with two 16-byte loads per 8
+//   columns in each 32-key step, the columns in the outer loop, so a
+//   fragment is read once a step. Only the lane that stored a fragment
+//   reads it, so no barrier is needed, and the loads are contiguous
+//   across the warp (no bank conflict). The numerics do not change: every
+//   score sums the same products in the same order. Chosen over splitting
+//   O's columns between warp pairs (which needs a score exchange through
+//   shared memory and a barrier in every step, and twice the softmax
+//   work) and over 32-key tiles (which shrink the ring but not the 272
+//   registers), as the change that keeps one tile for every width and
+//   leaves the dh <= 64 code as it was. Q in shared memory at every
+//   width (variant "Q in shared memory at every width" of
+//   scripts/attention_tile_variants.py) runs flash_attention at dh 64
+//   1% faster (0.3900 vs 0.3942 ms at B=8, S=1024) but memo_attention
+//   1.6% slower (0.0558 vs 0.0549 ms, mixed rows at B=32, S=128) and
+//   4.3% slower all-hit (0.0336 vs 0.0322), its larger shared memory
+//   leaving fewer blocks per SM (H100 80GB HBM3, 700 W); so dh <= 64
+//   keeps Q in registers.
 // * The tensor cores do not round their f32 sums to nearest, so a long
 //   chain of products into one accumulator drifts: each step's P·V sums
 //   into a fresh accumulator that joins O in f32 (add_tile), and each
@@ -40,8 +65,9 @@
 //   overlaps this tile's products. Rows past S are zero-filled by the
 //   copy itself (src-size 0), so the ragged last tile needs no padding.
 //   One stage is a K (or APM) region and a V region of BK rows of DH + 4
-//   floats: 69,632 bytes for the two stages at dh = 64, which needs
-//   cudaFuncAttributeMaxDynamicSharedMemorySize (allow_smem).
+//   floats: 69,632 bytes for the two stages at dh = 64 and 135,168 at
+//   dh = 128, which needs cudaFuncAttributeMaxDynamicSharedMemorySize
+//   (allow_smem).
 // * The row padding DH + 4 makes both fragment reads conflict-free: K is
 //   read as B with n = key (8 rows apart by 4 banks) and V as B with
 //   k = key (rows 2t and 2t+1, 8 banks apart).
@@ -88,12 +114,22 @@ struct Layout {
   static constexpr int A_BYTES =
       KV_BYTES > BQ * APM_LD ? KV_BYTES : BQ * APM_LD;
   static constexpr int STAGE = A_BYTES + KV_BYTES;
-  static constexpr int SMEM = STAGES * STAGE;
+  // past dh = 64 the Q hi/lo fragments live in shared memory, after the
+  // ring: per warp, per 8 columns d, the hi then the lo fragment, each 32
+  // lanes' uint4 in lane order
+  static constexpr bool Q_SMEM = DH > 64;
+  static constexpr int Q_BYTES = Q_SMEM ? BQ * DH * 2 * 4 : 0;
+  static constexpr int SMEM = STAGES * STAGE + Q_BYTES;
   __device__ static unsigned char* a(unsigned char* sm, int st) {
     return sm + st * STAGE;
   }
   __device__ static float* v(unsigned char* sm, int st) {
     return reinterpret_cast<float*>(sm + st * STAGE + A_BYTES);
+  }
+  // lane's hi fragment of columns [8 d, 8 d + 8) of warp w; lo is 32 on
+  __device__ static uint4* q(unsigned char* sm, int w, int d, int lane) {
+    return reinterpret_cast<uint4*>(sm + STAGES * STAGE) +
+           (w * (DH / 8) + d) * 64 + lane;
   }
 };
 
@@ -249,14 +285,28 @@ __device__ __forceinline__ void online_softmax(
     load_rows_async<DH>(Lay::v(smem, 0), vb, vs, kstart, S);
     cp_commit();
   }
-  // the warp's Q rows as A fragments, split once for the whole key loop
-  uint32_t qh[DH / 8][4], ql[DH / 8][4];
+  // the warp's Q rows as A fragments, split once for the whole key loop:
+  // kept in registers, or stored to the block's Q region (Q_SMEM)
+  constexpr bool QS = Lay::Q_SMEM;
+  uint32_t qh[QS ? 1 : DH / 8][4], ql[QS ? 1 : DH / 8][4];
 #pragma unroll
   for (int d = 0; d < DH / 8; ++d) {
+    uint32_t hi[4], lo[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = row[e & 1], c = d * 8 + t + (e >> 1) * 4;
-      split(r < S ? qb[(size_t)r * qs + c] : 0.f, qh[d][e], ql[d][e]);
+      split(r < S ? qb[(size_t)r * qs + c] : 0.f, hi[e], lo[e]);
+    }
+    if constexpr (QS) {
+      uint4* f = Lay::q(smem, warp, d, lane);
+      f[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      f[32] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        qh[d][e] = hi[e];
+        ql[d][e] = lo[e];
+      }
     }
   }
 
@@ -285,16 +335,42 @@ __device__ __forceinline__ void online_softmax(
       // S = Q K^T; each score's small products sum apart and join its
       // large ones in f32
       float s[KC / 8][4];
+      if constexpr (QS) {
+        // columns outer, so each Q fragment is read from shared memory
+        // once a step; every score still sums over d in order
+        float small[KC / 8][4] = {};
 #pragma unroll
-      for (int n = 0; n < KC / 8; ++n) {
-        float small[4] = {0.f, 0.f, 0.f, 0.f};
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-        const float* k_row = K + (n * 8 + g) * LD + t;
+        for (int n = 0; n < KC / 8; ++n)
+          s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-        for (int d = 0; d < DH / 8; ++d)
-          mma3(s[n], qh[d], ql[d], k_row[d * 8], k_row[d * 8 + 4], small);
+        for (int d = 0; d < DH / 8; ++d) {
+          const uint4* f = Lay::q(smem, warp, d, lane);
+          const uint4 h4 = f[0], l4 = f[32];
+          const uint32_t ah[4] = {h4.x, h4.y, h4.z, h4.w};
+          const uint32_t al[4] = {l4.x, l4.y, l4.z, l4.w};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = small[e] + s[n][e];
+          for (int n = 0; n < KC / 8; ++n) {
+            const float* k_row = K + (n * 8 + g) * LD + t + d * 8;
+            mma3(s[n], ah, al, k_row[0], k_row[4], small[n]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < KC / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = small[n][e] + s[n][e];
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < KC / 8; ++n) {
+          float small[4] = {0.f, 0.f, 0.f, 0.f};
+          s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+          const float* k_row = K + (n * 8 + g) * LD + t;
+#pragma unroll
+          for (int d = 0; d < DH / 8; ++d)
+            mma3(s[n], qh[d], ql[d], k_row[d * 8], k_row[d * 8 + 4], small);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = small[e] + s[n][e];
+        }
       }
 
       // scale, mask, running max (rows g, g + 8: a quad shares a row)

@@ -20,10 +20,16 @@
 // causal) the 50.4 M visible (q, k) pairs need 4*dh flops each, 12.9
 // GFLOP, which at 3xTF32's 494.7 / 3 TFLOP/s take 0.078 ms: set by
 // operations, not by the 100.7 MB of Q/K/V/out (0.030 ms at 3.35 TB/s).
+// At qwen2_1_5b's serving shape (B=32, S=128, H=12, Hkv=2, dh=128,
+// causal) the 58.7 MB of Q/K/V/out (0.0175 ms) outweigh the 1.62 GFLOP of
+// products (0.0098 ms): set by bytes; at qwen3_8b's (B=2, S=1024, H=32,
+// Hkv=8) the 17.2 GFLOP of products take 0.104 ms: set by operations.
 // What the design does about it: QK^T and P·V run on the tensor cores
 // (mma.sync m16n8k8 tf32, three products per f32 product), K/V tiles of
 // 64 keys stream by cp.async through a two-stage ring in dynamic shared
-// memory (69,632 bytes at dh = 64) while the previous tile computes, key
+// memory (69,632 bytes at dh = 64; at dh = 128 the ring's 135,168 plus
+// the Q fragments' 65,536, attention_tile.cuh) while the previous tile
+// computes, key
 // tiles after the causal diagonal or before the window are skipped, and
 // the q-tiles with the most key tiles launch first (the block index runs
 // from the last q-tile down), so the long causal tiles do not finish last.
@@ -108,6 +114,9 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
     case 64:
       return launch<64>(qf, kf, vf, o, B, S, H, Hkv, strides, causal,
                         has_window, window, scale, st);
+    case 128:
+      return launch<128>(qf, kf, vf, o, B, S, H, Hkv, strides, causal,
+                         has_window, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

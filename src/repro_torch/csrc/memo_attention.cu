@@ -28,12 +28,15 @@
 // Bound on the H100: at bert_base's serving shape (B=32, S=128, H=12,
 // dh=64) all-miss attention moves 50.3 MB of Q/K/V/out (0.015 ms at 3.35
 // TB/s) against 1.61 GFLOP of products (0.0098 ms at 3xTF32's 494.7 / 3
-// TFLOP/s): set by bytes; half the rows hitting, 40.9 MB, 0.0122 ms.
+// TFLOP/s): set by bytes; half the rows hitting, 40.9 MB, 0.0122 ms. At
+// qwen2_1_5b's (B=32, S=128, H=12, Hkv=2, dh=128) all-miss is 58.7 MB,
+// 0.0175 ms, also set by bytes.
 // What the design does about it: products run on the tensor cores at
 // f32-level accuracy (three TF32 products each), a hit block reads V
 // plus the compressed APM and no Q/K, a miss block reads Q/K/V and
 // nothing of the DB, tiles stream through a two-stage cp.async ring in
-// dynamic shared memory (69,632 bytes at dh = 64; the APM tile takes the
+// dynamic shared memory (69,632 bytes at dh = 64, 200,704 with the Q
+// fragments at dh = 128; the APM tile takes the
 // K tile's place), and fully masked key tiles (past lengths[b], after the
 // causal diagonal, before the window) are neither loaded nor computed.
 
@@ -249,6 +252,9 @@ extern "C" int memo_attention_f32(
     case 64:
       return launch<64>(qf, kf, vf, db, sc, hi, hm, ln, o, B, S, H, Hkv, L,
                         N, db_kind, causal, has_window, window, scale, st);
+    case 128:
+      return launch<128>(qf, kf, vf, db, sc, hi, hm, ln, o, B, S, H, Hkv, L,
+                         N, db_kind, causal, has_window, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

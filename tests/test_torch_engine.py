@@ -326,7 +326,11 @@ def test_port_imports_neither_jax_nor_reference():
         "        'repro_torch.launch.server',\n"
         "        'repro_torch.core.prefill',\n"
         "        'repro_torch.launch.serve',\n"
-        "        'repro_torch.train.checkpoint'} <= set(names), names\n"
+        "        'repro_torch.train.checkpoint',\n"
+        "        'repro_torch.configs.qwen2_1_5b',\n"
+        "        'repro_torch.configs.qwen3_8b',\n"
+        "        'repro_torch.configs.deepseek_7b',\n"
+        "        'repro_torch.configs.chameleon_34b'} <= set(names), names\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
     res = subprocess.run([sys.executable, "-c", code], env=env,

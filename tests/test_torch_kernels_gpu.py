@@ -24,7 +24,9 @@ Tolerances (``chip_smoke.ATOL``, ``WKV_RTOL``): attention outputs within
 2e-5 absolute — both sides compute in f32 and differ only in summation
 order (128-term sums of O(1) terms); wkv outputs within 2e-5 of the
 output's scale (two f32 recurrences whose rounding the state carries);
-search indices must be EQUAL (ties → the lowest index)."""
+search indices must be EQUAL (ties → the lowest index). The attention
+kernels are held at head_dim 16, 32, 64 and 128 (the zoo's GQA decoders,
+qwen2_1_5b's serving shape among them) and must refuse any other."""
 import pytest
 import torch
 
@@ -93,8 +95,18 @@ def test_memo_attention_gqa_ragged(cuda, causal, window):
     _check(args, kw, causal=causal, window=window)
 
 
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "f16"])
+def test_memo_attention_qwen2_serving_shape(cuda, quant):
+    """qwen2_1_5b's serving shape: head_dim 128, 12 query heads over 2
+    KV heads, causal, 3584 entries (phase 8b's store)."""
+    args, kw = attention_case(torch, cuda, B=32, S=128, H=12, Hkv=2,
+                              dh=128, N=3584, L=128, quant=quant,
+                              varlen=False, seed=4)
+    _check(args, kw, causal=True)
+
+
 @pytest.mark.parametrize("hits", ["all", "none", "mixed"])
-@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("S", TILE_EDGES)
 def test_memo_attention_tile_edges(cuda, S, dh, hits):
     """S at, below and past the 64-row tiles; all-hit, all-miss and mixed
@@ -199,6 +211,8 @@ def test_nn_search_one_kernel_per_call(cuda):
     (2, 33, 4, 2, 16, True, 8, False),          # ragged, GQA, window
     (2, 1000, 4, 2, 32, False, 16, False),      # bidirectional window
     (3, 100, 6, 3, 64, True, None, True),       # read by strides
+    (32, 128, 12, 2, 128, True, None, False),   # qwen2_1_5b serving
+    (2, 1024, 32, 8, 128, True, None, False),   # qwen3_8b's forward
 ])
 def test_flash_attention_against_plain(cuda, B, S, H, Hkv, dh, causal,
                                        window, strided):
@@ -216,7 +230,7 @@ def test_flash_attention_against_plain(cuda, B, S, H, Hkv, dh, causal,
 
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 70),
                                            (False, 24)])
-@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("S", TILE_EDGES)
 def test_flash_attention_tile_edges(cuda, S, dh, causal, window):
     """S at, below and past the 64-row tiles, GQA, every head_dim."""
@@ -227,6 +241,19 @@ def test_flash_attention_tile_edges(cuda, S, dh, causal, window):
                                      window=window)).abs().max().item()
     print(f"flash_attention S={S} dh={dh} max|err|={err:.3e}")
     assert err <= ATOL
+
+
+@pytest.mark.parametrize("dh", [8, 48, 96, 256])
+def test_attention_kernels_refuse_other_head_dims(cuda, dh):
+    """A CUDA tensor at a head_dim the kernels were not built for raises;
+    nothing falls back to the plain version."""
+    q, k, v = flash_case(torch, cuda, B=1, S=16, H=2, Hkv=1, dh=dh, seed=dh)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, k, v)
+    args, kw = attention_case(torch, cuda, B=1, S=16, H=2, Hkv=1, dh=dh,
+                              N=2, L=16, quant=True, varlen=False, seed=dh)
+    with pytest.raises(ValueError, match="head_dim"):
+        memo_attention(*args, **kw)
 
 
 @pytest.mark.parametrize("S,dh", [(65, 64), (129, 16)])

@@ -6,8 +6,8 @@ capacity tier (DISK_DEGRADED through ``recover()``; the directory
 removed afterwards), the A/B with ``--capacity-dir`` (one reopenable
 tier directory per session), the store's scale options (the lowrank
 codec, the ivf host index, the clustered device index) served to the
-end, the refusal of ``--shards`` (a later slice), and memoized prefill,
-which is ``launch/serve.py``'s leg."""
+end, the refusal of ``--shards`` (a later slice), memoized prefill,
+which is ``launch/serve.py``'s leg, and both launchers at a zoo arch."""
 import os
 import tempfile
 
@@ -87,6 +87,40 @@ def test_server_serves_scale_options(monkeypatch, flags, attr, kind):
     assert r["n_requests"] == 12 and r["n_admitted"] > 0
     assert r["p99_ms"] >= r["p50_ms"] > 0
     assert seen == [kind]
+
+
+@pytest.mark.parametrize("launcher", ["serve_prefill", "server"])
+def test_launchers_serve_zoo_arch(monkeypatch, capsys, launcher):
+    """``--arch qwen2_1_5b`` through the registry on its reduced config
+    (four query heads over two KV heads, QKV bias, a tied head):
+    ``serve.py --prefill`` replays a calibration batch with hits and
+    decodes after it, and ``server.py`` serves a whole async trace."""
+    import repro_torch.launch.serve as serve_mod
+    import repro_torch.launch.server as server_mod
+    mod = serve_mod if launcher == "serve_prefill" else server_mod
+    cfgs = []
+    real = mod.build_model
+
+    def build(cfg, **kw):
+        cfgs.append(cfg)
+        return real(cfg, **kw)
+    monkeypatch.setattr(mod, "build_model", build)
+    if launcher == "serve_prefill":
+        res = serve_mod.main(["--device", "cpu", "--arch", "qwen2_1_5b",
+                              "--requests", "4", "--batch", "4", "--seq",
+                              "16", "--calib-batches", "1",
+                              "--decode-steps", "2", "--prefill"])
+        r = res["prefill"]
+        assert r["attempts"] > 0 and r["hits"] > 0 and r["total"] == 8
+        assert "[prefill] parity" in capsys.readouterr().out
+    else:
+        res = main(SMALL + ["--arch", "qwen2_1_5b", "--calib-batches", "1",
+                            "--embed-steps", "2", "--maintenance", "async",
+                            "--rate", "200"])
+        r = res["async"]
+        assert r["n_requests"] == 12 and r["p99_ms"] >= r["p50_ms"] > 0
+    assert cfgs and all(c.name == "qwen2-reduced" and c.n_kv_heads == 2
+                        and c.n_heads == 4 and c.qkv_bias for c in cfgs)
 
 
 @pytest.mark.parametrize("fault", ["disk_write_io", "checkpoint_crash",

@@ -43,13 +43,18 @@ def _small(**kw):
 
 
 def test_configs_are_copies():
-    for arch in ("bert_base", "gpt2_small", "rwkv6_3b"):
+    """Every ported arch's CONFIG and reduced() equal the reference's
+    (also under the reference's alias "qwen2-1.5b"); an arch of a later
+    slice raises, naming that slice."""
+    for arch in ("bert_base", "gpt2_small", "rwkv6_3b", "qwen2_1_5b",
+                 "qwen3_8b", "deepseek_7b", "chameleon_34b", "qwen2-1.5b"):
         assert dataclasses.asdict(get_config(arch)) == \
             dataclasses.asdict(jax_get_config(arch))
         assert dataclasses.asdict(get_reduced(arch)) == \
             dataclasses.asdict(jax_get_reduced(arch))
-    with pytest.raises(NotImplementedError):
-        get_config("qwen3_8b")
+    assert get_config("qwen2_1_5b").head_dim == 128
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        get_config("dbrx_132b")
 
 
 def test_corpus_draws_identical_batches():
@@ -265,60 +270,104 @@ def _perturb_rwkv(tree, rng):
     return tree
 
 
+def _perturb_attn(tree, rng):
+    """QKV biases ~ N(0, 0.1) and qk-norm scales ~ 1 + N(0, 0.1) in every
+    attention layer that has them: at init the biases are 0 and the
+    scales 1, which would leave both out of the check."""
+    def walk(t):
+        if "mix" in t:
+            for key in ("bq", "bk", "bv", "q_norm", "k_norm"):
+                if key in t["mix"]:
+                    x = t["mix"][key]
+                    t["mix"][key] = (x + 0.1 * rng.standard_normal(
+                        x.shape)).astype(np.float32)
+        for v in t.values():
+            if isinstance(v, dict):
+                walk(v)
+    walk(tree)
+    return tree
+
+
+# the reduced configs of the forward checks: (arch, overrides). The zoo's
+# dense GQA decoders are reduced to head_dim 64 (d 256 over 4 heads), so
+# "qwen2_dh128" keeps qwen2's reduced config at head_dim 128, the width
+# of every full-size zoo decoder
+ZOO = {"gpt2_small": ("gpt2_small", {}), "rwkv6_3b": ("rwkv6_3b", {}),
+       "qwen2_1_5b": ("qwen2_1_5b", {}), "qwen3_8b": ("qwen3_8b", {}),
+       "deepseek_7b": ("deepseek_7b", {}),
+       "chameleon_34b": ("chameleon_34b", {}),
+       "qwen2_dh128": ("qwen2_1_5b", dict(n_heads=2, n_kv_heads=1))}
+
+
+def _zoo_cfgs(name):
+    arch, over = ZOO[name]
+    return (get_reduced(arch).replace(**over),
+            jax_get_reduced(arch).replace(**over))
+
+
 @pytest.fixture(scope="module")
 def forward_refs():
-    """One reference build per arch: numpy params (rwkv6 perturbed), the
-    tokens and the reference's logits under each of its attn_impls."""
+    """One reference build per config of ZOO: numpy params (rwkv6's
+    recurrence and the attention biases and qk-norm scales perturbed),
+    the tokens and the reference's logits under each of its
+    attn_impls."""
     out = {}
-    for arch in ("gpt2_small", "rwkv6_3b"):
-        jcfg = jax_get_reduced(arch)
+    for name in ZOO:
+        _, jcfg = _zoo_cfgs(name)
         rng = np.random.default_rng(11)
         params = jax.tree.map(np.asarray, jax.jit(
             jax_build_model(jcfg).init)(jax.random.PRNGKey(1)))
-        if arch == "rwkv6_3b":
+        if jcfg.mixer == "rwkv6":
             params = _perturb_rwkv(params, rng)
+        params = _perturb_attn(params, rng)
         toks = rng.integers(0, jcfg.vocab, (2, 40)).astype(np.int32)
         batch = {"tokens": jnp.asarray(toks)}
         logits = {impl: np.asarray(jax_build_model(
             jcfg, attn_impl=impl).forward(params, batch)[0])
             for impl in ("xla", "pallas_interpret")}
-        if arch == "gpt2_small":
+        if name == "gpt2_small":
             logits["window"] = np.asarray(jax_build_model(jcfg).forward(
                 params, batch, window=8)[0])
-        out[arch] = dict(params=params, toks=toks, logits=logits)
+        out[name] = dict(params=params, toks=toks, logits=logits)
     return out
 
 
-@pytest.mark.parametrize("arch", ["gpt2_small", "rwkv6_3b"])
+@pytest.mark.parametrize("arch", list(ZOO))
 def test_reference_tree_bridges_to_port_init(arch, forward_refs):
     """The reference's param tree crosses unchanged and has the keys and
-    shapes of the port's own init."""
+    shapes of the port's own init: QKV biases and qk-norm scales where
+    the config has them, a tied head (qwen2) or an untied one
+    (chameleon's lm_head)."""
     ref = forward_refs[arch]["params"]
     tree = tree_to_torch(ref, CPU)
-    assert _tree_shapes(build_model(get_reduced(arch), device="cpu").init(
+    cfg = _zoo_cfgs(arch)[0]
+    assert _tree_shapes(build_model(cfg, device="cpu").init(
         0)) == _tree_shapes(tree) == _tree_shapes(ref)
+    mix = tree["layers"]["seg0"]["l0"]["mix"]
+    assert ("bq" in mix) == cfg.qkv_bias and ("q_norm" in mix) == cfg.qk_norm
+    assert ("lm_head" in tree) == (not cfg.tie_embeddings)
 
 
 # f32 logits (|logit| up to ~4) of two implementations that sum in
 # different orders; rwkv6's kernel path holds the sequential recurrence
 # against the reference's chunked form, so it gets the wkv bound (3e-4).
 # Measured on these inputs: gpt2 1.2e-6 under both impls, rwkv6 3.7e-5
-# (plain) and 3.8e-5 (kernel).
-FORWARD_ATOL = {("gpt2_small", "kernel"): 1e-4,
-                ("gpt2_small", "plain"): 1e-4,
-                ("rwkv6_3b", "kernel"): 3e-4,
-                ("rwkv6_3b", "plain"): 1e-4}
+# (plain) and 3.8e-5 (kernel). The zoo's dense GQA decoders are attention
+# models like gpt2 and get its bound.
+FORWARD_ATOL = {(arch, impl): 1e-4 for arch in ZOO
+                for impl in ("plain", "kernel")}
+FORWARD_ATOL["rwkv6_3b", "kernel"] = 3e-4
 
 
 @pytest.mark.parametrize("impl", ["plain", "kernel"])
-@pytest.mark.parametrize("arch", ["gpt2_small", "rwkv6_3b"])
+@pytest.mark.parametrize("arch", list(ZOO))
 def test_forward_matches_jax(arch, impl, forward_refs):
     """Model.forward of the port under each attn_impl against the
     reference's counterpart: "plain" ↔ "xla", "kernel" ↔
     "pallas_interpret" (on CPU tensors the kernel wrappers run their
     plain versions, so "kernel" drives the wrappers' CPU path)."""
     ref = forward_refs[arch]
-    model = build_model(get_reduced(arch), device="cpu", attn_impl=impl)
+    model = build_model(_zoo_cfgs(arch)[0], device="cpu", attn_impl=impl)
     with torch.no_grad():
         out = model.forward(tree_to_torch(ref["params"], CPU),
                             {"tokens": ref["toks"]})[0]
