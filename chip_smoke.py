@@ -99,7 +99,27 @@ and read just after:
   kernel forwards of ``qwen3_8b`` and ``deepseek_7b`` at full width and
   depth and ``chameleon_34b`` at full width cut to 8 layers (B=2,
   S=1024, ``flash_attention``) against the plain forward, with prefill +
-  8 decode steps (8c).
+  8 decode steps (8c);
+* the zoo's MLA and MoE models (phase 9, ``[zoo2]`` lines, a
+  ``{"zoo2": ...}`` JSON line) — both attention kernels at head_dim 112
+  against their plain versions (GQA groups 1 and 8, every mask, all-hit
+  / all-miss / mixed rows, int8 and f16 DBs), their registers and
+  spills, timed at kimi_k2's shapes (9a); ``dbrx_132b`` at full width
+  cut to 4 of 40 layers served through ``MemoSession`` in kernel
+  (``memo_attention``), bucket (``nn_search``) and memo-free mode with
+  one host sync a MoE layer, memoized ``prefill`` and ``prefill_exact``
+  (``flash_attention``), the replayed batch's caches against its stored
+  K/V and decode from them, ``moe_apply``
+  against ``moe_ref`` on a layer's experts and the kernel forward
+  against plain (9b); ``minicpm3_4b`` at full width and depth (62 MLA
+  layers) served in kernel and bucket mode through ``nn_search`` alone,
+  its prefill memoization refused, prefill + 8 absorbed decode steps
+  against the forward (9c); ``kimi_k2_1t_a32b`` at full width cut to its
+  dense first layer, served (``memo_attention`` at dh 112) and its kernel
+  forward (``flash_attention`` at dh 112) against plain (9d). Where
+  routers pick experts, the second path of a comparison runs on the
+  first's expert picks, so every row is compared; the picks of its own
+  that differed are counted.
 
 Every kernel is held against its plain version on the arguments each
 layer of its path gave it, and timed there beside its bound (for the
@@ -147,7 +167,8 @@ WKV_RTOL = 2e-5
 # same bound: 4.3e-6 to 5.6e-6 of it measured on an H100 (PERF.md), the
 # kernel's order of summation fixed, so a run repeats them
 FORWARD_RTOL = {"gpt2_small": 1e-5, "qwen3_8b": 1e-5, "deepseek_7b": 1e-5,
-                "chameleon_34b": 1e-5}
+                "chameleon_34b": 1e-5, "dbrx_132b": 1e-5,
+                "kimi_k2_1t_a32b": 1e-5, "minicpm3_4b": 1e-5}
 # rwkv6_3b: random weights at 32 layers amplify rounding (see
 # check_against_f64); the kernel forward's mean distance from the f64-wkv
 # forward may be at most this multiple of the plain f32 forward's
@@ -652,23 +673,58 @@ def check_kernels(torch, dev):
 
 
 # ------------------------------------------------------------ phase 3
-class SyncFreeRunLayers:
-    """While active, ``eng.run_layers`` runs under
-    ``set_sync_debug_mode("error")`` (a host sync raises) and keeps each
-    batch's ``prep.pend``."""
+class HostSyncs:
+    """While active, a host sync raises (``set_sync_debug_mode("error")``)
+    or, with ``counted``, is counted in ``count`` (``"warn"``: each sync
+    is one warning), for the caller to hold with ``require_syncs``: a MoE
+    layer's read of its expert offsets is the one sync ``run_layers`` and
+    the kernel forward may make."""
 
-    def __init__(self, torch, eng):
+    def __init__(self, torch, counted=False):
+        self.torch, self.counted, self.count = torch, counted, 0
+
+    def __enter__(self):
+        import warnings
+        if self.counted:
+            self.caught = warnings.catch_warnings(record=True)
+            self.log = self.caught.__enter__()
+            warnings.simplefilter("always")
+        self.torch.cuda.set_sync_debug_mode("warn" if self.counted
+                                            else "error")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+        if self.counted:
+            self.caught.__exit__(*exc)
+            self.count = sum("synchronizing" in str(w.message)
+                             for w in self.log)
+
+
+def require_syncs(counts, want, what):
+    """Each of ``counts`` (a ``HostSyncs`` count a batch) is exactly
+    ``want``."""
+    require(all(c == want for c in counts),
+            f"{what}: host syncs a batch {counts}, want {want}")
+
+
+class SyncFreeRunLayers:
+    """While active, ``eng.run_layers`` runs under ``HostSyncs`` (a host
+    sync raises; with ``syncs``, syncs are counted, and the caller holds
+    its counted batches to ``syncs`` each with ``require_syncs``) and
+    keeps each batch's ``prep.pend`` and sync count."""
+
+    def __init__(self, torch, eng, syncs=0):
         self.torch, self.eng, self.pends = torch, eng, []
+        self.syncs, self.counts = syncs, []
 
     def __enter__(self):
         real, torch = self.eng.run_layers, self.torch
 
         def run_layers(prep):
-            torch.cuda.set_sync_debug_mode("error")
-            try:
+            with HostSyncs(torch, counted=self.syncs > 0) as hs:
                 out = real(prep)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
+            self.counts.append(hs.count)
             self.pends.append(prep.pend)
             return out
         self.eng.run_layers = run_layers
@@ -676,6 +732,11 @@ class SyncFreeRunLayers:
 
     def __exit__(self, *exc):
         del self.eng.run_layers
+
+    def require_syncs(self, what):
+        """Every batch since ``counts`` was last reset made exactly
+        ``syncs`` host syncs in run_layers."""
+        require_syncs(self.counts, self.syncs, what)
 
 
 class TimeCalls:
@@ -732,11 +793,12 @@ class HostLookups:
         del self.eng._lookup
 
 
-def drive(torch, sess, requests, name, per_path, keep=None, **kw):
+def drive(torch, sess, requests, name, per_path, keep=None, syncs=0, **kw):
     """One warm-up batch outside the counts, then every request (``kw``
     go to ``sess.infer``) with each launch count at 0 just before and
     read just after (``per_path[name]``). On the fast path ``run_layers``
-    runs under ``set_sync_debug_mode("error")``. Hits and sims per batch
+    runs under ``set_sync_debug_mode("error")`` (with ``syncs``, exactly
+    that many host syncs a batch are allowed). Hits and sims per batch
     come from the fast path's ``prep.pend`` or, on the host path, from
     ``_lookup`` and ``MemoStats.sims`` (none memo-free). Returns outs
     (``keep(logits)`` when given: what of a batch's logits to hold on to),
@@ -747,13 +809,14 @@ def drive(torch, sess, requests, name, per_path, keep=None, **kw):
     eng = sess.engine
     use_memo = kw.get("use_memo", True)
     fast = use_memo and eng._use_fast_path()
-    ctx = SyncFreeRunLayers(torch, eng) if fast else HostLookups(eng)
+    ctx = (SyncFreeRunLayers(torch, eng, syncs) if fast
+           else HostLookups(eng))
     total = MemoStats()
     outs, hits, sims, slots, times = [], [], [], [], []
     with ctx:
         sess.infer(requests[0], **kw)
         torch.cuda.synchronize()
-        ctx.pends, ctx.memos = [], []
+        ctx.pends, ctx.memos, ctx.counts = [], [], []
         zero_counts()
         for batch in requests:
             t = time.perf_counter()
@@ -773,9 +836,11 @@ def drive(torch, sess, requests, name, per_path, keep=None, **kw):
                 sims.append(np.asarray(list(st.sims)).reshape(
                     len(hits[-1]), -1))
         per_path[name] = read_counts()
+    if fast and syncs:
+        ctx.require_syncs(name)
     return dict(outs=outs, hits=hits, sims=sims, slots=slots,
                 ms=sorted(times)[len(times) // 2], rate=total.memo_rate,
-                stats=total)
+                stats=total, host_syncs=ctx.counts)
 
 
 def agreement(outs, plain):
@@ -809,6 +874,7 @@ def compare_decisions(torch, name_a, a, name_b, b, thr, tol, why):
           f"decisions, max|dlogits| {worst:.3e} (tolerance {tol:.0e}, "
           f"{why}); {flips} near-threshold decision flips")
     require(worst <= tol, f"{name_a} vs {name_b} gap {worst}")
+    require(rows > 0, f"{name_a} vs {name_b}: no row left to compare")
     return dict(rows=rows, flips=flips, max_dlogits=worst)
 
 
@@ -2877,17 +2943,24 @@ def perturb_rwkv(params, gen):
             lp["mix"]["w0"].uniform_(-8.0, -1.0, generator=gen)
 
 
-def check_logits(arch, logits, plain_logits):
+def check_logits(arch, logits, plain_logits, moved=None):
     """The kernel forward's logits within FORWARD_RTOL of the plain
-    forward's scale."""
+    forward's scale, every position of every row; ``moved`` (a MoE
+    model, the plain forward run on the kernel forward's expert picks):
+    the tokens whose own picks differed, printed."""
     scale = max(1.0, plain_logits.abs().max().item())
     diff = (logits - plain_logits).abs().max().item()
     tol = FORWARD_RTOL[arch] * scale
     agree = (logits.argmax(-1) == plain_logits.argmax(-1)).float().mean()
-    print(f"[{arch}] kernel forward (under set_sync_debug_mode('error')) vs "
+    sync, routes = "under set_sync_debug_mode('error')", ""
+    if moved is not None:
+        sync = "its host syncs counted, one a MoE layer"
+        routes = (f"; the plain forward on the kernel forward's expert "
+                  f"picks, {moved} (token, layer) picks of its own differed")
+    print(f"[{arch}] kernel forward ({sync}) vs "
           f"plain forward: max|dlogits| {diff:.3e} (tolerance {tol:.2e} = "
           f"{FORWARD_RTOL[arch]:.0e} of max|logit| {scale:.3f}); argmax "
-          f"agreement {agree.item():.6f}")
+          f"agreement {agree.item():.6f}{routes}")
     require(diff <= tol, f"{arch} kernel vs plain logits {diff}")
 
 
@@ -2950,12 +3023,15 @@ def forward_ms(torch, fn, runs=3):
     return sorted(times)[len(times) // 2]
 
 
-def forward_path(torch, dev, arch, B, S, kname, site, errs, cfg=None):
+def forward_path(torch, dev, arch, B, S, kname, site, errs, cfg=None,
+                 params=None):
     """Full-width ``Model.forward`` of ``arch`` (at full depth unless
-    ``cfg`` cuts it) with ``attn_impl="kernel"``: launch counts, no host
-    sync, every layer's kernel call against the plain version, logits
-    against the plain forward, timings and a profile. Returns (counts,
-    kernel timings)."""
+    ``cfg`` cuts it; random weights from seed 0 unless ``params`` are
+    given) with ``attn_impl="kernel"``: launch counts, no host sync (a
+    MoE layer's read of its expert offsets excepted, one a layer),
+    every layer's kernel call against the plain version, logits against
+    the plain forward, timings and a profile. Returns (counts, kernel
+    timings)."""
     import importlib
 
     import numpy as np
@@ -2969,11 +3045,13 @@ def forward_path(torch, dev, arch, B, S, kname, site, errs, cfg=None):
     kernel_model = build_model(cfg, device=dev, attn_impl="kernel")
     plain_model = build_model(cfg, device=dev, attn_impl="plain")
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = kernel_model.init(generator=gen)
-    if cfg.mixer == "rwkv6":
-        perturb_rwkv(params, gen)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = kernel_model.init(generator=gen)
+        if cfg.mixer == "rwkv6":
+            perturb_rwkv(params, gen)
     torch.cuda.synchronize()
+    n_moe = cfg.n_layers - cfg.dense_first_n if cfg.moe else 0
     n_params = sum(t.numel() for t in _leaves(params))
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (B, S))).to(dev)
@@ -3001,13 +3079,12 @@ def forward_path(torch, dev, arch, B, S, kname, site, errs, cfg=None):
         torch.cuda.synchronize()
 
         zero_counts()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with HostSyncs(torch, counted=n_moe > 0) as hs, \
+                RouteLog() as routes:
             logits = kernel_model.forward(params, batch)[0]
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
         counts = read_counts()
         torch.cuda.synchronize()
+        require_syncs([hs.count], n_moe, f"{arch} kernel forward")
         want = {name: cfg.n_layers if name == kname else 0
                 for name in KERNELS}
         require(counts == want, f"{arch} launches {counts}, want {want}")
@@ -3029,7 +3106,9 @@ def forward_path(torch, dev, arch, B, S, kname, site, errs, cfg=None):
             errs[kname] = max(errs[kname], err)
         del out, ref
 
-        plain_logits = plain_model.forward(params, batch)[0]
+        # on the kernel forward's expert picks (ForcedRoutes' note)
+        with ForcedRoutes(routes.ids) as forced:
+            plain_logits = plain_model.forward(params, batch)[0]
         torch.cuda.synchronize()
         for name, lg in (("kernel", logits), ("plain", plain_logits)):
             require(lg.shape == (B, S, cfg.vocab), f"{name} shape {lg.shape}")
@@ -3046,7 +3125,8 @@ def forward_path(torch, dev, arch, B, S, kname, site, errs, cfg=None):
                 plain_model.forward(params, {"tokens": short})[0],
                 forward_wkv_f64(plain_model, params, {"tokens": short}))
         else:
-            check_logits(arch, logits, plain_logits)
+            check_logits(arch, logits, plain_logits,
+                         forced.moved if n_moe else None)
             pd = prefill_decode_check(torch, arch, kernel_model, params,
                                       tokens, plain_logits)
             del logits, plain_logits
@@ -3564,7 +3644,6 @@ def zoo_kernels(torch, dev, errs):
     DB); then both timed at the slice's shapes beside their bounds, the
     plain versions and SDPA, and held to the plain version there too.
     Errors fold into ``errs``; returns the timings."""
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.memo_attention.ops import memo_attention
@@ -3615,8 +3694,24 @@ def zoo_kernels(torch, dev, errs):
     # timed at the slice's shapes: qwen2_1_5b serving (B=32, S=128,
     # H=12, Hkv=2) for both kernels, qwen3_8b's forward (B=2, S=1024,
     # H=32, Hkv=8) for flash_attention; all causal
+    return attention_timings(torch, dev, errs, dh,
+                             ((BATCH, SEQ, 12, 2), (2, 1024, 32, 8)),
+                             (BATCH, SEQ, 12, 2), 3584)
+
+
+def attention_timings(torch, dev, errs, dh, flash_shapes, memo_shape, N):
+    """flash_attention at each (B, S, H, Hkv) of ``flash_shapes`` and
+    memo_attention at ``memo_shape`` over an N-entry int8 and f16 DB
+    (mixed, all-miss and all-hit rows), head_dim ``dh``, causal: each
+    timed beside its bound, its plain version and SDPA, and held to the
+    plain version. Returns the timings."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.memo_attention.ops import memo_attention
+    from repro_torch.kernels.memo_attention.ref import memo_attention_ref
     out = {"flash_attention": [], "memo_attention": []}
-    for B, S, H, Hkv in ((BATCH, SEQ, 12, 2), (2, 1024, 32, 8)):
+    for B, S, H, Hkv in flash_shapes:
         q, k, v = flash_case(torch, dev, B=B, S=S, H=H, Hkv=Hkv, dh=dh,
                              seed=900 + S)
         bd = flash_bound(B, S, H, Hkv, dh, True, None)
@@ -3640,9 +3735,10 @@ def zoo_kernels(torch, dev, errs):
             B=B, S=S, H=H, Hkv=Hkv, dh=dh, ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms, max_abs_err=err, **bd))
         del q, k, v, qt, kt, vt
+    B, S, H, Hkv = memo_shape
     for quant in (True, False):
         (q, k, v, db, hit_idx, hit), kw = attention_case(
-            torch, dev, B=BATCH, S=SEQ, H=12, Hkv=2, dh=dh, N=3584, L=SEQ,
+            torch, dev, B=B, S=S, H=H, Hkv=Hkv, dh=dh, N=N, L=S,
             quant=quant, varlen=False, seed=950)
         kw["causal"] = True
         qt, kt, vt = sdpa_args(q, k, v)
@@ -3651,7 +3747,7 @@ def zoo_kernels(torch, dev, errs):
         for label, h in (("mixed", hit), ("all-miss", torch.zeros_like(hit)),
                          ("all-hit", torch.ones_like(hit))):
             n_hit = int(h.sum())
-            bd = memo_bound(BATCH, SEQ, 12, 2, dh, n_hit, True)
+            bd = memo_bound(B, S, H, Hkv, dh, n_hit, True)
             ms = event_ms(lambda: memo_attention(q, k, v, db, hit_idx, h,
                                                  **kw))
             plain_ms = event_ms(lambda: memo_attention_ref(
@@ -3663,15 +3759,15 @@ def zoo_kernels(torch, dev, errs):
             require(err <= ATOL, f"memo_attention error {err} ({name} DB, "
                     f"{label})")
             errs["memo_attention"] = max(errs["memo_attention"], err)
-            print(f"[time] memo_attention B={BATCH} S={SEQ} H=12/2 dh={dh} "
-                  f"causal {name} DB N=3584, {label} ({n_hit}/{BATCH} "
+            print(f"[time] memo_attention B={B} S={S} H={H}/{Hkv} dh={dh} "
+                  f"causal {name} DB N={N}, {label} ({n_hit}/{B} "
                   f"hits): {ms:.4f} ms (bound {bd['bound_ms']:.4f} ms, "
                   f"{bd['bound_by']}; SIMT bound {bd['simt_bound_ms']:.4f}),"
                   f" plain {plain_ms:.4f} ms, SDPA (all-miss work) "
                   f"{lib_ms:.4f} ms; max|err| {err:.3e} (tolerance "
                   f"{ATOL:.0e})")
             out["memo_attention"].append(dict(
-                B=BATCH, S=SEQ, H=12, Hkv=2, dh=dh, db=name, rows=label,
+                B=B, S=S, H=H, Hkv=Hkv, dh=dh, db=name, rows=label,
                 hits=n_hit, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 max_abs_err=err, **bd))
         del q, k, v, db, qt, kt, vt
@@ -3696,31 +3792,32 @@ ZOO_FORWARDS = (("qwen3_8b", None), ("deepseek_7b", None),
 ZOO_FWD_B, ZOO_FWD_S = 2, 1024
 
 
-def zoo_session(torch, dev, seed):
-    """qwen2_1_5b at full width and depth, its weights and TemplateCorpus
-    made from ``seed`` on the card (attn_impl="kernel"), and a prefill
-    session (int8 APM and K/V, the default spec's device index) built
-    from ZOO_CALIB calibration batches. Returns (model, params, session,
-    calibration batches, FRESH_BATCHES fresh batches, build seconds)."""
+def zoo_session(torch, dev, seed, cfg=None, n_calib=ZOO_CALIB,
+                n_fresh=FRESH_BATCHES, prefill=True):
+    """qwen2_1_5b (or ``cfg``) at full width, its weights and
+    TemplateCorpus made from ``seed`` on the card (attn_impl="kernel"),
+    and a session (int8 APM, with int8 K/V under ``prefill``; the
+    default spec's device index) built from ``n_calib`` calibration
+    batches. Returns (model, params, session, calibration batches,
+    ``n_fresh`` fresh batches, build seconds)."""
     from repro_torch.configs import get_config
     from repro_torch.data import TemplateCorpus
     from repro_torch.memo import MemoSpec
     from repro_torch.memo.session import MemoSession
     from repro_torch.models import build_model
 
-    cfg = get_config(ZOO_ARCH)
+    cfg = cfg or get_config(ZOO_ARCH)
     model = build_model(cfg, device=dev, attn_impl="kernel")
     params = model.init(
         generator=torch.Generator(device=dev).manual_seed(seed))
     corpus = TemplateCorpus(vocab=cfg.vocab, seq_len=SEQ, seed=seed)
-    calib = [{"tokens": corpus.sample(BATCH)[0]} for _ in range(ZOO_CALIB)]
-    fresh = [{"tokens": corpus.sample(BATCH)[0]}
-             for _ in range(FRESH_BATCHES)]
+    calib = [{"tokens": corpus.sample(BATCH)[0]} for _ in range(n_calib)]
+    fresh = [{"tokens": corpus.sample(BATCH)[0]} for _ in range(n_fresh)]
     t0 = time.perf_counter()
+    kw = (dict(prefill_enabled=True, prefill_cache_len=2 * SEQ) if prefill
+          else {})
     sess = MemoSession.build(
-        model, params, MemoSpec.flat(mode="kernel", apm_codec="int8",
-                                     prefill_enabled=True,
-                                     prefill_cache_len=2 * SEQ),
+        model, params, MemoSpec.flat(mode="kernel", apm_codec="int8", **kw),
         batches=calib, device=dev)
     torch.cuda.synchronize()
     return model, params, sess, calib, fresh, time.perf_counter() - t0
@@ -3730,19 +3827,318 @@ def zoo_decode(torch, model, params, lm, cm, le, ce):
     """PREFILL_DECODE_STEPS teacher-forced greedy decode steps from the
     memoized prefill's last logits and caches (lm, cm) and the exact
     ones (le, ce), both fed the exact side's argmax at positions SEQ on.
-    Returns (max|dlogits|, argmax agreements, tokens, the exact side's
-    last max|logit|)."""
-    dmax, agree_n = 0.0, 0
+    Each step runs the exact side first and the memoized side on its
+    expert picks (``ForcedRoutes``; no router in a dense model), so every
+    row is compared at every step. Returns (max|dlogits|, argmax
+    agreements, tokens compared, the exact side's last max|logit|, the
+    (token, layer) picks of the memoized side's own that differed)."""
+    dmax, agree_n, n_tok, moved = 0.0, 0, 0, 0
     with torch.no_grad():
         ml, mc, el, ec = lm, cm, le, ce
         for step in range(PREFILL_DECODE_STEPS):
             te = el.argmax(-1)
             agree_n += int((ml.argmax(-1) == te).sum())
-            ml, mc = model.decode_step(params, te[:, None], mc, SEQ + step)
-            el, ec = model.decode_step(params, te[:, None], ec, SEQ + step)
+            n_tok += te.numel()
+            with RouteLog() as routes:
+                el, ec = model.decode_step(params, te[:, None], ec,
+                                           SEQ + step)
+            with ForcedRoutes(routes.ids) as forced:
+                ml, mc = model.decode_step(params, te[:, None], mc,
+                                           SEQ + step)
+            moved += forced.moved
             dmax = max(dmax, (ml - el).abs().max().item())
-    return (dmax, agree_n, PREFILL_DECODE_STEPS * lm.shape[0],
-            el.abs().max().item())
+    return dmax, agree_n, n_tok, el.abs().max().item(), moved
+
+
+class RouteLog:
+    """While active, records the expert ids (T, k) each MoE router call
+    picks (``models/moe.py::_router``, which ``moe_apply`` and
+    ``moe_ref`` both call), in the router's slot order."""
+
+    def __init__(self):
+        self.ids = []
+
+    def __enter__(self):
+        import repro_torch.models.moe as moe_mod
+        self.mod, self.real = moe_mod, moe_mod._router
+
+        def router(x, w, k):
+            out = self.real(x, w, k)
+            self.ids.append(out[2])
+            return out
+        moe_mod._router = router
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._router = self.real
+
+
+class ForcedRoutes:
+    """While active, the i-th MoE router call takes ``ids[i]`` (a
+    ``RouteLog``'s, call by call) in place of its own top-k, weighted by
+    its own probabilities at those ids renormalised, as ``_router``
+    renormalises its top-k. Two paths are so compared on one set of
+    expert picks, every row of them: a near-tie of two experts flips
+    under an f32-level difference and would move that row by a whole
+    expert's output. Where the picks agree the router's output is the
+    unforced one, bit for bit. On exit every recorded call must have been
+    replayed; ``moved`` is then the number of (token, call) picks of the
+    router's own that differed (counted on the device while active, so
+    no host sync)."""
+
+    def __init__(self, ids):
+        self.ids, self.n, self.moved = list(ids), 0, 0
+
+    def __enter__(self):
+        import repro_torch.models.moe as moe_mod
+        self.mod, self.real, self.diff = moe_mod, moe_mod._router, []
+
+        def router(x, w, k):
+            probs, _, own, _ = self.real(x, w, k)
+            require(self.n < len(self.ids),
+                    f"router call {self.n + 1}, {len(self.ids)} recorded")
+            ids = self.ids[self.n]
+            self.n += 1
+            require(ids.shape == own.shape,
+                    f"forced ids {tuple(ids.shape)}, router {tuple(own.shape)}")
+            weights = probs.gather(1, ids)
+            weights = weights / weights.sum(-1, keepdim=True)
+            self.diff.append((own.sort(-1).values != ids.sort(-1).values)
+                             .any(-1).sum())
+            assign = probs.new_zeros(probs.shape).scatter_(1, ids, 1.0)
+            aux = probs.shape[-1] * (assign.mean(0) / k
+                                     * probs.mean(0)).sum()
+            return probs, weights.to(x.dtype), ids, aux
+        moe_mod._router = router
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._router = self.real
+        if exc[0] is None:
+            require(self.n == len(self.ids),
+                    f"{self.n} router calls, {len(self.ids)} recorded")
+            self.moved = int(sum(int(d) for d in self.diff))
+
+
+def warm_up_calls(torch, sess, batch, n_layers, errs, arch, memo=True):
+    """A warm-up batch per mode, outside the counts: every layer's
+    memo_attention call (kernel mode; none when not ``memo``: an MLA
+    model) and nn_search call (bucket mode) held against the plain
+    version. Returns the memo_attention calls and each one's hits."""
+    import repro_torch.core.engine as engine_mod
+    from repro_torch.kernels.memo_attention.ops import memo_attention
+    from repro_torch.kernels.memo_attention.ref import memo_attention_ref
+    calls = []
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return memo_attention(*args, **kw)
+
+    engine_mod.memo_attention = recording
+    try:
+        sess.spec.runtime.mode = "kernel"
+        sess.infer(batch)
+    finally:
+        engine_mod.memo_attention = memo_attention
+    sess.spec.runtime.mode = "bucket"
+    with RecordNN() as rec:
+        sess.infer(batch)
+    torch.cuda.synchronize()
+    want = n_layers if memo else 0
+    require(len(calls) == want and len(rec.calls) == n_layers,
+            f"{arch} warm-up calls: {len(calls)} memo_attention, "
+            f"{len(rec.calls)} nn_search, want {want} and {n_layers}")
+    worst, hits = 0.0, [int(a[5].sum()) for a, _ in calls]
+    for li, (args, kw) in enumerate(calls):
+        err = (memo_attention(*args, **kw)
+               - memo_attention_ref(*args, **kw)).abs().max().item()
+        require(err <= ATOL, f"memo_attention error {err} on {arch} "
+                f"layer {li}")
+        worst = max(worst, err)
+    errs["memo_attention"] = max(errs["memo_attention"], worst)
+    if calls:
+        q, codes = calls[0][0][0], calls[0][0][3]
+        print(f"[main-args] memo_attention {arch}: {n_layers} layers' calls "
+              f"B,S,H,dh={tuple(q.shape)} Hkv {calls[0][0][1].shape[2]} "
+              f"N={codes.shape[0]} (the session's int8 arena), {min(hits)}-"
+              f"{max(hits)}/{q.shape[0]} hits, held to the plain version: "
+              f"max|err| {worst:.3e} (tolerance {ATOL:.0e})")
+    hold_nn_calls(torch, rec.calls, errs, f"{arch} bucket mode, warm-up "
+                  f"batch")
+    return calls, hits
+
+
+def time_memo_layer(torch, calls, hits, arch):
+    """memo_attention timed on the recorded layer call with the median hit
+    count (as served, all-miss and all-hit) beside its bounds, the plain
+    version and SDPA on the all-miss work. Returns the timings."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.memo_attention.ops import memo_attention
+    from repro_torch.kernels.memo_attention.ref import memo_attention_ref
+    L = len(calls)
+    layer = sorted(range(L), key=hits.__getitem__)[L // 2]
+    (q, k, v, codes, hit_idx, hit), kw = calls[layer]
+    B, S, H, dh = q.shape
+    Hkv = k.shape[2]
+    n_hit = hits[layer]
+    miss, every = torch.zeros_like(hit), torch.ones_like(hit)
+    t = {}
+    for label, h in (("ms", hit), ("miss_ms", miss), ("hit_ms", every)):
+        t[label] = event_ms(lambda: memo_attention(q, k, v, codes, hit_idx,
+                                                   h, **kw))
+    t["plain_ms"] = event_ms(lambda: memo_attention_ref(
+        q, k, v, codes, hit_idx, hit, **kw))
+    qt, kt, vt = sdpa_args(q, k, v)
+    t["library_ms"] = event_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=kw["causal"]))
+    bd, mbd, hbd = (memo_bound(B, S, H, Hkv, dh, nh, kw["causal"])
+                    for nh in (n_hit, 0, B))
+    t.update(bd, miss_bound_ms=mbd["bound_ms"], hit_bound_ms=hbd["bound_ms"],
+             hits=n_hit, B=B, S=S, H=H, Hkv=Hkv, dh=dh, N=codes.shape[0])
+    print(f"[time] memo_attention {arch} layer {layer} B={B} S={S} "
+          f"H={H}/{Hkv} dh={dh} int8 DB, {n_hit}/{B} hits: {t['ms']:.4f} ms "
+          f"(bound {bd['bound_ms']:.4f} ms, {bd['bound_by']}), plain "
+          f"{t['plain_ms']:.4f} ms; all-miss {t['miss_ms']:.4f} ms (bound "
+          f"{mbd['bound_ms']:.4f}) vs SDPA {t['library_ms']:.4f} ms; all-hit "
+          f"{t['hit_ms']:.4f} ms (bound {hbd['bound_ms']:.4f}); {L} launches "
+          f"per kernel-mode batch")
+    return t
+
+
+def prefill_paths(torch, eng, fresh, per_path, errs, tag, arch, syncs=0):
+    """Memoized ``prefill`` (``nn_search``, ``run_layers`` under
+    ``HostSyncs(syncs)``) and ``prefill_exact`` (``flash_attention``, each
+    layer's call of a warm-up batch held to the plain version) on the
+    fresh batches, each path's counts at 0 just before it and read just
+    after (``per_path[tag + "_prefill"]``, ``[tag + "_prefill_exact"]``).
+    Returns the median ms of each, the hit rate and the last-token argmax
+    agreement."""
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.core.engine import MemoStats
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    cfg = eng.cfg
+    L = cfg.n_layers
+    total, ms_memo, ms_exact, outs, exact = MemoStats(), [], [], [], []
+    with SyncFreeRunLayers(torch, eng, syncs) as ctx:
+        eng.prefill(fresh[0])
+        torch.cuda.synchronize()
+        zero_counts()
+        ctx.counts = []
+        for batch in fresh:
+            t0 = time.perf_counter()
+            lg, _, _ = eng.prefill(batch, stats=total)
+            torch.cuda.synchronize()
+            ms_memo.append((time.perf_counter() - t0) * 1e3)
+            outs.append(lg)
+        per_path[f"{tag}_prefill"] = read_counts()
+    ctx.require_syncs(f"{tag}_prefill")
+    # prefill_exact's warm-up batch, outside the counts: every layer's
+    # flash_attention call held against the plain version
+    fcalls = []
+
+    def recording_flash(*args, **kw):
+        fcalls.append((args, kw))
+        return flash_attention(*args, **kw)
+
+    attn_mod.flash_attention = recording_flash
+    try:
+        eng.prefill_exact(fresh[0])
+    finally:
+        attn_mod.flash_attention = flash_attention
+    torch.cuda.synchronize()
+    require(len(fcalls) == L, f"prefill_exact warm-up: {len(fcalls)} "
+            f"flash_attention calls, want {L}")
+    fworst = 0.0
+    for li, (args, kw) in enumerate(fcalls):
+        err = (flash_attention(*args, **kw)
+               - flash_attention_ref(*args, **kw)).abs().max().item()
+        require(err <= ATOL, f"flash_attention error {err} on {arch} "
+                f"prefill_exact layer {li}")
+        fworst = max(fworst, err)
+    errs["flash_attention"] = max(errs["flash_attention"], fworst)
+    (q, k, _), kw = fcalls[0]
+    print(f"[main-args] flash_attention {arch} prefill_exact: {L} "
+          f"layers' calls B,S,H,dh={tuple(q.shape)} Hkv {k.shape[2]} "
+          f"{kw}, held to the plain version: max|err| {fworst:.3e} "
+          f"(tolerance {ATOL:.0e})")
+    del fcalls, q, k
+    zero_counts()
+    for batch in fresh:
+        t0 = time.perf_counter()
+        lg, _ = eng.prefill_exact(batch)
+        torch.cuda.synchronize()
+        ms_exact.append((time.perf_counter() - t0) * 1e3)
+        exact.append(lg)
+    per_path[f"{tag}_prefill_exact"] = read_counts()
+    for path, kname in ((f"{tag}_prefill", "nn_search"),
+                        (f"{tag}_prefill_exact", "flash_attention")):
+        want = {name: L * len(fresh) if name == kname else 0
+                for name in KERNELS}
+        require(per_path[path] == want,
+                f"{path} launches {per_path[path]}, want {want}")
+    for lg in outs + exact:
+        require(lg.shape == (BATCH, cfg.vocab), f"logits shape {lg.shape}")
+        require(bool(torch.isfinite(lg).all()), "non-finite prefill logits")
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    res = dict(prefill_ms=med(ms_memo), prefill_exact_ms=med(ms_exact),
+               prefill_hit_rate=total.memo_rate,
+               prefill_agreement=agreement(outs, exact))
+    sync = (f"{syncs} host syncs a batch allowed, the MoE layers' reads"
+            if syncs else "set_sync_debug_mode('error')")
+    print(f"[{tag}] {arch}: {len(fresh)} fresh batches B={BATCH} S={SEQ}: "
+          f"memoized prefill {res['prefill_ms']:.2f} ms/batch (median; "
+          f"run_layers under {sync}), prefill_exact "
+          f"{res['prefill_exact_ms']:.2f} ms/batch; hit rate "
+          f"{total.memo_rate:.4f}; argmax agreement of the last-token logits "
+          f"{res['prefill_agreement']:.4f}; launches "
+          f"{per_path[tag + '_prefill']} and "
+          f"{per_path[tag + '_prefill_exact']}")
+    return res
+
+
+def replay_caches(torch, eng, store, pend, st, cm, ce, tag):
+    """calib[0] replayed through memoized ``prefill`` at threshold -1e9
+    (``pend``: its run_layers' per-layer decisions; ``st``, ``cm``: its
+    stats and caches; ``ce``: ``prefill_exact``'s caches): every row hits
+    its own entry on every layer, each layer's cache is the decode of the
+    stored K/V (torch.equal) with zeros past SEQ, and the stored K/V is
+    within KV_INT8_STEPS int8 steps per row of the exact. Returns the
+    worst step."""
+    import numpy as np
+
+    from repro_torch.core.prefill import unstack_kv_rows
+
+    L, codec = eng.cfg.n_layers, store.codec
+    Hkv, dh = eng.cfg.n_kv_heads, eng.cfg.head_dim
+    slots = np.stack([p[3].cpu().numpy() for p in pend])  # (L, B)
+    own = np.arange(L)[:, None] * BATCH + np.arange(BATCH)[None, :]
+    require(st.n_hits == st.n_layer_attempts == L * BATCH, "replay misses")
+    require(bool((slots == own).all()), "a replayed row hit another entry")
+    by_m, by_e = eng._split_caches(cm), eng._split_caches(ce)
+    q_worst = 0.0
+    for li in eng.layers:
+        idx = torch.from_numpy(own[li]).to(store.device_db.parts[0].device)
+        rows = tuple(p.index_select(0, idx) for p in store.device_db.parts)
+        k, v = unstack_kv_rows(codec.decode_kv_rows(rows).float(), Hkv, dh)
+        for name, stored in (("k", k), ("v", v)):
+            got = by_m[li][name]
+            require(got.shape == (BATCH, 2 * SEQ, Hkv, dh),
+                    f"cache shape {tuple(got.shape)}")
+            require(bool(torch.equal(got[:, :SEQ], stored)),
+                    f"layer {li} {name} cache is not its stored K/V")
+            require(bool((got[:, SEQ:] == 0).all()), "cache padding")
+            ex = by_e[li][name][:, :SEQ].reshape(BATCH, SEQ, -1)
+            step = ex.abs().amax(-1) / 127.0
+            err = (got[:, :SEQ].reshape(BATCH, SEQ, -1) - ex).abs().amax(-1)
+            q_worst = max(q_worst, (err / step.clamp(min=1e-6)).max().item())
+    print(f"[{tag}] replayed calibration batch (threshold -1e9): "
+          f"{st.n_hits}/{st.n_layer_attempts} hits, all on their own "
+          f"entries; hit caches equal the decode of their stored K/V on "
+          f"every layer (torch.equal); stored vs exact K/V: max error "
+          f"{q_worst:.3f} int8 steps per row (tolerance {KV_INT8_STEPS})")
+    require(q_worst <= KV_INT8_STEPS, f"stored K/V {q_worst} int8 steps off")
+    return q_worst
 
 
 def zoo_serve(torch, dev, per_path, errs, smi):
@@ -3757,18 +4153,6 @@ def zoo_serve(torch, dev, per_path, errs, smi):
     batches, a replayed calibration batch whose caches must be the decode
     of the stored K/V, and PREFILL_DECODE_STEPS teacher-forced greedy
     decode steps from both cache sets."""
-    import numpy as np
-    import torch.nn.functional as F
-
-    import repro_torch.core.engine as engine_mod
-    import repro_torch.models.attention as attn_mod
-    from repro_torch.core.engine import MemoStats
-    from repro_torch.core.prefill import unstack_kv_rows
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.memo_attention.ops import memo_attention
-    from repro_torch.kernels.memo_attention.ref import memo_attention_ref
-
     t_phase = time.perf_counter()
     model, params, sess, calib, fresh, build_s = zoo_session(torch, dev, 0)
     cfg = model.cfg
@@ -3795,71 +4179,9 @@ def zoo_serve(torch, dev, per_path, errs, smi):
           f"threshold (moderate) {thr:.6f}")
     requests = fresh + [calib[0]]
 
-    # a warm-up batch per mode, outside the counts: every layer's
-    # memo_attention call (kernel mode) and nn_search call (bucket mode)
-    # held against the plain version
-    calls = []
-
-    def recording(*args, **kw):
-        calls.append((args, kw))
-        return memo_attention(*args, **kw)
-
-    engine_mod.memo_attention = recording
-    try:
-        sess.spec.runtime.mode = "kernel"
-        sess.infer(requests[0])
-    finally:
-        engine_mod.memo_attention = memo_attention
-    sess.spec.runtime.mode = "bucket"
-    with RecordNN() as rec:
-        sess.infer(requests[0])
-    torch.cuda.synchronize()
-    require(len(calls) == L and len(rec.calls) == L,
-            f"warm-up calls: {len(calls)} memo_attention, {len(rec.calls)} "
-            f"nn_search, want {L} each")
-    worst, hits = 0.0, [int(a[5].sum()) for a, _ in calls]
-    for li, (args, kw) in enumerate(calls):
-        err = (memo_attention(*args, **kw)
-               - memo_attention_ref(*args, **kw)).abs().max().item()
-        require(err <= ATOL, f"memo_attention error {err} on {ZOO_ARCH} "
-                f"layer {li}")
-        worst = max(worst, err)
-    errs["memo_attention"] = max(errs["memo_attention"], worst)
-    q, codes = calls[0][0][0], calls[0][0][3]
-    print(f"[main-args] memo_attention {ZOO_ARCH}: {L} layers' calls "
-          f"B,S,H,dh={tuple(q.shape)} Hkv {calls[0][0][1].shape[2]} "
-          f"N={codes.shape[0]} (the session's int8 arena), {min(hits)}-"
-          f"{max(hits)}/{q.shape[0]} hits, held to the plain version: "
-          f"max|err| {worst:.3e} (tolerance {ATOL:.0e})")
-    hold_nn_calls(torch, rec.calls, errs, f"{ZOO_ARCH} bucket mode, warm-up "
-                  f"batch")
-    # memo_attention timed on the layer with the median hit count
-    layer = sorted(range(L), key=hits.__getitem__)[L // 2]
-    (q, k, v, codes, hit_idx, hit), kw = calls[layer]
-    B, S = q.shape[:2]
-    n_hit = hits[layer]
-    miss, every = torch.zeros_like(hit), torch.ones_like(hit)
-    t = {}
-    for label, h in (("ms", hit), ("miss_ms", miss), ("hit_ms", every)):
-        t[label] = event_ms(lambda: memo_attention(q, k, v, codes, hit_idx,
-                                                   h, **kw))
-    t["plain_ms"] = event_ms(lambda: memo_attention_ref(
-        q, k, v, codes, hit_idx, hit, **kw))
-    qt, kt, vt = sdpa_args(q, k, v)
-    t["library_ms"] = event_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=kw["causal"]))
-    bd, mbd, hbd = (memo_bound(B, S, H, Hkv, dh, nh, kw["causal"])
-                    for nh in (n_hit, 0, B))
-    t.update(bd, miss_bound_ms=mbd["bound_ms"], hit_bound_ms=hbd["bound_ms"],
-             hits=n_hit, B=B, S=S, H=H, Hkv=Hkv, dh=dh, N=codes.shape[0])
-    print(f"[time] memo_attention {ZOO_ARCH} layer {layer} B={B} S={S} "
-          f"H={H}/{Hkv} dh={dh} int8 DB, {n_hit}/{B} hits: {t['ms']:.4f} ms "
-          f"(bound {bd['bound_ms']:.4f} ms, {bd['bound_by']}), plain "
-          f"{t['plain_ms']:.4f} ms; all-miss {t['miss_ms']:.4f} ms (bound "
-          f"{mbd['bound_ms']:.4f}) vs SDPA {t['library_ms']:.4f} ms; all-hit "
-          f"{t['hit_ms']:.4f} ms (bound {hbd['bound_ms']:.4f}); {L} launches "
-          f"per kernel-mode batch")
-    del calls, rec, q, k, v, qt, kt, vt
+    calls, hits = warm_up_calls(torch, sess, requests[0], L, errs, ZOO_ARCH)
+    t = time_memo_layer(torch, calls, hits, ZOO_ARCH)
+    del calls
 
     # each path with every count at 0 just before it and read just after,
     # run_layers under set_sync_debug_mode("error")
@@ -3909,77 +4231,8 @@ def zoo_serve(torch, dev, per_path, errs, smi):
     del results, plain, r
 
     # memoized prefill against prefill_exact on the fresh batches
-    total, ms_memo, ms_exact, outs, exact = MemoStats(), [], [], [], []
-    with SyncFreeRunLayers(torch, eng):
-        eng.prefill(fresh[0])
-        torch.cuda.synchronize()
-        zero_counts()
-        for batch in fresh:
-            t0 = time.perf_counter()
-            lg, _, _ = eng.prefill(batch, stats=total)
-            torch.cuda.synchronize()
-            ms_memo.append((time.perf_counter() - t0) * 1e3)
-            outs.append(lg)
-        per_path["zoo_prefill"] = read_counts()
-    # prefill_exact's warm-up batch, outside the counts: every layer's
-    # flash_attention call held against the plain version
-    fcalls = []
-
-    def recording_flash(*args, **kw):
-        fcalls.append((args, kw))
-        return flash_attention(*args, **kw)
-
-    attn_mod.flash_attention = recording_flash
-    try:
-        eng.prefill_exact(fresh[0])
-    finally:
-        attn_mod.flash_attention = flash_attention
-    torch.cuda.synchronize()
-    require(len(fcalls) == L, f"prefill_exact warm-up: {len(fcalls)} "
-            f"flash_attention calls, want {L}")
-    fworst = 0.0
-    for li, (args, kw) in enumerate(fcalls):
-        err = (flash_attention(*args, **kw)
-               - flash_attention_ref(*args, **kw)).abs().max().item()
-        require(err <= ATOL, f"flash_attention error {err} on {ZOO_ARCH} "
-                f"prefill_exact layer {li}")
-        fworst = max(fworst, err)
-    errs["flash_attention"] = max(errs["flash_attention"], fworst)
-    (q, k, _), kw = fcalls[0]
-    print(f"[main-args] flash_attention {ZOO_ARCH} prefill_exact: {L} "
-          f"layers' calls B,S,H,dh={tuple(q.shape)} Hkv {k.shape[2]} "
-          f"{kw}, held to the plain version: max|err| {fworst:.3e} "
-          f"(tolerance {ATOL:.0e})")
-    del fcalls, q, k
-    zero_counts()
-    for batch in fresh:
-        t0 = time.perf_counter()
-        lg, _ = eng.prefill_exact(batch)
-        torch.cuda.synchronize()
-        ms_exact.append((time.perf_counter() - t0) * 1e3)
-        exact.append(lg)
-    per_path["zoo_prefill_exact"] = read_counts()
-    for path, kname in (("zoo_prefill", "nn_search"),
-                        ("zoo_prefill_exact", "flash_attention")):
-        want = {name: L * len(fresh) if name == kname else 0
-                for name in KERNELS}
-        require(per_path[path] == want,
-                f"{path} launches {per_path[path]}, want {want}")
-    for lg in outs + exact:
-        require(lg.shape == (BATCH, cfg.vocab), f"logits shape {lg.shape}")
-        require(bool(torch.isfinite(lg).all()), "non-finite prefill logits")
-    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
-    res.update(prefill_ms=med(ms_memo), prefill_exact_ms=med(ms_exact),
-               prefill_hit_rate=total.memo_rate,
-               prefill_agreement=agreement(outs, exact))
-    print(f"[zoo] {len(fresh)} fresh batches B={BATCH} S={SEQ}: memoized "
-          f"prefill {res['prefill_ms']:.2f} ms/batch (median; run_layers "
-          f"under set_sync_debug_mode('error')), prefill_exact "
-          f"{res['prefill_exact_ms']:.2f} ms/batch; hit rate "
-          f"{total.memo_rate:.4f}; argmax agreement of the last-token logits "
-          f"{res['prefill_agreement']:.4f}; launches "
-          f"{per_path['zoo_prefill']} and {per_path['zoo_prefill_exact']}")
-    del outs, exact
+    res.update(prefill_paths(torch, eng, fresh, per_path, errs, "zoo",
+                             ZOO_ARCH))
 
     # a replayed calibration batch: every row hits its own entry, and each
     # layer's cache is the decode of the stored K/V
@@ -3987,37 +4240,12 @@ def zoo_serve(torch, dev, per_path, errs, smi):
     with SyncFreeRunLayers(torch, eng) as ctx:
         lm, cm, st = eng.prefill(replay, threshold=-1e9)
     le, ce = eng.prefill_exact(replay)
-    slots = np.stack([p[3].cpu().numpy() for p in ctx.pends[-1]])  # (L, B)
-    own = np.arange(L)[:, None] * BATCH + np.arange(BATCH)[None, :]
-    require(st.n_hits == st.n_layer_attempts == L * BATCH, "replay misses")
-    require(bool((slots == own).all()), "a replayed row hit another entry")
-    by_m, by_e = eng._split_caches(cm), eng._split_caches(ce)
-    q_worst = 0.0
-    for li in eng.layers:
-        rows = tuple(p.index_select(0, torch.from_numpy(own[li]).to(dev))
-                     for p in store.device_db.parts)
-        k, v = unstack_kv_rows(codec.decode_kv_rows(rows).float(), Hkv, dh)
-        for name, stored in (("k", k), ("v", v)):
-            got = by_m[li][name]
-            require(got.shape == (BATCH, 2 * SEQ, Hkv, dh),
-                    f"cache shape {tuple(got.shape)}")
-            require(bool(torch.equal(got[:, :SEQ], stored)),
-                    f"layer {li} {name} cache is not its stored K/V")
-            require(bool((got[:, SEQ:] == 0).all()), "cache padding")
-            ex = by_e[li][name][:, :SEQ].reshape(BATCH, SEQ, -1)
-            step = ex.abs().amax(-1) / 127.0
-            err = (got[:, :SEQ].reshape(BATCH, SEQ, -1) - ex).abs().amax(-1)
-            q_worst = max(q_worst, (err / step.clamp(min=1e-6)).max().item())
-    print(f"[zoo] replayed calibration batch (threshold -1e9): "
-          f"{st.n_hits}/{st.n_layer_attempts} hits, all on their own "
-          f"entries; hit caches equal the decode of their stored K/V on "
-          f"every layer (torch.equal); stored vs exact K/V: max error "
-          f"{q_worst:.3f} int8 steps per row (tolerance {KV_INT8_STEPS})")
-    require(q_worst <= KV_INT8_STEPS, f"stored K/V {q_worst} int8 steps off")
+    q_worst = replay_caches(torch, eng, store, ctx.pends[-1], st, cm, ce,
+                            "zoo")
 
     # teacher-forced greedy decode from both cache sets
-    dmax, agree_n, n_tok, scale = zoo_decode(torch, model, params, lm, cm,
-                                             le, ce)
+    dmax, agree_n, n_tok, scale, _ = zoo_decode(torch, model, params, lm,
+                                                cm, le, ce)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -4043,7 +4271,7 @@ def zoo_serve(torch, dev, per_path, errs, smi):
                decode_tok_s=tok_s)
     device_profile(torch, f"{ZOO_ARCH} prefill_exact batch",
                    lambda: eng.prefill_exact(fresh[1]))
-    del sess, eng, store, params, model, cm, ce, mc, by_m, by_e
+    del sess, eng, store, params, model, cm, ce, mc
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_phase
     print(f"[zoo] phase 8b took {res['seconds']:.1f}s ({smi})")
@@ -4076,6 +4304,476 @@ def zoo(torch, dev, per_path, errs, smi):
     return out
 
 
+# ------------------------------------------------------------ phase 9
+# the zoo's MLA and MoE models. kimi_k2's head_dim, 7168 / 64 = 112, is
+# the attention kernels' new width: query heads per KV head 8 (kimi's 64
+# over 8) and 1
+ZOO2_DH = 112
+ZOO2_GROUPS = (1, 8)
+ZOO2_FRESH = 2       # fresh batches a served model takes, then a replayed one
+# 9b: dbrx_132b cut to 4 of its 40 layers (57.1 GB of f32 weights; all 40
+# are 526 GB); 4 calibration batches: 4 x 32 x 4 = 512 entries
+DBRX_LAYERS, DBRX_CALIB = 4, 4
+MOE_T = 1024         # tokens of 9b's moe_apply-vs-moe_ref check
+# moe_apply vs moe_ref on one layer's weights: the same products of each
+# routed row, in GEMMs of other shapes (their blocking, so their order of
+# summation, differs), relative to max|y|
+MOE_RTOL = 1e-5
+# dbrx's decode from the memoized caches against prefill_exact's, every
+# row at every step (the memoized side on the exact side's expert picks),
+# relative to max|logit|: the int8 gap follows the logits' scale, not the
+# depth (PERF.md). scripts/zoo_decode_parity.py --arch dbrx_132b read
+# 6.83e-3 to 7.37e-3 at seeds 1-3 against 2.40e-2 to 2.52e-2 with one
+# more int8 step of K/V error on every element and 0.94 to 0.97 with the
+# last layer's KV heads reversed (H100, PERF.md). Held to 1.2e-2, between
+# the two, with greedy agreement of at least ZOO_DECODE_AGREE
+ZOO2_DECODE_RTOL = 1.2e-2
+# 9c: minicpm3_4b at full depth, 2 calibration batches: 62 x 64 = 3,968
+# entries, under the clustered crossover (4,096): the flat index
+MINICPM_CALIB = 2
+# 9d: kimi_k2 cut to its dense first layer (11.4 GB; one MoE layer alone
+# is 67.7 GB of f32 experts); 4 calibration batches: 128 entries
+KIMI_LAYERS, KIMI_CALIB = 1, 4
+
+
+def ptxas_resources(info, dh):
+    """ptxas's register and spill lines for the attention kernels'
+    instantiations at head_dim ``dh`` (template argument ``Li<dh>E`` in
+    the mangled name), printed; returns {function: lines}."""
+    import re
+    out, fn = {}, None
+    for line in info["log"].splitlines():
+        m = re.search(r"(?:Function properties for|entry function) '?(\w+)",
+                      line)
+        if m:
+            fn = m.group(1)
+            continue
+        if (fn and f"ILi{dh}E" in fn and "attention_kernel" in fn
+                and ("registers" in line or "spill" in line)):
+            out.setdefault(fn, []).append(line.strip())
+    for fn, lines in sorted(out.items()):
+        print(f"[zoo2] ptxas dh {dh} {fn}: {' | '.join(lines)}")
+    return out
+
+
+def zoo2_kernels(torch, dev, errs, info):
+    """Phase 9a: flash_attention and memo_attention at head_dim 112
+    against their plain versions, GQA groups 1 and 8 (ZOO2_GROUPS), over
+    causal, windowed and bidirectional masks; memo_attention over int8
+    and f16 DBs with all-hit, all-miss and mixed rows. Registers and
+    spills of every dh-112 instantiation (none may spill: check_build).
+    Then both timed at kimi_k2's shapes (flash at its forward, B=2,
+    S=1024, 64 heads over 8; memo at serving, B=32, S=128) beside their
+    bounds, plain versions and SDPA. Returns the timings."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.memo_attention.ops import memo_attention
+    from repro_torch.kernels.memo_attention.ref import memo_attention_ref
+    dh = ZOO2_DH
+    regs = ptxas_resources(info, dh)
+    require(len(regs) == 3, f"dh {dh} instantiations in ptxas's log: "
+            f"{sorted(regs)}, want flash and memo (int8, f16)")
+    worst = {"flash_attention": 0.0, "memo_attention": 0.0}
+    n = 0
+    for j, G in enumerate(ZOO2_GROUPS):
+        for i, (causal, window) in enumerate(((True, None), (True, 40),
+                                              (False, None))):
+            q, k, v = flash_case(torch, dev, B=2, S=129, H=8 * G, Hkv=8,
+                                 dh=dh, seed=1000 + 3 * j + i)
+            err = (flash_attention(q, k, v, causal=causal, window=window)
+                   - flash_attention_ref(q, k, v, causal=causal,
+                                         window=window)).abs().max().item()
+            require(err <= ATOL, f"flash_attention dh {dh} G={G} causal="
+                    f"{causal} window={window} error {err}")
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            for quant in (True, False):
+                for hits in ("all", "none", "mixed"):
+                    args, kw = attention_case(
+                        torch, dev, B=4, S=SEQ, H=8 * G, Hkv=8, dh=dh, N=6,
+                        L=SEQ, quant=quant, varlen=window is not None,
+                        seed=1100 + 3 * j + i, hits=hits)
+                    err = (memo_attention(*args, causal=causal,
+                                          window=window, **kw)
+                           - memo_attention_ref(*args, causal=causal,
+                                                window=window, **kw)
+                           ).abs().max().item()
+                    require(err <= ATOL, f"memo_attention dh {dh} G={G} "
+                            f"{'int8' if quant else 'f16'} {hits} causal="
+                            f"{causal} window={window} error {err}")
+                    worst["memo_attention"] = max(worst["memo_attention"],
+                                                  err)
+                    n += 1
+    for name, err in worst.items():
+        errs[name] = max(errs[name], err)
+    print(f"[zoo2] dh {dh}: flash_attention (B=2, S=129) and memo_attention "
+          f"(B=4, S={SEQ}, int8 and f16 DBs, all-hit / all-miss / mixed, "
+          f"{n} cases) at {ZOO2_GROUPS[0]} and {ZOO2_GROUPS[1]} query heads "
+          f"per KV head, causal / window 40 / bidirectional, held to the "
+          f"plain versions: max|err| {worst['flash_attention']:.3e} and "
+          f"{worst['memo_attention']:.3e} (tolerance {ATOL:.0e})")
+    out = attention_timings(torch, dev, errs, dh, ((2, 1024, 64, 8),),
+                            (BATCH, SEQ, 64, 8), BATCH * KIMI_CALIB)
+    out["ptxas"] = regs
+    return out
+
+
+def zoo2_model(torch, dev, arch, cfg, seed, n_calib, prefill):
+    """``zoo_session`` on ``cfg`` (ZOO2_FRESH fresh batches), its build
+    printed and checked (every calibration row of every memoized layer
+    stored, the flat device index). Returns (model, params, session,
+    calibration batches, requests: the fresh batches then calib[0],
+    threshold, build record)."""
+    model, params, sess, calib, fresh, build_s = zoo_session(
+        torch, dev, seed, cfg=cfg, n_calib=n_calib, n_fresh=ZOO2_FRESH,
+        prefill=prefill)
+    L, H, Hkv, dh = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_params = sum(t.numel() for t in _leaves(params))
+    store = sess.store
+    codec, n = store.codec, len(store)
+    mixer = (f"MLA (q_lora {cfg.mla.q_lora_rank}, kv_lora "
+             f"{cfg.mla.kv_lora_rank})" if cfg.mla else f"{H}x{dh} (kv {Hkv})")
+    chan = (f"MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k} d_ff "
+            f"{cfg.moe.d_ff}" if cfg.moe and L > cfg.dense_first_n
+            else f"d_ff {cfg.dense_d_ff if cfg.dense_first_n else cfg.d_ff}")
+    kv = f" + {codec.kv_mode} K/V" if prefill else ""
+    print(f"[zoo2] {arch} {L}L d{cfg.d_model} {mixer}, {chan}, vocab "
+          f"{cfg.vocab}: {n_params / 1e9:.3f} B params "
+          f"({n_params * 4 / 1e9:.2f} GB f32) made on the card; built {n} "
+          f"entries ({codec.name} APM{kv}, "
+          f"{codec.entry_nbytes / 1e6:.4f} MB/entry; device tier "
+          f"{store.device_db.nbytes / 1e9:.3f} GB with its slack) in "
+          f"{build_s:.1f}s; device index {type(store.device_index).__name__}"
+          f" {store.device_index.capacity} rows")
+    require(n == n_calib * BATCH * L, f"{arch} store holds {n}")
+    require(type(store.device_index).__name__ == "DeviceIndex",
+            f"{arch}: the store is not on the flat device index")
+    levels = sess.autotune(fresh[:2], "moderate")
+    thr = sess.spec.runtime.threshold
+    print(f"[zoo2] {arch} sim_cal (a, b) {store.sim_cal}; levels {levels}; "
+          f"threshold (moderate) {thr:.6f}")
+    rec = dict(params=n_params, entries=n, entry_bytes=codec.entry_nbytes,
+               build_s=build_s, threshold=thr)
+    return model, params, sess, calib, fresh + [calib[0]], thr, rec
+
+
+def zoo2_modes(torch, sess, requests, per_path, tag, want, syncs=0):
+    """``drive`` in kernel, bucket and memo-free mode (the last 16
+    positions of each batch's logits kept; ``syncs`` host syncs a batch
+    allowed in run_layers), the launch counts held to ``want`` {path:
+    {kernel: count}}. Bucket mode runs on kernel mode's expert picks
+    (``ForcedRoutes``), so the two compare on every row; its result
+    carries ``route_moved``, the (token, layer) picks of its own that
+    differed. Returns the three results."""
+    keep = lambda lg: lg[:, -ZOO_KEEP:]  # noqa: E731
+    results = {}
+    for mode in ("kernel", "bucket", "memo_free"):
+        # cached blocks back to the card first: an allocation that finds
+        # none free makes the allocator synchronize to release them
+        torch.cuda.empty_cache()
+        sess.spec.runtime.mode = "kernel" if mode == "memo_free" else mode
+        kw = dict(use_memo=False) if mode == "memo_free" else {}
+        routes = (ForcedRoutes(results["kernel"]["routes"].ids)
+                  if mode == "bucket" else RouteLog())
+        with routes:
+            results[mode] = drive(torch, sess, requests, f"{tag}_{mode}",
+                                  per_path, keep=keep, syncs=syncs, **kw)
+        results[mode]["routes"] = routes
+    results["bucket"]["route_moved"] = results["bucket"]["routes"].moved
+    for path, counts in want.items():
+        full = {name: counts.get(name, 0) for name in KERNELS}
+        require(per_path[path] == full,
+                f"{path} launches {per_path[path]}, want {full}")
+    return results
+
+
+def zoo2_report(torch, arch, cfg, results, per_path, tag, res):
+    """Prints and records each memoized mode's latency, hit rate and
+    agreement with the memo-free path; every kept logit finite."""
+    plain = results["memo_free"]
+    res["memo_free_ms"] = plain["ms"]
+    for mode in ("kernel", "bucket"):
+        r = results[mode]
+        agree = agreement(r["outs"], plain["outs"])
+        print(f"[zoo2] {arch} {mode}: hit rate {r['rate']:.4f}, median "
+              f"{r['ms']:.2f} ms/batch memoized vs {plain['ms']:.2f} "
+              f"memo-free, prediction agreement with the memo-free path "
+              f"(last {ZOO_KEEP} positions) {agree:.4f}; launches "
+              f"{per_path[tag + '_' + mode]}; host syncs in run_layers a "
+              f"batch {r['host_syncs']}")
+        for o in r["outs"]:
+            require(o.shape == (BATCH, ZOO_KEEP, cfg.vocab),
+                    f"shape {o.shape}")
+            require(bool(torch.isfinite(o).all()), "non-finite logits")
+        require(r["rate"] > 0, f"{arch} {mode}: no hits")
+        res[mode] = dict(ms=r["ms"], hit_rate=r["rate"], agreement=agree)
+
+
+def moe_span(torch, eng, batch):
+    """CUDA-event time of every ``moe_apply`` call of one ``infer`` of
+    ``batch`` (each span includes the host read inside it)."""
+    import repro_torch.core.engine as engine_mod
+    real, spans = engine_mod.moe_apply, []
+
+    def timed(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(*args, **kw)
+        b.record()
+        spans.append((a, b))
+        return out
+    engine_mod.moe_apply = timed
+    try:
+        eng.infer(batch)
+    finally:
+        engine_mod.moe_apply = real
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans), len(spans)
+
+
+def zoo2_dbrx(torch, dev, per_path, errs, smi):
+    """Phase 9b: dbrx_132b at full width cut to DBRX_LAYERS layers (random
+    weights from a seed, made on the card): a prefill session from
+    DBRX_CALIB calibration batches served in kernel (``memo_attention``),
+    bucket (``nn_search``) and memo-free mode with exactly one host sync a
+    MoE layer in run_layers; kernel vs bucket (on kernel mode's expert
+    picks) on rows with equal hit decisions; the idle share of a traced batch and the MoE's
+    share of its busy time; memoized ``prefill`` (``nn_search``) and
+    ``prefill_exact`` (``flash_attention``); the replayed batch's caches
+    against its stored K/V, and PREFILL_DECODE_STEPS decode steps from
+    them against the exact ones, relative to max|logit|; ``moe_apply`` against ``moe_ref`` on
+    layer 0's experts at MOE_T tokens; then the kernel forward against
+    plain at B=2, S=1024 on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.backbone import iter_layers
+    from repro_torch.models.moe import moe_apply, moe_ref
+
+    t_phase = time.perf_counter()
+    arch = "dbrx_132b"
+    full = get_config(arch)
+    cfg = full.replace(n_layers=DBRX_LAYERS)
+    print(f"[zoo2] {arch} depth cut from {full.n_layers} to {DBRX_LAYERS} "
+          f"layers: all {full.n_layers} are "
+          f"{full.param_count() * 4 / 1e9:.0f} GB of f32 weights, past the "
+          f"card's memory")
+    model, params, sess, calib, requests, thr, res = zoo2_model(
+        torch, dev, arch, cfg, 1, DBRX_CALIB, True)
+    eng, L, nb = sess.engine, cfg.n_layers, len(requests)
+    calls, hits = warm_up_calls(torch, sess, requests[0], L, errs, arch)
+    res["memo_attention"] = time_memo_layer(torch, calls, hits, arch)
+    del calls
+    results = zoo2_modes(
+        torch, sess, requests, per_path, "dbrx",
+        {"dbrx_kernel": {"memo_attention": L * nb},
+         "dbrx_bucket": {"nn_search": L * nb}, "dbrx_memo_free": {}},
+        syncs=L)
+    zoo2_report(torch, arch, cfg, results, per_path, "dbrx", res)
+    res["decisions"] = compare_decisions(
+        torch, "dbrx kernel", results["kernel"], "dbrx bucket",
+        results["bucket"], thr, MODE_GAP, f"int8 gap over {L} layers; "
+        f"bucket mode on kernel mode's expert picks, "
+        f"{results['bucket']['route_moved']} (token, layer) picks of its "
+        f"own differed")
+    res["decisions"]["route_moved"] = results["bucket"]["route_moved"]
+    res["host_syncs_per_batch"] = L
+    del results
+    sess.spec.runtime.mode = "kernel"
+    wall, busy = device_profile(torch, f"{arch} kernel-mode batch",
+                                lambda: sess.infer(requests[0]))
+    moe_ms, n_moe = moe_span(torch, eng, requests[0])
+    share = moe_ms / busy if busy else None
+    print(f"[zoo2] {arch} kernel-mode batch: {n_moe} moe_apply calls take "
+          f"{moe_ms:.2f} ms (CUDA events around each, its host read "
+          f"included)" + (f", {share:.3f} of the traced batch's busy "
+                          f"{busy:.2f} ms" if busy else ""))
+    res["kernel_batch_trace"] = dict(wall_ms=wall, busy_ms=busy,
+                                     idle_share=1 - busy / wall if busy
+                                     else None, moe_ms=moe_ms,
+                                     moe_share=share)
+
+    torch.cuda.empty_cache()
+    res.update(prefill_paths(torch, eng, requests[:-1], per_path, errs,
+                             "dbrx", arch, syncs=L))
+    # the replayed calibration batch: every row hits its own entry, each
+    # layer's cache is the decode of the stored K/V; decode from its
+    # memoized caches against the exact ones
+    with SyncFreeRunLayers(torch, eng, L) as ctx:
+        lm, cm, st = eng.prefill(calib[0], threshold=-1e9)
+    ctx.require_syncs(f"{arch} replayed prefill")
+    le, ce = eng.prefill_exact(calib[0])
+    res["kv_int8_steps"] = replay_caches(torch, eng, sess.store,
+                                         ctx.pends[-1], st, cm, ce, "zoo2")
+    dmax, agree_n, n_tok, scale, moved = zoo_decode(
+        torch, model, params, lm, cm, le, ce)
+    rel = dmax / scale
+    print(f"[zoo2] {arch} decode parity, {PREFILL_DECODE_STEPS} teacher-"
+          f"forced greedy steps x {BATCH} rows from the memoized (replayed, "
+          f"all hits) and the exact caches, every row at every step: "
+          f"max|dlogits| {dmax:.3e} = {rel:.3e} of max|logit| {scale:.3f} "
+          f"(bound {ZOO2_DECODE_RTOL:.2e}), greedy agreement "
+          f"{agree_n}/{n_tok} (at least {ZOO_DECODE_AGREE}); the memoized "
+          f"side on the exact side's expert picks, {moved} (token, layer) "
+          f"picks of its own differed")
+    require(rel <= ZOO2_DECODE_RTOL, f"{arch} decode parity {rel}")
+    require(agree_n >= ZOO_DECODE_AGREE * n_tok,
+            f"{arch} greedy agreement {agree_n}/{n_tok}")
+    res.update(decode_max_dlogits=dmax, decode_logit_scale=scale,
+               decode_rel=rel, decode_agreement=agree_n / n_tok,
+               decode_route_moved=moved)
+    del cm, ce, lm, le, sess, eng
+    torch.cuda.empty_cache()
+
+    # moe_apply against moe_ref on layer 0's experts
+    chan = next(iter_layers(params, cfg))[2]["chan"]
+    x = torch.randn((MOE_T, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    with torch.no_grad():
+        y, aux = moe_apply(chan, x, cfg)
+        y_ref, aux_ref = moe_ref(chan, x, cfg)
+        err = (y - y_ref).abs().max().item()
+        scale = y_ref.abs().max().item()
+        ms = event_ms(lambda: moe_apply(chan, x, cfg), reps=3, rounds=3,
+                      warmup=1)
+        ref_ms = event_ms(lambda: moe_ref(chan, x, cfg), reps=3, rounds=3,
+                          warmup=1)
+    del y, y_ref
+    m = cfg.moe
+    print(f"[zoo2] {arch} moe_apply (routed) vs moe_ref (every expert on "
+          f"every token) on layer 0's experts, T={MOE_T}: max|dy| {err:.3e} "
+          f"(tolerance {MOE_RTOL:.0e} of max|y| {scale:.3f}), aux "
+          f"{float(aux):.6f} vs {float(aux_ref):.6f}; {ms:.2f} ms vs "
+          f"{ref_ms:.2f} ms "
+          f"({m.n_experts // m.top_k}x the expert products)")
+    require(err <= MOE_RTOL * max(1.0, scale), f"moe_apply error {err}")
+    require(abs(float(aux) - float(aux_ref)) <= 1e-6, "moe aux differs")
+    res["moe_apply"] = dict(T=MOE_T, max_abs_err=err, y_scale=scale, ms=ms,
+                            moe_ref_ms=ref_ms)
+
+    per_path[arch], res["forward"] = forward_path(
+        torch, dev, arch, ZOO_FWD_B, ZOO_FWD_S, "flash_attention",
+        "repro_torch.models.attention", errs, cfg=cfg, params=params)
+    del params, model, chan, x
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[zoo2] phase 9b took {res['seconds']:.1f}s ({smi})")
+    return res
+
+
+def zoo2_minicpm(torch, dev, per_path, errs, smi):
+    """Phase 9c: minicpm3_4b at full width and depth (62 MLA layers,
+    random weights from a seed, made on the card): a session from
+    MINICPM_CALIB calibration batches (the flat index) served in kernel,
+    bucket and memo-free mode. An MLA layer takes the bucketed form in
+    kernel mode too: ``nn_search`` once a layer, ``memo_attention``
+    never, the two modes' outputs the same. Prefill memoization is refused
+    with the reference's ``ValueError``; ``Model.prefill`` of all but 8
+    tokens then 8 absorbed decode steps against the full forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.memo import MemoSpec
+    from repro_torch.memo.session import MemoSession
+
+    t_phase = time.perf_counter()
+    arch = "minicpm3_4b"
+    cfg = get_config(arch)
+    model, params, sess, calib, requests, thr, res = zoo2_model(
+        torch, dev, arch, cfg, 2, MINICPM_CALIB, False)
+    L, nb = cfg.n_layers, len(requests)
+    warm_up_calls(torch, sess, requests[0], L, errs, arch, memo=False)
+    results = zoo2_modes(
+        torch, sess, requests, per_path, "minicpm3",
+        {"minicpm3_kernel": {"nn_search": L * nb},
+         "minicpm3_bucket": {"nn_search": L * nb}, "minicpm3_memo_free": {}})
+    zoo2_report(torch, arch, cfg, results, per_path, "minicpm3",
+                res)
+    res["decisions"] = compare_decisions(
+        torch, "minicpm3 kernel", results["kernel"], "minicpm3 bucket",
+        results["bucket"], thr, REPLAY_GAP, "MLA: one form in both modes")
+    del results
+    sess.spec.runtime.mode = "kernel"
+    wall, busy = device_profile(torch, f"{arch} kernel-mode batch",
+                                lambda: sess.infer(requests[0]))
+    res["kernel_batch_trace"] = dict(wall_ms=wall, busy_ms=busy)
+    try:
+        MemoSession.build(model, params, MemoSpec.flat(prefill_enabled=True),
+                          batches=calib[:1], device=dev)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"[zoo2] {arch} prefill memoization refused: {refused}")
+    require(refused is not None
+            and "serves GQA 'attn' layers only" in refused,
+            f"{arch}: prefill memoization was not refused")
+    del sess
+    torch.cuda.empty_cache()
+    tokens = torch.as_tensor(requests[0]["tokens"][:ZOO_FWD_B], device=dev)
+    with torch.no_grad():
+        plain_logits = model.forward(params, {"tokens": tokens})[0]
+    res["prefill_decode"] = prefill_decode_check(torch, arch, model, params,
+                                                 tokens, plain_logits)
+    del params, model, plain_logits
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[zoo2] phase 9c took {res['seconds']:.1f}s ({smi})")
+    return res
+
+
+def zoo2_kimi(torch, dev, per_path, errs, smi):
+    """Phase 9d: kimi_k2_1t_a32b at full width cut to its dense first layer
+    (head_dim 112, 64 heads over 8; random weights from a seed, made on
+    the card): a session from KIMI_CALIB calibration batches served in
+    kernel (``memo_attention`` at dh 112), bucket (``nn_search``) and
+    memo-free mode; then the kernel forward (``flash_attention`` at dh
+    112) against plain at B=2, S=1024 on the same weights."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    arch = "kimi_k2_1t_a32b"
+    full = get_config(arch)
+    cfg = full.replace(n_layers=KIMI_LAYERS)
+    moe_gb = ((full.param_count() - cfg.param_count())
+              / (full.n_layers - 1) * 4 / 1e9)
+    print(f"[zoo2] {arch} depth cut from {full.n_layers} to its dense first "
+          f"layer: one MoE layer alone is {moe_gb:.1f} GB of f32 weights")
+    model, params, sess, calib, requests, thr, res = zoo2_model(
+        torch, dev, arch, cfg, 3, KIMI_CALIB, False)
+    L, nb = cfg.n_layers, len(requests)
+    calls, hits = warm_up_calls(torch, sess, requests[0], L, errs, arch)
+    res["memo_attention"] = time_memo_layer(torch, calls, hits, arch)
+    del calls
+    results = zoo2_modes(
+        torch, sess, requests, per_path, "kimi",
+        {"kimi_kernel": {"memo_attention": L * nb},
+         "kimi_bucket": {"nn_search": L * nb}, "kimi_memo_free": {}})
+    zoo2_report(torch, arch, cfg, results, per_path, "kimi", res)
+    res["decisions"] = compare_decisions(
+        torch, "kimi kernel", results["kernel"], "kimi bucket",
+        results["bucket"], thr, MODE_GAP, f"int8 gap over {L} layer")
+    del results, sess
+    torch.cuda.empty_cache()
+    per_path[arch], res["forward"] = forward_path(
+        torch, dev, arch, ZOO_FWD_B, ZOO_FWD_S, "flash_attention",
+        "repro_torch.models.attention", errs, cfg=cfg, params=params)
+    del params, model
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[zoo2] phase 9d took {res['seconds']:.1f}s ({smi})")
+    return res
+
+
+def zoo2(torch, dev, per_path, errs, smi, info):
+    """Phase 9: the zoo's MLA and MoE models — the attention kernels at
+    head_dim 112 (9a), dbrx_132b (9b), minicpm3_4b (9c) and kimi_k2 (9d),
+    each model freed before the next. Returns the JSON fields."""
+    t0 = time.perf_counter()
+    out = {"kernels_dh112": zoo2_kernels(torch, dev, errs, info)}
+    out["dbrx_132b"] = zoo2_dbrx(torch, dev, per_path, errs, smi)
+    out["minicpm3_4b"] = zoo2_minicpm(torch, dev, per_path, errs, smi)
+    out["kimi_k2_1t_a32b"] = zoo2_kimi(torch, dev, per_path, errs, smi)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[zoo2] phase 9 took {out['seconds']:.1f}s ({smi})")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4092,6 +4790,7 @@ def main() -> int:
     from repro_torch.kernels import build
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     print(f"[setup] torch {torch.__version__} cuda {torch.version.cuda}")
     smi = nvidia_smi_line()
     print(f"[setup] {smi}")
@@ -4157,6 +4856,28 @@ def main() -> int:
         synthetic=zoo_res["kernels_dh128"]["memo_attention"],
         launches=per_path["zoo_kernel"]["memo_attention"],
         **{ZOO_ARCH: zoo_res["serve"]["memo_attention"]})
+    torch.cuda.empty_cache()
+    zoo2_res = zoo2(torch, dev, per_path, errs, smi, info)
+    print(json.dumps({"zoo2": zoo2_res}))
+    dbrx, kimi = zoo2_res["dbrx_132b"], zoo2_res["kimi_k2_1t_a32b"]
+    fwd_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    times["flash_attention"]["dh128"]["launches"].update(
+        {p: per_path[p]["flash_attention"]
+         for p in ("dbrx_prefill_exact", "dbrx_132b")})
+    times["flash_attention"]["dh128"]["dbrx_132b"] = {
+        k: dbrx["forward"][k] for k in fwd_keys}
+    times["memo_attention"]["dh128"]["dbrx_132b"] = dict(
+        dbrx["memo_attention"],
+        launches=per_path["dbrx_kernel"]["memo_attention"])
+    times["flash_attention"]["dh112"] = dict(
+        synthetic=zoo2_res["kernels_dh112"]["flash_attention"],
+        launches={"kimi_k2_1t_a32b":
+                  per_path["kimi_k2_1t_a32b"]["flash_attention"]},
+        kimi_k2_1t_a32b={k: kimi["forward"][k] for k in fwd_keys})
+    times["memo_attention"]["dh112"] = dict(
+        synthetic=zoo2_res["kernels_dh112"]["memo_attention"],
+        launches=per_path["kimi_kernel"]["memo_attention"],
+        kimi_k2_1t_a32b=kimi["memo_attention"])
     print(json.dumps({"kernel_launches_per_path": per_path}))
 
     meta = {
@@ -4179,6 +4900,7 @@ def main() -> int:
                     **({"sass_tensor_core_instructions": sass[name]}
                        if name in sass else {}))
                for name, (src, rep) in meta.items()]
+    print(f"[setup] chip_smoke took {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,9 @@ width asked for (``--dh``):
 * dh 64: ``flash_attention`` at gpt2_small's shape (B=8, S=1024, H=12,
   causal) and ``memo_attention`` at bert_base's serving shape (B=32,
   S=128, H=12, 3072 int8 entries);
+* dh 112: ``flash_attention`` at kimi_k2's forward (B=2, S=1024, H=64,
+  Hkv=8, causal) and ``memo_attention`` at its serving shape (B=32,
+  S=128, 128 int8 entries, causal);
 * dh 128: ``flash_attention`` at qwen2_1_5b's serving shape (B=32,
   S=128, H=12, Hkv=2, causal) and at qwen3_8b's (B=2, S=1024, H=32,
   Hkv=8, causal), and ``memo_attention`` at qwen2_1_5b's serving shape
@@ -47,12 +50,25 @@ VARIANTS = {
     "3 blocks per SM": [
         (f, "__launch_bounds__(NT)", "__launch_bounds__(NT, 3)")
         for f in ("flash_attention.cu", "memo_attention.cu")],
+    # the K/V row copy over the flat chunk index (the tile before the
+    # padded passes): the dh-112 kernels spill 4-20 bytes this way
+    "row copy over the flat chunk index": [(
+        "attention_tile.cuh",
+        """  const int c = threadIdx.x % CPP;
+  if (c >= CPR) return;
+#pragma unroll
+  for (int it = 0; it < BK / RPP; ++it) {
+    const int j = threadIdx.x / CPP + it * RPP;""",
+        """#pragma unroll
+  for (int it = 0; it < BK * CPR / NT; ++it) {
+    const int i = threadIdx.x + it * NT, j = i / CPR, c = i % CPR;""")],
 }
 
 # dh -> flash_attention shapes (B, S, H, Hkv) and the memo_attention one
 # (B, S, H, Hkv, N, causal)
 SHAPES = {
     64: ([(8, 1024, 12, 12)], (32, 128, 12, 12, 3072, False)),
+    112: ([(2, 1024, 64, 8)], (32, 128, 64, 8, 128, True)),
     128: ([(32, 128, 12, 2), (2, 1024, 32, 8)],
           (32, 128, 12, 2, 3584, True)),
 }

@@ -1,24 +1,29 @@
 #!/usr/bin/env python3
-"""Decode parity after memoized prefill on qwen2_1_5b, over seeds and
-against deliberately faulted caches, on one card.
+"""Decode parity after memoized prefill on qwen2_1_5b or dbrx_132b, over
+seeds and against deliberately faulted caches, on one card.
 
-    python3 scripts/zoo_decode_parity.py [--seeds 0 1 2]
+    python3 scripts/zoo_decode_parity.py [--arch dbrx_132b] [--seeds 0 1 2]
 
 For each seed it builds chip_smoke's phase-8b session (qwen2_1_5b at full
 width and depth, random weights and TemplateCorpus from the seed, int8
-APM and K/V over ZOO_CALIB calibration batches), replays the first
+APM and K/V over ZOO_CALIB calibration batches) or, with ``--arch
+dbrx_132b``, phase 9b's (dbrx at full width cut to DBRX_LAYERS layers,
+DBRX_CALIB calibration batches), replays the first
 calibration batch through memoized ``prefill`` at threshold -1e9 (every
 row hits its own entry on every layer) and through ``prefill_exact``,
 and runs chip_smoke's ``zoo_decode``: PREFILL_DECODE_STEPS teacher-forced
-greedy steps from both cache sets, max|dlogits| and argmax agreement.
+greedy steps from both cache sets, max|dlogits| (also as a share of
+max|logit|) and argmax agreement; on dbrx the memoized side runs on the
+exact side's expert picks, so every row is compared at every step.
 That is the sound reading. Two controls decode from the same memoized
 caches with a fault put in:
 
 * ``kv_step``: every layer's K/V off by one more int8 step (the codec's
   row step, amax / 127 over a row's KV heads), in a random sign per
   element, as a codec or kernel that loses one bit would leave them;
-* ``kv_heads``: the last layer's two KV heads swapped, as a GQA fault
-  that maps query heads to the wrong KV head would leave them.
+* ``kv_heads``: the last layer's KV heads in reverse order (qwen2's two
+  swapped), as a GQA fault that maps query heads to the wrong KV head
+  would leave them.
 
 A bound on the sound reading belongs between the largest sound reading
 and the smallest control. Prints one line per reading and a JSON object
@@ -62,6 +67,8 @@ def main(argv=None) -> int:
     import chip_smoke as cs
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=("qwen2_1_5b", "dbrx_132b"),
+                    default="qwen2_1_5b")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -71,10 +78,16 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     print(cs.nvidia_smi_line())
+    kw = {}
+    if args.arch == "dbrx_132b":
+        from repro_torch.configs import get_config
+        kw = dict(cfg=get_config(args.arch).replace(n_layers=cs.DBRX_LAYERS),
+                  n_calib=cs.DBRX_CALIB)
     out = []
     for seed in args.seeds:
         t0 = time.perf_counter()
-        model, params, sess, calib, _, _ = cs.zoo_session(torch, dev, seed)
+        model, params, sess, calib, _, _ = cs.zoo_session(
+            torch, dev, seed, n_fresh=0, **kw)
         eng = sess.engine
         lm, cm, st = eng.prefill(calib[0], threshold=-1e9)
         le, ce = eng.prefill_exact(calib[0])
@@ -83,23 +96,31 @@ def main(argv=None) -> int:
         for label in ("sound", "kv_step", "kv_heads"):
             caches = cm if label == "sound" else _faulted(
                 torch, dev, eng, cm, label, seed)
-            dmax, agree, n_tok, scale = cs.zoo_decode(
+            dmax, agree, n_tok, scale, moved = cs.zoo_decode(
                 torch, model, params, lm, caches, le, ce)
-            row[label] = dict(max_dlogits=dmax, agreement=agree / n_tok,
-                              logit_scale=scale)
-            print(f"seed {seed} {label}: max|dlogits| {dmax:.4e}, greedy "
-                  f"agreement {agree}/{n_tok}, max|logit| {scale:.3f}")
+            row[label] = dict(max_dlogits=dmax, rel=dmax / scale,
+                              agreement=agree / n_tok, logit_scale=scale,
+                              route_moved=moved)
+            print(f"{args.arch} seed {seed} {label}: max|dlogits| "
+                  f"{dmax:.4e} = {dmax / scale:.4e} of max|logit| "
+                  f"{scale:.3f}, greedy agreement {agree}/{n_tok}, "
+                  f"(token, layer) expert picks of the memoized side's own "
+                  f"that differed {moved}")
         out.append(row)
         del model, params, sess, eng, cm, ce, caches
         torch.cuda.empty_cache()
         print(f"seed {seed} took {time.perf_counter() - t0:.1f}s")
-    sound = max(r["sound"]["max_dlogits"] for r in out)
-    control = min(r[c]["max_dlogits"] for r in out
-                  for c in ("kv_step", "kv_heads"))
-    print(f"largest sound reading {sound:.4e}, smallest control "
-          f"{control:.4e}")
-    print(json.dumps({"runs": out, "sound_max": sound,
-                      "control_min": control}))
+    summary = {}
+    for key in ("max_dlogits", "rel"):
+        summary[f"sound_max_{key}"] = max(r["sound"][key] for r in out)
+        summary[f"control_min_{key}"] = min(
+            r[c][key] for r in out for c in ("kv_step", "kv_heads"))
+    print(f"{args.arch}: largest sound reading "
+          f"{summary['sound_max_max_dlogits']:.4e} "
+          f"({summary['sound_max_rel']:.4e} of max|logit|), smallest control "
+          f"{summary['control_min_max_dlogits']:.4e} "
+          f"({summary['control_min_rel']:.4e})")
+    print(json.dumps({"arch": args.arch, "runs": out, **summary}))
     return 0
 
 

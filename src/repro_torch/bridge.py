@@ -21,7 +21,11 @@ from repro_torch.memo.specs import MemoSpec
 
 def tree_to_torch(tree, device):
     """A nested dict of arrays (a JAX params pytree) → the same nesting
-    of tensors on ``device``."""
+    of tensors on ``device``. Every mixer and channel block keeps the
+    reference's keys and layouts, MLA's and MoE's included, so the trees
+    cross unchanged: kimi_k2's plan, a ``single`` dense layer then a
+    ``scan`` of MoE layers whose leaves are stacked on a leading axis,
+    crosses leaf for leaf (tests/test_torch_moe.py)."""
     if isinstance(tree, dict):
         return {k: tree_to_torch(v, device) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree)).to(device)

@@ -13,9 +13,12 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 ARCH_IDS = [
+    "minicpm3_4b",
     "deepseek_7b",
     "qwen2_1_5b",
     "chameleon_34b",
+    "dbrx_132b",
+    "kimi_k2_1t_a32b",
     "qwen3_8b",
     # the paper's own evaluation models (reduced-trainable analogues)
     "bert_base",
@@ -25,9 +28,6 @@ ARCH_IDS = [
 
 # the reference's architectures not ported yet, and the slice each waits for
 _LATER = {
-    "minicpm3_4b": "the MLA slice",
-    "dbrx_132b": "the MoE slice",
-    "kimi_k2_1t_a32b": "the MoE slice (head_dim 112)",
     "recurrentgemma_2b": "the RG-LRU slice (head_dim 256)",
     "whisper_medium": "the encoder-decoder slice",
 }

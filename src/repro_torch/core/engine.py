@@ -9,14 +9,18 @@ output projection → residual → MLP. Two executors do it.
 **The device fast path** (``bucket`` and ``kernel`` with the device
 store; ``prepare_batch`` → ``run_layers`` → ``finalize``) is device work
 only: no host synchronization inside ``run_layers``, one barrier in
-``finalize``, then the stats drain.
+``finalize``, then the stats drain. The one exception is a MoE channel
+block (``models/moe.py::moe_apply``), which reads its per-expert slice
+sizes on the host: one sync per MoE layer.
 
 * ``kernel`` — q/k/v projections feed the ``memo_attention`` kernel,
   which gathers its own APM tiles from the device DB by hit index (int8
   codes + scales, or f16); the flat search is the one-matmul form with
   the snapshot's cached row norms (the reference's ``fused=True``). A
   factorized codec (``lowrank``) is decoded for the batch's B matched
-  rows first, and the kernel runs over that B-row f16 DB.
+  rows first, and the kernel runs over that B-row f16 DB. An MLA layer
+  (``kind == "mla"``) takes the ``bucket`` form in kernel mode too, as
+  in the reference: ``memo_attention`` serves GQA layers only.
 * ``bucket`` — the search goes through the ``nn_search`` kernel; the
   batch's APM rows are gathered and decoded (through f16, like the host
   decode) and attention runs the mixed formulation (``gqa_apply`` with a
@@ -80,7 +84,7 @@ and the caches ``Model.decode_step`` consumes. ``prefill_exact`` is
 ``Model.prefill``, the memo-free leg.
 
 Not ported yet (each raises ``NotImplementedError`` naming its slice):
-the sharded store and enc-dec.
+the sharded store, enc-dec and RG-LRU models.
 """
 from __future__ import annotations
 
@@ -106,6 +110,7 @@ from repro_torch.memo.specs import MemoSpec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import backbone as bb
 from repro_torch.models.layers import mlp_apply, norm_apply
+from repro_torch.models.moe import moe_apply
 
 # paper Table 2 — per-model threshold levels
 LEVELS = {"conservative": 0.98, "moderate": 0.97, "aggressive": 0.96}
@@ -270,8 +275,7 @@ class MemoEngine:
 
     def _check_ported(self):
         """Refuse the opt-in of a slice not ported yet (the sharded
-        store). Enc-dec, MLA and MoE layers raise where they are reached,
-        in the layer forms."""
+        store). Enc-dec and RG-LRU models raise where they are built."""
         if self.mc.shard.shards:
             raise _later("the sharded store (shards > 0)", "sharded-store")
 
@@ -630,7 +634,8 @@ class MemoEngine:
     def run_layers(self, prep: PreparedBatch) -> PreparedBatch:
         """The device-resident serving loop: every layer is device work
         only — no host synchronization, no host↔device copy (the one
-        barrier lives in ``finalize``). Hit masks, predicted sims and
+        barrier lives in ``finalize``) but a MoE layer's read of its
+        expert offsets. Hit masks, predicted sims and
         matched slots accumulate as device tensors in ``prep.pend``; under
         ``prep.capture`` so do the embeddings and true APMs (and K/V).
 
@@ -699,9 +704,9 @@ class MemoEngine:
         (h', sims, hits, slots) — plus (embs, apms_f16) under ``capture``
         — all device tensors."""
         cfg = self.cfg
-        if kind != "attn":
-            raise bb._not_ported(kind)
-        kernel_path = self.mc.mode == "kernel"
+        # an MLA layer takes the bucketed form in kernel mode too, as in
+        # the reference: memo_attention serves GQA layers only
+        kernel_path = self.mc.mode == "kernel" and kind == "attn"
         varlen = qlen is not None
         e = self.embedder
         x = norm_apply(lp["norm1"], h, cfg.norm)
@@ -729,8 +734,8 @@ class MemoEngine:
             apm = self.store.codec.decode_rows(rows).float()
             if apm.shape[-1] != S:
                 apm = apm[..., :S, :S]
-            y = self._gqa(lp, x, "attn", positions, kpad=kpad,
-                          memo=attn_mod.Memo(apm=apm, hit=hit))[0]
+            y = self._attend(lp, x, kind, positions, kpad=kpad,
+                             memo=attn_mod.Memo(apm=apm, hit=hit))[0]
         out = (self._chan_tail(lp, h + y, li), sim, hit, idx0)
         if capture:
             # miss capture for online admission: the TRUE APM of this
@@ -813,8 +818,8 @@ class MemoEngine:
             apm = apm[..., :S, :S]
         kv = codec.decode_kv_rows(rows).float()
         mk, mv = unstack_kv_rows(kv[:, :, :S], cfg.n_kv_heads, cfg.head_dim)
-        y = self._gqa(lp, x, "attn", positions, kpad=kpad,
-                      memo=attn_mod.Memo(apm=apm, hit=hit))[0]
+        y = self._attend(lp, x, "attn", positions, kpad=kpad,
+                         memo=attn_mod.Memo(apm=apm, hit=hit))[0]
         k, v = self._true_kv(lp, x, positions, kpad)
         m = hit[:, None, None, None]
         pad = (0, 0, 0, 0, 0, Sc - S)
@@ -842,9 +847,9 @@ class MemoEngine:
                              kpad=None):
         """Non-memoized layers of a prefill batch: the backbone's exact
         prefill step (attention and its cache, or a recurrent state)."""
-        out, c, _ = bb._layer_apply(lp, h, self.cfg, kind, li,
-                                    mode="prefill", positions=positions,
-                                    cache=cache, kpad=kpad)
+        out, c, _, _ = bb._layer_apply(lp, h, self.cfg, kind, li,
+                                       mode="prefill", positions=positions,
+                                       cache=cache, kpad=kpad)
         return out, c
 
     # ------------------------------------------------------- prefill API
@@ -1147,23 +1152,24 @@ class MemoEngine:
     def _apm_probe(self, lp, x, kind, positions, kpad=None):
         """The true APM of the normed input with the exact miss-path
         semantics, in the arena dtype (f16): the capture of admission."""
-        return self._gqa(lp, x, kind, positions, kpad=kpad,
-                         return_apm=True)[1].half()
+        return self._attend(lp, x, kind, positions, kpad=kpad,
+                            return_apm=True)[1].half()
 
     # -- layer application --------------------------------------------------
     def _chan_tail(self, lp, h, li):
-        """norm2 + MLP tail shared by every layer form (the reference's
-        ``_chan_only`` too)."""
+        """norm2 + channel mixer (MoE or MLP) tail shared by every layer
+        form (the reference's ``_chan_only`` too). A MoE layer reads its
+        expert offsets on the host: one sync a layer (``moe_apply``)."""
         cfg = self.cfg
-        if bb._chan_kind(cfg, li) != "mlp":
-            raise bb._not_ported(bb._chan_kind(cfg, li))
         x = norm_apply(lp["norm2"], h, cfg.norm)
+        if bb._chan_kind(cfg, li) == "moe":
+            return h + moe_apply(lp["chan"], x, cfg)[0]
         return h + mlp_apply(lp["chan"], x, cfg.act, cfg.glu)
 
     def _layer_plain(self, lp, h, kind, li, memo, positions, kpad=None):
-        out, _, _ = bb._layer_apply(lp, h, self.cfg, kind, li, mode="full",
-                                    positions=positions, memo=memo,
-                                    kpad=kpad)
+        out, _, _, _ = bb._layer_apply(lp, h, self.cfg, kind, li,
+                                       mode="full", positions=positions,
+                                       memo=memo, kpad=kpad)
         return out
 
     def _layer_bucket(self, lp, h, kind, li, memo, positions):
@@ -1209,29 +1215,27 @@ class MemoEngine:
         y = torch.einsum("bshe,hed->bsd", out, lp["mix"]["wo"])
         return self._chan_tail(lp, h + y, li)
 
-    def _gqa(self, lp, x, kind, positions, *, kpad=None, memo=None,
-             return_apm=False):
-        """``gqa_apply`` with the model's mask kind and window: every full
-        attention the engine runs beside the memoized forms. Returns
-        (y, apm or None)."""
+    def _attend(self, lp, x, kind, positions, *, kpad=None, memo=None,
+                return_apm=False):
+        """``gqa_apply`` or ``mla_apply`` (by the layer's ``kind``) with
+        the model's mask kind and window: every full attention the engine
+        runs beside the memoized forms. Returns (y, apm or None)."""
         cfg = self.cfg
-        if kind != "attn":
-            raise bb._not_ported(kind)
-        return attn_mod.gqa_apply(
-            lp["mix"], x, cfg, positions=positions,
-            mask_kind="causal" if cfg.causal else "bidir",
-            window=cfg.sliding_window, kpad=kpad, memo=memo,
-            return_apm=return_apm)
+        f = attn_mod.gqa_apply if kind == "attn" else attn_mod.mla_apply
+        return f(lp["mix"], x, cfg, positions=positions,
+                 mask_kind="causal" if cfg.causal else "bidir",
+                 window=cfg.sliding_window, kpad=kpad, memo=memo,
+                 return_apm=return_apm)
 
     def _memo_only(self, lp, x, kind, apm):
         """Memo-only attention (V and APM·V): the hit branch's cost."""
-        if kind != "attn":
-            raise bb._not_ported(kind)
-        return attn_mod.gqa_apply_memo(lp["mix"], x, self.cfg, apm)
+        f = (attn_mod.gqa_apply_memo if kind == "attn"
+             else attn_mod.mla_apply_memo)
+        return f(lp["mix"], x, self.cfg, apm)
 
     def _attn_only(self, lp, x, kind, positions):
         """Full attention with projections: the miss branch's cost."""
-        return self._gqa(lp, x, kind, positions)[0]
+        return self._attend(lp, x, kind, positions)[0]
 
     # ------------------------------------------------------------- selective
     def _fused_lookup_probe(self, x):

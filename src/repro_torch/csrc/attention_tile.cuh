@@ -55,7 +55,11 @@
 //   1.6% slower (0.0558 vs 0.0549 ms, mixed rows at B=32, S=128) and
 //   4.3% slower all-hit (0.0336 vs 0.0322), its larger shared memory
 //   leaving fewer blocks per SM (H100 80GB HBM3, 700 W); so dh <= 64
-//   keeps Q in registers.
+//   keeps Q in registers. dh = 112 (kimi_k2: 7168 / 64 heads) takes the
+//   dh-128 layout unchanged: 14 column steps of 8, O and the step's
+//   accumulator at 56 registers each, a 118,784-byte ring and 57,344
+//   bytes of Q fragments (176,128 in all); its rows, LD = 116 floats
+//   apart (116 mod 32 = 20), keep both fragment reads conflict-free.
 // * The tensor cores do not round their f32 sums to nearest, so a long
 //   chain of products into one accumulator drifts: each step's P·V sums
 //   into a fresh accumulator that joins O in f32 (add_tile), and each
@@ -120,6 +124,14 @@ struct Layout {
   static constexpr bool Q_SMEM = DH > 64;
   static constexpr int Q_BYTES = Q_SMEM ? BQ * DH * 2 * 4 : 0;
   static constexpr int SMEM = STAGES * STAGE + Q_BYTES;
+  // what every width relies on: whole 8-column fragment steps, rows
+  // 16-byte aligned for cp.async (LD = 116 at dh = 112: 464 bytes), and a
+  // block's shared memory within the 227 KB an H100 block may take
+  // (176,128 bytes at dh = 112); the row copy's tiling is checked in
+  // load_rows_async
+  static_assert(DH % 8 == 0, "head_dim must be a multiple of 8");
+  static_assert(LD * 4 % 16 == 0, "rows must be 16-byte aligned");
+  static_assert(SMEM <= 227 * 1024, "shared memory past 227 KB");
   __device__ static unsigned char* a(unsigned char* sm, int st) {
     return sm + st * STAGE;
   }
@@ -203,15 +215,27 @@ __device__ __forceinline__ void cp_wait() {
 // ---------------------------------------------------------------- tiles
 
 // dst row j (LD floats apart) = src row r0 + j (rows `stride` apart), for
-// BK rows by cp.async; rows at or past rmax are zeroed
+// BK rows by cp.async; rows at or past rmax are zeroed. Each thread keeps
+// one 16-byte chunk column c of a row and steps RPP rows a pass, so its
+// offsets are affine in the pass: where the chunks per row (DH / 4 = 28
+// at dh 112) do not divide the block, the flat index i / CPR, i % CPR
+// left 14 distinct offsets live across the key loop, and the dh-112
+// kernels spilled (4-20 bytes at 255 registers; 167-207 registers and no
+// spill this way, scripts/attention_tile_variants.py). Lanes past the
+// row's chunks (c >= CPR, at dh 112) copy nothing.
 template <int DH>
 __device__ __forceinline__ void load_rows_async(float* dst, const float* src,
                                                 size_t stride, int r0,
                                                 int rmax) {
   constexpr int CPR = DH / 4;   // 16-byte chunks per row
+  constexpr int CPP = CPR <= 4 ? 4 : CPR <= 8 ? 8 : CPR <= 16 ? 16 : 32;
+  constexpr int RPP = NT / CPP;  // rows a pass
+  static_assert(CPR <= 32 && BK % RPP == 0, "row copy must tile BK rows");
+  const int c = threadIdx.x % CPP;
+  if (c >= CPR) return;
 #pragma unroll
-  for (int it = 0; it < BK * CPR / NT; ++it) {
-    const int i = threadIdx.x + it * NT, j = i / CPR, c = i % CPR;
+  for (int it = 0; it < BK / RPP; ++it) {
+    const int j = threadIdx.x / CPP + it * RPP;
     const bool ok = r0 + j < rmax;
     cp_async16(dst + j * Layout<DH>::LD + c * 4,
                ok ? src + (size_t)(r0 + j) * stride + c * 4 : src,

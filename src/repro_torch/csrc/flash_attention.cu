@@ -114,6 +114,9 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
     case 64:
       return launch<64>(qf, kf, vf, o, B, S, H, Hkv, strides, causal,
                         has_window, window, scale, st);
+    case 112:
+      return launch<112>(qf, kf, vf, o, B, S, H, Hkv, strides, causal,
+                         has_window, window, scale, st);
     case 128:
       return launch<128>(qf, kf, vf, o, B, S, H, Hkv, strides, causal,
                          has_window, window, scale, st);

@@ -252,6 +252,9 @@ extern "C" int memo_attention_f32(
     case 64:
       return launch<64>(qf, kf, vf, db, sc, hi, hm, ln, o, B, S, H, Hkv, L,
                         N, db_kind, causal, has_window, window, scale, st);
+    case 112:
+      return launch<112>(qf, kf, vf, db, sc, hi, hm, ln, o, B, S, H, Hkv, L,
+                         N, db_kind, causal, has_window, window, scale, st);
     case 128:
       return launch<128>(qf, kf, vf, db, sc, hi, hm, ln, o, B, S, H, Hkv, L,
                          N, db_kind, causal, has_window, window, scale, st);

@@ -1,7 +1,7 @@
-"""GQA/MQA/MHA attention (the GQA part of the reference's
-``models/attention.py``: the full-sequence apply, the memo-only apply,
-one-token decode and the decode-cache builders; MLA comes with the
-model-zoo slice).
+"""Attention mixers: GQA/MQA/MHA and MLA (Multi-head Latent Attention),
+the reference's ``models/attention.py``: the full-sequence apply, the
+memo-only apply, one-token decode and the decode caches of each
+(the reference's mesh specs wait for the sharded-store slice).
 
 Functions over dicts of tensors whose keys and layouts are the JAX
 tree's (``wq (d,H,dh)``, ``wo (H,dh,d)``). Each full-sequence apply can
@@ -205,3 +205,140 @@ def gqa_apply_memo(params, x, cfg, apm):
     apm_g = apm.reshape(B, Hkv, H // Hkv, S, S).to(v.dtype)
     out = torch.einsum("bhgqs,bshd->bqhgd", apm_g, v).reshape(B, S, H, dh)
     return torch.einsum("bshe,hed->bsd", out, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 / MiniCPM3)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, cfg, dtype=torch.float32, device=None):
+    d, H = cfg.d_model, cfg.n_heads
+    m = cfg.mla
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "w_dq": dense_init(gen, (d, m.q_lora_rank), **kw),
+        "q_norm": torch.ones((m.q_lora_rank,), **kw),
+        "w_uq": dense_init(gen, (m.q_lora_rank, H, qk),
+                           scale=m.q_lora_rank ** -0.5, **kw),
+        "w_dkv": dense_init(gen, (d, m.kv_lora_rank), **kw),
+        "kv_norm": torch.ones((m.kv_lora_rank,), **kw),
+        "w_kr": dense_init(gen, (d, m.qk_rope_head_dim), **kw),
+        "w_uk": dense_init(gen, (m.kv_lora_rank, H, m.qk_nope_head_dim),
+                           scale=m.kv_lora_rank ** -0.5, **kw),
+        "w_uv": dense_init(gen, (m.kv_lora_rank, H, m.v_head_dim),
+                           scale=m.kv_lora_rank ** -0.5, **kw),
+        "wo": dense_init(gen, (H, m.v_head_dim, d),
+                         scale=(H * m.v_head_dim) ** -0.5, **kw),
+    }
+
+
+def _mla_qkr(params, x, cfg, positions):
+    m = cfg.mla
+    cq = _rms(x @ params["w_dq"], params["q_norm"])
+    q = torch.einsum("bsr,rhe->bshe", cq, params["w_uq"])
+    q_nope = q[..., : m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    c_kv = _rms(x @ params["w_dkv"], params["kv_norm"])
+    k_rope = apply_rope(x @ params["w_kr"], positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_apply(params, x, cfg, *, positions, mask_kind="causal", window=None,
+              memo: Optional[Memo] = None, return_apm=False,
+              attn_impl="plain", kpad=None):
+    """Full-sequence MLA. x: (B,S,D) → (B,S,D). Scores are the nope part
+    through the expanded keys plus the shared rope key, masked with
+    ``finfo(float32).min`` as in ``_sdpa``. ``attn_impl`` is accepted and
+    ignored, as in the reference: MLA reaches no attention kernel."""
+    B, S, _ = x.shape
+    m = cfg.mla
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(params, x, cfg, positions)
+    k_nope = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uk"])
+    v = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uv"])
+    scores = (torch.einsum("bqhe,bshe->bhqs", q_nope, k_nope)
+              + torch.einsum("bqhe,bse->bhqs", q_rope, k_rope))
+    scores = scores.float() * scale
+    mask = make_mask(S, S, mask_kind, window, device=x.device)
+    if kpad is not None:
+        mask = mask[None] & kpad[:, None, :]
+    mask = mask[None, None] if mask.ndim == 2 else mask[:, None]
+    scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
+    apm = torch.softmax(scores, dim=-1)
+    if memo is not None:
+        apm = torch.where(memo.hit[:, None, None, None], memo.apm.float(),
+                          apm)
+    out = torch.einsum("bhqs,bshe->bqhe", apm.to(v.dtype), v)
+    y = torch.einsum("bshe,hed->bsd", out, params["wo"])
+    return y, (apm if return_apm else None)
+
+
+def mla_apply_memo(params, x, cfg, apm):
+    """Memo-only MLA fast path: skip the q path, QKᵀ and softmax; compute
+    the compressed kv and expand V only. x: (B,S,D); apm: (B,H,S,S)."""
+    c_kv = _rms(x @ params["w_dkv"], params["kv_norm"])
+    v = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uv"])
+    out = torch.einsum("bhqs,bshe->bqhe", apm.to(v.dtype), v)
+    return torch.einsum("bshe,hed->bsd", out, params["wo"])
+
+
+def mla_decode(params, x, cfg, cache, pos, *, window=None):
+    """Absorbed-matmul MLA decode: attention runs in the kv_lora latent
+    space and the cache holds (c_kv, k_rope) only. x: (B,1,D); ``pos`` as
+    in ``gqa_decode`` (a ring of ``Sc`` slots, each masked by the absolute
+    position it holds and the recency ``window``). Returns (y, new
+    cache); the input cache is left as it was."""
+    B = x.shape[0]
+    m = cfg.mla
+    dev = x.device
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), int(pos), dtype=torch.int64, device=dev)
+    pos = pos.to(device=dev, dtype=torch.int64).reshape(())
+    positions = pos.expand(B, 1)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkr(params, x, cfg,
+                                                    positions)
+    Sc = cache["c_kv"].shape[1]
+    slot = torch.remainder(pos, Sc).reshape(1)
+    c_kv = cache["c_kv"].index_copy(1, slot,
+                                    c_kv_new.to(cache["c_kv"].dtype))
+    k_rope = cache["k_rope"].index_copy(1, slot,
+                                        k_rope_new.to(cache["k_rope"].dtype))
+    idx = torch.arange(Sc, device=dev)
+    wrap = torch.div(pos, Sc, rounding_mode="floor") * Sc
+    abs_pos = torch.where(idx <= slot, wrap + idx, wrap - Sc + idx)
+    valid = (abs_pos >= 0) & (abs_pos <= pos)
+    if window is not None:
+        valid &= abs_pos > pos - window
+    # absorbed: q ⋅ W_uk projected into latent space once per step
+    q_abs = torch.einsum("bqhe,rhe->bqhr", q_nope, params["w_uk"])
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_abs, c_kv)
+              + torch.einsum("bqhe,bse->bhqs", q_rope, k_rope))
+    scores = scores.float() * scale
+    scores = scores.masked_fill(~valid[None, None, None],
+                                torch.finfo(torch.float32).min)
+    apm = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhqs,bsr->bqhr", apm, c_kv)
+    out = torch.einsum("bqhr,rhe->bqhe", ctx, params["w_uv"])
+    y = torch.einsum("bshe,hed->bsd", out, params["wo"])
+    return y, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_init_cache(cfg, batch, seq, dtype=torch.float32, device=None):
+    m = cfg.mla
+    kw = dict(dtype=dtype, device=device)
+    return {"c_kv": torch.zeros((batch, seq, m.kv_lora_rank), **kw),
+            "k_rope": torch.zeros((batch, seq, m.qk_rope_head_dim), **kw)}
+
+
+def mla_prefill_cache(params, x, cfg, positions, seq_total):
+    """The decode cache from a full prompt: the normed latent ``c_kv``
+    and the post-RoPE ``k_rope``, zero-padded to ``seq_total``."""
+    _, _, c_kv, k_rope = _mla_qkr(params, x, cfg, positions)
+    pad = seq_total - c_kv.shape[1]
+    if pad > 0:
+        c_kv = F.pad(c_kv, (0, 0, 0, pad))
+        k_rope = F.pad(k_rope, (0, 0, 0, pad))
+    return {"c_kv": c_kv, "k_rope": k_rope}

@@ -1,5 +1,6 @@
-"""Backbone: assembles attention + MLP layers into a model (the dense
-part of the reference's ``models/backbone.py``).
+"""Backbone: assembles mixers (GQA or MLA attention, rwkv6) and channel
+mixers (MLP, MoE, rwkv6's) into a model (the reference's
+``models/backbone.py``; RG-LRU layers wait for their slice).
 
 The parameter tree keeps the reference's layout, so the bridge from JAX
 weights is a name map: ``params["layers"]["seg{i}"]["l{u}"]`` holds one
@@ -18,15 +19,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (
     dense_init, embed_init, mlp_apply, mlp_init, norm_apply, norm_init,
 )
 
 _LATER = {
-    "mla": "MLA attention waits for the model-zoo slice",
-    "rglru": "rglru layers wait for the model-zoo slice",
-    "moe": "MoE channel mixers wait for the model-zoo slice",
+    "rglru": "rglru layers wait for the RG-LRU slice",
 }
 
 
@@ -83,7 +83,8 @@ def _dense_ff(cfg, layer_idx: int) -> int:
 # per-layer init / apply
 # ---------------------------------------------------------------------------
 
-_MIX_INIT = {"attn": attn.gqa_init, "rwkv6": rwkv_mod.rwkv_time_init}
+_MIX_INIT = {"attn": attn.gqa_init, "mla": attn.mla_init,
+             "rwkv6": rwkv_mod.rwkv_time_init}
 
 
 def _layer_init(gen, cfg, layer_idx, kind, dtype, device):
@@ -96,23 +97,27 @@ def _layer_init(gen, cfg, layer_idx, kind, dtype, device):
     ck = _chan_kind(cfg, layer_idx)
     if ck == "rwkvc":
         p["chan"] = rwkv_mod.rwkv_channel_init(gen, cfg, dtype, device)
-    elif ck == "mlp":
+    elif ck == "moe":
+        p["chan"] = moe_mod.moe_init(gen, cfg, dtype, device)
+    else:
         p["chan"] = mlp_init(gen, d, _dense_ff(cfg, layer_idx), cfg.glu,
                              dtype, device)
-    else:
-        raise _not_ported(ck)
     return p
 
 
 def _layer_apply(lp, h, cfg, kind, layer_idx, *, mode, positions,
                  pos=None, cache=None, memo=None, capture=False,
                  window=None, attn_impl="plain", kpad=None):
-    """Returns (h, new_cache, apm) — ``apm`` is ``{"apm", "hidden"}``
-    under capture. ``mode``: "full" (no cache), "prefill" (the prompt,
-    building the layer's decode cache or recurrent state from ``cache``'s
-    template) or "decode" (one token at absolute position ``pos``)."""
+    """Returns (h, new_cache, apm, aux) — ``apm`` is ``{"apm",
+    "hidden"}`` under capture, ``aux`` the MoE router's load-balance loss
+    (0 for other channel mixers). ``mode``: "full" (no cache), "prefill"
+    (the prompt, building the layer's decode cache or recurrent state
+    from ``cache``'s template) or "decode" (one token at absolute
+    position ``pos``)."""
+    mask_kind = "causal" if cfg.causal else "bidir"
     x = norm_apply(lp["norm1"], h, cfg.norm)
     apm = None
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind == "attn":
         win = cfg.sliding_window if cfg.sliding_window else window
         if mode == "decode":
@@ -120,12 +125,23 @@ def _layer_apply(lp, h, cfg, kind, layer_idx, *, mode, positions,
                                        window=win)
         else:
             y, apm = attn.gqa_apply(
-                lp["mix"], x, cfg, positions=positions,
-                mask_kind="causal" if cfg.causal else "bidir", window=win,
-                memo=memo, return_apm=capture, attn_impl=attn_impl,
-                kpad=kpad)
+                lp["mix"], x, cfg, positions=positions, mask_kind=mask_kind,
+                window=win, memo=memo, return_apm=capture,
+                attn_impl=attn_impl, kpad=kpad)
             if mode == "prefill":
                 cache = attn.gqa_prefill_cache(
+                    lp["mix"], x, cfg, positions, cache_len_from(cache))
+    elif kind == "mla":
+        if mode == "decode":
+            y, cache = attn.mla_decode(lp["mix"], x, cfg, cache, pos,
+                                       window=window)
+        else:
+            y, apm = attn.mla_apply(
+                lp["mix"], x, cfg, positions=positions, mask_kind=mask_kind,
+                window=window, memo=memo, return_apm=capture,
+                attn_impl=attn_impl, kpad=kpad)
+            if mode == "prefill":
+                cache = attn.mla_prefill_cache(
                     lp["mix"], x, cfg, positions, cache_len_from(cache))
     elif kind == "rwkv6":
         # the wkv kernel starts from a zero state: prefill and decode
@@ -149,11 +165,11 @@ def _layer_apply(lp, h, cfg, kind, layer_idx, *, mode, positions,
             lp["chan"], x, cfg,
             None if mode == "full" else cache and cache.get("chan"))
         cache = dict(cache or {}, chan=cache_c)
-    elif ck == "mlp":
-        y = mlp_apply(lp["chan"], x, cfg.act, cfg.glu)
+    elif ck == "moe":
+        y, aux = moe_mod.moe_apply(lp["chan"], x, cfg)
     else:
-        raise _not_ported(ck)
-    return h + y, cache, apm
+        y = mlp_apply(lp["chan"], x, cfg.act, cfg.glu)
+    return h + y, cache, apm, aux
 
 
 def cache_len_from(cache) -> int:
@@ -172,6 +188,8 @@ def cache_len_from(cache) -> int:
 def layer_cache(cfg, kind, layer_idx, batch, seq, dtype, device=None):
     if kind == "attn":
         return attn.gqa_init_cache(cfg, batch, seq, dtype, device)
+    if kind == "mla":
+        return attn.mla_init_cache(cfg, batch, seq, dtype, device)
     if kind == "rwkv6":
         return {"time": rwkv_mod.rwkv_time_init_state(cfg, batch, dtype,
                                                       device),
@@ -226,10 +244,33 @@ def backbone_init(gen, cfg, dtype=torch.float32, device=None):
         if seg.kind == "single":
             layers[f"seg{si}"] = group_init(0)
         else:
-            layers[f"seg{si}"] = _tree_stack(
-                [group_init(r) for r in range(seg.reps)])
+            layers[f"seg{si}"] = _stacked(group_init, seg.reps)
     p["layers"] = layers
     return p
+
+
+def _stacked(make, reps):
+    """``_tree_stack([make(r) for r in range(reps)])`` without holding
+    every repeat at once: each is copied into the stacked tree as it is
+    made, so the peak is the stack plus one repeat (dbrx_132b's layers
+    are 13 GB each in f32)."""
+    out = None
+    for r in range(reps):
+        tree = make(r)
+        if out is None:
+            out = _tree_map(
+                lambda a: a.new_empty((reps,) + tuple(a.shape)), tree)
+        _copy_rep(out, tree, r)
+        del tree
+    return out
+
+
+def _copy_rep(out, tree, r):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _copy_rep(out[k], v, r)
+    elif tree is not None:
+        out[r].copy_(tree)
 
 
 def _tree_stack(trees):
@@ -288,10 +329,11 @@ def iter_layers(params, cfg):
 def forward_hidden(params, h, cfg, *, mode="full", positions=None,
                    pos=None, caches=None, memo_plan=None, capture=False,
                    window=None, attn_impl="plain"):
-    """Run all layers. Returns (h, new_caches, apms{layer_idx: apm}):
-    ``new_caches`` has ``caches``' layout (None per segment in "full"
-    mode)."""
+    """Run all layers. Returns (h, new_caches, apms{layer_idx: apm},
+    aux): ``new_caches`` has ``caches``' layout (None per segment in
+    "full" mode), ``aux`` the summed MoE router losses."""
     apms: Dict[int, Any] = {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     new_caches = {}
     if positions is None and mode != "decode":
         B, S = h.shape[0], h.shape[1]
@@ -309,13 +351,14 @@ def forward_hidden(params, h, cfg, *, mode="full", positions=None,
             for u, kind in enumerate(seg.unit):
                 li = seg.start + r * len(seg.unit) + u
                 memo = memo_plan.get(li) if memo_plan else None
-                h, c, apm = _layer_apply(
+                h, c, apm, aux = _layer_apply(
                     gp[f"l{u}"], h, cfg, kind, li, mode=mode,
                     positions=positions, pos=pos,
                     cache=gc.get(f"l{u}") if gc else None, memo=memo,
                     capture=capture and kind in ("attn", "mla"),
                     window=window, attn_impl=attn_impl)
                 out[f"l{u}"] = c
+                aux_total = aux_total + aux
                 if apm is not None:
                     apms[li] = apm
             reps.append(out)
@@ -325,7 +368,7 @@ def forward_hidden(params, h, cfg, *, mode="full", positions=None,
             new_caches[f"seg{si}"] = reps[0]
         else:
             new_caches[f"seg{si}"] = _tree_stack(reps)
-    return h, new_caches, apms
+    return h, new_caches, apms, aux_total
 
 
 def logits_from_hidden(params, h, cfg):

@@ -15,6 +15,8 @@ kernel-backed layers:
   as the reference does; the rwkv6 mixer keeps the scan wherever it
   carries a state (prefill and decode), since the kernel starts from a
   zero state. ``decode_step`` is plain one-token attention either way.
+  MLA layers run their plain form under both: the reference's
+  ``mla_apply`` reaches no kernel.
 """
 from __future__ import annotations
 
@@ -58,22 +60,21 @@ class Model:
 
     def forward(self, params, batch, *, capture=False, memo_plan=None,
                 window=None):
-        """Returns (logits, apms, aux). ``window`` is a sliding window for
-        attention layers of configs that set none."""
+        """Returns (logits, apms, aux): ``aux`` is the summed MoE router
+        load-balance loss (0 without MoE layers). ``window`` is a sliding
+        window for attention layers of configs that set none."""
         h = bb.embed_tokens(params, self._tokens(batch), self.cfg)
-        h, _, apms = bb.forward_hidden(params, h, self.cfg, mode="full",
-                                       memo_plan=memo_plan, capture=capture,
-                                       window=window,
-                                       attn_impl=self.attn_impl)
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        h, _, apms, aux = bb.forward_hidden(
+            params, h, self.cfg, mode="full", memo_plan=memo_plan,
+            capture=capture, window=window, attn_impl=self.attn_impl)
         return bb.logits_from_hidden(params, h, self.cfg), apms, aux
 
     def classify(self, params, batch, *, memo_plan=None, capture=False):
         """Mean-pool classification (AttMemo accuracy experiments)."""
         h = bb.embed_tokens(params, self._tokens(batch), self.cfg)
-        h, _, apms = bb.forward_hidden(params, h, self.cfg, mode="full",
-                                       memo_plan=memo_plan, capture=capture,
-                                       attn_impl=self.attn_impl)
+        h, _, apms, _ = bb.forward_hidden(
+            params, h, self.cfg, mode="full", memo_plan=memo_plan,
+            capture=capture, attn_impl=self.attn_impl)
         logits = bb.classify_from_hidden(params, h, self.cfg)
         return (logits, apms) if capture else logits
 
@@ -98,7 +99,7 @@ class Model:
         B = tokens.shape[0]
         caches = self.init_caches(B, cache_len, dtype, window=window)
         h = bb.embed_tokens(params, tokens, self.cfg)
-        h, caches, _ = bb.forward_hidden(
+        h, caches, _, _ = bb.forward_hidden(
             params, h, self.cfg, mode="prefill", caches=caches,
             window=window, attn_impl=self.attn_impl)
         logits = bb.logits_from_hidden(params, h[:, -1:], self.cfg)
@@ -110,7 +111,7 @@ class Model:
         h = bb.embed_tokens(params,
                             torch.as_tensor(tokens, device=self.device),
                             self.cfg)
-        h, caches, _ = bb.forward_hidden(
+        h, caches, _, _ = bb.forward_hidden(
             params, h, self.cfg, mode="decode", caches=caches, pos=pos,
             window=window, attn_impl=self.attn_impl)
         logits = bb.logits_from_hidden(params, h, self.cfg)

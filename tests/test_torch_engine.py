@@ -330,7 +330,11 @@ def test_port_imports_neither_jax_nor_reference():
         "        'repro_torch.configs.qwen2_1_5b',\n"
         "        'repro_torch.configs.qwen3_8b',\n"
         "        'repro_torch.configs.deepseek_7b',\n"
-        "        'repro_torch.configs.chameleon_34b'} <= set(names), names\n"
+        "        'repro_torch.configs.chameleon_34b',\n"
+        "        'repro_torch.models.moe',\n"
+        "        'repro_torch.configs.minicpm3_4b',\n"
+        "        'repro_torch.configs.dbrx_132b',\n"
+        "        'repro_torch.configs.kimi_k2_1t_a32b'} <= set(names), names\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
     res = subprocess.run([sys.executable, "-c", code], env=env,

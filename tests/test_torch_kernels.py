@@ -123,6 +123,23 @@ def test_memo_attention_dh128_gqa6_matches_pallas_interpret(codec):
     np.testing.assert_allclose(out, ref, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("codec", ["int8", "f16"])
+def test_memo_attention_dh112_gqa8_matches_pallas_interpret(codec):
+    """head_dim 112 (kimi_k2's, 7168 / 64) with eight query heads per KV
+    head (kimi's group), bidirectional, ragged S against a longer DB: the
+    plain version against the Pallas kernel (interpret mode)."""
+    q, k, v, apm, hi, hit, lengths = _case(B=3, S=21, H=8, Hkv=1, dh=112,
+                                           N=4, L=24, seed=11)
+    if codec == "int8":
+        db, scales = _quantize_rows(apm)
+    else:
+        db, scales = apm.astype(np.float16), None
+    ref, out = _both(q, k, v, db, hi, hit, scales=scales, lengths=lengths,
+                     causal=False, jax_kw=dict(impl="pallas", interpret=True,
+                                               block_q=8, block_k=8))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=ATOL)
+
+
 def test_memo_attention_rejects_other_devices():
     """Off the CPU the wrapper launches its kernel or raises — never the
     plain version (here: the meta device)."""
@@ -264,6 +281,7 @@ def _flash_both(q, k, v, *, causal, window, bq, bk):
     (33, 4, 1, 16, 16, 16),     # ragged S, MQA
     (128, 8, 8, 64, 128, 128),
     (40, 6, 1, 128, 16, 16),    # head_dim 128, GQA group 6 (qwen2_1_5b)
+    (40, 8, 1, 112, 16, 16),    # head_dim 112, GQA group 8 (kimi_k2)
 ])
 def test_flash_attention_matches_jax(S, H, Hkv, dh, bq, bk):
     """The shapes of tests/test_kernels.py's flash sweep, causal, against

@@ -25,8 +25,10 @@ Tolerances (``chip_smoke.ATOL``, ``WKV_RTOL``): attention outputs within
 order (128-term sums of O(1) terms); wkv outputs within 2e-5 of the
 output's scale (two f32 recurrences whose rounding the state carries);
 search indices must be EQUAL (ties → the lowest index). The attention
-kernels are held at head_dim 16, 32, 64 and 128 (the zoo's GQA decoders,
-qwen2_1_5b's serving shape among them) and must refuse any other."""
+kernels are held at head_dim 16, 32, 64, 112 (kimi_k2's) and 128 (the
+zoo's GQA decoders, qwen2_1_5b's serving shape among them) and must
+refuse any other. The routed MoE is held to the dense ``moe_ref`` on
+the card."""
 import pytest
 import torch
 
@@ -105,8 +107,25 @@ def test_memo_attention_qwen2_serving_shape(cuda, quant):
     _check(args, kw, causal=True)
 
 
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40),
+                                           (False, None)],
+                         ids=["causal", "window", "bidir"])
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "f16"])
+def test_memo_attention_head_dim_112(cuda, quant, group, causal, window):
+    """kimi_k2's head_dim 112 at its serving length (S=128): query heads
+    over 8 KV heads in groups of 1 and 8 (kimi's 64 over 8), all-hit,
+    all-miss and mixed rows, int8 and f16 DBs, causal, windowed and
+    bidirectional."""
+    for hits in ("all", "none", "mixed"):
+        args, kw = attention_case(torch, cuda, B=4, S=128, H=8 * group,
+                                  Hkv=8, dh=112, N=6, L=128, quant=quant,
+                                  varlen=False, seed=group, hits=hits)
+        _check(args, kw, causal=causal, window=window)
+
+
 @pytest.mark.parametrize("hits", ["all", "none", "mixed"])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("S", TILE_EDGES)
 def test_memo_attention_tile_edges(cuda, S, dh, hits):
     """S at, below and past the 64-row tiles; all-hit, all-miss and mixed
@@ -119,6 +138,31 @@ def test_memo_attention_tile_edges(cuda, S, dh, hits):
                               L=L, quant=(i + j) % 2 == 0, varlen=j == 1,
                               seed=S + dh, hits=hits)
     _check(args, kw, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("arch,over,T", [
+    ("dbrx_132b", {}, 1024),
+    ("kimi_k2_1t_a32b", dict(d_model=32), 96),
+    ("dbrx_132b", {}, 4),                      # decode: T = B
+])
+def test_moe_apply_matches_moe_ref_on_card(cuda, arch, over, T):
+    """The routed MoE against the dense ``moe_ref`` on CUDA tensors
+    (reduced dbrx; kimi_k2's 384 experts top-8 at a narrow width), within
+    1e-5, and bit-equal across two runs."""
+    from repro_torch.configs import MoEConfig, get_reduced
+    from repro_torch.models.moe import moe_apply, moe_init, moe_ref
+    cfg = get_reduced(arch).replace(**over)
+    if arch.startswith("kimi"):
+        cfg = cfg.replace(moe=MoEConfig(n_experts=384, top_k=8, d_ff=16))
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    params = moe_init(gen, cfg, device=cuda)
+    x = torch.randn((T, cfg.d_model), generator=gen, device=cuda)
+    y, aux = moe_apply(params, x, cfg)
+    y_ref, aux_ref = moe_ref(params, x, cfg)
+    err = (y - y_ref).abs().max().item()
+    print(f"moe_apply {arch} T={T} max|err|={err:.3e}")
+    assert err <= 1e-5 and abs(float(aux) - float(aux_ref)) <= 1e-6
+    assert torch.equal(y, moe_apply(params, x, cfg)[0])
 
 
 # (B, dim, N, norms, shift): query tiles of 1, 31, 33 and 128 rows,
@@ -213,6 +257,8 @@ def test_nn_search_one_kernel_per_call(cuda):
     (3, 100, 6, 3, 64, True, None, True),       # read by strides
     (32, 128, 12, 2, 128, True, None, False),   # qwen2_1_5b serving
     (2, 1024, 32, 8, 128, True, None, False),   # qwen3_8b's forward
+    (2, 1024, 64, 8, 112, True, None, False),   # kimi_k2's forward
+    (2, 200, 8, 8, 112, False, 24, False),      # dh 112, group 1
 ])
 def test_flash_attention_against_plain(cuda, B, S, H, Hkv, dh, causal,
                                        window, strided):
@@ -230,7 +276,7 @@ def test_flash_attention_against_plain(cuda, B, S, H, Hkv, dh, causal,
 
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 70),
                                            (False, 24)])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("S", TILE_EDGES)
 def test_flash_attention_tile_edges(cuda, S, dh, causal, window):
     """S at, below and past the 64-row tiles, GQA, every head_dim."""

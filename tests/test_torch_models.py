@@ -27,6 +27,7 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import embedding as temb
 from repro_torch.core.similarity import similarity_score
 from repro_torch.data import TemplateCorpus
+from repro_torch.models import backbone as bb
 from repro_torch.models import build_model
 from repro_torch.models import layers as tlayers
 from repro_torch.optim import adamw as tadamw
@@ -44,17 +45,27 @@ def _small(**kw):
 
 def test_configs_are_copies():
     """Every ported arch's CONFIG and reduced() equal the reference's
-    (also under the reference's alias "qwen2-1.5b"); an arch of a later
-    slice raises, naming that slice."""
+    (also under the reference's aliases "qwen2-1.5b" and
+    "kimi-k2-1t-a32b"), and minicpm3's optimized() too; an arch of a
+    later slice raises, naming that slice."""
     for arch in ("bert_base", "gpt2_small", "rwkv6_3b", "qwen2_1_5b",
-                 "qwen3_8b", "deepseek_7b", "chameleon_34b", "qwen2-1.5b"):
+                 "qwen3_8b", "deepseek_7b", "chameleon_34b", "qwen2-1.5b",
+                 "minicpm3_4b", "dbrx_132b", "kimi_k2_1t_a32b",
+                 "kimi-k2-1t-a32b"):
         assert dataclasses.asdict(get_config(arch)) == \
             dataclasses.asdict(jax_get_config(arch))
         assert dataclasses.asdict(get_reduced(arch)) == \
             dataclasses.asdict(jax_get_reduced(arch))
+    from repro.configs.minicpm3_4b import optimized as jax_optimized
+    from repro_torch.configs.minicpm3_4b import optimized
+    assert dataclasses.asdict(optimized()) == \
+        dataclasses.asdict(jax_optimized())
     assert get_config("qwen2_1_5b").head_dim == 128
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        get_config("dbrx_132b")
+    assert get_config("kimi_k2_1t_a32b").head_dim == 112
+    with pytest.raises(NotImplementedError, match="RG-LRU slice"):
+        get_config("recurrentgemma_2b")
+    with pytest.raises(NotImplementedError, match="encoder-decoder slice"):
+        get_config("whisper_medium")
 
 
 def test_corpus_draws_identical_batches():
@@ -289,14 +300,19 @@ def _perturb_attn(tree, rng):
 
 
 # the reduced configs of the forward checks: (arch, overrides). The zoo's
-# dense GQA decoders are reduced to head_dim 64 (d 256 over 4 heads), so
+# decoders are reduced to head_dim 64 (d 256 over 4 heads), so
 # "qwen2_dh128" keeps qwen2's reduced config at head_dim 128, the width
-# of every full-size zoo decoder
+# of every full-size dense zoo decoder and of dbrx_132b, and "kimi_dh112"
+# kimi_k2's at its full model's 112; minicpm3's MLA and dbrx's and
+# kimi's MoE blocks run in their reduced configs
 ZOO = {"gpt2_small": ("gpt2_small", {}), "rwkv6_3b": ("rwkv6_3b", {}),
        "qwen2_1_5b": ("qwen2_1_5b", {}), "qwen3_8b": ("qwen3_8b", {}),
        "deepseek_7b": ("deepseek_7b", {}),
        "chameleon_34b": ("chameleon_34b", {}),
-       "qwen2_dh128": ("qwen2_1_5b", dict(n_heads=2, n_kv_heads=1))}
+       "qwen2_dh128": ("qwen2_1_5b", dict(n_heads=2, n_kv_heads=1)),
+       "minicpm3_4b": ("minicpm3_4b", {}), "dbrx_132b": ("dbrx_132b", {}),
+       "kimi_dh112": ("kimi_k2_1t_a32b",
+                      dict(d_model=224, n_heads=2, n_kv_heads=1))}
 
 
 def _zoo_cfgs(name):
@@ -309,8 +325,8 @@ def _zoo_cfgs(name):
 def forward_refs():
     """One reference build per config of ZOO: numpy params (rwkv6's
     recurrence and the attention biases and qk-norm scales perturbed),
-    the tokens and the reference's logits under each of its
-    attn_impls."""
+    the tokens, the reference's logits under each of its attn_impls and
+    its forward's aux (the MoE router loss; 0 without MoE layers)."""
     out = {}
     for name in ZOO:
         _, jcfg = _zoo_cfgs(name)
@@ -322,13 +338,16 @@ def forward_refs():
         params = _perturb_attn(params, rng)
         toks = rng.integers(0, jcfg.vocab, (2, 40)).astype(np.int32)
         batch = {"tokens": jnp.asarray(toks)}
-        logits = {impl: np.asarray(jax_build_model(
-            jcfg, attn_impl=impl).forward(params, batch)[0])
-            for impl in ("xla", "pallas_interpret")}
+        logits, aux = {}, {}
+        for impl in ("xla", "pallas_interpret"):
+            lg, _, aux[impl] = jax_build_model(
+                jcfg, attn_impl=impl).forward(params, batch)
+            logits[impl] = np.asarray(lg)
         if name == "gpt2_small":
             logits["window"] = np.asarray(jax_build_model(jcfg).forward(
                 params, batch, window=8)[0])
-        out[name] = dict(params=params, toks=toks, logits=logits)
+        out[name] = dict(params=params, toks=toks, logits=logits,
+                         aux={k: float(v) for k, v in aux.items()})
     return out
 
 
@@ -344,8 +363,14 @@ def test_reference_tree_bridges_to_port_init(arch, forward_refs):
     assert _tree_shapes(build_model(cfg, device="cpu").init(
         0)) == _tree_shapes(tree) == _tree_shapes(ref)
     mix = tree["layers"]["seg0"]["l0"]["mix"]
-    assert ("bq" in mix) == cfg.qkv_bias and ("q_norm" in mix) == cfg.qk_norm
+    if cfg.mixer == "mla":
+        assert "w_dkv" in mix and "wq" not in mix
+    else:
+        assert ("bq" in mix) == cfg.qkv_bias
+        assert ("q_norm" in mix) == cfg.qk_norm
     assert ("lm_head" in tree) == (not cfg.tie_embeddings)
+    chan = tree["layers"][f"seg{len(bb.scan_plan(cfg)) - 1}"]["l0"]["chan"]
+    assert ("w_router" in chan) == (cfg.moe is not None)
 
 
 # f32 logits (|logit| up to ~4) of two implementations that sum in
@@ -365,15 +390,42 @@ def test_forward_matches_jax(arch, impl, forward_refs):
     """Model.forward of the port under each attn_impl against the
     reference's counterpart: "plain" ↔ "xla", "kernel" ↔
     "pallas_interpret" (on CPU tensors the kernel wrappers run their
-    plain versions, so "kernel" drives the wrappers' CPU path)."""
+    plain versions, so "kernel" drives the wrappers' CPU path); the
+    summed MoE router aux within 1e-6 (0 without MoE layers)."""
     ref = forward_refs[arch]
     model = build_model(_zoo_cfgs(arch)[0], device="cpu", attn_impl=impl)
     with torch.no_grad():
-        out = model.forward(tree_to_torch(ref["params"], CPU),
-                            {"tokens": ref["toks"]})[0]
+        out, _, aux = model.forward(tree_to_torch(ref["params"], CPU),
+                                    {"tokens": ref["toks"]})
     jimpl = "xla" if impl == "plain" else "pallas_interpret"
     np.testing.assert_allclose(out.numpy(), ref["logits"][jimpl],
                                rtol=0, atol=FORWARD_ATOL[arch, impl])
+    np.testing.assert_allclose(float(aux), ref["aux"][jimpl], atol=1e-6)
+    assert (ref["aux"][jimpl] > 0) == (model.cfg.moe is not None)
+
+
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "dbrx_132b",
+                                  "kimi_dh112"])
+def test_decode_matches_full(arch, forward_refs):
+    """Model.prefill of all but the last token, then one decode_step,
+    against the full forward's logits at those positions (the
+    reference's test_decode_matches_full, on the bridged weights):
+    MLA's absorbed decode over (c_kv, k_rope) and the MoE block at
+    T = B."""
+    ref = forward_refs[arch]
+    model = build_model(_zoo_cfgs(arch)[0], device="cpu")
+    params = tree_to_torch(ref["params"], CPU)
+    toks = ref["toks"][:, :12]
+    S = toks.shape[1]
+    with torch.no_grad():
+        full = model.forward(params, {"tokens": toks})[0]
+        last, caches = model.prefill(params, {"tokens": toks[:, :S - 1]},
+                                     cache_len=S + 4)
+        dec, _ = model.decode_step(params, toks[:, S - 1:], caches, S - 1)
+    np.testing.assert_allclose(last.numpy(), full[:, S - 2].numpy(),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(dec.numpy(), full[:, S - 1].numpy(),
+                               rtol=2e-3, atol=2e-3)
 
 
 @pytest.mark.parametrize("impl", ["plain", "kernel"])
