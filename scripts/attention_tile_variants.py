@@ -21,6 +21,9 @@ width asked for (``--dh``):
   S=128, H=12, Hkv=2, causal) and at qwen3_8b's (B=2, S=1024, H=32,
   Hkv=8, causal), and ``memo_attention`` at qwen2_1_5b's serving shape
   (3584 int8 entries, causal);
+* dh 256: ``flash_attention`` at recurrentgemma_2b's forward length
+  (B=1, S=2560, H=10, Hkv=1, causal) and ``memo_attention`` at its
+  serving shape (B=32, S=128, 1024 int8 entries, causal);
 
 ``memo_attention`` with mixed, all-miss and all-hit rows, everything
 checked against its plain version first (chip_smoke's inputs, ATOL and
@@ -44,7 +47,11 @@ sys.path.insert(0, str(ROOT / "src"))
 # name -> [(file in csrc, text, replacement)]
 VARIANTS = {
     "as committed": [],
-    "64-key softmax steps": [("attention_tile.cuh", "KC = 32", "KC = 64")],
+    # (dh 256's 32-key tiles hold one 32-key step: not built here)
+    "64-key softmax steps": [("attention_tile.cuh", "KC = 32", "KC = 64")]
+    + [(f, a, b) for f in ("flash_attention.cu", "memo_attention.cu")
+       for a, b in (("case 256:", "case -256:"),
+                    ("launch<256>(", "launch<128>("))],
     "Q in shared memory at every width": [
         ("attention_tile.cuh", "Q_SMEM = DH > 64", "Q_SMEM = DH > 0")],
     "3 blocks per SM": [
@@ -52,15 +59,21 @@ VARIANTS = {
         for f in ("flash_attention.cu", "memo_attention.cu")],
     # the K/V row copy over the flat chunk index (the tile before the
     # padded passes): the dh-112 kernels spill 4-20 bytes this way
+    # past dh 128, blocks of 64 of O's columns in place of 128: half the
+    # registers for O and the P.V accumulator, four softmax passes a row
+    # tile instead of two
+    "dh 256 in 64-column blocks": [
+        ("attention_tile.cuh", "return dh > 128 ? 128 : dh;",
+         "return dh > 128 ? 64 : dh;")],
     "row copy over the flat chunk index": [(
         "attention_tile.cuh",
         """  const int c = threadIdx.x % CPP;
   if (c >= CPR) return;
 #pragma unroll
-  for (int it = 0; it < BK / RPP; ++it) {
+  for (int it = 0; it < ROWS / RPP; ++it) {
     const int j = threadIdx.x / CPP + it * RPP;""",
         """#pragma unroll
-  for (int it = 0; it < BK * CPR / NT; ++it) {
+  for (int it = 0; it < ROWS * CPR / NT; ++it) {
     const int i = threadIdx.x + it * NT, j = i / CPR, c = i % CPR;""")],
 }
 
@@ -71,6 +84,7 @@ SHAPES = {
     112: ([(2, 1024, 64, 8)], (32, 128, 64, 8, 128, True)),
     128: ([(32, 128, 12, 2), (2, 1024, 32, 8)],
           (32, 128, 12, 2, 3584, True)),
+    256: ([(1, 2560, 10, 1)], (32, 128, 10, 1, 1024, True)),
 }
 
 

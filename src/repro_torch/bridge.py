@@ -22,10 +22,14 @@ from repro_torch.memo.specs import MemoSpec
 def tree_to_torch(tree, device):
     """A nested dict of arrays (a JAX params pytree) → the same nesting
     of tensors on ``device``. Every mixer and channel block keeps the
-    reference's keys and layouts, MLA's and MoE's included, so the trees
-    cross unchanged: kimi_k2's plan, a ``single`` dense layer then a
-    ``scan`` of MoE layers whose leaves are stacked on a leading axis,
-    crosses leaf for leaf (tests/test_torch_moe.py)."""
+    reference's keys and layouts, MLA's, MoE's, RG-LRU's and the
+    encoder-decoder's included, so the trees cross unchanged: kimi_k2's
+    plan, a ``single`` dense layer then a ``scan`` of MoE layers whose
+    leaves are stacked on a leading axis (tests/test_torch_moe.py),
+    recurrentgemma's ``scan`` of (rglru, rglru, attn) units then single
+    RG-LRU layers (tests/test_torch_rglru.py), and whisper's encoder and
+    decoder layers, each stack on a leading axis
+    (tests/test_torch_encdec.py), cross leaf for leaf."""
     if isinstance(tree, dict):
         return {k: tree_to_torch(v, device) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree)).to(device)
@@ -70,7 +74,8 @@ def clustered_index_from_reference(ref_index, device
 
 def engine_from_reference(ref_engine, model, *, device,
                           spec: MemoSpec = None) -> MemoEngine:
-    """A built reference ``MemoEngine`` → a port engine serving the same
+    """A built reference ``MemoEngine`` (an encoder-decoder one too, whose
+    store holds encoder APMs) → a port engine serving the same
     weights, embedder, store state and ``sim_cal`` on ``device`` (the
     store's device tier is re-materialized by a full sync; a clustered
     device index is then replaced by the reference's layout, carried

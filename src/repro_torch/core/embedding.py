@@ -12,7 +12,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.similarity import similarity_score
+from repro_torch.core.similarity import pair_similarity
 from repro_torch.models.layers import dense_init
 
 
@@ -122,7 +122,7 @@ def train_embedder(seed: int, embedder: Embedder, hiddens, apms, *,
         ia = torch.as_tensor(rng.integers(0, n, pair_batch), device=dev)
         ib = torch.as_tensor(rng.integers(0, n, pair_batch), device=dev)
         with torch.no_grad():
-            d_gt = 1.0 - similarity_score(apms[ia], apms[ib])
+            d_gt = 1.0 - pair_similarity(apms, ia, ib)
         leaves = {k: v.requires_grad_(True) for k, v in params.items()}
         loss = siamese_loss(leaves, hiddens[ia], hiddens[ib], d_gt,
                             embedder.pool, embedder.act)

@@ -1,6 +1,7 @@
 """AttMemo online inference engine (paper §5.1 Fig. 5), the counterpart
 of the reference's ``core/engine.py``: every serving mode and policy a
-decoder or encoder-only model uses, build and calibration.
+decoder, encoder-only, hybrid or encoder-decoder model uses, build and
+calibration.
 
 Per memoizable layer the engine runs: norm → embedding → top-1 search →
 calibrated similarity threshold and length gate → memoized attention →
@@ -83,8 +84,18 @@ the reference. Other layers build their caches exactly
 and the caches ``Model.decode_step`` consumes. ``prefill_exact`` is
 ``Model.prefill``, the memo-free leg.
 
-Not ported yet (each raises ``NotImplementedError`` naming its slice):
-the sharded store, enc-dec and RG-LRU models.
+**Hybrid models** (recurrentgemma's (rglru, rglru, attn) pattern): the
+attention layers are memoized on every path; the RG-LRU layers run
+``_layer_plain`` (and ``_layer_plain_prefill`` with their state).
+
+**Encoder-decoder models** (whisper, ``_infer_encdec``): the encoder's
+self-attention is memoized on the host-synchronous path through
+``_lookup`` (fixed frame count, bidirectional APMs), then the decoder
+runs plain; the fast path, admission and prefill memoization do not
+apply, as in the reference.
+
+Not ported yet: the sharded store (``NotImplementedError`` naming its
+slice).
 """
 from __future__ import annotations
 
@@ -102,13 +113,14 @@ from repro_torch.core.embedding import Embedder, embed_apply, train_embedder
 from repro_torch.core.faults import FaultInjector
 from repro_torch.core.prefill import PrefillCodec, stack_kv, unstack_kv_rows
 from repro_torch.core.selective import LayerProfile, PerfModel, timeit_median
-from repro_torch.core.similarity import similarity_score
+from repro_torch.core.similarity import pair_similarity, similarity_score
 from repro_torch.core.store import MemoStore, StoreSnapshot
 from repro_torch.device import synchronize
 from repro_torch.kernels.memo_attention.ops import memo_attention
 from repro_torch.memo.specs import MemoSpec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import backbone as bb
+from repro_torch.models import encdec as ed
 from repro_torch.models.layers import mlp_apply, norm_apply
 from repro_torch.models.moe import moe_apply
 
@@ -259,7 +271,12 @@ class MemoEngine:
         self.cfg = model.cfg
         self.device = model.device
         self.mc = MemoSpec() if memo_cfg is None else memo_cfg
-        self.layers = list(self.cfg.memoizable_layers())
+        self.is_encdec = getattr(model, "is_encdec", False)
+        if self.is_encdec:
+            # enc-dec (whisper): memoize the ENCODER self-attention
+            self.layers = list(range(self.cfg.encoder.n_layers))
+        else:
+            self.layers = list(self.cfg.memoizable_layers())
         if self.mc.max_layers:
             self.layers = self.layers[: self.mc.max_layers]
         self.store: Optional[MemoStore] = None
@@ -274,8 +291,8 @@ class MemoEngine:
         self._check_ported()
 
     def _check_ported(self):
-        """Refuse the opt-in of a slice not ported yet (the sharded
-        store). Enc-dec and RG-LRU models raise where they are built."""
+        """Refuse the opt-in of a slice not ported yet: the sharded
+        store."""
         if self.mc.shard.shards:
             raise _later("the sharded store (shards > 0)", "sharded-store")
 
@@ -414,7 +431,7 @@ class MemoEngine:
         return self
 
     def _use_fast_path(self) -> bool:
-        if self.store is None or self.db is None:
+        if self.is_encdec or self.store is None or self.db is None:
             return False
         if self.mc.mode not in ("bucket", "kernel"):
             return False
@@ -440,7 +457,7 @@ class MemoEngine:
         ea = self._embed(hiddens[ia]).cpu().numpy()
         eb = self._embed(hiddens[ib]).cpu().numpy()
         dist = np.linalg.norm(ea - eb, axis=-1)
-        sim = similarity_score(apms[ia], apms[ib]).cpu().numpy()
+        sim = pair_similarity(apms, ia, ib).cpu().numpy()
         if np.std(dist) < 1e-9:
             self.sim_cal = (0.0, float(np.mean(sim)))
         else:
@@ -490,6 +507,8 @@ class MemoEngine:
         active = set(self.layers if active_layers is None else active_layers)
         st = stats or MemoStats()
         cfg = self.cfg
+        if self.is_encdec:
+            return self._infer_encdec(batch, thr, active, st, use_memo)
         if use_memo and self._use_fast_path():
             # inline maintenance at the batch boundary
             prep = self.prepare_batch(batch, threshold=thr,
@@ -779,6 +798,7 @@ class MemoEngine:
         if self.mc.prefill.enabled and not prefill:
             return False
         return (use_memo and self.mc.admit and self.store is not None
+                and not self.is_encdec
                 and self._serve_batches % max(1, self.mc.admit_every) == 0)
 
     # ------------------------------------------------------ prefill layers
@@ -887,6 +907,10 @@ class MemoEngine:
         """Prefill memoization's preconditions. The causal requirement IS
         the mask-kind gate: every stored entry was captured under the
         causal prefill mask and may only be replayed under it."""
+        if self.is_encdec:
+            raise ValueError(
+                "prefill memoization needs a decoder-only model (enc-dec "
+                "hands no decode cache back from its encoder)")
         if not self.cfg.causal:
             raise ValueError(
                 "prefill memoization requires a causal model: stored "
@@ -1093,6 +1117,40 @@ class MemoEngine:
         a0, b0 = self.sim_cal
         self.sim_cal = (blend * float(a) + (1 - blend) * a0,
                         blend * float(b) + (1 - blend) * b0)
+
+    # ------------------------------------------------ encoder-decoder
+    def _infer_encdec(self, batch, thr, active, st: MemoStats, use_memo):
+        """Whisper path: the memoized encoder on the host-synchronous path
+        (``_lookup`` per layer; a hit replays the stored APM through the
+        select form), then the plain decoder. Returns (logits, stats)."""
+        cfg, params = self.cfg, self.params
+        frames = self._tensor(batch["frames"])
+        tokens = self._tensor(batch["tokens"])
+        st.n_inputs += frames.shape[0]
+        h = ed.enc_embed(params, frames)
+        positions = self._positions(h.shape[0], h.shape[1])
+        memoize = use_memo and self.db is not None
+        t_loop = time.perf_counter()
+        for li in range(cfg.encoder.n_layers):
+            lp = bb._tree_index(params["enc_layers"], li)
+            memo = None
+            if memoize and li in active:
+                memo = self._lookup(lp, h, "attn", thr, st, li)
+            t0 = time.perf_counter()
+            h, _ = ed.enc_layer_apply(lp, h, cfg, self.model._ecfg,
+                                      positions,
+                                      memo=self._device_memo(memo))
+            if memoize:                   # per-layer time on the host path
+                synchronize(self.device)
+                st.t_attn += time.perf_counter() - t0
+        enc_h = norm_apply(params["enc_norm"], h, cfg.norm)
+        hd, _ = ed.decode_tokens(params, tokens, enc_h, cfg, mode="full")
+        hd = norm_apply(params["final_norm"], hd, cfg.norm)
+        logits = hd @ params["embed"].T
+        if not memoize:
+            synchronize(self.device)
+            st.t_attn += time.perf_counter() - t_loop
+        return logits, st
 
     # ----------------------------------------- host-synchronous lookup
     def _lookup(self, lp, h, kind, thr, st: MemoStats, li, positions=None,

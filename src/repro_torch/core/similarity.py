@@ -17,3 +17,21 @@ def similarity_score(a, a_prime):
         return 1.0 - torch.mean(tv)
     return 1.0 - torch.mean(tv, dim=tuple(range(1, a.ndim - 1)))
 
+
+
+# elements of one (B, H, L, L) APM pair block that ``pair_similarity``
+# hands ``similarity_score`` at once: a whisper encoder entry is 16 x
+# 1500^2 = 36 M values, so the 256 calibration pairs would need ~110 GB
+# of f32 temporaries in one call
+PAIR_CHUNK_ELEMS = 1 << 28
+
+
+def pair_similarity(apms, ia, ib):
+    """``similarity_score(apms[ia], apms[ib])`` for index tensors ia, ib,
+    in chunks of at most PAIR_CHUNK_ELEMS elements a side; each pair's
+    value is the same whatever the chunking."""
+    per = max(1, apms[0].numel())
+    step = max(1, PAIR_CHUNK_ELEMS // per)
+    return torch.cat([similarity_score(apms[ia[i:i + step]],
+                                       apms[ib[i:i + step]])
+                      for i in range(0, len(ia), step)])

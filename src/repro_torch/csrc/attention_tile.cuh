@@ -23,7 +23,7 @@
 //   TF32 product keeps about 3 decimal digits.
 // * A block of NT = 128 threads (4 warps) owns BQ = 64 query rows; each
 //   warp owns 16 rows, whose Q hi/lo fragments are split once for the
-//   whole key loop. Key tiles hold BK = 64 rows and are computed in two
+//   whole key loop. Key tiles hold KT = 64 rows and are computed in two
 //   online-softmax steps of KC = 32 keys, which keeps the score and
 //   per-step P·V accumulators to 16 + DH / 2 registers: at dh = 64 the
 //   kernels take up to 253 registers with no spills, two blocks per SM.
@@ -60,6 +60,31 @@
 //   accumulator at 56 registers each, a 118,784-byte ring and 57,344
 //   bytes of Q fragments (176,128 in all); its rows, LD = 116 floats
 //   apart (116 mod 32 = 20), keep both fragment reads conflict-free.
+// * dh = 256 (recurrentgemma_2b: 10 heads of 256 over one KV head) does
+//   not fit that layout: a 266,240-byte ring beside 131,072 bytes of Q
+//   fragments, and O plus the step's P·V accumulator at 128 registers
+//   each. There a block owns a 128-column block of O (out_cols; the row
+//   tile's NCOL = 2 blocks are neighbours in the grid): the scores still
+//   take all 256 columns of Q and K, the softmax runs whole in each
+//   block, and P·V, O and the stored rows take the block's 128 columns
+//   of V. Registers are then dh 128's (O and the accumulator at 64
+//   each), the Q fragments stay in shared memory (131,072 bytes), and
+//   key tiles shrink to KT = 32 keys (one softmax step): a stage is a
+//   33,280-byte K tile and a 16,896-byte V tile, 231,424 bytes in all of
+//   the 232,448. The price is QK^T and the softmax computed twice per
+//   row tile, 1.5x the products; chosen over a warp pair sharing scores
+//   through shared memory (a barrier in every step) and over O in two
+//   passes inside one block (the same recomputation, half the blocks),
+//   as the layout that changes no dh <= 128 code: KT, DV and NCOL
+//   reduce to 64, DH and 1 there. K rows (LD = 260, 260 mod 32 = 4) and
+//   V rows (LDV = 132) keep both fragment reads conflict-free. Blocks of
+//   64 columns (variant "dh 256 in 64-column blocks" of
+//   scripts/attention_tile_variants.py: 168 and 128 registers, four
+//   softmax passes a row tile) ran flash_attention 1.83x slower at
+//   B=1, S=2560, 10 heads over 1, causal (3.1508 vs 1.7201 ms; its flash
+//   kernel spilled 12 bytes) and memo_attention 1.21x slower on mixed
+//   rows at B=32, S=128 (0.2913 vs 0.2407 ms), so a block keeps 128
+//   columns (H100 80GB HBM3, 700 W).
 // * The tensor cores do not round their f32 sums to nearest, so a long
 //   chain of products into one accumulator drifts: each step's P·V sums
 //   into a fresh accumulator that joins O in f32 (add_tile), and each
@@ -68,7 +93,7 @@
 //   STAGES = 2 stages in dynamic shared memory: the next tile's copy
 //   overlaps this tile's products. Rows past S are zero-filled by the
 //   copy itself (src-size 0), so the ragged last tile needs no padding.
-//   One stage is a K (or APM) region and a V region of BK rows of DH + 4
+//   One stage is a K (or APM) region and a V region of KT rows of DH + 4
 //   floats: 69,632 bytes for the two stages at dh = 64 and 135,168 at
 //   dh = 128, which needs cudaFuncAttributeMaxDynamicSharedMemorySize
 //   (allow_smem).
@@ -101,23 +126,35 @@
 namespace attn_tile {
 
 constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per tile
 constexpr int NT = 128;         // threads per block: 4 warps of 16 rows
 constexpr int STAGES = 2;       // K/V ring depth
 constexpr int KC = 32;          // keys per online-softmax step
 constexpr float NEG_INF = -1e30f;
 
+// Output columns one block computes: all of them up to dh = 128; past it
+// a block owns a 128-column block of O (blockIdx), and the NCOL = DH / DV
+// blocks of a row tile each run the whole softmax
+__host__ __device__ constexpr int out_cols(int dh) {
+  return dh > 128 ? 128 : dh;
+}
+
 // Dynamic shared memory of one block. A stage is an A region (a K tile,
 // or an APM tile of APM_ELEM-byte values, whichever is larger) and a V
-// tile; K/V rows are LD floats apart, APM rows APM_LD bytes apart.
+// tile of the block's DV columns; K rows are LD floats apart, V rows LDV,
+// APM rows APM_LD bytes. A tile holds KT keys: 64, or 32 past dh = 128.
 template <int DH, int APM_ELEM = 0>
 struct Layout {
+  static constexpr int DV = out_cols(DH);
+  static constexpr int NCOL = DH / DV;
+  static constexpr int KT = DH > 128 ? 32 : 64;
   static constexpr int LD = DH + 4;
-  static constexpr int KV_BYTES = BK * LD * 4;
-  static constexpr int APM_LD = BK * APM_ELEM + 16;
+  static constexpr int LDV = DV + 4;
+  static constexpr int K_BYTES = KT * LD * 4;
+  static constexpr int V_BYTES = KT * LDV * 4;
+  static constexpr int APM_LD = KT * APM_ELEM + 16;
   static constexpr int A_BYTES =
-      KV_BYTES > BQ * APM_LD ? KV_BYTES : BQ * APM_LD;
-  static constexpr int STAGE = A_BYTES + KV_BYTES;
+      K_BYTES > BQ * APM_LD ? K_BYTES : BQ * APM_LD;
+  static constexpr int STAGE = A_BYTES + V_BYTES;
   // past dh = 64 the Q hi/lo fragments live in shared memory, after the
   // ring: per warp, per 8 columns d, the hi then the lo fragment, each 32
   // lanes' uint4 in lane order
@@ -125,12 +162,15 @@ struct Layout {
   static constexpr int Q_BYTES = Q_SMEM ? BQ * DH * 2 * 4 : 0;
   static constexpr int SMEM = STAGES * STAGE + Q_BYTES;
   // what every width relies on: whole 8-column fragment steps, rows
-  // 16-byte aligned for cp.async (LD = 116 at dh = 112: 464 bytes), and a
-  // block's shared memory within the 227 KB an H100 block may take
-  // (176,128 bytes at dh = 112); the row copy's tiling is checked in
-  // load_rows_async
-  static_assert(DH % 8 == 0, "head_dim must be a multiple of 8");
-  static_assert(LD * 4 % 16 == 0, "rows must be 16-byte aligned");
+  // 16-byte aligned for cp.async (LD = 116 at dh = 112: 464 bytes), whole
+  // softmax steps in a tile, and a block's shared memory within the 227 KB
+  // an H100 block may take (176,128 bytes at dh = 112, 231,424 at dh =
+  // 256); the row copy's tiling is checked in load_rows_async
+  static_assert(DH % 8 == 0 && DH % DV == 0, "head_dim must be a multiple "
+                "of 8, and of 128 past 128");
+  static_assert(LD * 4 % 16 == 0 && LDV * 4 % 16 == 0,
+                "rows must be 16-byte aligned");
+  static_assert(KT % KC == 0, "a tile must hold whole softmax steps");
   static_assert(SMEM <= 227 * 1024, "shared memory past 227 KB");
   __device__ static unsigned char* a(unsigned char* sm, int st) {
     return sm + st * STAGE;
@@ -214,58 +254,77 @@ __device__ __forceinline__ void cp_wait() {
 
 // ---------------------------------------------------------------- tiles
 
-// dst row j (LD floats apart) = src row r0 + j (rows `stride` apart), for
-// BK rows by cp.async; rows at or past rmax are zeroed. Each thread keeps
-// one 16-byte chunk column c of a row and steps RPP rows a pass, so its
-// offsets are affine in the pass: where the chunks per row (DH / 4 = 28
-// at dh 112) do not divide the block, the flat index i / CPR, i % CPR
-// left 14 distinct offsets live across the key loop, and the dh-112
-// kernels spilled (4-20 bytes at 255 registers; 167-207 registers and no
-// spill this way, scripts/attention_tile_variants.py). Lanes past the
-// row's chunks (c >= CPR, at dh 112) copy nothing.
-template <int DH>
+// dst row j (LD floats apart) = columns [0, COLS) of src row r0 + j (rows
+// `stride` apart), for ROWS rows by cp.async; rows at or past rmax are
+// zeroed. Each thread keeps one 16-byte chunk column c of a row and steps
+// RPP rows a pass, so its offsets are affine in the pass: where the
+// chunks per row (COLS / 4 = 28 at dh 112) do not divide the block, the
+// flat index i / CPR, i % CPR left 14 distinct offsets live across the
+// key loop, and the dh-112 kernels spilled (4-20 bytes at 255 registers;
+// 167-207 registers and no spill this way,
+// scripts/attention_tile_variants.py). Lanes past the row's chunks
+// (c >= CPR, at dh 112) copy nothing.
+template <int COLS, int LD, int ROWS>
 __device__ __forceinline__ void load_rows_async(float* dst, const float* src,
                                                 size_t stride, int r0,
                                                 int rmax) {
-  constexpr int CPR = DH / 4;   // 16-byte chunks per row
-  constexpr int CPP = CPR <= 4 ? 4 : CPR <= 8 ? 8 : CPR <= 16 ? 16 : 32;
+  constexpr int CPR = COLS / 4;   // 16-byte chunks per row
+  constexpr int CPP = CPR <= 4    ? 4
+                      : CPR <= 8  ? 8
+                      : CPR <= 16 ? 16
+                      : CPR <= 32 ? 32
+                                  : 64;
   constexpr int RPP = NT / CPP;  // rows a pass
-  static_assert(CPR <= 32 && BK % RPP == 0, "row copy must tile BK rows");
+  static_assert(CPR <= 64 && ROWS % RPP == 0, "row copy must tile the rows");
   const int c = threadIdx.x % CPP;
   if (c >= CPR) return;
 #pragma unroll
-  for (int it = 0; it < BK / RPP; ++it) {
+  for (int it = 0; it < ROWS / RPP; ++it) {
     const int j = threadIdx.x / CPP + it * RPP;
     const bool ok = r0 + j < rmax;
-    cp_async16(dst + j * Layout<DH>::LD + c * 4,
+    cp_async16(dst + j * LD + c * 4,
                ok ? src + (size_t)(r0 + j) * stride + c * 4 : src,
                ok ? 16 : 0);
   }
 }
 
-// o += P · V for key slice kk (8 keys) of the V tile: P as A fragments,
-// column t holding key 2t and column t + 4 key 2t + 1. The tensor cores
-// do not round their f32 sums to nearest, so a caller sums one key tile
-// per accumulator and adds the tiles in f32 (add_tile).
-template <int DH>
-__device__ __forceinline__ void pv_slice(float (&o)[DH / 8][4],
+// K rows (all DH columns) and V rows (the block's DV columns: vb already
+// points at the first) of the tile at key k0 into stage st
+template <int DH, int APM_ELEM>
+__device__ __forceinline__ void load_kv_async(unsigned char* smem, int st,
+                                              const float* kb, size_t ks,
+                                              const float* vb, size_t vs,
+                                              int k0, int S) {
+  using Lay = Layout<DH, APM_ELEM>;
+  load_rows_async<DH, Lay::LD, Lay::KT>(
+      reinterpret_cast<float*>(Lay::a(smem, st)), kb, ks, k0, S);
+  load_rows_async<Lay::DV, Lay::LDV, Lay::KT>(Lay::v(smem, st), vb, vs, k0,
+                                              S);
+}
+
+// o += P · V for key slice kk (8 keys) of the V tile (DV columns, rows
+// LDV floats apart): P as A fragments, column t holding key 2t and
+// column t + 4 key 2t + 1. The tensor cores do not round their f32 sums
+// to nearest, so a caller sums one key tile per accumulator and adds the
+// tiles in f32 (add_tile).
+template <int DV, int LDV>
+__device__ __forceinline__ void pv_slice(float (&o)[DV / 8][4],
                                          const uint32_t (&ph)[4],
                                          const uint32_t (&pl)[4],
                                          const float* V, int kk) {
-  constexpr int LD = Layout<DH>::LD;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* v0 = V + (kk * 8 + 2 * t) * LD + g;
+  const float* v0 = V + (kk * 8 + 2 * t) * LDV + g;
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) mma3(o[n], ph, pl, v0[n * 8], v0[LD + n * 8]);
+  for (int n = 0; n < DV / 8; ++n) mma3(o[n], ph, pl, v0[n * 8], v0[LDV + n * 8]);
 }
 
 // o = o * alpha + acc, rows g (alpha[0]) and g + 8 (alpha[1])
-template <int DH>
-__device__ __forceinline__ void add_tile(float (&o)[DH / 8][4],
-                                         const float (&acc)[DH / 8][4],
+template <int DV>
+__device__ __forceinline__ void add_tile(float (&o)[DV / 8][4],
+                                         const float (&acc)[DV / 8][4],
                                          const float (&alpha)[2]) {
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       o[n][e] = fmaf(o[n][e], alpha[e >> 1], acc[n][e]);
@@ -273,7 +332,9 @@ __device__ __forceinline__ void add_tile(float (&o)[DH / 8][4],
 }
 
 // Rows [q0, q0 + BQ) of q (rows qs apart) attend over keys [0, len) of
-// k/v (rows ks / vs apart); warp w owns rows q0 + 16 w + {g, g + 8}.
+// k/v (rows ks / vs apart); warp w owns rows q0 + 16 w + {g, g + 8}. The
+// scores take all DH columns of q and k; P·V takes the DV = out_cols(DH)
+// columns of v from vb on (the block's column block).
 // o must start at 0 and ends holding this thread's columns
 // (8 n + 2t, 8 n + 2t + 1) of its two rows' unnormalised outputs; l ends
 // holding their softmax denominators, clamped at 1e-30 so a fully masked
@@ -283,9 +344,9 @@ __device__ __forceinline__ void online_softmax(
     unsigned char* smem, const float* qb, size_t qs, const float* kb,
     size_t ks, const float* vb, size_t vs, int S, int len, int q0,
     int causal, int has_window, int window, float scale,
-    float (&o)[DH / 8][4], float (&l)[2]) {
+    float (&o)[out_cols(DH) / 8][4], float (&l)[2]) {
   using Lay = Layout<DH, APM_ELEM>;
-  constexpr int LD = Lay::LD;
+  constexpr int LD = Lay::LD, LDV = Lay::LDV, DV = Lay::DV, KT = Lay::KT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wq = q0 + warp * 16;           // the warp's first row
@@ -297,16 +358,14 @@ __device__ __forceinline__ void online_softmax(
   int kstart = 0;
   if (has_window) {
     const int lo = q0 - window + 1;        // first key any row may see
-    if (lo > 0) kstart = (lo / BK) * BK;
+    if (lo > 0) kstart = (lo / KT) * KT;
   }
   // keys [kstart_w, kend_w) hold every key any row of this warp may see
   const int kend_w = causal && wq + 16 < kend ? wq + 16 : kend;
   const int kstart_w = has_window ? wq - window + 1 : 0;
 
   if (kstart < kend) {
-    load_rows_async<DH>(reinterpret_cast<float*>(Lay::a(smem, 0)), kb, ks,
-                        kstart, S);
-    load_rows_async<DH>(Lay::v(smem, 0), vb, vs, kstart, S);
+    load_kv_async<DH, APM_ELEM>(smem, 0, kb, ks, vb, vs, kstart, S);
     cp_commit();
   }
   // the warp's Q rows as A fragments, split once for the whole key loop:
@@ -337,11 +396,9 @@ __device__ __forceinline__ void online_softmax(
   float m[2] = {NEG_INF, NEG_INF};
   l[0] = l[1] = 0.f;
   int st = 0;
-  for (int k0 = kstart; k0 < kend; k0 += BK, st ^= 1) {
-    if (k0 + BK < kend) {
-      load_rows_async<DH>(reinterpret_cast<float*>(Lay::a(smem, st ^ 1)), kb,
-                          ks, k0 + BK, S);
-      load_rows_async<DH>(Lay::v(smem, st ^ 1), vb, vs, k0 + BK, S);
+  for (int k0 = kstart; k0 < kend; k0 += KT, st ^= 1) {
+    if (k0 + KT < kend) {
+      load_kv_async<DH, APM_ELEM>(smem, st ^ 1, kb, ks, vb, vs, k0 + KT, S);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -350,11 +407,11 @@ __device__ __forceinline__ void online_softmax(
     __syncthreads();
     // the tile in chunks of KC keys, each a step of the online softmax
 #pragma unroll 1
-    for (int c0 = k0; c0 < k0 + BK; c0 += KC) {
+    for (int c0 = k0; c0 < k0 + KT; c0 += KC) {
       if (c0 >= kend_w || c0 + KC <= kstart_w) continue;   // all masked
       const float* K = reinterpret_cast<const float*>(Lay::a(smem, st)) +
                        (c0 - k0) * LD;
-      const float* V = Lay::v(smem, st) + (c0 - k0) * LD;
+      const float* V = Lay::v(smem, st) + (c0 - k0) * LDV;
 
       // S = Q K^T; each score's small products sum apart and join its
       // large ones in f32
@@ -434,7 +491,7 @@ __device__ __forceinline__ void online_softmax(
       }
 
       // O = O alpha + P V: P's accumulator is its A operand
-      float acc[DH / 8][4] = {};
+      float acc[DV / 8][4] = {};
 #pragma unroll
       for (int kk = 0; kk < KC / 8; ++kk) {
         uint32_t ph[4], pl[4];
@@ -442,9 +499,9 @@ __device__ __forceinline__ void online_softmax(
         split(s[kk][2], ph[1], pl[1]);
         split(s[kk][1], ph[2], pl[2]);
         split(s[kk][3], ph[3], pl[3]);
-        pv_slice<DH>(acc, ph, pl, V, kk);
+        pv_slice<DV, LDV>(acc, ph, pl, V, kk);
       }
-      add_tile<DH>(o, acc, alpha);
+      add_tile<DV>(o, acc, alpha);
     }
     __syncthreads();   // stage st is refilled two tiles on
   }
@@ -456,10 +513,11 @@ __device__ __forceinline__ void online_softmax(
   }
 }
 
-// out rows q0 + 16 w + {g, g + 8} (rows os apart) = o / l, for rows < S
-template <int DH>
+// out rows q0 + 16 w + {g, g + 8} (rows os apart), DV columns from ob
+// on, = o / l, for rows < S
+template <int DV>
 __device__ __forceinline__ void store_rows(float* ob, size_t os, int S,
-                                           int q0, const float (&o)[DH / 8][4],
+                                           int q0, const float (&o)[DV / 8][4],
                                            const float (&l)[2]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = q0 + (threadIdx.x >> 5) * 16 + g;
@@ -469,7 +527,7 @@ __device__ __forceinline__ void store_rows(float* ob, size_t os, int S,
     if (r >= S) continue;
     float* out = ob + (size_t)r * os + 2 * t;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
+    for (int n = 0; n < DV / 8; ++n)
       *reinterpret_cast<float2*>(out + n * 8) =
           make_float2(o[n][2 * i] / l[i], o[n][2 * i + 1] / l[i]);
   }

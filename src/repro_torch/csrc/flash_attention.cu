@@ -52,22 +52,27 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
     int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     int causal, int has_window, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // block i: (head, batch row) fastest, q-tiles from the last one down
+  using Lay = attn_tile::Layout<DH>;
+  constexpr int DV = Lay::DV, NCOL = Lay::NCOL;
+  // block i: (column block, head, batch row) fastest, q-tiles from the
+  // last one down
   const int n_qt = (S + BQ - 1) / BQ;
   const int n_hb = gridDim.x / n_qt;
-  const int hb = blockIdx.x % n_hb;
+  const int hbc = blockIdx.x % n_hb;
   const int q0 = (n_qt - 1 - blockIdx.x / n_hb) * BQ;
+  const int cb = hbc % NCOL, hb = hbc / NCOL;
   const int h = hb % H, b = hb / H;
   const int hk = h / (H / Hkv);
-  float o[DH / 8][4] = {};
+  float o[DV / 8][4] = {};
   float l[2];
   attn_tile::online_softmax<DH, 0>(
       smem, q + b * q_sb + h * q_sh, q_ss, k + b * k_sb + hk * k_sh, k_ss,
-      v + b * v_sb + hk * v_sh, v_ss, S, S, q0, causal, has_window, window,
-      scale, o, l);
+      v + b * v_sb + hk * v_sh + cb * DV, v_ss, S, S, q0, causal,
+      has_window, window, scale, o, l);
   const size_t o_row = (size_t)H * DH;
-  attn_tile::store_rows<DH>(out + (size_t)b * S * o_row + (size_t)h * DH,
-                            o_row, S, q0, o, l);
+  attn_tile::store_rows<DV>(
+      out + (size_t)b * S * o_row + (size_t)h * DH + cb * DV, o_row, S, q0,
+      o, l);
 }
 
 template <int DH>
@@ -80,7 +85,8 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   const cudaError_t e =
       attn_tile::allow_smem(flash_attention_kernel<DH>, smem, smem_set);
   if (e != cudaSuccess) return e;
-  const int blocks = (S + BQ - 1) / BQ * H * B;
+  const int blocks =
+      (S + BQ - 1) / BQ * attn_tile::Layout<DH>::NCOL * H * B;
   flash_attention_kernel<DH><<<blocks, NT, smem, stream>>>(
       q, k, v, out, S, H, Hkv, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], causal, has_window, window, scale);
@@ -119,6 +125,9 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                          has_window, window, scale, st);
     case 128:
       return launch<128>(qf, kf, vf, o, B, S, H, Hkv, strides, causal,
+                         has_window, window, scale, st);
+    case 256:
+      return launch<256>(qf, kf, vf, o, B, S, H, Hkv, strides, causal,
                          has_window, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;

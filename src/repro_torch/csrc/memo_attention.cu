@@ -48,20 +48,19 @@
 
 namespace {
 
-using attn_tile::BK;
 using attn_tile::BQ;
 using attn_tile::NT;
 
-// APM tile of rows [q0, q0 + BQ) and keys [k0, k0 + BK) of one DB plane
+// APM tile of rows [q0, q0 + BQ) and keys [k0, k0 + KT) of one DB plane
 // (rows L elements apart, row r at db + (plane + r) * L) into an A region
 // of APM_LD-byte rows, raw codes; zero at or past kend in either index.
-template <typename RAW_T, int APM_LD>
+template <typename RAW_T, int APM_LD, int KT>
 __device__ __forceinline__ void load_apm(unsigned char* A, const RAW_T* db,
                                          size_t plane, int L, int q0, int k0,
                                          int kend, int vec) {
   if (vec) {
     constexpr int EPC = 16 / sizeof(RAW_T);   // elements per 16 bytes
-    constexpr int CPR = BK / EPC;
+    constexpr int CPR = KT / EPC;
 #pragma unroll
     for (int it = 0; it < BQ * CPR / NT; ++it) {
       const int i = threadIdx.x + it * NT, j = i / CPR, c = i % CPR;
@@ -73,8 +72,8 @@ __device__ __forceinline__ void load_apm(unsigned char* A, const RAW_T* db,
                             n * (int)sizeof(RAW_T));
     }
   } else {
-    for (int i = threadIdx.x; i < BQ * BK; i += NT) {
-      const int j = i / BK, c = i % BK, r = q0 + j, ks = k0 + c;
+    for (int i = threadIdx.x; i < BQ * KT; i += NT) {
+      const int j = i / KT, c = i % KT, r = q0 + j, ks = k0 + c;
       reinterpret_cast<RAW_T*>(A + j * APM_LD)[c] =
           r < kend && ks < kend ? db[(plane + r) * L + ks] : RAW_T(0);
     }
@@ -93,13 +92,14 @@ __device__ __forceinline__ float2 dequant2(const unsigned char* p, float,
 }
 
 // o += APM[rows q0.., keys 0..kend) · V over the DB plane: the hit branch
+// (V's DV columns from vb on: the block's column block)
 template <int DH, typename RAW_T, bool QUANT>
-__device__ __forceinline__ void apm_pv(unsigned char* smem, const RAW_T* db,
-                                       const __half* scales, size_t plane,
-                                       int L, int kend, int vec,
-                                       const float* vb, size_t vs, int S,
-                                       int q0, float (&o)[DH / 8][4]) {
+__device__ __forceinline__ void apm_pv(
+    unsigned char* smem, const RAW_T* db, const __half* scales, size_t plane,
+    int L, int kend, int vec, const float* vb, size_t vs, int S, int q0,
+    float (&o)[attn_tile::out_cols(DH) / 8][4]) {
   using Lay = attn_tile::Layout<DH, sizeof(RAW_T)>;
+  constexpr int DV = Lay::DV, LDV = Lay::LDV, KT = Lay::KT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int rl = warp * 16 + g;            // local row of a0
@@ -112,18 +112,18 @@ __device__ __forceinline__ void apm_pv(unsigned char* smem, const RAW_T* db,
     }
   }
   if (kend > 0) {
-    load_apm<RAW_T, Lay::APM_LD>(Lay::a(smem, 0), db, plane, L, q0, 0, kend,
-                                 vec);
-    attn_tile::load_rows_async<DH>(Lay::v(smem, 0), vb, vs, 0, S);
+    load_apm<RAW_T, Lay::APM_LD, KT>(Lay::a(smem, 0), db, plane, L, q0, 0,
+                                     kend, vec);
+    attn_tile::load_rows_async<DV, LDV, KT>(Lay::v(smem, 0), vb, vs, 0, S);
     attn_tile::cp_commit();
   }
   int st = 0;
-  for (int k0 = 0; k0 < kend; k0 += BK, st ^= 1) {
-    if (k0 + BK < kend) {
-      load_apm<RAW_T, Lay::APM_LD>(Lay::a(smem, st ^ 1), db, plane, L, q0,
-                                   k0 + BK, kend, vec);
-      attn_tile::load_rows_async<DH>(Lay::v(smem, st ^ 1), vb, vs, k0 + BK,
-                                     S);
+  for (int k0 = 0; k0 < kend; k0 += KT, st ^= 1) {
+    if (k0 + KT < kend) {
+      load_apm<RAW_T, Lay::APM_LD, KT>(Lay::a(smem, st ^ 1), db, plane, L,
+                                       q0, k0 + KT, kend, vec);
+      attn_tile::load_rows_async<DV, LDV, KT>(Lay::v(smem, st ^ 1), vb, vs,
+                                              k0 + KT, S);
       attn_tile::cp_commit();
       attn_tile::cp_wait<1>();
     } else {
@@ -131,9 +131,9 @@ __device__ __forceinline__ void apm_pv(unsigned char* smem, const RAW_T* db,
     }
     __syncthreads();
     const unsigned char* A = Lay::a(smem, st) + rl * Lay::APM_LD;
-    float acc[DH / 8][4] = {};
+    float acc[DV / 8][4] = {};
 #pragma unroll
-    for (int kk = 0; kk < BK / 8; ++kk) {   // codes past kend are 0
+    for (int kk = 0; kk < KT / 8; ++kk) {   // codes past kend are 0
       const unsigned char* p = A + (kk * 8 + 2 * t) * sizeof(RAW_T);
       const float2 x0 = dequant2(p, s[0], RAW_T());
       const float2 x1 = dequant2(p + 8 * Lay::APM_LD, s[1], RAW_T());
@@ -142,9 +142,9 @@ __device__ __forceinline__ void apm_pv(unsigned char* smem, const RAW_T* db,
       attn_tile::split(x1.x, ph[1], pl[1]);
       attn_tile::split(x0.y, ph[2], pl[2]);
       attn_tile::split(x1.y, ph[3], pl[3]);
-      attn_tile::pv_slice<DH>(acc, ph, pl, Lay::v(smem, st), kk);
+      attn_tile::pv_slice<DV, LDV>(acc, ph, pl, Lay::v(smem, st), kk);
     }
-    attn_tile::add_tile<DH>(o, acc, {1.f, 1.f});
+    attn_tile::add_tile<DV>(o, acc, {1.f, 1.f});
     __syncthreads();
   }
 }
@@ -158,13 +158,15 @@ __global__ void __launch_bounds__(NT) memo_attention_kernel(
     float* __restrict__ out, int S, int H, int Hkv, int L, int N, int db_vec,
     int causal, int has_window, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int DV = attn_tile::out_cols(DH), NCOL = DH / DV;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * BQ;
+  // block x: the q-tile, then its column block (past dh 128)
+  const int q0 = blockIdx.x / NCOL * BQ, cb = blockIdx.x % NCOL;
   const int hk = h / (H / Hkv);
   const size_t q_row = (size_t)H * DH, kv_row = (size_t)Hkv * DH;
-  const float* vb = v + (size_t)b * S * kv_row + (size_t)hk * DH;
+  const float* vb = v + (size_t)b * S * kv_row + (size_t)hk * DH + cb * DV;
 
-  float o[DH / 8][4] = {};
+  float o[DV / 8][4] = {};
   float l[2] = {1.f, 1.f};
   if (hit[b] == 1) {
     int e = hit_idx[b];
@@ -177,8 +179,9 @@ __global__ void __launch_bounds__(NT) memo_attention_kernel(
         k + (size_t)b * S * kv_row + (size_t)hk * DH, kv_row, vb, kv_row, S,
         lengths[b], q0, causal, has_window, window, scale, o, l);
   }
-  attn_tile::store_rows<DH>(out + (size_t)b * S * q_row + (size_t)h * DH,
-                            q_row, S, q0, o, l);
+  attn_tile::store_rows<DV>(
+      out + (size_t)b * S * q_row + (size_t)h * DH + cb * DV, q_row, S, q0,
+      o, l);
 }
 
 template <int DH, typename RAW_T, bool QUANT>
@@ -195,7 +198,7 @@ cudaError_t launch_db(const float* q, const float* k, const float* v,
   if (e != cudaSuccess) return e;
   const int db_vec = (uintptr_t)db % 16 == 0 &&
                      (size_t)L * sizeof(RAW_T) % 16 == 0;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
+  dim3 grid((S + BQ - 1) / BQ * attn_tile::Layout<DH>::NCOL, H, B);
   memo_attention_kernel<DH, RAW_T, QUANT><<<grid, NT, smem, stream>>>(
       q, k, v, static_cast<const RAW_T*>(db), scales, hit_idx, hit, lengths,
       out, S, H, Hkv, L, N, db_vec, causal, has_window, window, scale);
@@ -257,6 +260,9 @@ extern "C" int memo_attention_f32(
                          N, db_kind, causal, has_window, window, scale, st);
     case 128:
       return launch<128>(qf, kf, vf, db, sc, hi, hm, ln, o, B, S, H, Hkv, L,
+                         N, db_kind, causal, has_window, window, scale, st);
+    case 256:
+      return launch<256>(qf, kf, vf, db, sc, hi, hm, ln, o, B, S, H, Hkv, L,
                          N, db_kind, causal, has_window, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;

@@ -9,7 +9,7 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention/kernel.py``
 
 Contract (the JAX layout): q (B,S,H,dh), k/v (B,S,Hkv,dh) → (B,S,H,dh),
 ``causal``, ``window``; query head h reads kv head h // (H/Hkv). The
-kernel takes f32 and head_dim in {16, 32, 64, 112, 128} (any other
+kernel takes f32 and head_dim in {16, 32, 64, 112, 128, 256} (any other
 head_dim raises) and reads q/k/v by their strides. Its 16-byte
 asynchronous copies need a contiguous last dim, a 16-byte-aligned base and batch/seq/head strides that are multiples of 4
 elements; a view that has not is copied to a fresh contiguous tensor
@@ -28,7 +28,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-_DH = (16, 32, 64, 112, 128)
+_DH = (16, 32, 64, 112, 128, 256)
 
 
 def _async_readable(t) -> bool:

@@ -9,7 +9,7 @@ about it are in that file's header).
 Contract (the JAX layout): q (B,S,H,dh), k/v (B,S,Hkv,dh), db (N,H,L,L)
 f16 — or int8 codes with ``db_scales`` (N,H,L) f16 — hit_idx/hit (B,)
 → (B,S,H,dh). ``lengths`` (B,) masks padded keys of misses. The kernel
-takes f32 q/k/v and head_dim in {16, 32, 64, 112, 128}; any other
+takes f32 q/k/v and head_dim in {16, 32, 64, 112, 128, 256}; any other
 head_dim raises.
 
 On CPU tensors the plain version (``ref.py``) runs; on CUDA tensors the
@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.memo_attention.ref import memo_attention_ref
 
-_DH = (16, 32, 64, 112, 128)
+_DH = (16, 32, 64, 112, 128, 256)
 
 
 def _launch(q, k, v, db_apm, hit_idx, hit, db_scales, lengths, causal,

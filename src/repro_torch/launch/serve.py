@@ -8,9 +8,12 @@ memoization — the counterpart of the reference's ``launch/serve.py``.
     python -m repro_torch.launch.serve --device cpu --requests 16 \\
         --batch 4 --seq 16 --calib-batches 2
 
-The model is the architecture's reduced config, on the card unless
-``--device cpu`` is passed (it raises when there is no card). Every
-option of the reference is here with its name and default:
+The model is the architecture's reduced config (``--arch``: any of the
+zoo's decoders and encoders, the hybrid recurrentgemma_2b among them),
+on the card unless ``--device cpu`` is passed (it raises when there is
+no card). whisper_medium's batches need frames, which this launcher, like
+the reference's, does not make: it is refused. Every option of the
+reference is here with its name and default:
 
 * the default leg serves ``--requests`` in batches of ``--batch``, each
   batch memo-free and memoized, and reports latency and the hit rate
@@ -248,7 +251,10 @@ def _train_classifier(model, params, corpus, steps: int = 50,
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="bert_base")
+    ap.add_argument("--arch", default="bert_base",
+                    help="an architecture of repro_torch.configs, served "
+                         "at its reduced config (not whisper_medium, "
+                         "whose batches need frames)")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' "
@@ -337,6 +343,11 @@ def main(argv=None):
             "sharded-store slice of the port")
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch)
+    if cfg.encoder is not None:
+        raise SystemExit(
+            f"{args.arch!r} is an encoder-decoder model: its batches need "
+            f"frames, which this launcher does not make; serve it through "
+            f"MemoEngine.infer on {{'frames', 'tokens'}} batches")
     if args.prefill:
         if args.online or args.varlen:
             raise SystemExit("--prefill is its own serving leg; drop "

@@ -22,7 +22,9 @@ left there for ``MemoSession.load(<dir>, ...)``. The disk chaos classes
 tier: without ``--capacity-dir`` they serve over a temporary directory,
 removed at the end.
 
-The model is the architecture's reduced config. ``--codec``, ``--index``
+The model is the architecture's reduced config (``--arch``: any of the
+zoo's decoders and encoders, the hybrid recurrentgemma_2b among them;
+not whisper_medium, whose batches need frames). ``--codec``, ``--index``
 and ``--device-index`` serve every codec and index of the package.
 ``--shards`` raises ``NotImplementedError`` naming the sharded-store
 slice. Memoized prefill is served by ``launch/serve.py --prefill``, as in
@@ -102,6 +104,10 @@ def build_session(args, seed: int = 0, cfg=None, leg: str = "serve"):
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_reduced(args.arch)
+    if cfg.encoder is not None:
+        raise ValueError(
+            f"{cfg.name!r} is an encoder-decoder model: its requests need "
+            f"frames, which the trace does not make")
     if not cfg.n_classes:
         cfg = cfg.replace(n_classes=4)
     model = build_model(cfg, device=device)
@@ -290,7 +296,10 @@ def run_fault_demo(args):
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="bert_base")
+    ap.add_argument("--arch", default="bert_base",
+                    help="an architecture of repro_torch.configs, served "
+                         "at its reduced config (not whisper_medium, "
+                         "whose requests need frames)")
     ap.add_argument("--reduced", action="store_true", default=True,
                     help="(always on — this launcher serves reduced "
                          "configs; kept for arg parity with launch.serve)")

@@ -1,6 +1,6 @@
-"""Backbone: assembles mixers (GQA or MLA attention, rwkv6) and channel
-mixers (MLP, MoE, rwkv6's) into a model (the reference's
-``models/backbone.py``; RG-LRU layers wait for their slice).
+"""Backbone: assembles mixers (GQA or MLA attention, rwkv6, RG-LRU) and
+channel mixers (MLP, MoE, rwkv6's) into a model (the reference's
+``models/backbone.py``).
 
 The parameter tree keeps the reference's layout, so the bridge from JAX
 weights is a name map: ``params["layers"]["seg{i}"]["l{u}"]`` holds one
@@ -9,7 +9,9 @@ leading axis. PyTorch runs eagerly, so every segment is a Python loop
 (the reference's ``layer_loop="unroll"``): per-layer APM capture and
 memo overrides work everywhere. Caches (``init_caches``) keep the
 reference's layout too, so prefill and decode caches compare leaf for
-leaf across the packages.
+leaf across the packages. A hybrid (recurrentgemma's (rglru, rglru,
+attn) pattern) is one ``scan`` segment of the whole unit, its repeats
+stacked, and single segments for the layers past the last whole unit.
 """
 from __future__ import annotations
 
@@ -20,19 +22,11 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (
     dense_init, embed_init, mlp_apply, mlp_init, norm_apply, norm_init,
 )
-
-_LATER = {
-    "rglru": "rglru layers wait for the RG-LRU slice",
-}
-
-
-def _not_ported(kind: str):
-    return NotImplementedError(f"layer kind {kind!r} is not ported: "
-                               f"{_LATER[kind]}")
 
 
 # ---------------------------------------------------------------------------
@@ -84,12 +78,10 @@ def _dense_ff(cfg, layer_idx: int) -> int:
 # ---------------------------------------------------------------------------
 
 _MIX_INIT = {"attn": attn.gqa_init, "mla": attn.mla_init,
-             "rwkv6": rwkv_mod.rwkv_time_init}
+             "rwkv6": rwkv_mod.rwkv_time_init, "rglru": rglru_mod.rglru_init}
 
 
 def _layer_init(gen, cfg, layer_idx, kind, dtype, device):
-    if kind not in _MIX_INIT:
-        raise _not_ported(kind)
     d = cfg.d_model
     p = {"norm1": norm_init(d, cfg.norm, dtype, device),
          "norm2": norm_init(d, cfg.norm, dtype, device),
@@ -152,8 +144,13 @@ def _layer_apply(lp, h, cfg, kind, layer_idx, *, mode, positions,
             impl="kernel" if attn_impl == "kernel" and mode == "full"
             else "scan")
         cache = dict(cache or {}, time=cache_t)
+    elif kind == "rglru":
+        y, cache_r = rglru_mod.rglru_apply(
+            lp["mix"], x, cfg,
+            None if mode == "full" else cache and cache.get("rec"))
+        cache = dict(cache or {}, rec=cache_r)
     else:
-        raise _not_ported(kind)
+        raise ValueError(kind)
     if apm is not None:
         # AttMemo capture: the memo key is the attention input hidden state
         apm = {"apm": apm, "hidden": x}
@@ -195,14 +192,17 @@ def layer_cache(cfg, kind, layer_idx, batch, seq, dtype, device=None):
                                                       device),
                 "chan": rwkv_mod.rwkv_channel_init_state(cfg, batch, dtype,
                                                          device)}
-    raise _not_ported(kind)
+    if kind == "rglru":
+        return {"rec": rglru_mod.rglru_init_state(cfg, batch, dtype, device)}
+    raise ValueError(kind)
 
 
 def init_caches(cfg, batch, seq, dtype=torch.float32, window=None,
                 device=None):
     """Caches per segment, in the reference's layout (a scan segment
     stacks its repeats on a leading axis). Attention caches are sized
-    min(seq, window)."""
+    min(seq, window); recurrent states (rwkv6, RG-LRU) do not depend on
+    ``seq``."""
     caches = {}
     attn_len = min(seq, window) if window else seq
     for si, seg in enumerate(scan_plan(cfg)):

@@ -1,6 +1,7 @@
-"""Model interface over the backbone (the reference's ``models/model.py``
-for decoder-only and encoder configs; enc-dec comes with the model-zoo
-slice).
+"""Model interface over the backbone and the encoder-decoder assembly
+(the reference's ``models/model.py``): decoder-only, encoder-only and
+hybrid configs through ``models/backbone.py``, enc-dec (whisper) through
+``models/encdec.py``, whose batches also carry ``frames`` (B, F, d_enc).
 
 ``attn_impl`` keeps the reference's name and picks what the
 full-sequence forward and the prompt pass of ``prefill`` run in their
@@ -16,7 +17,11 @@ kernel-backed layers:
   carries a state (prefill and decode), since the kernel starts from a
   zero state. ``decode_step`` is plain one-token attention either way.
   MLA layers run their plain form under both: the reference's
-  ``mla_apply`` reaches no kernel.
+  ``mla_apply`` reaches no kernel. RG-LRU layers run their scan under
+  both (the reference's is ``lax.scan``, outside any kernel). In an
+  enc-dec model the kernel runs in the encoder (bidirectional) and in
+  the decoder's self-attention over the prompt (causal); the reference
+  reaches it in its encoder only, the same values within f32 rounding.
 """
 from __future__ import annotations
 
@@ -27,24 +32,25 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import backbone as bb
+from repro_torch.models import encdec as ed
 
 
 ATTN_IMPLS = ("plain", "kernel")
 
 
 class Model:
-    def __init__(self, cfg, *, device=None, attn_impl="plain"):
-        if cfg.encoder is not None:
-            raise NotImplementedError(
-                "encoder-decoder models (whisper) wait for the model-zoo "
-                "slice")
+    def __init__(self, cfg, *, device=None, attn_impl="plain",
+                 max_seq=4096):
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{attn_impl!r}")
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.device = resolve_device(device)
-        self.is_encdec = False
+        self.max_seq = max_seq          # enc-dec: rows of dec_pos
+        self.is_encdec = cfg.encoder is not None
+        if self.is_encdec:
+            self._ecfg = ed.encoder_cfg(cfg)
 
     def init(self, seed: int = 0, dtype=torch.float32,
              generator: Optional[torch.Generator] = None):
@@ -53,16 +59,37 @@ class Model:
         gen = generator
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        if self.is_encdec:
+            return ed.encdec_init(gen, self.cfg, self.max_seq, dtype,
+                                  self.device)[0]
         return bb.backbone_init(gen, self.cfg, dtype, self.device)
 
     def _tokens(self, batch):
         return torch.as_tensor(batch["tokens"], device=self.device)
 
+    def _encode(self, params, batch, **kw):
+        frames = torch.as_tensor(batch["frames"], device=self.device)
+        return ed.encode(params, frames, self.cfg, self._ecfg,
+                         attn_impl=self.attn_impl, **kw)
+
+    def _encdec_logits(self, params, h):
+        h = bb.norm_apply(params["final_norm"], h, self.cfg.norm)
+        return h @ params["embed"].T
+
     def forward(self, params, batch, *, capture=False, memo_plan=None,
                 window=None):
         """Returns (logits, apms, aux): ``aux`` is the summed MoE router
         load-balance loss (0 without MoE layers). ``window`` is a sliding
-        window for attention layers of configs that set none."""
+        window for attention layers of configs that set none. An enc-dec
+        model captures and memoizes its encoder layers."""
+        if self.is_encdec:
+            enc_h, apms = self._encode(params, batch, capture=capture,
+                                       memo_plan=memo_plan)
+            h, _ = ed.decode_tokens(params, self._tokens(batch), enc_h,
+                                    self.cfg, mode="full", window=window,
+                                    attn_impl=self.attn_impl)
+            return (self._encdec_logits(params, h), apms,
+                    torch.zeros((), dtype=torch.float32, device=h.device))
         h = bb.embed_tokens(params, self._tokens(batch), self.cfg)
         h, _, apms, aux = bb.forward_hidden(
             params, h, self.cfg, mode="full", memo_plan=memo_plan,
@@ -89,6 +116,10 @@ class Model:
     # -- serving ---------------------------------------------------------------
     def init_caches(self, batch, cache_len, dtype=torch.float32,
                     window=None):
+        if self.is_encdec:
+            return ed.encdec_init_caches(
+                self.cfg, batch, min(cache_len, window or cache_len), dtype,
+                self.device)
         return bb.init_caches(self.cfg, batch, cache_len, dtype,
                               window=window, device=self.device)
 
@@ -98,6 +129,13 @@ class Model:
         tokens = self._tokens(batch)
         B = tokens.shape[0]
         caches = self.init_caches(B, cache_len, dtype, window=window)
+        if self.is_encdec:
+            enc_h, _ = self._encode(params, batch)
+            h, caches = ed.decode_tokens(params, tokens, enc_h, self.cfg,
+                                         mode="prefill", caches=caches,
+                                         window=window,
+                                         attn_impl=self.attn_impl)
+            return self._encdec_logits(params, h[:, -1:])[:, 0], caches
         h = bb.embed_tokens(params, tokens, self.cfg)
         h, caches, _, _ = bb.forward_hidden(
             params, h, self.cfg, mode="prefill", caches=caches,
@@ -108,9 +146,13 @@ class Model:
     def decode_step(self, params, tokens, caches, pos, *, window=None):
         """tokens: (B,1); ``pos``: the absolute position (an int or a 0-d
         tensor). Returns (logits (B,V), new_caches)."""
-        h = bb.embed_tokens(params,
-                            torch.as_tensor(tokens, device=self.device),
-                            self.cfg)
+        tokens = torch.as_tensor(tokens, device=self.device)
+        if self.is_encdec:
+            h, caches = ed.decode_tokens(params, tokens, None, self.cfg,
+                                         mode="decode", caches=caches,
+                                         pos=pos, window=window)
+            return self._encdec_logits(params, h)[:, 0], caches
+        h = bb.embed_tokens(params, tokens, self.cfg)
         h, caches, _, _ = bb.forward_hidden(
             params, h, self.cfg, mode="decode", caches=caches, pos=pos,
             window=window, attn_impl=self.attn_impl)

@@ -34,6 +34,7 @@ import torch
 from repro_torch.bridge import engine_from_reference
 from test_torch_engine import MARGIN, _mid_threshold, built  # noqa: F401
 from test_torch_select import _serve_host
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BATCHES = (1, 0, 0)                   # query batches served, in order
 SIM_CAL_ATOL = 1e-4

@@ -25,6 +25,7 @@ from repro_torch.memo import (AdmissionPolicy, CodecSpec, EmbedSpec,
                               IndexSpec, MemoSession, MemoSpec, RuntimeSpec)
 from repro_torch.memo import registry as memo_registry
 from repro_torch.models import build_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SEQ = 32
 

@@ -59,6 +59,7 @@ from repro_torch.core.runtime import Health
 from repro_torch.core.store import MemoStore
 from repro_torch.memo import MemoSession, MemoSpec
 from repro_torch.models import build_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO_ROOT, "src")

@@ -34,6 +34,7 @@ from repro_torch.core.runtime import Health, MemoMaintenanceError, MemoServer
 from repro_torch.data import TemplateCorpus
 from repro_torch.memo import MemoSession, MemoSpec
 from repro_torch.models import build_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SEQ = 32
 

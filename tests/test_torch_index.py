@@ -31,6 +31,7 @@ from repro_torch.core import index as T
 from repro_torch.core.index import (ClusteredDeviceIndex, ExactIndex,
                                     IVFIndex, recall_at_1)
 from repro_torch.core.store import MemoStore
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MARGIN = 1e-4       # runner-up behind the best by more than this of its d²
 D2_RTOL = 1e-5      # of ‖q‖² + ‖d‖²: the matmul form's rounding scale

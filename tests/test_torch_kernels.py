@@ -29,6 +29,7 @@ from repro_torch.kernels.nn_search.ref import (blocked_top1,
                                                nn_search_ref)
 from repro_torch.kernels.rwkv6.ops import wkv6
 from repro_torch.kernels.rwkv6.ref import wkv6_chunked_schedule_ref
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 

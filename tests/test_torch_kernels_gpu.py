@@ -25,9 +25,10 @@ Tolerances (``chip_smoke.ATOL``, ``WKV_RTOL``): attention outputs within
 order (128-term sums of O(1) terms); wkv outputs within 2e-5 of the
 output's scale (two f32 recurrences whose rounding the state carries);
 search indices must be EQUAL (ties → the lowest index). The attention
-kernels are held at head_dim 16, 32, 64, 112 (kimi_k2's) and 128 (the
-zoo's GQA decoders, qwen2_1_5b's serving shape among them) and must
-refuse any other. The routed MoE is held to the dense ``moe_ref`` on
+kernels are held at head_dim 16, 32, 64, 112 (kimi_k2's), 128 (the
+zoo's GQA decoders, qwen2_1_5b's serving shape among them) and 256
+(recurrentgemma_2b's MQA local attention, at its serving and forward
+shapes) and must refuse any other. The routed MoE is held to the dense ``moe_ref`` on
 the card."""
 import pytest
 import torch
@@ -124,8 +125,25 @@ def test_memo_attention_head_dim_112(cuda, quant, group, causal, window):
         _check(args, kw, causal=causal, window=window)
 
 
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40),
+                                           (False, None)],
+                         ids=["causal", "window", "bidir"])
+@pytest.mark.parametrize("group", [1, 2, 10])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "f16"])
+def test_memo_attention_head_dim_256(cuda, quant, group, causal, window):
+    """recurrentgemma_2b's head_dim 256 at its serving length (S=128):
+    query heads over one KV head in groups of 1, 2 and 10 (its 10 over
+    1), all-hit, all-miss and mixed rows, int8 and f16 DBs."""
+    for hits in ("all", "none", "mixed"):
+        args, kw = attention_case(torch, cuda, B=4, S=128, H=group, Hkv=1,
+                                  dh=256, N=6, L=128, quant=quant,
+                                  varlen=window is not None, seed=group,
+                                  hits=hits)
+        _check(args, kw, causal=causal, window=window)
+
+
 @pytest.mark.parametrize("hits", ["all", "none", "mixed"])
-@pytest.mark.parametrize("dh", [16, 32, 64, 112, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 112, 128, 256])
 @pytest.mark.parametrize("S", TILE_EDGES)
 def test_memo_attention_tile_edges(cuda, S, dh, hits):
     """S at, below and past the 64-row tiles; all-hit, all-miss and mixed
@@ -259,6 +277,9 @@ def test_nn_search_one_kernel_per_call(cuda):
     (2, 1024, 32, 8, 128, True, None, False),   # qwen3_8b's forward
     (2, 1024, 64, 8, 112, True, None, False),   # kimi_k2's forward
     (2, 200, 8, 8, 112, False, 24, False),      # dh 112, group 1
+    (1, 2560, 10, 1, 256, True, 2048, False),   # recurrentgemma_2b's
+    (32, 128, 10, 1, 256, True, 2048, False),   # its serving shape
+    (2, 200, 4, 2, 256, False, 24, False),      # dh 256, group 2
 ])
 def test_flash_attention_against_plain(cuda, B, S, H, Hkv, dh, causal,
                                        window, strided):
@@ -276,7 +297,7 @@ def test_flash_attention_against_plain(cuda, B, S, H, Hkv, dh, causal,
 
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 70),
                                            (False, 24)])
-@pytest.mark.parametrize("dh", [16, 32, 64, 112, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 112, 128, 256])
 @pytest.mark.parametrize("S", TILE_EDGES)
 def test_flash_attention_tile_edges(cuda, S, dh, causal, window):
     """S at, below and past the 64-row tiles, GQA, every head_dim."""
@@ -289,7 +310,7 @@ def test_flash_attention_tile_edges(cuda, S, dh, causal, window):
     assert err <= ATOL
 
 
-@pytest.mark.parametrize("dh", [8, 48, 96, 256])
+@pytest.mark.parametrize("dh", [8, 48, 96, 192])
 def test_attention_kernels_refuse_other_head_dims(cuda, dh):
     """A CUDA tensor at a head_dim the kernels were not built for raises;
     nothing falls back to the plain version."""

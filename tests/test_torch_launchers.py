@@ -14,6 +14,7 @@ import tempfile
 import pytest
 
 from repro_torch.launch.server import main
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = ["--device", "cpu", "--requests", "12", "--batch", "4", "--seq",
          "16", "--calib-batches", "2", "--embed-steps", "10"]
@@ -89,12 +90,21 @@ def test_server_serves_scale_options(monkeypatch, flags, attr, kind):
     assert seen == [kind]
 
 
-@pytest.mark.parametrize("launcher", ["serve_prefill", "server"])
-def test_launchers_serve_zoo_arch(monkeypatch, capsys, launcher):
+@pytest.mark.parametrize("launcher,arch", [
+    pytest.param("serve_prefill", "qwen2_1_5b", id="serve_prefill"),
+    pytest.param("server", "qwen2_1_5b", id="server"),
+    pytest.param("serve_prefill", "recurrentgemma_2b",
+                 id="serve_prefill-recurrentgemma_2b"),
+    pytest.param("server", "recurrentgemma_2b",
+                 id="server-recurrentgemma_2b")])
+def test_launchers_serve_zoo_arch(monkeypatch, capsys, launcher, arch):
     """``--arch qwen2_1_5b`` through the registry on its reduced config
-    (four query heads over two KV heads, QKV bias, a tied head):
+    (four query heads over two KV heads, QKV bias, a tied head), and
+    ``--arch recurrentgemma_2b`` (the hybrid: its one attention layer
+    memoized, the RG-LRU layers' state carried by prefill):
     ``serve.py --prefill`` replays a calibration batch with hits and
-    decodes after it, and ``server.py`` serves a whole async trace."""
+    decodes after it, and ``server.py`` serves a whole async trace.
+    whisper_medium, whose batches need frames, is refused by both."""
     import repro_torch.launch.serve as serve_mod
     import repro_torch.launch.server as server_mod
     mod = serve_mod if launcher == "serve_prefill" else server_mod
@@ -106,7 +116,7 @@ def test_launchers_serve_zoo_arch(monkeypatch, capsys, launcher):
         return real(cfg, **kw)
     monkeypatch.setattr(mod, "build_model", build)
     if launcher == "serve_prefill":
-        res = serve_mod.main(["--device", "cpu", "--arch", "qwen2_1_5b",
+        res = serve_mod.main(["--device", "cpu", "--arch", arch,
                               "--requests", "4", "--batch", "4", "--seq",
                               "16", "--calib-batches", "1",
                               "--decode-steps", "2", "--prefill"])
@@ -114,13 +124,23 @@ def test_launchers_serve_zoo_arch(monkeypatch, capsys, launcher):
         assert r["attempts"] > 0 and r["hits"] > 0 and r["total"] == 8
         assert "[prefill] parity" in capsys.readouterr().out
     else:
-        res = main(SMALL + ["--arch", "qwen2_1_5b", "--calib-batches", "1",
+        res = main(SMALL + ["--arch", arch, "--calib-batches", "1",
                             "--embed-steps", "2", "--maintenance", "async",
                             "--rate", "200"])
         r = res["async"]
         assert r["n_requests"] == 12 and r["p99_ms"] >= r["p50_ms"] > 0
-    assert cfgs and all(c.name == "qwen2-reduced" and c.n_kv_heads == 2
-                        and c.n_heads == 4 and c.qkv_bias for c in cfgs)
+    if arch == "qwen2_1_5b":
+        assert cfgs and all(c.name == "qwen2-reduced" and c.n_kv_heads == 2
+                            and c.n_heads == 4 and c.qkv_bias for c in cfgs)
+    else:
+        assert cfgs and all(c.name == "recurrentgemma-reduced"
+                            and c.layer_pattern == ("rglru", "rglru", "attn")
+                            for c in cfgs)
+    with pytest.raises((SystemExit, ValueError), match="frames"):
+        if launcher == "serve_prefill":
+            serve_mod.main(["--device", "cpu", "--arch", "whisper_medium"])
+        else:
+            main(SMALL + ["--arch", "whisper_medium"])
 
 
 @pytest.mark.parametrize("fault", ["disk_write_io", "checkpoint_crash",

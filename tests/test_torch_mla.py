@@ -17,6 +17,7 @@ from repro.models import attention as jattn
 from repro_torch.bridge import tree_to_torch
 from repro_torch.configs import get_reduced
 from repro_torch.models import attention as tattn
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 CPU = torch.device("cpu")

@@ -31,6 +31,7 @@ from repro_torch.models import backbone as bb
 from repro_torch.models import build_model
 from repro_torch.models import layers as tlayers
 from repro_torch.optim import adamw as tadamw
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 CPU = torch.device("cpu")
@@ -44,14 +45,16 @@ def _small(**kw):
 
 
 def test_configs_are_copies():
-    """Every ported arch's CONFIG and reduced() equal the reference's
-    (also under the reference's aliases "qwen2-1.5b" and
-    "kimi-k2-1t-a32b"), and minicpm3's optimized() too; an arch of a
-    later slice raises, naming that slice."""
+    """Every arch's CONFIG and reduced() equal the reference's (also
+    under the reference's aliases "qwen2-1.5b", "kimi-k2-1t-a32b",
+    "recurrentgemma-2b" and "whisper-medium"), and minicpm3's
+    optimized() too; the whole zoo is ported, and an unknown name
+    raises."""
     for arch in ("bert_base", "gpt2_small", "rwkv6_3b", "qwen2_1_5b",
                  "qwen3_8b", "deepseek_7b", "chameleon_34b", "qwen2-1.5b",
                  "minicpm3_4b", "dbrx_132b", "kimi_k2_1t_a32b",
-                 "kimi-k2-1t-a32b"):
+                 "kimi-k2-1t-a32b", "recurrentgemma_2b", "whisper_medium",
+                 "recurrentgemma-2b", "whisper-medium"):
         assert dataclasses.asdict(get_config(arch)) == \
             dataclasses.asdict(jax_get_config(arch))
         assert dataclasses.asdict(get_reduced(arch)) == \
@@ -62,10 +65,16 @@ def test_configs_are_copies():
         dataclasses.asdict(jax_optimized())
     assert get_config("qwen2_1_5b").head_dim == 128
     assert get_config("kimi_k2_1t_a32b").head_dim == 112
-    with pytest.raises(NotImplementedError, match="RG-LRU slice"):
-        get_config("recurrentgemma_2b")
-    with pytest.raises(NotImplementedError, match="encoder-decoder slice"):
-        get_config("whisper_medium")
+    assert get_config("recurrentgemma_2b").head_dim == 256
+    assert get_config("whisper_medium").encoder.n_frames == 1500
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS
+    assert sorted(ARCH_IDS) == sorted(JAX_ARCH_IDS)
+    for arch in ARCH_IDS:
+        assert get_config(arch).param_count() == \
+            jax_get_config(arch).param_count()
+    with pytest.raises(ValueError, match="not in the zoo"):
+        get_config("llama_70b")
 
 
 def test_corpus_draws_identical_batches():
@@ -304,7 +313,9 @@ def _perturb_attn(tree, rng):
 # "qwen2_dh128" keeps qwen2's reduced config at head_dim 128, the width
 # of every full-size dense zoo decoder and of dbrx_132b, and "kimi_dh112"
 # kimi_k2's at its full model's 112; minicpm3's MLA and dbrx's and
-# kimi's MoE blocks run in their reduced configs
+# kimi's MoE blocks run in their reduced configs; recurrentgemma's local
+# attention window is cut to 16 so that it bites at S = 40, and
+# whisper's batches carry frames
 ZOO = {"gpt2_small": ("gpt2_small", {}), "rwkv6_3b": ("rwkv6_3b", {}),
        "qwen2_1_5b": ("qwen2_1_5b", {}), "qwen3_8b": ("qwen3_8b", {}),
        "deepseek_7b": ("deepseek_7b", {}),
@@ -312,7 +323,9 @@ ZOO = {"gpt2_small": ("gpt2_small", {}), "rwkv6_3b": ("rwkv6_3b", {}),
        "qwen2_dh128": ("qwen2_1_5b", dict(n_heads=2, n_kv_heads=1)),
        "minicpm3_4b": ("minicpm3_4b", {}), "dbrx_132b": ("dbrx_132b", {}),
        "kimi_dh112": ("kimi_k2_1t_a32b",
-                      dict(d_model=224, n_heads=2, n_kv_heads=1))}
+                      dict(d_model=224, n_heads=2, n_kv_heads=1)),
+       "recurrentgemma_2b": ("recurrentgemma_2b", dict(sliding_window=16)),
+       "whisper_medium": ("whisper_medium", {})}
 
 
 def _zoo_cfgs(name):
@@ -325,8 +338,9 @@ def _zoo_cfgs(name):
 def forward_refs():
     """One reference build per config of ZOO: numpy params (rwkv6's
     recurrence and the attention biases and qk-norm scales perturbed),
-    the tokens, the reference's logits under each of its attn_impls and
-    its forward's aux (the MoE router loss; 0 without MoE layers)."""
+    the batch (tokens, and frames for enc-dec), the reference's logits
+    under each of its attn_impls and its forward's aux (the MoE router
+    loss; 0 without MoE layers)."""
     out = {}
     for name in ZOO:
         _, jcfg = _zoo_cfgs(name)
@@ -338,6 +352,10 @@ def forward_refs():
         params = _perturb_attn(params, rng)
         toks = rng.integers(0, jcfg.vocab, (2, 40)).astype(np.int32)
         batch = {"tokens": jnp.asarray(toks)}
+        if jcfg.encoder is not None:
+            e = jcfg.encoder
+            batch["frames"] = jnp.asarray(rng.standard_normal(
+                (2, e.n_frames, e.d_model)).astype(np.float32))
         logits, aux = {}, {}
         for impl in ("xla", "pallas_interpret"):
             lg, _, aux[impl] = jax_build_model(
@@ -347,6 +365,7 @@ def forward_refs():
             logits["window"] = np.asarray(jax_build_model(jcfg).forward(
                 params, batch, window=8)[0])
         out[name] = dict(params=params, toks=toks, logits=logits,
+                         batch={k: np.array(v) for k, v in batch.items()},
                          aux={k: float(v) for k, v in aux.items()})
     return out
 
@@ -356,13 +375,22 @@ def test_reference_tree_bridges_to_port_init(arch, forward_refs):
     """The reference's param tree crosses unchanged and has the keys and
     shapes of the port's own init: QKV biases and qk-norm scales where
     the config has them, a tied head (qwen2) or an untied one
-    (chameleon's lm_head)."""
+    (chameleon's lm_head), RG-LRU blocks in a hybrid's scan segment,
+    and an enc-dec's stacked encoder and decoder layers."""
     ref = forward_refs[arch]["params"]
     tree = tree_to_torch(ref, CPU)
     cfg = _zoo_cfgs(arch)[0]
     assert _tree_shapes(build_model(cfg, device="cpu").init(
         0)) == _tree_shapes(tree) == _tree_shapes(ref)
+    if cfg.encoder is not None:
+        assert tree["enc_layers"]["attn"]["wq"].shape[0] == \
+            cfg.encoder.n_layers
+        assert tree["dec_layers"]["cross"]["wq"].shape[0] == cfg.n_layers
+        return
     mix = tree["layers"]["seg0"]["l0"]["mix"]
+    if cfg.layer_pattern != ("mix",):
+        assert "lam" in mix and "wq" in tree["layers"]["seg0"]["l2"]["mix"]
+        return
     if cfg.mixer == "mla":
         assert "w_dkv" in mix and "wq" not in mix
     else:
@@ -396,7 +424,7 @@ def test_forward_matches_jax(arch, impl, forward_refs):
     model = build_model(_zoo_cfgs(arch)[0], device="cpu", attn_impl=impl)
     with torch.no_grad():
         out, _, aux = model.forward(tree_to_torch(ref["params"], CPU),
-                                    {"tokens": ref["toks"]})
+                                    ref["batch"])
     jimpl = "xla" if impl == "plain" else "pallas_interpret"
     np.testing.assert_allclose(out.numpy(), ref["logits"][jimpl],
                                rtol=0, atol=FORWARD_ATOL[arch, impl])
@@ -405,22 +433,25 @@ def test_forward_matches_jax(arch, impl, forward_refs):
 
 
 @pytest.mark.parametrize("arch", ["minicpm3_4b", "dbrx_132b",
-                                  "kimi_dh112"])
+                                  "kimi_dh112", "recurrentgemma_2b",
+                                  "whisper_medium"])
 def test_decode_matches_full(arch, forward_refs):
     """Model.prefill of all but the last token, then one decode_step,
     against the full forward's logits at those positions (the
     reference's test_decode_matches_full, on the bridged weights):
-    MLA's absorbed decode over (c_kv, k_rope) and the MoE block at
-    T = B."""
+    MLA's absorbed decode over (c_kv, k_rope), the MoE block at T = B,
+    the RG-LRU state carried from prefill, whisper's cached cross
+    K/V."""
     ref = forward_refs[arch]
     model = build_model(_zoo_cfgs(arch)[0], device="cpu")
     params = tree_to_torch(ref["params"], CPU)
     toks = ref["toks"][:, :12]
     S = toks.shape[1]
+    extra = {k: v for k, v in ref["batch"].items() if k != "tokens"}
     with torch.no_grad():
-        full = model.forward(params, {"tokens": toks})[0]
-        last, caches = model.prefill(params, {"tokens": toks[:, :S - 1]},
-                                     cache_len=S + 4)
+        full = model.forward(params, {"tokens": toks, **extra})[0]
+        last, caches = model.prefill(params, {"tokens": toks[:, :S - 1],
+                                              **extra}, cache_len=S + 4)
         dec, _ = model.decode_step(params, toks[:, S - 1:], caches, S - 1)
     np.testing.assert_allclose(last.numpy(), full[:, S - 2].numpy(),
                                rtol=2e-4, atol=2e-4)

@@ -24,6 +24,7 @@ from repro_torch.configs import MoEConfig, get_reduced
 from repro_torch.models import build_model
 from repro_torch.models import moe as tmoe
 from repro_torch.models.backbone import scan_plan
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 CPU = torch.device("cpu")

@@ -40,6 +40,7 @@ from repro_torch.launch.server import make_workload
 from repro_torch.models import backbone as bb
 from repro_torch.models import build_model
 from repro_torch.models.layers import norm_apply
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SEQ = 32
 LOGIT_ATOL = 1e-4

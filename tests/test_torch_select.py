@@ -24,6 +24,7 @@ from repro_torch.core.engine import MemoStats
 from repro_torch.core.selective import LayerProfile, PerfModel
 from test_torch_engine import (LOGIT_ATOL, _compare, _mid_threshold,  # noqa
                                built)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (mode, device_fast_path) of each host-synchronous path
 HOST_PATHS = {"select": ("select", None), "host_bucket": ("bucket", False),

@@ -39,6 +39,7 @@ from repro_torch.data import TemplateCorpus
 from repro_torch.memo import MemoSession, MemoStats
 from repro_torch.models import build_model
 from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SEQ = 16
 BATCH = 8

@@ -18,6 +18,7 @@ from repro_torch.core import codec as tcodec
 from repro_torch.core.database import AttentionDB, DeviceDB, pad_delta_pow2
 from repro_torch.core.index import TOMBSTONE, DeviceIndex, ExactIndex
 from repro_torch.core.store import MemoStore
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPE = (2, 8, 8)
 

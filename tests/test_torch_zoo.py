@@ -32,6 +32,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.data import TemplateCorpus
 from repro_torch.models import build_model
 from test_torch_models import _perturb_attn
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SEQ = 16
 BATCH = 8

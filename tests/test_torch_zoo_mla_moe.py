@@ -29,6 +29,7 @@ from repro_torch.data import TemplateCorpus
 from repro_torch.memo import MemoSpec
 from repro_torch.models import build_model
 from test_torch_zoo import _same_decisions, _serve, _threshold
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SEQ = 16
 BATCH = 8
