@@ -136,7 +136,22 @@ and read just after:
   forward at full depth (B=2, S=448 over 1,500 frames; 24
   bidirectional and 24 causal ``flash_attention`` launches) against
   plain, prefill and decode, and its memoized encoder through
-  ``MemoEngine.infer`` at full width cut to 4 + 4 layers (10c).
+  ``MemoEngine.infer`` at full width cut to 4 + 4 layers (10c);
+* training (phase 11, ``[train]`` lines, a ``{"train": ...}`` JSON
+  line) — ``gpt2_small`` whole trained for 30 steps at B=8, S=1024
+  through ``repro_torch.launch.train`` (AdamW; step ms from CUDA events,
+  tokens/s, peak memory; its last loss below its first), a non-logging
+  step under ``set_sync_debug_mode("error")``, ``grad_accum=2`` and
+  ``remat=True`` against one plain step's grads, its checkpoint served
+  by ``launch/serve.py --ckpt --prefill`` (``nn_search``) and its kernel
+  forward against plain (``flash_attention``) (11a); ``dbrx_132b`` at
+  full width cut to 1 of 40 layers trained 4 steps with Adafactor, the
+  router's aux term checked, one host sync a step (11b); and
+  ``bert_base``'s classifier trained 100 steps
+  (``Trainer(loss="classify")``) then served through ``MemoSession``
+  in kernel (``memo_attention``) and bucket (``nn_search``) mode on a
+  fresh and a replayed batch, its calibration slope printed (11c). No
+  kernel runs in a training step: the kernels have no backward.
 
 Every kernel is held against its plain version on the arguments each
 layer of its path gave it, and timed there beside its bound (for the
@@ -5444,6 +5459,379 @@ def zoo3(torch, dev, per_path, errs, smi, info):
     return out
 
 
+# ------------------------------------------------------------ phase 11
+# 11a: gpt2_small whole through launch/train.py (AdamW, its optimizer)
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_B, TRAIN_S = "gpt2_small", 30, 8, 1024
+# one step's grads two ways (grad_accum=2 over 2 x B/2 against B rows;
+# remat against none): the same f32 sums in another order, per leaf
+# max|dg| <= TRAIN_GRAD_RTOL * max|g| + 1e-7 (the CPU tests' bound
+# against the reference, tests/test_torch_train.py)
+TRAIN_GRAD_RTOL = 1e-4
+# 11b: dbrx_132b at full width cut to 1 of 40 layers (Adafactor)
+DBRX_TRAIN_LAYERS, DBRX_TRAIN_STEPS, DBRX_TRAIN_B, DBRX_TRAIN_S = 1, 4, 2, 256
+# 11c: bert_base's classifier (n_classes 4, as serve.py --online sets)
+BERT_TRAIN_STEPS, BERT_TRAIN_B, BERT_CLASSES, BERT_CALIB = 100, 32, 4, 4
+
+
+class StepTimes:
+    """While active, CUDA events bracket every ``Trainer.step`` call
+    (patched on the class, restored on exit); ``ms()`` reads them."""
+
+    def __init__(self, torch):
+        self.torch, self.events = torch, []
+
+    def __enter__(self):
+        from repro_torch.train.trainer import Trainer
+        self.cls, self.real = Trainer, Trainer.step
+        torch, events, real = self.torch, self.events, self.real
+
+        def step(tr, *a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(tr, *a, **kw)
+            end.record()
+            events.append((start, end))
+            return out
+        self.cls.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.real
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def grad_gap(g, ref, rtol):
+    """Two grad trees, leaf by leaf: (the largest max|g - ref| / max|ref|,
+    its leaf, whether every leaf is within rtol·max|ref| + 1e-7)."""
+    from repro_torch.tree import flat_params
+    worst, ok, g = (0.0, ""), True, flat_params(g)
+    for k, b in flat_params(ref).items():
+        a = g[k]
+        scale = b.abs().max().item()
+        gap = (a - b).abs().max().item()
+        ok = ok and gap <= rtol * scale + 1e-7
+        worst = max(worst, (gap / scale if scale else gap, k))
+    return worst + (ok,)
+
+
+def train_launcher(argv):
+    """``repro_torch.launch.train.main(argv)`` with its standard output
+    captured, echoed under ``[train.py]``; returns (params, history,
+    output)."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        params, hist = train.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"[train.py] {line}")
+    return params, hist, out
+
+
+def train_gpt2(torch, dev, per_path, errs, smi, tmp):
+    """11a: gpt2_small whole trained through launch/train.py, a step's
+    host syncs, grad accumulation and remat against one plain step, then
+    its checkpoint served through launch/serve.py --ckpt --prefill and its
+    kernel forward against plain."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import TemplateCorpus
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer, load_checkpoint
+    res = {}
+    t0 = time.perf_counter()
+    ck = str(Path(tmp) / f"{TRAIN_ARCH}.npz")
+    torch.cuda.reset_peak_memory_stats()
+    with StepTimes(torch) as st:
+        params, hist, out = train_launcher(
+            ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+             str(TRAIN_B), "--seq", str(TRAIN_S), "--ckpt", ck, "--device",
+             "cuda"])
+    ms = st.ms()
+    peak = torch.cuda.max_memory_allocated()
+    require("done: loss" in out and "checkpoint ->" in out,
+            "train.py printed no result")
+    first, last = hist[0][1], hist[-1][1]
+    med = float(np.median(ms))
+    res.update(first_loss=first, last_loss=last, step_ms=med,
+               step_ms_all=ms, tokens_per_s=TRAIN_B * TRAIN_S / med * 1e3,
+               peak_gb=peak / 1e9, seconds=time.perf_counter() - t0)
+    print(f"[train] 11a {TRAIN_ARCH} whole, AdamW, B={TRAIN_B} "
+          f"S={TRAIN_S}, {TRAIN_STEPS} steps: loss {first:.4f} -> "
+          f"{last:.4f}; median step {med:.2f} ms (CUDA events; first "
+          f"{ms[0]:.2f}, min {min(ms):.2f}, max {max(ms):.2f}), "
+          f"{res['tokens_per_s']:.0f} tokens/s, max_memory_allocated "
+          f"{peak / 1e9:.2f} GB, {res['seconds']:.1f} s ({smi})")
+    require(last < first, f"{TRAIN_ARCH}: loss {first} -> {last}")
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, device=dev)
+    corpus = TemplateCorpus(vocab=cfg.vocab, seq_len=TRAIN_S, seed=5)
+    tok = torch.as_tensor(corpus.sample(TRAIN_B)[0], device=dev)
+    batch = {"tokens": tok}
+    tr = Trainer(model, TrainConfig(steps=TRAIN_STEPS))
+    opt = tr.init_opt(params)
+    tr.step(params, opt, batch, 1)           # warm-up, outside the check
+    torch.cuda.synchronize()
+    with HostSyncs(torch):                   # a host sync raises
+        tr.step(params, opt, batch, 1)
+    torch.cuda.synchronize()
+    print("[train] 11a a non-logging step (tokens on the card) under "
+          "set_sync_debug_mode('error'): 0 host syncs")
+    res["host_syncs_a_step"] = 0
+
+    l1, g1 = tr.value_and_grad(params, batch)
+    acc = Trainer(model, TrainConfig(grad_accum=2))
+    l2, g2 = acc.value_and_grad(
+        params, {"tokens": tok.reshape(2, TRAIN_B // 2, TRAIN_S)})
+    gap, leaf, ok = grad_gap(g2, g1, TRAIN_GRAD_RTOL)
+    lgap = abs(l2.item() - l1.item()) / abs(l1.item())
+    print(f"[train] 11a grad_accum=2 over 2 x {TRAIN_B // 2} rows vs one "
+          f"{TRAIN_B}-row step: loss {lgap:.2e} relative, grads up to "
+          f"{gap:.2e} of max|g| at {leaf} (bound {TRAIN_GRAD_RTOL:.0e} of "
+          f"max|g| + 1e-7)")
+    require(ok and lgap <= TRAIN_GRAD_RTOL,
+            f"grad_accum=2 vs one step: {gap} at {leaf}, loss {lgap}")
+    del g2
+    peaks = {}
+    for remat in (False, True):
+        m = build_model(cfg, device=dev, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        lr_, gr = Trainer(m, TrainConfig()).value_and_grad(params, batch)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    gap_r, leaf_r, ok = grad_gap(gr, g1, TRAIN_GRAD_RTOL)
+    lgap_r = abs(lr_.item() - l1.item()) / abs(l1.item())
+    print(f"[train] 11a remat=True vs remat=False: loss {lgap_r:.2e} "
+          f"relative, grads up to {gap_r:.2e} of max|g| at {leaf_r} (bound "
+          f"{TRAIN_GRAD_RTOL:.0e} of max|g| + 1e-7); a step's peak above "
+          f"the params {peaks[False]:.2f} GB without remat, "
+          f"{peaks[True]:.2f} GB with")
+    require(ok and lgap_r <= TRAIN_GRAD_RTOL,
+            f"remat vs none: {gap_r} at {leaf_r}, loss {lgap_r}")
+    require(peaks[True] < peaks[False], f"remat peak {peaks}")
+    res.update(accum_grad_gap=gap, accum_loss_gap=lgap, remat_grad_gap=gap_r,
+               remat_loss_gap=lgap_r, peak_gb_no_remat=peaks[False],
+               peak_gb_remat=peaks[True])
+    del g1, gr, params, opt
+
+    # the checkpoint, served: launch/serve.py --ckpt --prefill, then the
+    # trained weights' kernel forward against plain
+    zero_counts()
+    r, out = serve_launcher(["--device", "cuda", "--arch", TRAIN_ARCH,
+                             "--ckpt", ck, "--prefill", "--requests", "32",
+                             "--batch", "16", "--seq", "64",
+                             "--calib-batches", "2"])
+    per_path["train_serve_prefill"] = read_counts()
+    require(f"db:" in out and "[prefill] parity" in out,
+            "serve.py --ckpt printed no [prefill] result")
+    require(per_path["train_serve_prefill"]["nn_search"] > 0,
+            f"serve.py --ckpt launched no nn_search: {per_path}")
+    trained, _, meta = load_checkpoint(ck, device=dev)
+    require(meta.get("arch") == cfg.name, f"checkpoint meta {meta}")
+    kmodel = build_model(cfg, device=dev, attn_impl="kernel")
+    with torch.no_grad():
+        plain = model.forward(trained, batch)[0]
+        torch.cuda.synchronize()
+        zero_counts()
+        with HostSyncs(torch):
+            logits = kmodel.forward(trained, batch)[0]
+        torch.cuda.synchronize()
+        per_path["train_gpt2_kernel"] = read_counts()
+    check_logits(TRAIN_ARCH, logits, plain)
+    require(per_path["train_gpt2_kernel"]["flash_attention"]
+            == cfg.n_layers, f"trained forward: {per_path}")
+    print(f"[train] 11a the checkpoint served by serve.py --ckpt --prefill "
+          f"(nn_search {per_path['train_serve_prefill']['nn_search']}, "
+          f"flash_attention "
+          f"{per_path['train_serve_prefill']['flash_attention']} launches) "
+          f"and its kernel forward (flash_attention "
+          f"{per_path['train_gpt2_kernel']['flash_attention']} launches)")
+    res["serve_py_prefill"] = r["prefill"]
+    res["launches"] = {p: per_path[p] for p in ("train_serve_prefill",
+                                                "train_gpt2_kernel")}
+    return res
+
+
+def train_dbrx(torch, dev, smi):
+    """11b: dbrx_132b at full width cut to DBRX_TRAIN_LAYERS layer(s),
+    trained with Adafactor (its cfg.optimizer): per step the loss, the
+    router aux term and step ms; a step's host syncs (one a MoE layer:
+    moe_apply's offset read); peak memory and the optimizer's state."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import TemplateCorpus
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    import torch.nn.functional as F
+    cfg = get_config("dbrx_132b").replace(n_layers=DBRX_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    n_params = sum(p.numel() for p in _leaves(params))
+    tr = Trainer(model, TrainConfig(steps=DBRX_TRAIN_STEPS,
+                                    optimizer=cfg.optimizer))
+    opt = tr.init_opt(params)
+    corpus = TemplateCorpus(vocab=cfg.vocab, seq_len=DBRX_TRAIN_S, seed=9)
+    batches = [{"tokens": torch.as_tensor(corpus.sample(DBRX_TRAIN_B)[0],
+                                          device=dev)}
+               for _ in range(DBRX_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    print(f"[train] 11b {cfg.name} at full width, {cfg.n_layers} of 40 "
+          f"layers ({cfg.moe.n_experts} experts top-{cfg.moe.top_k}): "
+          f"{n_params / 1e9:.3f} B params ({n_params * 4 / 1e9:.2f} GB f32) "
+          f"made in {time.perf_counter() - t0:.1f} s; {cfg.optimizer}, "
+          f"B={DBRX_TRAIN_B} S={DBRX_TRAIN_S}")
+    torch.cuda.reset_peak_memory_stats()
+    steps, syncs = [], []
+    coef = cfg.moe.aux_loss_coef
+    for i, batch in enumerate(batches):
+        with torch.no_grad():
+            logits, _, aux = model.forward(params, batch)
+            tok = batch["tokens"].long()
+            nll = -torch.mean(torch.gather(F.log_softmax(
+                logits[:, :-1].float(), -1), -1, tok[:, 1:, None]))
+            del logits
+            tl = model.train_loss(params, batch)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with HostSyncs(torch, counted=True) as hs:
+            params, opt, loss = tr.step(params, opt, batch, i)
+        end.record()
+        torch.cuda.synchronize()
+        syncs.append(hs.count)
+        got, want = (tl - nll).item(), (coef * aux).item()
+        gap = abs(got - want)
+        tol = 4 * np.finfo(np.float32).eps * max(1.0, abs(tl.item()))
+        steps.append(dict(loss=loss.item(), nll=nll.item(), aux=aux.item(),
+                          aux_term=got, ms=start.elapsed_time(end)))
+        print(f"[train] 11b step {i}: loss {loss.item():.4f} (nll "
+              f"{nll.item():.4f} + {coef} x aux {aux.item():.4f}; "
+              f"train_loss - nll {got:.6e} vs aux_loss_coef*aux {want:.6e},"
+              f" |diff| {gap:.1e}, bound {tol:.1e}), {steps[-1]['ms']:.1f} "
+              f"ms, {hs.count} host syncs")
+        require(gap <= tol, f"dbrx aux term {got} vs {want}")
+        require(np.isfinite(loss.item()), "dbrx loss is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    state = sum(t.numel() * t.element_size() for t in _leaves(opt["s"]))
+    adam = 2 * n_params * 4
+    print(f"[train] 11b peak memory {peak / 1e9:.2f} GB; Adafactor's state "
+          f"{state / 1e6:.1f} MB against AdamW's m + v {adam / 1e9:.2f} GB; "
+          f"host syncs a step {syncs} (one a MoE layer: moe_apply's offset "
+          f"read) ({smi})")
+    require_syncs(syncs, cfg.n_layers, "dbrx_132b train step")
+    res = dict(params_b=n_params / 1e9, steps=steps, peak_gb=peak / 1e9,
+               adafactor_state_mb=state / 1e6, adamw_state_gb=adam / 1e9,
+               host_syncs=syncs, seconds=time.perf_counter() - t0)
+    del params, opt, batches
+    return res
+
+
+def train_bert(torch, dev, per_path, smi):
+    """11c: bert_base's classifier trained with Trainer(loss="classify"),
+    then served through MemoSession in kernel and bucket mode (and
+    memo-free) on a fresh and a replayed calibration batch: the
+    calibration slope, hits and launches with trained weights."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import TemplateCorpus
+    from repro_torch.memo import MemoSpec
+    from repro_torch.memo.session import MemoSession
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    t0 = time.perf_counter()
+    cfg = get_config("bert_base").replace(n_classes=BERT_CLASSES)
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    corpus = TemplateCorpus(vocab=cfg.vocab, seq_len=SEQ, seed=0)
+    tr = Trainer(model, TrainConfig(steps=BERT_TRAIN_STEPS, loss="classify",
+                                    log_every=25))
+    logs = []
+    with StepTimes(torch) as st:
+        params, _, hist = tr.fit(
+            params, corpus.batches(BERT_TRAIN_STEPS, BERT_TRAIN_B),
+            on_log=logs.append)
+    ms = float(np.median(st.ms()))
+    for line in logs:
+        print(f"[train] 11c {line}")
+    first, last = hist[0][1], hist[-1][1]
+    print(f"[train] 11c bert_base classifier ({BERT_CLASSES} classes), "
+          f"{BERT_TRAIN_STEPS} steps at B={BERT_TRAIN_B} S={SEQ}: loss "
+          f"{first:.4f} -> {last:.4f}, median step {ms:.2f} ms")
+    require(last < first, f"bert classifier loss {first} -> {last}")
+    calib = [{"tokens": corpus.sample(BATCH)[0]} for _ in range(BERT_CALIB)]
+    fresh = [{"tokens": corpus.sample(BATCH)[0]} for _ in range(3)]
+    sess = MemoSession.build(model, params,
+                             MemoSpec.flat(mode="kernel", apm_codec="int8"),
+                             batches=calib, device=dev)
+    sess.autotune(fresh[:2], "moderate")
+    a, b = sess.store.sim_cal
+    print(f"[train] 11c session over the trained weights: "
+          f"{len(sess.store)} entries from {BERT_CALIB} calibration "
+          f"batches; sim_cal (a, b) ({a:+.5f}, {b:.4f}) (slope "
+          f"{'positive' if a > 0 else 'negative'}); threshold (moderate) "
+          f"{sess.spec.runtime.threshold:.6f}")
+    requests = [fresh[2], calib[0]]          # a fresh and a replayed batch
+    results = {}
+    for mode in ("kernel", "bucket"):
+        sess.spec.runtime.mode = mode
+        results[mode] = drive(torch, sess, requests, f"train_bert_{mode}",
+                              per_path)
+    plain = drive(torch, sess, requests, "train_bert_memo_free", per_path,
+                  use_memo=False)
+    launches = {m: per_path[f"train_bert_{m}"] for m in results}
+    require(launches["kernel"]["memo_attention"] > 0,
+            f"11c kernel mode launched no memo_attention: {launches}")
+    require(launches["bucket"]["nn_search"] > 0,
+            f"11c bucket mode launched no nn_search: {launches}")
+    out = dict(first_loss=first, last_loss=last, step_ms=ms,
+               sim_cal=[a, b], entries=len(sess.store))
+    for mode, r in results.items():
+        replay = r["hits"][-1]
+        agree = agreement(r["outs"], plain["outs"])
+        print(f"[train] 11c {mode} mode: hit rate {r['rate']:.4f} (fresh "
+              f"{r['hits'][0].mean():.4f}, replayed {replay.mean():.4f}), "
+              f"memo_attention {launches[mode]['memo_attention']}, "
+              f"nn_search {launches[mode]['nn_search']} launches, "
+              f"agreement with memo-free {agree:.4f}, median {r['ms']:.2f} "
+              f"ms a batch vs {plain['ms']:.2f} memo-free")
+        for o in r["outs"]:
+            require(bool(torch.isfinite(o).all()), "11c non-finite logits")
+        out[mode] = dict(hit_rate=r["rate"], fresh=float(r["hits"][0].mean()),
+                         replayed=float(replay.mean()), agreement=agree,
+                         ms=r["ms"], launches=launches[mode])
+    out.update(memo_free_ms=plain["ms"], seconds=time.perf_counter() - t0)
+    del sess
+    return out
+
+
+def train_phase(torch, dev, per_path, errs, smi):
+    """Phase 11: training on the card (11a gpt2_small whole, 11b dbrx_132b
+    at full width, 11c bert_base's classifier served after). Returns the
+    JSON fields."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {TRAIN_ARCH: train_gpt2(torch, dev, per_path, errs, smi, tmp)}
+    torch.cuda.empty_cache()
+    out["dbrx_132b"] = train_dbrx(torch, dev, smi)
+    torch.cuda.empty_cache()
+    out["bert_base_classifier"] = train_bert(torch, dev, per_path, smi)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[train] phase 11 took {out['seconds']:.1f}s ({smi})")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5566,6 +5954,9 @@ def main() -> int:
         encoder=wh["forward"]["encoder"], decoder=wh["forward"]["decoder"])
     times["nn_search"]["recurrentgemma_2b_launches"] = {
         p: per_path[p]["nn_search"] for p in ("rg_bucket", "rg_prefill")}
+    torch.cuda.empty_cache()
+    train_res = train_phase(torch, dev, per_path, errs, smi)
+    print(json.dumps({"train": train_res}))
     print(json.dumps({"kernel_launches_per_path": per_path}))
 
     meta = {

@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _DH = (16, 32, 64, 112, 128, 256)
@@ -80,6 +80,7 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, not "
                          f"{q.device}")
+    refuse_grad("flash_attention", q, k, v)
     return _launch(q, k, v, causal, window)
 
 

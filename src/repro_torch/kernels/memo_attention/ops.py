@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.memo_attention.ref import memo_attention_ref
 
 _DH = (16, 32, 64, 112, 128, 256)
@@ -98,6 +98,7 @@ def memo_attention(q, k, v, db_apm, hit_idx, hit, *, db_scales=None,
     if q.device.type != "cuda":
         raise ValueError(f"memo_attention runs on cpu or cuda tensors, not "
                          f"{q.device}")
+    refuse_grad("memo_attention", q, k, v, db_apm, db_scales)
     if lengths is None:
         lengths = torch.full((q.shape[0],), q.shape[1], dtype=torch.int32,
                              device=q.device)

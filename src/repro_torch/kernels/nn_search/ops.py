@@ -104,7 +104,9 @@ def nn_search(q, db, *, db_norms=None):
     if q.device.type != "cuda":
         raise ValueError(f"nn_search runs on cpu or cuda tensors, not "
                          f"{q.device}")
-    out = _launch(q, db, db_norms)
+    # a search has no gradient in either package: its inputs go detached
+    out = _launch(q.detach(), db.detach(),
+                  None if db_norms is None else db_norms.detach())
     nn_search.launches += 1
     return out
 

@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
 
 _N = (16, 32, 64)
@@ -101,6 +101,7 @@ def wkv6(r, k, v, w, u, *, chunk=CHUNK):
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6 runs on cpu or cuda tensors, not "
                          f"{r.device}")
+    refuse_grad("rwkv6", r, k, v, w, u)
     return _launch(r, k, v, w, u, chunk)
 
 

@@ -29,7 +29,9 @@ reference is here with its name and default:
   replayed calibration batch decoded greedily from both cache sets;
 * ``--save-store`` / ``--load-store`` persist and warm-start a session
   (files cross between the packages), ``--ckpt`` loads weights written
-  by either package's ``train/checkpoint.py``.
+  by either package's ``train/checkpoint.py``: a checkpoint whose meta
+  names the arch's full config (``launch/train.py`` without
+  ``--reduced``) is served at that config.
 
 ``--shards`` raises ``NotImplementedError``: the sharded store is a
 later slice of the port.
@@ -42,7 +44,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_reduced
+from repro_torch.configs import get_config, get_reduced
 from repro_torch.data import TemplateCorpus
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.memo import LEVELS, MemoSession, MemoSpec, MemoStats
@@ -208,27 +210,6 @@ def _serve_online(eng, corpus, args):
                 evicted=s.n_evicted, match_select=ok, agreement=agree)
 
 
-def _flat_params(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flat_params(v, f"{prefix}{k}/"))
-        else:
-            out[prefix + k] = v
-    return out
-
-
-def _nest_params(flat):
-    root = {}
-    for key, v in flat.items():
-        *path, leaf = key.split("/")
-        node = root
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = v
-    return root
-
-
 def _train_classifier(model, params, corpus, steps: int = 50,
                      batch: int = 32):
     """A briefly trained classifier (the paper's BERT/SST-2 analogue):
@@ -236,17 +217,12 @@ def _train_classifier(model, params, corpus, steps: int = 50,
     corpus' labels. Random-init hidden states embed poorly, which would
     understate adaptation."""
     from repro_torch.optim.adamw import adamw_init, adamw_update
-    flat = _flat_params(params)
-    opt = adamw_init(flat)
+    from repro_torch.train.trainer import value_and_grad
+    opt = adamw_init(params)
     for b in corpus.batches(steps, batch):
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in flat.items()}
-        with torch.enable_grad():
-            loss = model.classify_loss(_nest_params(leaves), b)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        flat, opt = adamw_update(flat, dict(zip(leaves, grads)), opt,
-                                 lr=3e-4)
-    return _nest_params(flat)
+        _, grads = value_and_grad(model.classify_loss, params, b)
+        params, opt = adamw_update(params, grads, opt, lr=3e-4)
+    return params
 
 
 def parse_args(argv=None):
@@ -343,6 +319,13 @@ def main(argv=None):
             "sharded-store slice of the port")
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch)
+    params = None
+    if args.ckpt:
+        params, _, meta = load_checkpoint(args.ckpt, device=device)
+        if meta.get("arch") == get_config(args.arch).name:
+            # trained at the full config (launch/train.py without
+            # --reduced): served at it
+            cfg = get_config(args.arch)
     if cfg.encoder is not None:
         raise SystemExit(
             f"{args.arch!r} is an encoder-decoder model: its batches need "
@@ -359,9 +342,7 @@ def main(argv=None):
     if args.online and not cfg.n_classes:
         cfg = cfg.replace(n_classes=4)
     model = build_model(cfg, device=device)
-    if args.ckpt:
-        params, _, _ = load_checkpoint(args.ckpt, device=device)
-    else:
+    if params is None:
         params = model.init(0)
     corpus = TemplateCorpus(vocab=cfg.vocab, seq_len=args.seq, seed=1)
     if args.online and not args.ckpt and cfg.n_classes:

@@ -15,10 +15,12 @@ stacked, and single segments for the layers past the last whole unit.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -27,6 +29,7 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (
     dense_init, embed_init, mlp_apply, mlp_init, norm_apply, norm_init,
 )
+from repro_torch.tree import leaves, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +176,7 @@ def cache_len_from(cache) -> int:
     """Total cache slots from a cache template (prefill pads up to this)."""
     if cache is None:
         return 0
-    for v in _leaves(cache):
+    for v in leaves(cache):
         return v.shape[1]
     return 0
 
@@ -214,7 +217,7 @@ def init_caches(cfg, batch, seq, dtype=torch.float32, window=None,
         group = {f"l{u}": one(kind, seg.start + u)
                  for u, kind in enumerate(seg.unit)}
         if seg.kind == "scan":
-            group = _tree_map(
+            group = tree_map(
                 lambda a: a.expand((seg.reps,) + tuple(a.shape)), group)
         caches[f"seg{si}"] = group
     return caches
@@ -258,7 +261,7 @@ def _stacked(make, reps):
     for r in range(reps):
         tree = make(r)
         if out is None:
-            out = _tree_map(
+            out = tree_map(
                 lambda a: a.new_empty((reps,) + tuple(a.shape)), tree)
         _copy_rep(out, tree, r)
         del tree
@@ -282,21 +285,7 @@ def _tree_stack(trees):
 
 
 def _tree_index(tree, r):
-    return _tree_map(lambda a: a[r], tree)
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return None if tree is None else fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif tree is not None:
-        yield tree
+    return tree_map(lambda a: a[r], tree)
 
 
 # ---------------------------------------------------------------------------
@@ -326,12 +315,28 @@ def iter_layers(params, cfg):
                            gp[f"l{u}"])
 
 
+def _tree_unbind(tree, n):
+    """The ``n`` repeats of a stacked tree as views, one ``unbind`` a
+    leaf (whose backward stacks the repeats' grads once, where indexing
+    each repeat would scatter each into a zero copy of the stack)."""
+    if tree is None:
+        return [None] * n
+    if isinstance(tree, dict):
+        parts = {k: _tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
+    return list(torch.unbind(tree))
+
+
 def forward_hidden(params, h, cfg, *, mode="full", positions=None,
                    pos=None, caches=None, memo_plan=None, capture=False,
-                   window=None, attn_impl="plain"):
+                   window=None, attn_impl="plain", remat=False):
     """Run all layers. Returns (h, new_caches, apms{layer_idx: apm},
     aux): ``new_caches`` has ``caches``' layout (None per segment in
-    "full" mode), ``aux`` the summed MoE router losses."""
+    "full" mode), ``aux`` the summed MoE router losses. With ``remat``
+    each layer of a "full" pass runs under activation checkpointing
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
+    its scan body): its activations are recomputed in the backward
+    pass instead of kept."""
     apms: Dict[int, Any] = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     new_caches = {}
@@ -339,19 +344,24 @@ def forward_hidden(params, h, cfg, *, mode="full", positions=None,
         B, S = h.shape[0], h.shape[1]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device).expand(B, S)
+    apply = _layer_apply
+    if remat and mode == "full":
+        apply = functools.partial(checkpoint, _layer_apply,
+                                  use_reentrant=False)
     for si, seg in enumerate(scan_plan(cfg)):
         sp = params["layers"][f"seg{si}"]
         sc = caches.get(f"seg{si}") if caches else None
+        if seg.kind == "single":
+            gps, gcs = [sp], [sc]
+        else:
+            gps, gcs = _tree_unbind(sp, seg.reps), _tree_unbind(sc, seg.reps)
         reps = []
-        for r in range(seg.reps):
-            gp = sp if seg.kind == "single" else _tree_index(sp, r)
-            gc = sc if sc is None or seg.kind == "single" \
-                else _tree_index(sc, r)
+        for r, (gp, gc) in enumerate(zip(gps, gcs)):
             out = {}
             for u, kind in enumerate(seg.unit):
                 li = seg.start + r * len(seg.unit) + u
                 memo = memo_plan.get(li) if memo_plan else None
-                h, c, apm, aux = _layer_apply(
+                h, c, apm, aux = apply(
                     gp[f"l{u}"], h, cfg, kind, li, mode=mode,
                     positions=positions, pos=pos,
                     cache=gc.get(f"l{u}") if gc else None, memo=memo,

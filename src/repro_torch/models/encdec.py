@@ -16,9 +16,11 @@ plain softmax, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.backbone import _stacked, _tree_index, _tree_stack
@@ -181,11 +183,19 @@ def dec_layer_apply(lp, h, cfg, kv, *, mode, positions, pos, cache,
     return h, new_cache
 
 
+def _dec_layer_body(lp, h, cfg, enc_h, **kw):
+    """``dec_layer_apply`` on the layer's cross K/V of ``enc_h`` (the
+    reference's scan body)."""
+    return dec_layer_apply(lp, h, cfg, cross_kv(lp["cross"], enc_h), **kw)
+
+
 def decode_tokens(params, tokens, enc_h, cfg, *, mode="full", caches=None,
-                  pos=None, window=None, attn_impl="plain"):
+                  pos=None, window=None, attn_impl="plain", remat=False):
     """tokens: (B,S) ids. enc_h: (B,F,d_enc), or None in "decode" mode
     (the caches hold each layer's cross K/V). Returns (h, new caches,
-    stacked on the layer axis; None in "full")."""
+    stacked on the layer axis; None in "full"). With ``remat`` each
+    layer outside "decode" runs under activation checkpointing (the
+    reference's ``jax.checkpoint`` of its scan body)."""
     B, S = tokens.shape
     dec_pos = params["dec_pos"]
     positions = None
@@ -203,15 +213,16 @@ def decode_tokens(params, tokens, enc_h, cfg, *, mode="full", caches=None,
                                  device=tokens.device).expand(B, S)
         pos_emb = dec_pos[None, :S]
     h = params["embed"][tokens.long()] + pos_emb
+    apply = dec_layer_apply if mode == "decode" else _dec_layer_body
+    if remat and mode != "decode":
+        apply = functools.partial(checkpoint, apply, use_reentrant=False)
     out = []
     for li in range(cfg.n_layers):
         lp = _tree_index(params["dec_layers"], li)
         gc = None if caches is None else _tree_index(caches, li)
-        kv = (gc["kv"] if mode == "decode"
-              else cross_kv(lp["cross"], enc_h))
-        h, c = dec_layer_apply(lp, h, cfg, kv, mode=mode,
-                               positions=positions, pos=pos, cache=gc,
-                               window=window, attn_impl=attn_impl)
+        kv = gc["kv"] if mode == "decode" else enc_h
+        h, c = apply(lp, h, cfg, kv, mode=mode, positions=positions,
+                     pos=pos, cache=gc, window=window, attn_impl=attn_impl)
         out.append(c)
     return h, (None if mode == "full" else _tree_stack(out))
 

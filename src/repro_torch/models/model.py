@@ -22,6 +22,12 @@ kernel-backed layers:
   enc-dec model the kernel runs in the encoder (bidirectional) and in
   the decoder's self-attention over the prompt (causal); the reference
   reaches it in its encoder only, the same values within f32 rounding.
+
+``remat`` runs each layer of the full-sequence forward under activation
+checkpointing (the reference's ``remat``). ``train_loss`` and
+``classify_loss`` are differentiable under ``attn_impl="plain"`` only:
+the kernels have no backward (nor have the reference's Pallas kernels),
+so under ``"kernel"`` both raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,12 +46,13 @@ ATTN_IMPLS = ("plain", "kernel")
 
 class Model:
     def __init__(self, cfg, *, device=None, attn_impl="plain",
-                 max_seq=4096):
+                 remat=False, max_seq=4096):
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{attn_impl!r}")
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.remat = remat
         self.device = resolve_device(device)
         self.max_seq = max_seq          # enc-dec: rows of dec_pos
         self.is_encdec = cfg.encoder is not None
@@ -87,14 +94,36 @@ class Model:
                                        memo_plan=memo_plan)
             h, _ = ed.decode_tokens(params, self._tokens(batch), enc_h,
                                     self.cfg, mode="full", window=window,
-                                    attn_impl=self.attn_impl)
+                                    attn_impl=self.attn_impl,
+                                    remat=self.remat)
             return (self._encdec_logits(params, h), apms,
                     torch.zeros((), dtype=torch.float32, device=h.device))
         h = bb.embed_tokens(params, self._tokens(batch), self.cfg)
         h, _, apms, aux = bb.forward_hidden(
             params, h, self.cfg, mode="full", memo_plan=memo_plan,
-            capture=capture, window=window, attn_impl=self.attn_impl)
+            capture=capture, window=window, attn_impl=self.attn_impl,
+            remat=self.remat)
         return bb.logits_from_hidden(params, h, self.cfg), apms, aux
+
+    def _differentiable(self, what):
+        if self.attn_impl != "plain":
+            raise NotImplementedError(
+                f"{what} under attn_impl={self.attn_impl!r}: the kernels "
+                f"have no backward, as the reference's Pallas kernels have "
+                f"no gradient; train with attn_impl='plain'")
+
+    def train_loss(self, params, batch):
+        """Mean next-token NLL over ``logits[:, :-1]`` in f32, plus
+        ``aux_loss_coef`` times the MoE router aux where the config has
+        a MoE (differentiable: call it with grad enabled)."""
+        self._differentiable("train_loss")
+        logits, _, aux = self.forward(params, batch)
+        tok = self._tokens(batch).long()
+        logp = F.log_softmax(logits[:, :-1].float(), -1)
+        loss = -torch.mean(torch.gather(logp, -1, tok[:, 1:, None]))
+        if self.cfg.moe is not None:
+            loss = loss + self.cfg.moe.aux_loss_coef * aux
+        return loss
 
     def classify(self, params, batch, *, memo_plan=None, capture=False):
         """Mean-pool classification (AttMemo accuracy experiments)."""
@@ -108,6 +137,7 @@ class Model:
     def classify_loss(self, params, batch):
         """Mean cross-entropy of ``classify`` against ``batch["labels"]``
         (differentiable: call it with grad enabled)."""
+        self._differentiable("classify_loss")
         logits = self.classify(params, batch).float()
         labels = torch.as_tensor(batch["labels"], device=self.device)
         return -torch.mean(torch.gather(F.log_softmax(logits, -1), -1,
@@ -160,5 +190,6 @@ class Model:
         return logits[:, 0], caches
 
 
-def build_model(cfg, *, device=None, attn_impl="plain") -> Model:
-    return Model(cfg, device=device, attn_impl=attn_impl)
+def build_model(cfg, *, device=None, attn_impl="plain",
+                remat=False) -> Model:
+    return Model(cfg, device=device, attn_impl=attn_impl, remat=remat)

@@ -95,12 +95,14 @@ def moe_apply(params, x, cfg, mesh=None) -> Tuple[torch.Tensor,
     tok = torch.div(order, k, rounding_mode="floor")
     y_sorted = torch.empty((T * k, shape[-1]), dtype=x.dtype,
                            device=x.device)
-    for e in range(E):
+    # one unbind a weight: its backward stacks the experts' grads once
+    experts = zip(*(params[n].unbind(0)
+                    for n in ("w_gate", "w_up", "w_down")))
+    for e, (w_gate, w_up, w_down) in enumerate(experts):
         lo, hi = bounds[e], bounds[e + 1]
         if hi > lo:
             y_sorted[lo:hi] = _expert(xf.index_select(0, tok[lo:hi]),
-                                      params["w_gate"][e], params["w_up"][e],
-                                      params["w_down"][e])
+                                      w_gate, w_up, w_down)
     y_tk = torch.empty_like(y_sorted).index_copy_(0, order, y_sorted)
     y = torch.sum(y_tk.reshape(T, k, -1) * weights[..., None], dim=1)
     return y.reshape(shape), aux

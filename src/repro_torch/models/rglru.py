@@ -73,10 +73,19 @@ def _rglru_scan(params, y, cfg, h0):
                                    min=1e-12)) * (i * y.float())
     # time-major, so each step reads and writes contiguous rows
     a, gated = a.transpose(0, 1).contiguous(), gated.transpose(0, 1)
-    hs = torch.empty_like(a)
     h = h0.float()
-    for t in range(a.shape[0]):
-        h = torch.addcmul(gated[t], a[t], h, out=hs[t])
+    if torch.is_grad_enabled() and (a.requires_grad or gated.requires_grad
+                                    or h.requires_grad):
+        # out= takes no autograd: a differentiable step list, stacked
+        steps = []
+        for t in range(a.shape[0]):
+            h = torch.addcmul(gated[t], a[t], h)
+            steps.append(h)
+        hs = torch.stack(steps)
+    else:
+        hs = torch.empty_like(a)
+        for t in range(a.shape[0]):
+            h = torch.addcmul(gated[t], a[t], h, out=hs[t])
     # the state is a copy, so a cache does not hold all of ``hs`` alive
     return hs.transpose(0, 1).to(y.dtype), h.to(y.dtype, copy=True)
 

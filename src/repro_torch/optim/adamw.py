@@ -1,15 +1,18 @@
-"""AdamW over a dict of tensors (the reference's ``optim/adamw.py``)."""
+"""AdamW over a tree of tensors (the reference's ``optim/adamw.py``):
+nested dicts, the state's ``m``/``v`` mirroring the params tree. ``t``
+is a Python int, so a step reads nothing back from the device."""
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from repro_torch.tree import leaves, tree_map
 
 
 def adamw_init(params):
-    zeros = {k: torch.zeros_like(p, dtype=torch.float32)
-             for k, p in params.items()}
-    return {"m": zeros,
-            "v": {k: torch.zeros_like(z) for k, z in zeros.items()},
-            "t": 0}
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
+    return {"m": zeros, "v": tree_map(torch.zeros_like, zeros), "t": 0}
 
 
 @torch.no_grad()
@@ -19,18 +22,21 @@ def adamw_update(params, grads, state, *, lr=1e-3, b1=0.9, b2=0.999,
     t = state["t"] + 1
     if grad_clip is not None:
         gn = torch.sqrt(sum(torch.sum(g.float() ** 2)
-                            for g in grads.values()) + 1e-12)
+                            for g in leaves(grads)) + 1e-12)
         scale = torch.clamp(grad_clip / gn, max=1.0)
-        grads = {k: g * scale for k, g in grads.items()}
-    m = {k: b1 * state["m"][k] + (1 - b1) * grads[k].float() for k in params}
-    v = {k: b2 * state["v"][k] + (1 - b2) * grads[k].float() ** 2
-         for k in params}
-    bc1 = 1 - b1 ** t
-    bc2 = 1 - b2 ** t
-    new_params = {}
-    for k, p in params.items():
-        step = (m[k] / bc1) / (torch.sqrt(v[k] / bc2) + eps)
+        grads = tree_map(lambda g: g * scale, grads)
+    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(),
+                 state["m"], grads)
+    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g.float() ** 2,
+                 state["v"], grads)
+    # the bias corrections in f32, as the reference computes them
+    bc1 = float(1 - np.float32(b1) ** np.float32(t))
+    bc2 = float(1 - np.float32(b2) ** np.float32(t))
+    lr = float(lr)
+
+    def upd(p, m_, v_):
+        step = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
         if weight_decay:
             step = step + weight_decay * p.float()
-        new_params[k] = (p.float() - lr * step).to(p.dtype)
-    return new_params, {"m": m, "v": v, "t": t}
+        return (p.float() - lr * step).to(p.dtype)
+    return tree_map(upd, params, m, v), {"m": m, "v": v, "t": t}

@@ -339,7 +339,11 @@ def test_port_imports_neither_jax_nor_reference():
         "        'repro_torch.configs.recurrentgemma_2b',\n"
         "        'repro_torch.configs.whisper_medium',\n"
         "        'repro_torch.models.rglru',\n"
-        "        'repro_torch.models.encdec'} <= set(names), names\n"
+        "        'repro_torch.models.encdec',\n"
+        "        'repro_torch.optim.adafactor',\n"
+        "        'repro_torch.optim.schedule',\n"
+        "        'repro_torch.train.trainer',\n"
+        "        'repro_torch.launch.train'} <= set(names), names\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
     res = subprocess.run([sys.executable, "-c", code], env=env,

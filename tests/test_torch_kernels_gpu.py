@@ -29,7 +29,8 @@ kernels are held at head_dim 16, 32, 64, 112 (kimi_k2's), 128 (the
 zoo's GQA decoders, qwen2_1_5b's serving shape among them) and 256
 (recurrentgemma_2b's MQA local attention, at its serving and forward
 shapes) and must refuse any other. The routed MoE is held to the dense ``moe_ref`` on
-the card."""
+the card. Each wrapper refuses, with grad enabled, inputs that require
+grad (its result would come back detached)."""
 import pytest
 import torch
 
@@ -321,6 +322,37 @@ def test_attention_kernels_refuse_other_head_dims(cuda, dh):
                               N=2, L=16, quant=True, varlen=False, seed=dh)
     with pytest.raises(ValueError, match="head_dim"):
         memo_attention(*args, **kw)
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
+    """A kernel fills its output outside autograd, so each attention and
+    wkv wrapper raises where its caller could need the gradient (grad
+    enabled, an input requiring grad) instead of returning a detached
+    result; under ``no_grad`` it launches. ``nn_search`` has no gradient
+    in either package: it takes its inputs detached and launches."""
+    q, k, v = flash_case(torch, cuda, B=1, S=16, H=2, Hkv=1, dh=64, seed=3)
+    (mq, mk, mv, *rest), kw = attention_case(
+        torch, cuda, B=1, S=16, H=2, Hkv=1, dh=64, N=2, L=16, quant=True,
+        varlen=False, seed=3)
+    r, kk, vv, w, u = wkv_case(torch, cuda, B=1, S=16, nh=2, N=64,
+                               decay_mean=-3.5, seed=3)
+    calls = {"flash_attention": lambda x: flash_attention(x, k, v),
+             "memo_attention": lambda x: memo_attention(x, mk, mv, *rest,
+                                                        **kw),
+             "rwkv6": lambda x: wkv6(x, kk, vv, w, u)}
+    for name, x in (("flash_attention", q), ("memo_attention", mq),
+                    ("rwkv6", r)):
+        with pytest.raises(RuntimeError, match="no backward"):
+            calls[name](x.detach().requires_grad_(True))
+        with torch.no_grad():
+            calls[name](x.detach().requires_grad_(True))
+    table = torch.randn(64, 32, device=cuda, requires_grad=True)
+    n0 = nn_search.launches
+    d, i = nn_search(table[:4] * 1.0, table)
+    torch.cuda.synchronize()
+    assert nn_search.launches == n0 + 1
+    assert not d.requires_grad and torch.equal(
+        i.cpu(), torch.arange(4, dtype=i.dtype))
 
 
 @pytest.mark.parametrize("S,dh", [(65, 64), (129, 16)])

@@ -7,7 +7,9 @@ removed afterwards), the A/B with ``--capacity-dir`` (one reopenable
 tier directory per session), the store's scale options (the lowrank
 codec, the ivf host index, the clustered device index) served to the
 end, the refusal of ``--shards`` (a later slice), memoized prefill,
-which is ``launch/serve.py``'s leg, and both launchers at a zoo arch."""
+which is ``launch/serve.py``'s leg, both launchers at a zoo arch, and
+the training launcher (``repro_torch.launch.train``) whose checkpoint
+``launch/serve.py`` then serves."""
 import os
 import tempfile
 
@@ -183,3 +185,27 @@ def test_server_capacity_dir_reopens(tmp_path):
     assert sess.store.capacity.recovery["n_replayed"] == 0
     assert sess.store.live_count == sess.store.capacity.live_count > 0
     assert sess.store.verify_integrity() == []
+
+
+def test_train_launcher_reduced(tmp_path, capsys):
+    """``tests/test_launchers.py::test_train_launcher_reduced`` on the
+    port, then its checkpoint served by ``repro_torch.launch.serve``."""
+    import re
+    from repro_torch.launch import serve, train
+    ck = os.path.join(tmp_path, "ck.npz")
+    train.main(["--arch", "gpt2_small", "--reduced", "--steps", "12",
+                "--batch", "4", "--seq", "32", "--ckpt", ck,
+                "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "done: loss" in out and "device cpu" in out
+    assert os.path.exists(ck)
+    m = re.search(r"loss (\d+\.\d+) -> (\d+\.\d+)", out)
+    assert float(m.group(2)) < float(m.group(1))
+    from repro.train.checkpoint import load_checkpoint as jax_load
+    _, opt, meta = jax_load(ck)                  # the reference reads it
+    assert meta == {"step": 12, "arch": "gpt2-reduced"} and opt is None
+    res = serve.main(["--device", "cpu", "--arch", "gpt2_small", "--ckpt",
+                      ck, "--requests", "8", "--batch", "4", "--seq", "16",
+                      "--calib-batches", "2", "--prefill"])
+    assert res["prefill"]
+    assert "[prefill] parity" in capsys.readouterr().out
