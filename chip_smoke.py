@@ -152,6 +152,24 @@ and read just after:
   in kernel (``memo_attention``) and bucket (``nn_search``) mode on a
   fresh and a replayed batch, its calibration slope printed (11c). No
   kernel runs in a training step: the kernels have no backward.
+* the sharded memo store (phase 12, ``[shard]`` lines, a
+  ``{"shard": ...}`` JSON line) — full-width ``bert_base`` (int8): a
+  4-shard spec through ``MemoSession.build`` clamped to the card count
+  (12a); a flat session of 8 calibration batches (3,072 entries) and the
+  same store over four shards of the card (``StoreMesh((cuda,) * 4)``
+  through a patched ``make_store_mesh``), routed to every centroid and
+  at the default routing, each served in kernel (``nn_search`` once a
+  shard a layer, ``memo_attention`` over the combine's B rows) and
+  bucket mode with ``run_layers`` under ``set_sync_debug_mode("error")``;
+  full routing must equal the flat session's hit decisions and slots,
+  with 4 × 12 ``nn_search``, 12 ``memo_attention`` and 12 combines a
+  batch, each call held to its plain version and timed, the combine
+  timed with and without its rows, a batch of each traced (12b);
+  admission by a delta sync that bumps only the shards it wrote, a
+  skewed burst past one shard's free positions (shard-local evictions)
+  and a ``MemoServer`` async window whose held snapshot stays unchanged
+  (12c); and, on a machine with more than one card, 12b over distinct
+  cards (12d).
 
 Every kernel is held against its plain version on the arguments each
 layer of its path gave it, and timed there beside its bound (for the
@@ -5832,6 +5850,465 @@ def train_phase(torch, dev, per_path, errs, smi):
     return out
 
 
+# ------------------------------------------------------------ phase 12
+SHARDS = 4           # 12b's shards, all on the lead card
+SHARD_EMBED_STEPS = 20   # 12a's session only shows the clamp
+# 12c: positions a shard holds past its live rows, as a share of the live
+# set (the default 1.0 leaves every shard half empty, and a burst that
+# fills one would re-pack the store by a full sync first), and the rows
+# of the admission batches (their misses must fit the free positions)
+SHARD_SLACK = 0.05
+SHARD_ADMIT_ROWS = 4
+
+
+class CountCombines:
+    """While active, counts the sharded index's combines
+    (``core/shard.py``'s ``_ALL_GATHER``)."""
+
+    def __enter__(self):
+        import repro_torch.core.shard as shard_mod
+        self.mod, self.real, self.n = shard_mod, shard_mod._ALL_GATHER, 0
+
+        def call(*a, **k):
+            self.n += 1
+            return self.real(*a, **k)
+        shard_mod._ALL_GATHER = call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._ALL_GATHER = self.real
+
+
+class RecordShardCalls:
+    """While active, records every ``nn_search`` call of the sharded
+    index and every ``memo_attention`` call of the engine (arguments and
+    results)."""
+
+    def __enter__(self):
+        import repro_torch.core.engine as engine_mod
+        import repro_torch.core.shard as shard_mod
+        self.mods = (shard_mod, engine_mod)
+        self.real = (shard_mod.nn_search, engine_mod.memo_attention)
+        self.nn, self.memo = [], []
+
+        def rec(real, out):
+            def call(*args, **kw):
+                res = real(*args, **kw)
+                out.append((args, kw, res))
+                return res
+            return call
+        shard_mod.nn_search = rec(self.real[0], self.nn)
+        engine_mod.memo_attention = rec(self.real[1], self.memo)
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0].nn_search, self.mods[1].memo_attention = self.real
+
+
+def tensors_of(tree):
+    """The tensors of a nest of tuples (a snapshot's parts and args)."""
+    if hasattr(tree, "data_ptr"):
+        return [tree]
+    return [t for x in (tree or ()) for t in tensors_of(x)]
+
+
+def shard_session(torch, sess, **flat):
+    """A session serving ``sess``'s store state, embedder and
+    calibration under its spec with the ``flat`` MemoSpec fields changed:
+    the store is made by the engine's ``_make_store`` (a sharded one when
+    ``shards`` is set), loaded with ``sess.store``'s state and synced."""
+    from repro_torch.core.engine import MemoEngine
+    from repro_torch.memo.session import MemoSession
+    spec = sess.spec.copy()
+    for k, v in flat.items():
+        setattr(spec, k, v)
+    eng = MemoEngine(sess.model, sess.params, spec)
+    eng.embedder = sess.engine.embedder
+    eng.store = eng._make_store(sess.store.apm_shape,
+                                capacity=max(1, len(sess.store)))
+    eng.store.load_state_dict(sess.store.state_dict())
+    eng.sim_cal = sess.store.sim_cal
+    eng.store.sync()
+    torch.cuda.synchronize()
+    return MemoSession(eng)
+
+
+def same_winners(name, a, b, store):
+    """Equal hit decisions and slots, batch by batch; a slot may differ
+    only between two entries with equal embeddings (an exact tie, which
+    the flat search and the shards' combine break by different orders).
+    Returns the number of such ties."""
+    import numpy as np
+    ties = 0
+    for hb, ha, sa, sb in zip(b["hits"], a["hits"], a["slots"], b["slots"]):
+        require(np.array_equal(ha, hb), f"{name}: hit decisions differ")
+        differ = sa != sb
+        if differ.any():
+            ea = store.embeddings_at(sa[differ])
+            eb = store.embeddings_at(sb[differ])
+            require(np.array_equal(ea, eb),
+                    f"{name}: {int(differ.sum())} winners differ")
+            ties += int(differ.sum())
+    return ties
+
+
+def shard_kernels(torch, sess, rec, errs):
+    """12b: every sharded kernel-mode call of one batch held against its
+    plain version, and the median layer timed beside its bound, its
+    plain version and a library yardstick; the combine timed with and
+    without its rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.memo_attention.ops import memo_attention
+    from repro_torch.kernels.memo_attention.ref import memo_attention_ref
+    from repro_torch.kernels.nn_search.ops import nn_search
+    from repro_torch.kernels.nn_search.ref import nn_search_ref
+    out = {}
+    hold_nn_calls(torch, rec.nn, errs, "12b, each shard's rows")
+    worst = 0.0
+    for args, kw, res in rec.memo:
+        err = (res - memo_attention_ref(*args, **kw)).abs().max().item()
+        worst = max(worst, err)
+    errs["memo_attention"] = max(errs["memo_attention"], worst)
+    require(worst <= ATOL, f"12b memo_attention error {worst}")
+    hits = [int(a[5].sum()) for a, _, _ in rec.memo]
+    layer = sorted(range(len(hits)), key=hits.__getitem__)[len(hits) // 2]
+    (q, k, v, db, hit_idx, hit), kw, _ = rec.memo[layer]
+    B, S, H, dh = q.shape
+    n_hit = hits[layer]
+    # a hit row reads V and its f16 APM row, a miss row Q/K/V
+    row = S * H * dh * 4
+    bd = attention_bounds(
+        n_hit * (row + H * S * S * 2) + (B - n_hit) * 3 * row + B * row
+        + 3 * B * 4, (n_hit * 2 + (B - n_hit) * 4) * H * S * S * dh,
+        (n_hit * 1 + (B - n_hit) * 5) * H * S * S)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = event_ms(lambda: memo_attention(q, k, v, db, hit_idx, hit, **kw))
+    out["memo_attention"] = dict(
+        ms=ms, plain_ms=event_ms(lambda: memo_attention_ref(
+            q, k, v, db, hit_idx, hit, **kw)), **bd,
+        library_ms=event_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt)), max_abs_err=worst, calls=len(rec.memo),
+        n_hit=n_hit, B=B)
+    m = out["memo_attention"]
+    print(f"[shard] memo_attention over the combine's B-row f16 DB "
+          f"(B={B} S={S} H={H} dh={dh}, {n_hit}/{B} hits): {len(rec.memo)} "
+          f"calls held to the plain version, max|err| {worst:.3e} "
+          f"(tolerance {ATOL:.0e}); {ms:.4f} ms (bound {m['bound_ms']:.4f} "
+          f"ms, {m['bound_by']}), plain {m['plain_ms']:.4f} ms, SDPA "
+          f"{m['library_ms']:.4f} ms")
+    (qs, table), kw, _ = rec.nn[0]
+    t = nn_time(torch, nn_search, nn_search_ref, qs, table, kw["db_norms"])
+    out["nn_search"] = dict(t, B=qs.shape[0], N=table.shape[0],
+                            calls=len(rec.nn))
+    print(f"[shard] nn_search on one shard's rows (B={qs.shape[0]} "
+          f"N={table.shape[0]} dim={table.shape[1]}): {t['ms']:.4f} ms "
+          f"(bound {t['bound_ms']:.4f} ms, {t['bound_by']}), plain "
+          f"{t['plain_ms']:.4f} ms, cdist+min {t['library_ms']:.4f} ms")
+    view = sess.store.snapshot
+    di = view.index
+    fetch_ms = event_ms(lambda: di.search_fetch(qs, args=view.search_args,
+                                                parts=view.db_parts))
+    search_ms = event_ms(lambda: di.search_device(qs,
+                                                  args=view.search_args))
+    row_bytes = qs.shape[0] * sum(int(p[0][0].nbytes) for p in view.db_parts)
+    out["combine"] = dict(fetch_ms=fetch_ms, search_ms=search_ms,
+                          row_bytes_per_shard=row_bytes)
+    print(f"[shard] one layer's search: {fetch_ms:.4f} ms with the "
+          f"winners' rows in the combine, {search_ms:.4f} ms without: the "
+          f"rows ({row_bytes / 1e6:.2f} MB a shard, {SHARDS} shards) cost "
+          f"{fetch_ms - search_ms:.4f} ms a layer")
+    return out
+
+
+def shard_serve(torch, sess_flat, sessions, requests, per_path, tag):
+    """12b/12d: the flat session and each sharded one (full routing,
+    default routing) driven in kernel and bucket mode, run_layers under
+    set_sync_debug_mode("error"), launches and combines counted; full
+    routing held to the flat session's decisions and slots."""
+    import numpy as np
+    n_layers = sess_flat.engine.cfg.n_layers
+    nb = len(requests)
+    res = {}
+    for mode in ("kernel", "bucket"):
+        for name, sess in (("flat", sess_flat), *sessions.items()):
+            sess.spec.runtime.mode = mode
+            with CountCombines() as cc:
+                r = drive(torch, sess, requests, f"{tag}_{name}_{mode}",
+                          per_path)
+            r["combines"] = cc.n
+            res[(name, mode)] = r
+        flat = res[("flat", mode)]
+        full = res[("full", mode)]
+        S = sessions["full"].store.n_shards
+        launches = per_path[f"{tag}_full_{mode}"]
+        want_nn = S * n_layers * nb
+        require(launches["nn_search"] == want_nn,
+                f"{tag} {mode}: nn_search launches {launches}, want "
+                f"{want_nn}")
+        want_memo = n_layers * nb if mode == "kernel" else 0
+        require(launches["memo_attention"] == want_memo,
+                f"{tag} {mode}: memo_attention launches {launches}")
+        require(full["combines"] == n_layers * (nb + 1),
+                f"{tag} {mode}: {full['combines']} combines for "
+                f"{nb + 1} batches of {n_layers} layers")
+        ties = same_winners(f"{tag} {mode} full routing", full, flat,
+                            sessions["full"].store)
+        tol = MODE_GAP if mode == "kernel" else REPLAY_GAP
+        worst = max((a - b).abs().max().item()
+                    for a, b in zip(full["outs"], flat["outs"]))
+        require(worst <= tol, f"{tag} {mode}: logits gap {worst}")
+        routed = res[("routed", mode)]
+        changed = sum(int((a != b).sum()) for a, b in
+                      zip(routed["slots"], flat["slots"]))
+        cells = sum(a.size for a in flat["slots"])
+        print(f"[shard] {tag} {mode}: {S} shards at full routing = flat "
+              f"index on every hit decision and slot ({ties} exact ties), "
+              f"max|dlogits| {worst:.3e} (tolerance {tol:.0e}); launches a "
+              f"batch nn_search {launches['nn_search'] / nb:.0f}, "
+              f"memo_attention {launches['memo_attention'] / nb:.0f}, "
+              f"combines {full['combines'] / (nb + 1):.0f}; default routing "
+              f"(route_nprobe {sessions['routed'].store.route_nprobe} of "
+              f"{sessions['routed'].store._centroids_host.shape[0]} "
+              f"centroids) changed {changed}/{cells} winners, hit rate "
+              f"{routed['rate']:.4f} vs {flat['rate']:.4f}; ms a batch "
+              f"sharded {full['ms']:.2f} (routed {routed['ms']:.2f}) vs "
+              f"flat {flat['ms']:.2f}")
+    return {f"{name}_{mode}": dict(
+        ms=r["ms"], hit_rate=r["rate"], combines=r["combines"],
+        launches=per_path[f"{tag}_{name}_{mode}"])
+        for (name, mode), r in res.items()}
+
+
+def shard_sync(torch, sess, requests, smi):
+    """12c: admission into the sharded store (a delta sync bumps only the
+    touched shards' generations), a skewed burst that overflows one
+    shard (shard-local CLOCK evictions or spills), and one MemoServer
+    async window whose held snapshot stays unchanged while the worker
+    delta-syncs under it."""
+    import numpy as np
+    eng, store = sess.engine, sess.store
+    M = store._pos_per_shard
+    out = {}
+    def few(batch):
+        return {"tokens": batch["tokens"][:SHARD_ADMIT_ROWS]}
+
+    # admission: a small batch's misses, captured and admitted inline
+    eng.mc.mode = "bucket"
+    eng.mc.admit, eng.mc.admit_every = True, 1
+    pos0, gens0 = dict(store._slot_pos), store._shard_gens.copy()
+    d0, n0 = store.stats.n_delta_syncs, store.stats.n_admitted
+    f0 = store.stats.n_full_syncs
+    sess.infer(few(requests[0]))
+    torch.cuda.synchronize()
+    moved = {p for s, p in store._slot_pos.items() if pos0.get(s) != p}
+    moved |= {p for s, p in pos0.items() if store._slot_pos.get(s) != p}
+    touched = {p // M for p in moved}
+    bumped = set(np.flatnonzero(store._shard_gens > gens0).tolist())
+    require(store.stats.n_delta_syncs > d0 and store.stats.n_full_syncs
+            == f0, "12c: the admission was not a delta sync")
+    require(store.stats.n_admitted > n0, "12c: nothing admitted")
+    require(bumped == touched and 0 < len(bumped),
+            f"12c: generations bumped on {sorted(bumped)}, positions "
+            f"written on {sorted(touched)}")
+    out["admission"] = dict(admitted=store.stats.n_admitted - n0,
+                            bumped=sorted(bumped), gens=store._shard_gens
+                            .tolist())
+    print(f"[shard] 12c admission: {store.stats.n_admitted - n0} misses "
+          f"admitted by a delta sync that wrote positions on shards "
+          f"{sorted(touched)} and bumped exactly their generations "
+          f"({gens0.tolist()} -> {store._shard_gens.tolist()})")
+    # a skewed burst: near copies of one entry route to one shard, more
+    # of them than it has free positions, fewer than the store has (more
+    # would re-pack it by a full sync)
+    free0 = [len(f) for f in store._shard_free]
+    ev0, sp0 = store.n_shard_evictions, store.n_spills
+    slot = int(np.flatnonzero(store.db.live_mask[: len(store.db)])[0])
+    apm = store.db.get(np.asarray([slot]), count_reuse=False)
+    emb = store.embeddings_at([slot])
+    target = int(store._route_shards(emb)[0])
+    burst = free0[target] + (sum(free0) - free0[target]) // 2
+    require(burst > free0[target], f"12c: no room for a burst past shard "
+            f"{target}'s {free0[target]} free positions: {free0}")
+    rng = np.random.default_rng(12)
+    embs = (emb + rng.normal(0, 1e-3, (burst, emb.shape[1]))
+            * np.abs(emb).mean()).astype(np.float32)
+    require(bool((store._route_shards(embs) == target).all()),
+            "12c: the burst does not route to one shard")
+    store.admit(np.repeat(apm, burst, 0), embs)
+    require(store.sync()["kind"] == "delta", "12c: the burst re-packed")
+    ev, sp = store.n_shard_evictions - ev0, store.n_spills - sp0
+    require(ev + sp > 0, "12c: the burst caused no eviction or spill")
+    live = int(store.db.live_mask[: len(store.db)].sum())
+    require(int(store.shard_occupancy().sum()) == live,
+            "12c: occupancy does not cover the live set")
+    st = store.shard_stats()
+    out["burst"] = dict(burst=burst, target=target,
+                        free_before=free0, shard_evictions=ev, spills=sp,
+                        refreshes=st["n_centroid_refreshes"],
+                        occupancy=st["occupancy"])
+    print(f"[shard] 12c skewed burst: {burst} near copies of slot "
+          f"{slot} routed to shard {target} ({free0[target]} free of {M} "
+          f"positions): {ev} shard-local evictions, {sp} spills; occupancy "
+          f"{st['occupancy']} (imbalance {st['imbalance']:.2f}x)")
+    # the async window: a queued batch's snapshot is held while the
+    # worker delta-syncs an admission payload under it
+    with sess.serve(buckets=(SEQ,), max_batch=BATCH,
+                    async_maintenance=True) as srv:
+        prep = eng.prepare_batch(few(requests[1]), sync_store=False)
+        eng.run_layers(prep)
+        _, _, payload = eng.finalize(prep)
+        require(len(payload.admissions) > 0, "12c: no admission payload")
+        prep = eng.prepare_batch(few(requests[2]), sync_store=False)
+        view = prep.view
+        held = tensors_of((view.db_parts, view.search_args, view.lengths))
+        clones = [t.clone() for t in held]
+        d0 = store.stats.n_delta_syncs
+        eng.run_layers(prep)
+        f0 = store.stats.n_full_syncs
+        srv._enqueue_payload(payload)
+        srv.drain_maintenance()
+        eng.finalize(prep)
+        new = store.snapshot
+    eng.mc.admit = False
+    require(store.stats.n_delta_syncs > d0 and store.stats.n_full_syncs
+            == f0, "12c: the worker did not delta-sync")
+    require(new.generation > view.generation, "12c: no new generation")
+    same = [bool(torch.equal(c, t)) for c, t in zip(clones, held)]
+    require(all(same), f"12c: a held snapshot tensor changed: {same}")
+    out["server"] = dict(held_generation=view.generation,
+                         new_generation=new.generation, tensors=len(held))
+    print(f"[shard] 12c MemoServer async window: generation "
+          f"{view.generation} held by a queued batch while the worker "
+          f"delta-synced and published {new.generation}; its {len(held)} "
+          f"tensors (every shard's arena parts, tables, norms, slot maps, "
+          f"the replicated routing and hot set, lengths) are unchanged")
+    return out
+
+
+def sharded_store(torch, dev, per_path, errs, smi):
+    """Phase 12: the sharded memo store on full-width bert_base (int8):
+    12a the clamp of a 4-shard spec to the local cards; 12b four shards
+    on one card (``StoreMesh((cuda:0,) * 4)`` through a patched
+    ``make_store_mesh``) served in kernel and bucket mode beside a flat
+    index of the same store, its kernels held against their plain
+    versions and timed; 12c admission, a skewed burst and a MemoServer
+    async window; 12d the same as 12b over distinct cards where there is
+    more than one. Returns the JSON fields."""
+    import repro_torch.core.shard as shard_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data import TemplateCorpus
+    from repro_torch.memo import MemoSpec
+    from repro_torch.memo.session import MemoSession
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    cfg = get_config("bert_base")
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    corpus = TemplateCorpus(vocab=cfg.vocab, seq_len=SEQ, seed=0)
+    calib = [{"tokens": corpus.sample(BATCH)[0]}
+             for _ in range(CALIB_BATCHES)]
+    fresh = [{"tokens": corpus.sample(BATCH)[0]}
+             for _ in range(FRESH_BATCHES)]
+    requests = fresh + [calib[0]]        # six fresh + one replayed batch
+    out = {}
+
+    # 12a: the clamp (one calibration batch: only the layout is read)
+    s = MemoSession.build(model, params, MemoSpec.flat(
+        mode="kernel", apm_codec="int8", shards=SHARDS,
+        embed_steps=SHARD_EMBED_STEPS), batches=calib[:1], device=dev)
+    n_dev = torch.cuda.device_count()
+    require(s.store.n_shards == min(SHARDS, n_dev),
+            f"12a: {s.store.n_shards} shards on {n_dev} cards")
+    out["clamp"] = dict(requested=SHARDS, cards=n_dev,
+                        shards=s.store.n_shards,
+                        devices=[str(d) for d in s.store.shard_mesh.devices])
+    print(f"[shard] 12a: MemoSpec(shards={SHARDS}) through "
+          f"MemoSession.build on {n_dev} card(s) gives S = "
+          f"{s.store.n_shards} ({out['clamp']['devices']})")
+    del s
+
+    # 12b: a flat session, then the same store over four shards of the
+    # lead card, routed to every centroid and at the default routing
+    flat = MemoSession.build(model, params, MemoSpec.flat(
+        mode="kernel", apm_codec="int8", device_index="flat"),
+        batches=calib, device=dev)
+    flat.autotune(fresh[:2], "moderate")
+    print(f"[shard] 12b: flat session of {len(flat.store)} int8 entries "
+          f"({len(flat.store) * flat.store.codec.entry_nbytes / 1e9:.2f} GB "
+          f"of APMs), threshold (moderate) "
+          f"{flat.spec.runtime.threshold:.6f}")
+    real = shard_mod.make_store_mesh
+    shard_mod.make_store_mesh = (lambda n=None, axis="store", device=None:
+                                 shard_mod.StoreMesh((dev,) * SHARDS, axis))
+    try:
+        sessions = dict(
+            full=shard_session(torch, flat, shards=SHARDS,
+                               shard_route_nprobe=1 << 20),
+            routed=shard_session(torch, flat, shards=SHARDS,
+                                 device_slack=SHARD_SLACK))
+    finally:
+        shard_mod.make_store_mesh = real
+    full = sessions["full"].store
+    C = full._centroids_host.shape[0]
+    require(full.n_shards == SHARDS and full.route_nprobe >= C,
+            f"12b: {full.n_shards} shards, route_nprobe "
+            f"{full.route_nprobe} of {C} centroids")
+    st = full.shard_stats()
+    print(f"[shard] 12b: {SHARDS} shards on {dev}: "
+          f"{st['positions_per_shard']} positions each, occupancy {st['occupancy']} (imbalance "
+          f"{st['imbalance']:.2f}x), {C} centroids, hot set {full.hot_k}")
+    out["serve"] = shard_serve(torch, flat, sessions, requests, per_path,
+                               "shard")
+    # one batch's kernel calls held against their plain versions; one
+    # traced batch of each
+    sess = sessions["full"]
+    sess.spec.runtime.mode = flat.spec.runtime.mode = "kernel"
+    with RecordShardCalls() as rec:
+        sess.infer(requests[0])
+    torch.cuda.synchronize()
+    require(len(rec.nn) == SHARDS * cfg.n_layers
+            and len(rec.memo) == cfg.n_layers,
+            f"12b: {len(rec.nn)} nn_search, {len(rec.memo)} memo_attention "
+            f"calls in a batch")
+    out["kernels"] = shard_kernels(torch, sess, rec, errs)
+    del rec
+    for name, s in (("sharded", sess), ("flat", flat)):
+        rows = []
+        wall, busy = device_profile(
+            torch, f"12b {name} kernel-mode batch",
+            lambda s=s: s.infer(requests[0]), rows)
+        out[f"profile_{name}"] = dict(
+            wall_ms=wall, busy_ms=busy,
+            idle_share=None if busy is None else 1 - busy / wall,
+            top=[dict(ms=ms, launches=n, name=k[:80])
+                 for ms, n, k in sorted(rows, reverse=True)[:5]])
+
+    # 12c on the default-routing session (little slack: a burst overflows)
+    out["sync"] = shard_sync(torch, sessions["routed"], requests, smi)
+    del sessions, sess, full
+
+    # 12d: distinct cards
+    if n_dev > 1:
+        sessions = dict(
+            full=shard_session(torch, flat, shards=SHARDS,
+                               shard_route_nprobe=1 << 20),
+            routed=shard_session(torch, flat, shards=SHARDS))
+        out["multi_card"] = shard_serve(torch, flat, sessions, requests,
+                                        per_path, "shard_cards")
+        del sessions
+    else:
+        out["multi_card"] = "skipped: one card"
+        print("[shard] 12d skipped: this machine has one card, so the "
+              "shards over distinct cards cannot be shown (12b ran four "
+              "shards on it)")
+    del flat
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[shard] phase 12 took {out['seconds']:.1f}s ({smi})")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5957,6 +6434,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_res = train_phase(torch, dev, per_path, errs, smi)
     print(json.dumps({"train": train_res}))
+    torch.cuda.empty_cache()
+    shard_res = sharded_store(torch, dev, per_path, errs, smi)
+    print(json.dumps({"shard": shard_res}))
+    times["memo_attention"]["sharded"] = dict(
+        shard_res["kernels"]["memo_attention"],
+        launches=per_path["shard_full_kernel"]["memo_attention"])
+    times["nn_search"]["sharded"] = dict(
+        shard_res["kernels"]["nn_search"],
+        launches={p: per_path[f"shard_full_{p}"]["nn_search"]
+                  for p in ("kernel", "bucket")})
     print(json.dumps({"kernel_launches_per_path": per_path}))
 
     meta = {

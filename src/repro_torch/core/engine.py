@@ -94,8 +94,15 @@ self-attention is memoized on the host-synchronous path through
 runs plain; the fast path, admission and prefill memoization do not
 apply, as in the reference.
 
-Not ported yet: the sharded store (``NotImplementedError`` naming its
-slice).
+**The sharded store** (``MemoSpec(shard=ShardSpec(shards=N))``,
+``core/shard.py``): the device tier is split over a ``StoreMesh``, and
+its arenas are indexed by device position, not slot. The three device
+paths (``_layer_fused``, ``_layer_fused_prefill``, ``_fused_lookup_probe``)
+take the winner's codec rows from the index's one combine
+(``search_fetch``), never by slot from the arenas; kernel mode decodes
+those B rows and runs ``memo_attention`` over them as a B-row f16 DB
+(for every codec, as the reference's sharded branch does). The host
+kernel path takes the rows from the host arena by slot.
 """
 from __future__ import annotations
 
@@ -126,11 +133,6 @@ from repro_torch.models.moe import moe_apply
 
 # paper Table 2 — per-model threshold levels
 LEVELS = {"conservative": 0.98, "moderate": 0.97, "aggressive": 0.96}
-
-
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} waits for the {slice_name} slice "
-                               f"of the port")
 
 
 class SimReservoir:
@@ -288,13 +290,6 @@ class MemoEngine:
         self._recal_buf: List = []       # rolling (apms, embs) captures
         self._flush_count = 0
         self.faults = FaultInjector.from_spec(self.mc.runtime.faults)
-        self._check_ported()
-
-    def _check_ported(self):
-        """Refuse the opt-in of a slice not ported yet: the sharded
-        store."""
-        if self.mc.shard.shards:
-            raise _later("the sharded store (shards > 0)", "sharded-store")
 
     # --- store delegation ------------------------------------------------
     @property
@@ -350,14 +345,13 @@ class MemoEngine:
             codec = PrefillCodec(
                 base, kv_dim=self.cfg.n_kv_heads * self.cfg.head_dim,
                 kv_codec=mc.prefill.kv_codec, kv_rank=mc.prefill.kv_rank)
-        return MemoStore(
-            tuple(apm_shape), mc.embed_dim, index_kind=mc.index_kind,
-            budget_bytes=budget, capacity=capacity, device=self.device,
+        kw = dict(
+            index_kind=mc.index_kind, budget_bytes=budget,
+            capacity=capacity, device=self.device,
             device_slack=mc.device_slack,
             n_lists=(n_lists if n_lists is not None
                      else max(4, int(np.sqrt(max(1, capacity))))),
             codec=codec, apm_rank=mc.apm_rank,
-            device_index_kind=mc.device_index,
             cluster_crossover=mc.cluster_crossover,
             nprobe=mc.nprobe, n_clusters=mc.n_clusters,
             eviction=mc.eviction.kind, faults=self.faults,
@@ -365,6 +359,19 @@ class MemoEngine:
             capacity_budget_mb=mc.capacity.budget_mb,
             capacity_fsync=mc.capacity.fsync,
             capacity_stall_s=mc.capacity.stall_s)
+        sh = mc.shard
+        if sh.shards:
+            from repro_torch.core import shard
+            return shard.ShardedMemoStore(
+                tuple(apm_shape), mc.embed_dim, n_shards=sh.shards,
+                shard_axis=sh.axis, hot_k=sh.hot,
+                route_nprobe=sh.route_nprobe,
+                refresh_spills=sh.refresh_spills,
+                mesh=shard.make_store_mesh(sh.shards, sh.axis,
+                                           device=self.device),
+                **kw)
+        return MemoStore(tuple(apm_shape), mc.embed_dim,
+                         device_index_kind=mc.device_index, **kw)
 
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -731,25 +738,22 @@ class MemoEngine:
         x = norm_apply(lp["norm1"], h, cfg.norm)
         emb = embed_apply(e.params, x, e.pool, e.act, lengths=qlen,
                           full_len=self.store.apm_shape[-1])
-        d2, idx = view.index.search_device(emb, args=view.search_args,
-                                           fused=kernel_path)
-        dist = torch.sqrt(torch.clamp(d2[:, 0], min=0.0))
-        sim = view.sim_a * dist + view.sim_b
-        hit = sim > thr
-        idx0 = idx[:, 0].to(torch.int32)
+        idx0, hit, sim, rows = self._search(view, emb, thr,
+                                            fused=kernel_path)
         S = x.shape[1]
         # the length gate — ALWAYS on: a hit may only reuse an APM
         # captured at the query's own true length (S when fixed-length)
-        ent_len = view.lengths.index_select(0, idx0)
-        hit = hit & (ent_len == (qlen if varlen else S))
+        hit = hit & (self._entry_lengths(view, idx0)
+                     == (qlen if varlen else S))
         if kernel_path:
             qq, kk, vv = attn_mod._qkv(lp["mix"], x, cfg, positions)
             out = self._memo_attention(qq, kk, vv, view.db_parts, idx0, hit,
-                                       lengths=qlen)
+                                       lengths=qlen, rows=rows)
             y = torch.einsum("bshe,hed->bsd", out, lp["mix"]["wo"])
         else:
             # compressed gather + decode through f16 (host-decode parity)
-            rows = tuple(p.index_select(0, idx0) for p in view.db_parts)
+            if rows is None:
+                rows = tuple(p.index_select(0, idx0) for p in view.db_parts)
             apm = self.store.codec.decode_rows(rows).float()
             if apm.shape[-1] != S:
                 apm = apm[..., :S, :S]
@@ -764,25 +768,58 @@ class MemoEngine:
                                               kpad=kpad))
         return out
 
-    def _memo_attention(self, q, k, v, parts, idx, hit, lengths=None):
+    def _search(self, view, emb, thr, fused: bool = False):
+        """The device lookup of a fast-path layer: (slots i32, hits
+        before the length gate, predicted sims, the matched codec rows
+        or None). A sharded index hands the rows back from its one
+        combine (its arenas are indexed by position, not slot); the
+        other indexes leave the gather to the caller."""
+        index = view.index
+        rows = None
+        if getattr(index, "is_sharded", False):
+            d2, idx, rows = index.search_fetch(emb, args=view.search_args,
+                                               parts=view.db_parts)
+        else:
+            d2, idx = index.search_device(emb, args=view.search_args,
+                                          fused=fused)
+        dist = torch.sqrt(torch.clamp(d2[:, 0], min=0.0))
+        sim = view.sim_a * dist + view.sim_b
+        return idx[:, 0].to(torch.int32), sim > thr, sim, rows
+
+    @staticmethod
+    def _entry_lengths(view, idx0):
+        """Device entry lengths of the matched slots. A sharded combine
+        can return slot −1 (an empty winning shard): its length reads as
+        −1, so the gate refuses it, as the reference's gather does."""
+        if getattr(view.index, "is_sharded", False):
+            return torch.where(
+                idx0 >= 0, view.lengths.index_select(0, idx0.clamp(min=0)),
+                -1)
+        return view.lengths.index_select(0, idx0)
+
+    def _memo_attention(self, q, k, v, parts, idx, hit, lengths=None,
+                        rows=None):
         """``memo_attention`` over the device DB's codec parts: int8
         codes + f16 row scales (dequantized in the kernel) or f16. A
-        factorized codec decodes the B matched rows (not the DB) and
-        feeds them as a B-row f16 DB with ``hit_idx = arange(B)``: the
-        reference casts the same f16 decode to f32 first, so the kernel
-        sees the same values."""
+        factorized codec — or any codec when the matched rows come
+        gathered already (``rows``: a sharded store's combine, whose
+        arenas are indexed by position) — decodes the B matched rows (not
+        the DB) and feeds them as a B-row f16 DB with ``hit_idx =
+        arange(B)``: the reference casts the same f16 decode to f32
+        first, so the kernel sees the same values."""
         codec = self.store.codec
         kw = dict(causal=self.cfg.causal, window=self.cfg.sliding_window,
                   lengths=lengths)
         hit = hit.to(torch.int32)
-        if codec.name == "int8":
+        if rows is None and codec.name == "int8":
             return memo_attention(q, k, v, parts[0], idx, hit,
                                   db_scales=parts[1], **kw)
-        if codec.name == "f16":
+        if rows is None and codec.name == "f16":
             return memo_attention(q, k, v, parts[0], idx, hit, **kw)
         B, S = q.shape[:2]
-        apm = codec.decode_rows(tuple(p.index_select(0, idx)
-                                      for p in parts))
+        if rows is None:
+            rows = tuple(p.index_select(0, idx) for p in parts)
+        apm = codec.decode_rows(rows)
         if apm.shape[-1] != S:
             apm = apm[..., :S, :S]
         return memo_attention(q, k, v, apm.contiguous(),
@@ -824,15 +861,12 @@ class MemoEngine:
         x = norm_apply(lp["norm1"], h, cfg.norm)
         emb = embed_apply(e.params, x, e.pool, e.act, lengths=qlen,
                           full_len=self.store.apm_shape[-1])
-        d2, idx = view.index.search_device(emb, args=view.search_args)
-        dist = torch.sqrt(torch.clamp(d2[:, 0], min=0.0))
-        sim = view.sim_a * dist + view.sim_b
-        hit = sim > thr
-        idx0 = idx[:, 0].to(torch.int32)
+        idx0, hit, sim, rows = self._search(view, emb, thr)
         S = x.shape[1]
-        ent_len = view.lengths.index_select(0, idx0)
-        hit = hit & (ent_len == (qlen if varlen else S))
-        rows = tuple(p.index_select(0, idx0) for p in view.db_parts)
+        hit = hit & (self._entry_lengths(view, idx0)
+                     == (qlen if varlen else S))
+        if rows is None:        # a sharded store's rows ride its combine
+            rows = tuple(p.index_select(0, idx0) for p in view.db_parts)
         apm = codec.decode_rows(rows).float()
         if apm.shape[-1] != S:
             apm = apm[..., :S, :S]
@@ -1260,16 +1294,22 @@ class MemoEngine:
     def _layer_kernel(self, lp, h, li, memo, positions, lengths=None):
         """The host-synchronous kernel-mode layer: ``memo_attention`` over
         the device DB by the host lookup's slots and hits; ``lengths``
-        (host, (B,)) masks padded keys per sequence."""
+        (host, (B,)) masks padded keys per sequence. A sharded store's
+        arenas are indexed by position, not slot: its rows come from the
+        host arena by slot instead."""
         cfg = self.cfg
         self.store.sync()        # generation-counted: no-op unless stale
         x = norm_apply(lp["norm1"], h, cfg.norm)
         q, k, v = attn_mod._qkv(lp["mix"], x, cfg, positions)
+        rows = None
+        if getattr(self.device_index, "is_sharded", False):
+            rows = tuple(self._tensor(p) for p in self.db.parts_at(
+                np.asarray(memo.idx).reshape(-1)))
         out = self._memo_attention(
             q, k, v, self.device_db.parts,
             self._tensor(memo.idx, torch.int32), self._tensor(memo.hit),
             lengths=None if lengths is None
-            else self._tensor(lengths, torch.int32))
+            else self._tensor(lengths, torch.int32), rows=rows)
         y = torch.einsum("bshe,hed->bsd", out, lp["mix"]["wo"])
         return self._chan_tail(lp, h + y, li)
 
@@ -1303,9 +1343,14 @@ class MemoEngine:
         store, e = self.store, self.embedder
         emb = embed_apply(e.params, x, e.pool, e.act)
         di = store.device_index
-        d2, idx = di.search_device(emb, args=di.search_args)
-        idx0 = idx[:, 0].to(torch.int32)
-        rows = tuple(p.index_select(0, idx0) for p in store.device_db.parts)
+        if getattr(di, "is_sharded", False):   # rows ride the combine
+            d2, _, rows = di.search_fetch(emb, args=di.search_args,
+                                          parts=store.device_db.parts)
+        else:
+            d2, idx = di.search_device(emb, args=di.search_args)
+            idx0 = idx[:, 0].to(torch.int32)
+            rows = tuple(p.index_select(0, idx0)
+                         for p in store.device_db.parts)
         a, b = self.sim_cal
         dist = torch.sqrt(torch.clamp(d2[:, 0], min=0.0))
         return a * dist + b, store.codec.decode_rows(rows).float()

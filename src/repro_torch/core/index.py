@@ -216,9 +216,14 @@ class DeviceIndex:
     it swaps in a fresh table, so a ``search_args`` pair a snapshot
     captured never changes."""
 
-    def __init__(self, dim: int, *, capacity: int = 0, device=None):
+    def __init__(self, dim: int, *, capacity: int = 0, device=None,
+                 mesh=None):
         self.dim = dim
         self.device = torch.device(device if device is not None else "cpu")
+        # a ``shard.StoreMesh``: top-1 then goes through
+        # ``shard.mesh_search`` over a row-split copy of the table
+        self.mesh = mesh
+        self._split = None          # (table it was cut from, split copy)
         self._table: Optional[torch.Tensor] = None
         self._norms: Optional[torch.Tensor] = None   # cached per generation
         self._n = 0
@@ -306,8 +311,18 @@ class DeviceIndex:
     @property
     def search_args(self):
         """``(table, row_norms)``: what ``search_device`` consumes — a
-        StoreSnapshot freezes the pair at publish."""
-        return (self._table, self.norms)
+        StoreSnapshot freezes the pair at publish. Under a mesh a third
+        member is the row-split copy ``mesh_search`` searches, cut once
+        per table generation."""
+        if self.mesh is None:
+            return (self._table, self.norms)
+        return (self._table, self.norms, self._mesh_split(self._table))
+
+    def _mesh_split(self, table):
+        from repro_torch.core.shard import split_table
+        if self._split is None or self._split[0] is not table:
+            self._split = (table, split_table(table, self.mesh))
+        return self._split[1]
 
     def search_device(self, q, k: int = 1, *, args=None, fused: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -317,9 +332,15 @@ class DeviceIndex:
         the current table. Top-1 goes through the nn_search kernel
         wrapper; ``fused=True`` is the reference's kernel-mode prologue
         contract (one matmul with the cached norms, no search kernel)."""
-        table, norms = args if args is not None else self.search_args
+        table, norms, *split = (args if args is not None
+                                else self.search_args)
         q = q.float()
         if k == 1:
+            if self.mesh is not None:
+                from repro_torch.core.shard import mesh_search
+                d2, idx = mesh_search(split[0] if split else table, q,
+                                      self.mesh)
+                return d2[:, None], idx[:, None]
             if fused:
                 d2, idx = _top1(sq_dists(q, table, norms))
                 return d2, idx.to(torch.int32)
@@ -361,17 +382,19 @@ class ClusteredDeviceIndex(DeviceIndex):
     place, fresh tensors on a rebuild), and each mutation ends by
     publishing one ``_packed`` tuple, so a ``search_args`` tuple that a
     snapshot captured never changes. ``search_device`` is device ops
-    only. The reference's mesh branch (an f32 replica searched by
-    ``shard.mesh_search``) waits for the sharded-store slice; nothing in
-    the port can hand the index a mesh (``shards > 0`` raises in the
-    engine)."""
+    only. Under a mesh, search falls back to ``shard.mesh_search`` over a
+    lazily made f32 copy of the host mirror (``table``), as the
+    reference's does."""
 
     def __init__(self, dim: int, *, n_clusters: Optional[int] = None,
                  nprobe: int = 16, kmeans_iters: int = 8,
                  rebuild_frac: float = 0.25, balance_cap: float = 1.5,
-                 seed: int = 0, capacity: int = 0, device=None):
+                 seed: int = 0, capacity: int = 0, device=None, mesh=None):
         self.dim = dim
         self.device = torch.device(device if device is not None else "cpu")
+        self.mesh = mesh
+        self._split = None
+        self._mesh_table: Optional[torch.Tensor] = None
         self.n_clusters = n_clusters
         self.nprobe = nprobe
         self.kmeans_iters = kmeans_iters
@@ -390,7 +413,7 @@ class ClusteredDeviceIndex(DeviceIndex):
         self._ovecs: Optional[torch.Tensor] = None
         self._oscales: Optional[torch.Tensor] = None
         self._oids: Optional[torch.Tensor] = None
-        self._table = None          # no flat table (``table`` is None)
+        self._table = None          # no flat table: ``table`` is a copy
         # the published search tuple: every mutation ends by assigning a
         # fresh one in a single reference write (see the class doc)
         self._packed: Optional[tuple] = None
@@ -413,6 +436,18 @@ class ClusteredDeviceIndex(DeviceIndex):
     @property
     def capacity(self) -> int:
         return 0 if self._host is None else self._host.shape[0]
+
+    @property
+    def table(self) -> Optional[torch.Tensor]:
+        """f32 copy of the host mirror (the mesh fallback's table, and
+        debugging — not the hot path): made on first use after a change,
+        counted in ``transfer_bytes``."""
+        if self._host is None:
+            return None
+        if self._mesh_table is None:
+            self._mesh_table = self._dev(np.array(self._host))
+            self.transfer_bytes += int(self._host.nbytes)
+        return self._mesh_table
 
     @property
     def _embs(self):
@@ -463,6 +498,7 @@ class ClusteredDeviceIndex(DeviceIndex):
         """Propagate mirror changes to the device copies: nothing before
         the first build; after it, patch packed rows and route new or
         overwritten slots through the overflow buffer."""
+        self._mesh_table = None
         if not self._built:
             return
         slots = np.asarray(slots).reshape(-1)
@@ -643,7 +679,11 @@ class ClusteredDeviceIndex(DeviceIndex):
     @property
     def search_args(self):
         """(centroids, pvecs, pscales, pids, ovecs, oscales, oids) — what
-        ``search_device`` consumes; a StoreSnapshot freezes the tuple."""
+        ``search_device`` consumes; a StoreSnapshot freezes the tuple.
+        Under a mesh: (the f32 ``table``, its row-split copy)."""
+        if self.mesh is not None:
+            t = self.table
+            return (t, self._mesh_split(t))
         if not self._built:
             self.rebuild()
         return self._packed
@@ -656,8 +696,16 @@ class ClusteredDeviceIndex(DeviceIndex):
         parity: the search launches no kernel of its own either way."""
         if args is None:
             args = self.search_args
-        centroids, pvecs, pscales, pids, ovecs, oscales, oids = args
         q = q.float()
+        if self.mesh is not None:
+            t, split = args
+            if k == 1:
+                from repro_torch.core.shard import mesh_search
+                d2, idx = mesh_search(split, q, self.mesh)
+                return d2[:, None], idx[:, None]
+            neg, idx = torch.topk(-sq_dists(q, t), k, dim=-1)
+            return -neg, idx.to(torch.int32)
+        centroids, pvecs, pscales, pids, ovecs, oscales, oids = args
         C, m_pad, dim = pvecs.shape
         # stage 1: one (B, C) product → vote-priority probes: a cluster
         # that is some query's top-1 outranks every cluster that is no
@@ -710,12 +758,13 @@ HOST_INDEXES.register(
     "ivf", lambda dim, *, n_lists=None, **_: IVFIndex(dim,
                                                       n_lists=n_lists or 8))
 HOST_INDEXES.register(
-    "device", lambda dim, *, device=None, **_: DeviceIndex(dim, device=device))
+    "device", lambda dim, *, device=None, mesh=None, **_:
+    DeviceIndex(dim, device=device, mesh=mesh))
 DEVICE_INDEXES.register(
-    "flat", lambda dim, *, capacity=0, device=None, **_:
-    DeviceIndex(dim, capacity=capacity, device=device))
+    "flat", lambda dim, *, capacity=0, device=None, mesh=None, **_:
+    DeviceIndex(dim, capacity=capacity, device=device, mesh=mesh))
 DEVICE_INDEXES.register(
     "clustered", lambda dim, *, capacity=0, nprobe=16, n_clusters=None,
-    device=None, **_:
+    device=None, mesh=None, **_:
     ClusteredDeviceIndex(dim, nprobe=nprobe, n_clusters=n_clusters,
-                         capacity=capacity, device=device))
+                         capacity=capacity, device=device, mesh=mesh))

@@ -13,11 +13,13 @@ context via ``**_``):
 
 * codec:        ``factory(apm_shape, *, rank=None, dtype=np.float16)``
                 → ``ApmCodec``
-* host index:   ``factory(embed_dim, *, n_lists=None, device=None)``
-                → object with the ``search/assign/remove`` host-index API
+* host index:   ``factory(embed_dim, *, n_lists=None, device=None,
+                mesh=None)`` → object with the ``search/assign/remove``
+                host-index API
 * device index: ``factory(embed_dim, *, capacity=0, nprobe=16,
-                n_clusters=None, device=None)`` → ``DeviceIndex``-API
-                object
+                n_clusters=None, device=None, mesh=None)`` →
+                ``DeviceIndex``-API object (``sharded``: the sharded
+                store's layout, ``core/shard.py``)
 * eviction:     ``policy(store, n)`` → sequence of arena slots to evict;
                 called under the store lock, selection only (the store
                 does the release/tombstone/dirty bookkeeping)
@@ -79,7 +81,8 @@ class Registry:
 
 CODECS = Registry("APM codec", autoload=("repro_torch.core.codec",))
 HOST_INDEXES = Registry("host index", autoload=("repro_torch.core.index",))
-DEVICE_INDEXES = Registry("device index", autoload=("repro_torch.core.index",))
+DEVICE_INDEXES = Registry("device index", autoload=(
+    "repro_torch.core.index", "repro_torch.core.shard"))
 EVICTIONS = Registry("eviction policy", autoload=("repro_torch.core.store",))
 
 

@@ -112,13 +112,17 @@ class MemoStore:
                  capacity_dir: Optional[str] = None,
                  capacity_budget_mb: Optional[float] = None,
                  capacity_fsync: bool = True,
-                 capacity_stall_s: float = 5.0):
+                 capacity_stall_s: float = 5.0, mesh=None):
         self.apm_shape = tuple(apm_shape)
         self.embed_dim = embed_dim
         self.index_kind = index_kind
         self.budget_bytes = budget_bytes
         self.device_slack = device_slack
         self.device = torch.device(device if device is not None else "cpu")
+        # a ``shard.StoreMesh``: the flat/clustered device indexes (and
+        # the 'device' host index) search through ``shard.mesh_search``
+        # over a row-split copy of their table
+        self._mesh = mesh
         self.device_index_kind = device_index_kind  # flat|clustered|auto
         self.cluster_crossover = cluster_crossover
         self.nprobe = nprobe
@@ -130,7 +134,7 @@ class MemoStore:
         if device_index_kind != "auto":
             DEVICE_INDEXES.resolve(device_index_kind)   # fail-fast only
         self.index = HOST_INDEXES.resolve(index_kind)(
-            embed_dim, n_lists=n_lists, device=self.device)
+            embed_dim, n_lists=n_lists, device=self.device, mesh=mesh)
         self.sim_cal: Tuple[float, float] = (-1.0, 1.0)
         self._embs_host = np.full((capacity, embed_dim), TOMBSTONE,
                                   np.float32)
@@ -744,7 +748,7 @@ class MemoStore:
         kind = self._device_index_kind(n)
         di = DEVICE_INDEXES.resolve(kind)(
             self.embed_dim, capacity=cap, nprobe=self.nprobe,
-            n_clusters=self.n_clusters, device=self.device)
+            n_clusters=self.n_clusters, device=self.device, mesh=self._mesh)
         di._registry_kind = kind
         di.add(self._embs_host[:n])
         if isinstance(di, ClusteredDeviceIndex):
@@ -828,19 +832,22 @@ class MemoStore:
         """Build and install a fresh ``StoreSnapshot`` (end of every sync
         and after a calibration change)."""
         with self._lock:
-            di = self.device_index
-            snap = StoreSnapshot(
-                generation=self.generation,
-                db_parts=self.device_db.parts,
-                index=di,
-                search_args=di.search_args,
-                index_key=type(di).__name__,
-                codec_key=self.codec.key,
-                lengths=self._dev_lens,
-                sim_a=float(self.sim_cal[0]),
-                sim_b=float(self.sim_cal[1]))
-            self._snapshot = snap
-            return snap
+            return self._publish_locked()
+
+    def _publish_locked(self) -> StoreSnapshot:
+        di = self.device_index
+        snap = StoreSnapshot(
+            generation=self.generation,
+            db_parts=self.device_db.parts,
+            index=di,
+            search_args=di.search_args,
+            index_key=type(di).__name__,
+            codec_key=self.codec.key,
+            lengths=self._dev_lens,
+            sim_a=float(self.sim_cal[0]),
+            sim_b=float(self.sim_cal[1]))
+        self._snapshot = snap
+        return snap
 
     # --------------------------------------------------------- persistence
     def state_dict(self) -> Dict[str, np.ndarray]:

@@ -33,8 +33,9 @@ reference is here with its name and default:
   names the arch's full config (``launch/train.py`` without
   ``--reduced``) is served at that config.
 
-``--shards`` raises ``NotImplementedError``: the sharded store is a
-later slice of the port.
+``--shards N`` serves through the sharded device store (``core/shard.py``)
+over N of the local cards, clamped to their count (1 on the CPU), and
+prints a ``[serve] shards`` line with the per-shard occupancy.
 """
 from __future__ import annotations
 
@@ -258,13 +259,15 @@ def parse_args(argv=None):
     ap.add_argument("--cluster-crossover", type=int, default=4096)
     ap.add_argument("--nprobe", type=int, default=16)
     ap.add_argument("--shards", type=int, default=0,
-                    help="sharded device store (a later slice of the "
-                         "port: > 0 raises NotImplementedError)")
+                    help="partition the device memo store over N "
+                         "shards, one a local card (0 = single-device "
+                         "store; clamped to the card count, 1 on the "
+                         "CPU)")
     ap.add_argument("--shard-hot", type=int, default=32,
                     help="replicated hot-entry set size per shard")
     ap.add_argument("--shard-nprobe", type=int, default=None,
                     help="centroid probes per query when routing to "
-                         "shards")
+                         "shards (default: the store picks)")
     ap.add_argument("--prefill", action="store_true",
                     help="memoized causal prefill: A/B latency and decode "
                          "parity against exact prefill (needs a causal "
@@ -313,10 +316,6 @@ def main(argv=None):
     """Run the launcher; returns a dict of what it printed (the legs'
     hit counts among them) for callers that check it."""
     args = parse_args(argv)
-    if args.shards:
-        raise NotImplementedError(
-            "--shards: the sharded device store waits for the "
-            "sharded-store slice of the port")
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch)
     params = None
@@ -360,6 +359,8 @@ def main(argv=None):
         budget_mb=args.budget_mb if args.online else None,
         admit_every=args.admit_every,
         recal_every=2 if args.online else None,
+        shards=args.shards, shard_hot=args.shard_hot,
+        shard_route_nprobe=args.shard_nprobe,
         **({"prefill_enabled": True, "prefill_kv_codec": args.kv_codec,
             "prefill_kv_rank": args.kv_rank} if args.prefill else {}))
     calib = [{"tokens": corpus.sample(args.batch)[0]}
@@ -502,6 +503,15 @@ def _serve_batches(eng, corpus, args, active):
             print(f"[serve] overhead     embed {st.t_embed:.2f}s "
                   f"search {st.t_search:.2f}s fetch {st.t_fetch:.2f}s")
         out.update(hits=st.n_hits, attempts=st.n_layer_attempts)
+    store = eng.store
+    if getattr(store, "shard_stats", None) is not None:
+        ss = store.shard_stats()
+        print(f"[serve] shards       {ss['n_shards']} x "
+              f"{ss['positions_per_shard']} positions, occupancy "
+              f"{ss['occupancy']} (imbalance {ss['imbalance']:.2f}x), "
+              f"evictions {ss['n_shard_evictions']}, "
+              f"spills {ss['n_spills']}")
+        out["shards"] = ss
     return out
 
 

@@ -26,8 +26,9 @@ The model is the architecture's reduced config (``--arch``: any of the
 zoo's decoders and encoders, the hybrid recurrentgemma_2b among them;
 not whisper_medium, whose batches need frames). ``--codec``, ``--index``
 and ``--device-index`` serve every codec and index of the package.
-``--shards`` raises ``NotImplementedError`` naming the sharded-store
-slice. Memoized prefill is served by ``launch/serve.py --prefill``, as in
+``--shards N`` serves through the sharded device store
+(``core/shard.py``) over N of the local cards, clamped to their count (1
+on the CPU). Memoized prefill is served by ``launch/serve.py --prefill``, as in
 the reference, whose ``server.py`` has no such option.
 """
 from __future__ import annotations
@@ -339,7 +340,10 @@ def parse_args(argv=None):
                     help="root of the capacity (disk) tier directories, "
                          "one per session the run builds")
     ap.add_argument("--shards", type=int, default=0,
-                    help="sharded device tier (sharded-store slice)")
+                    help="partition the device memo store over N "
+                         "shards, one a local card (0 = single-device "
+                         "store; clamped to the card count, 1 on the "
+                         "CPU)")
     ap.add_argument("--phases", type=int, default=2,
                     help="corpus drift phases across the trace")
     ap.add_argument("--maintenance", default="both",

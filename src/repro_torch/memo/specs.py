@@ -16,9 +16,7 @@ that select JAX implementations (``RuntimeSpec.interpret``,
 ``RuntimeSpec.kernel_impl`` — a kernel wrapper here picks its path from
 the tensor's device). String-keyed fields validate against this
 package's registries. ``IndexSpec``, ``CapacitySpec`` and
-``PrefillSpec`` have every field of the reference's; the shard spec
-keeps only its opt-in field, which makes the engine raise until the
-sharded-store slice lands with the fields that tune it.
+``PrefillSpec`` and ``ShardSpec`` have every field of the reference's.
 """
 from __future__ import annotations
 
@@ -213,14 +211,33 @@ class CapacitySpec:
 
 @dataclass
 class ShardSpec:
-    """The sharded device tier (DESIGN.md §2.12). Only its opt-in is
-    carried over: ``shards > 0`` makes the engine raise until the
-    sharded-store slice lands with the fields that tune it."""
-    shards: int = 0                 # 0 = single-host store (no mesh)
+    """The sharded device tier (DESIGN.md §2.12): partition the memo
+    store's device arenas + index rows over an ordered list of devices
+    (``core/shard.py``'s ``StoreMesh``), routed by nearest centroid.
+    ``shards=0`` (the default) keeps the single-device store and every
+    other field inert; ``shards=N`` requests N shards over the local
+    devices (clamped to ``torch.cuda.device_count()``, 1 on the CPU)."""
+    shards: int = 0                 # 0 = single-device store (no mesh)
+    axis: str = "store"             # the store mesh's axis name
+    hot: int = 32                   # replicated hot-set size (rows)
+    route_nprobe: Optional[int] = None  # centroids probed per query
+    #                                     (None = IndexSpec.nprobe)
+    # drift repair between full syncs: when a delta sync has spilled
+    # this many rows off their routed shard since the last centroid
+    # (re)fit, the centroids are refit from the resident embeddings
+    # (rows do not move). 0 = wait for the next full sync.
+    refresh_spills: int = 0
 
     def __post_init__(self):
         _require(int(self.shards) >= 0,
                  f"shards must be >= 0: {self.shards}")
+        _require(bool(self.axis), "shard axis must be a non-empty name")
+        _require(int(self.hot) >= 0,
+                 f"shard hot-set size must be >= 0: {self.hot}")
+        _require(self.route_nprobe is None or int(self.route_nprobe) >= 1,
+                 f"route_nprobe must be None or >= 1: {self.route_nprobe}")
+        _require(int(self.refresh_spills) >= 0,
+                 f"refresh_spills must be >= 0: {self.refresh_spills}")
 
 
 @dataclass
@@ -290,8 +307,12 @@ FLAT_FIELDS: Dict[str, Tuple[str, str]] = {
     "capacity_stall_s": ("capacity", "stall_s"),
     "capacity_fsync": ("capacity", "fsync"),
     "capacity_compact_ratio": ("capacity", "compact_ratio"),
-    # the sharded store's opt-in (DESIGN.md §2.12); the engine raises
+    # the sharded store (DESIGN.md §2.12)
     "shards": ("shard", "shards"),
+    "shard_axis": ("shard", "axis"),
+    "shard_hot": ("shard", "hot"),
+    "shard_route_nprobe": ("shard", "route_nprobe"),
+    "shard_refresh_spills": ("shard", "refresh_spills"),
     # prefill memoization (DESIGN.md §2.13)
     "prefill_enabled": ("prefill", "enabled"),
     "prefill_cache_len": ("prefill", "cache_len"),

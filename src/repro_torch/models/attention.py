@@ -1,7 +1,7 @@
 """Attention mixers: GQA/MQA/MHA and MLA (Multi-head Latent Attention),
 the reference's ``models/attention.py``: the full-sequence apply, the
 memo-only apply, one-token decode and the decode caches of each
-(the reference's mesh specs wait for the sharded-store slice).
+(the reference's mesh specs wait for the expert-parallel slice).
 
 Functions over dicts of tensors whose keys and layouts are the JAX
 tree's (``wq (d,H,dh)``, ``wo (H,dh,d)``). Each full-sequence apply can

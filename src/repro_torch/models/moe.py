@@ -9,7 +9,8 @@
 
 Router aux loss is the standard load-balance term E·Σ_e f_e·P_e. The
 expert-parallel form (the reference's ``moe_apply_ep``: capacity
-buckets, ``all_to_all`` over a mesh) waits for the sharded-store slice.
+buckets, ``all_to_all`` over a mesh) waits for the expert-parallel
+slice of the port.
 """
 from __future__ import annotations
 
@@ -81,7 +82,7 @@ def moe_apply(params, x, cfg, mesh=None) -> Tuple[torch.Tensor,
     if mesh is not None:
         raise NotImplementedError(
             "moe_apply over a mesh (the expert-parallel moe_apply_ep) waits "
-            "for the sharded-store slice of the port")
+            "for the expert-parallel slice of the port")
     shape = x.shape
     xf = x.reshape(-1, shape[-1])
     T, k = xf.shape[0], cfg.moe.top_k

@@ -270,15 +270,20 @@ def test_unported_paths_raise(built, monkeypatch):
                           batches=[])
 
 
-@pytest.mark.parametrize("field, value, match", [
-    ("shards", 2, "sharded-store"),
-    pytest.param("prefill_enabled", True, None,
+@pytest.mark.parametrize("field, value, slice_name", [
+    pytest.param("shards", 2, "sharded-store", id="shards-2-sharded-store"),
+    pytest.param("prefill_enabled", True, "prefill",
                  id="prefill_enabled-True-prefill")])
-def test_later_slice_opt_ins_raise(field, value, match):
+def test_later_slice_opt_ins_raise(field, value, slice_name, built,
+                                   monkeypatch):
     """A reference spec that opts into a later slice crosses over with its
-    opt-in kept, and the engine refuses it (``match``). Prefill is ported:
-    its spec crosses over with every prefill field and the engine takes
-    it (its store wraps the APM codec in a ``PrefillCodec``)."""
+    opt-in kept, and the engine takes it: both slices are ported. A
+    sharded spec (every ``ShardSpec`` field crossing over) builds a
+    ``ShardedMemoStore`` — over two CPU shards through a patched
+    ``make_store_mesh`` — that serves a batch with the flat engine's hits
+    and slots at full routing. A prefill spec crosses over with every
+    prefill field (its store wraps the APM codec in a
+    ``PrefillCodec``)."""
     from repro.memo import MemoSpec as JaxSpec
     from repro_torch.core.engine import MemoEngine
     spec = MemoSpec.from_dict(JaxSpec.flat(**{field: value}).to_dict())
@@ -287,9 +292,31 @@ def test_later_slice_opt_ins_raise(field, value, match):
     setattr(spec2, field, value)                  # write-through property
     assert spec2 == spec
     cfg, _ = _cfgs()
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            MemoEngine(build_model(cfg, device="cpu"), None, spec)
+    if slice_name == "sharded-store":
+        import repro_torch.core.shard as shard
+        jspec = JaxSpec.flat(shards=2, shard_axis="s", shard_hot=5,
+                             shard_route_nprobe=7, shard_refresh_spills=3)
+        assert MemoSpec.from_dict(jspec.to_dict()).to_dict()["shard"] \
+            == jspec.to_dict()["shard"]
+        monkeypatch.setattr(
+            shard, "make_store_mesh", lambda n=None, axis="store",
+            device=None: shard.StoreMesh(("cpu",) * n, axis))
+        jeng, teng, queries = built
+        sspec = teng.mc.copy()
+        sspec.shards, sspec.shard_route_nprobe = value, 10 ** 6
+        seng = engine_from_reference(jeng, build_model(cfg, device="cpu"),
+                                     device="cpu", spec=sspec)
+        assert isinstance(seng.store, shard.ShardedMemoStore)
+        assert seng.store.n_shards == 2
+        teng.mc.mode = seng.mc.mode = "bucket"
+        batch = {"tokens": queries[1]}
+        thr = _mid_threshold(teng, batch)
+        tl, tp = _serve(teng, batch, thr)
+        sl, sp = _serve(seng, batch, thr)
+        for (li, _, th, ti), (_, _, sh, si) in zip(tp, sp):
+            np.testing.assert_array_equal(sh, th, err_msg=f"hits {li}")
+            np.testing.assert_array_equal(si, ti, err_msg=f"slots {li}")
+        np.testing.assert_allclose(sl, tl, rtol=0, atol=LOGIT_ATOL)
         return
     from repro_torch.configs import get_reduced as reduced
     from repro_torch.core.prefill import PrefillCodec
@@ -322,6 +349,7 @@ def test_port_imports_neither_jax_nor_reference():
         "        'repro_torch.kernels.rwkv6.ops',\n"
         "        'repro_torch.core.runtime',\n"
         "        'repro_torch.core.capacity',\n"
+        "        'repro_torch.core.shard',\n"
         "        'repro_torch.memo.registry',\n"
         "        'repro_torch.memo.session',\n"
         "        'repro_torch.launch.server',\n"

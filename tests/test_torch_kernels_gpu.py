@@ -18,7 +18,10 @@ Three cover memoized prefill: nn_search at its shapes and on a small
 gpt2_small prefill session's calls (``chip_smoke.hold_nn_calls``), that
 session's replay (no host sync, own entries, caches from the stored
 K/V), and full-width gpt2_small prefill + decode against the plain
-forward (``chip_smoke.prefill_decode_check``).
+forward (``chip_smoke.prefill_decode_check``). Two cover the sharded
+store on four shards of one card: ``ShardedDeviceIndex.search_fetch``
+against the same combine over the plain search, and ``mesh_search``
+against ``nn_search`` over the whole table.
 
 Tolerances (``chip_smoke.ATOL``, ``WKV_RTOL``): attention outputs within
 2e-5 absolute — both sides compute in f32 and differ only in summation
@@ -657,3 +660,75 @@ def test_prefill_decode_matches_forward_full_width(cuda):
                                    tokens, full)
     assert flash_attention.launches == n0 + cfg.n_layers
     assert res["agreement"] == 1.0
+
+
+def _sharded_store(cuda, S=4, n=1024, dim=128, apm=(4, 32, 32), **kw):
+    """A sharded int8 store of ``n`` random entries over ``S`` shards of
+    one card, fully synced."""
+    import numpy as np
+    from repro_torch.core.shard import ShardedMemoStore, StoreMesh
+    rng = np.random.default_rng(13)
+    store = ShardedMemoStore(apm, dim, mesh=StoreMesh((cuda,) * S),
+                             index_kind="exact", codec="int8", capacity=n,
+                             hot_k=16, **kw)
+    embs = rng.normal(0, 1, (n, dim)).astype(np.float32)
+    slots = store.admit(rng.random((n, *apm)).astype(np.float16), embs)
+    store.sync(force_full=True)
+    return store, embs, slots
+
+
+def test_sharded_search_fetch_matches_the_plain_combine(cuda):
+    """``ShardedDeviceIndex.search_fetch`` over ``StoreMesh((cuda,) * 4)``
+    at full routing and at nprobe 1: slots and rows equal to the same
+    combine with every shard's nn_search taken by its plain version, S
+    nn_search launches a call, one combine, no host sync."""
+    import repro_torch.core.shard as shard
+    for nprobe in (1 << 20, 1):
+        store, embs, slots = _sharded_store(cuda, route_nprobe=nprobe)
+        view = store.snapshot
+        q = torch.from_numpy(embs[::7] + 0.01).to(cuda)
+        n0, combines = nn_search.launches, []
+        real = shard._ALL_GATHER
+        shard._ALL_GATHER = lambda *a, **k: (combines.append(1)
+                                             or real(*a, **k))
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            d2, idx, rows = view.index.search_fetch(
+                q, args=view.search_args, parts=view.db_parts)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            shard._ALL_GATHER = real
+        torch.cuda.synchronize()
+        assert nn_search.launches - n0 == store.n_shards == 4
+        assert len(combines) == 1
+        real_nn = shard.nn_search
+        shard.nn_search = nn_search_ref
+        try:
+            rd, ri, rrows = view.index.search_fetch(
+                q, args=view.search_args, parts=view.db_parts)
+        finally:
+            shard.nn_search = real_nn
+        assert torch.equal(idx, ri)
+        for a, b in zip(rows, rrows):
+            assert torch.equal(a, b)
+        tol = 1e-3 * max(1.0, rd.abs().max().item())
+        assert (d2 - rd).abs().max().item() <= tol
+        if nprobe > 1:             # every shard competes: the exact top-1
+            assert (idx[:, 0].cpu().numpy() == slots[::7]).all()
+
+
+@pytest.mark.parametrize("S,N", [(4, 6144), (3, 1000)])
+def test_mesh_search_matches_nn_search_on_card(cuda, S, N):
+    """``mesh_search`` over a row-split table on one card (uneven splits
+    too) against ``nn_search`` over the whole table: equal indices, d2
+    within the kernel's tolerance, one nn_search launch a shard."""
+    from repro_torch.core.shard import StoreMesh, mesh_search
+    q, db, dn, _ = nn_case(torch, cuda, B=32, dim=128, N=N, seed=14)
+    n0 = nn_search.launches
+    d2, idx = mesh_search(db, q, StoreMesh((cuda,) * S))
+    assert nn_search.launches - n0 == S
+    rd, ri = nn_search(q, db, db_norms=dn)
+    assert torch.equal(idx, ri)
+    tol = 1e-3 * max(1.0, rd.abs().max().item())
+    assert (d2 - rd).abs().max().item() <= tol

@@ -6,7 +6,7 @@ capacity tier (DISK_DEGRADED through ``recover()``; the directory
 removed afterwards), the A/B with ``--capacity-dir`` (one reopenable
 tier directory per session), the store's scale options (the lowrank
 codec, the ivf host index, the clustered device index) served to the
-end, the refusal of ``--shards`` (a later slice), memoized prefill,
+end, ``--shards`` (the sharded store) in both launchers, memoized prefill,
 which is ``launch/serve.py``'s leg, both launchers at a zoo arch, and
 the training launcher (``repro_torch.launch.train``) whose checkpoint
 ``launch/serve.py`` then serves."""
@@ -46,18 +46,28 @@ def test_server_fault_demo_recovers(capsys):
                  id="flags3-sharded-store"),
     pytest.param(["--prefill"], None, id="flags4-prefill")])
 def test_server_refuses_unported_options(flags, match, capsys):
-    """``--shards`` waits for the sharded-store slice. Memoized prefill is
-    ported, and as in the reference it is ``launch/serve.py``'s leg:
-    ``server.py`` has no ``--prefill`` (argparse refuses it) and
-    ``serve.py --prefill`` serves a causal arch to the end."""
+    """Both options are ported now. ``--shards 2`` serves through the
+    sharded store in both launchers (clamped to one shard on the CPU) and
+    ``serve.py`` prints its ``[serve] shards`` line. Memoized prefill is
+    ``launch/serve.py``'s leg, as in the reference: ``server.py`` has no
+    ``--prefill`` (argparse refuses it) and ``serve.py --prefill`` serves
+    a causal arch to the end."""
+    from repro_torch.launch import serve
     if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            main(SMALL + ["--calib-batches", "1", "--embed-steps", "2"]
-                 + flags)
+        res = main(SMALL + ["--calib-batches", "1", "--embed-steps", "2",
+                            "--maintenance", "async"] + flags)
+        assert res["async"]["n_requests"] == 12
+        res = serve.main(["--device", "cpu", "--requests", "8", "--batch",
+                          "4", "--seq", "16", "--calib-batches", "2",
+                          "--threshold", "-1000000"] + flags)
+        assert res["shards"]["n_shards"] == 1
+        assert sum(res["shards"]["occupancy"]) > 0
+        assert res["hits"] == res["attempts"] > 0
+        out = capsys.readouterr().out
+        assert "[serve] shards       1 x " in out
         return
     with pytest.raises(SystemExit):
         main(SMALL + flags)
-    from repro_torch.launch import serve
     res = serve.main(["--device", "cpu", "--arch", "gpt2_small",
                       "--requests", "4", "--batch", "4", "--seq", "16",
                       "--calib-batches", "1", "--decode-steps", "2"]

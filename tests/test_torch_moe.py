@@ -82,12 +82,12 @@ def test_moe_matches_reference(case, fn):
 def test_moe_apply_is_deterministic_and_refuses_a_mesh(case):
     """The routed form sums in a fixed order (no atomics): two runs are
     bit-equal. The expert-parallel form over a mesh raises, naming its
-    slice."""
+    slice (the last of the port)."""
     _, cfg, _, p, x = case
     tp, tx = tree_to_torch(p, CPU), torch.from_numpy(x)
     assert torch.equal(tmoe.moe_apply(tp, tx, cfg)[0],
                        tmoe.moe_apply(tp, tx, cfg)[0])
-    with pytest.raises(NotImplementedError, match="sharded-store slice"):
+    with pytest.raises(NotImplementedError, match="expert-parallel slice"):
         tmoe.moe_apply(tp, tx, cfg, mesh=object())
 
 
