@@ -169,7 +169,21 @@ and read just after:
   skewed burst past one shard's free positions (shard-local evictions)
   and a ``MemoServer`` async window whose held snapshot stays unchanged
   (12c); and, on a machine with more than one card, 12b over distinct
-  cards (12d).
+  cards (12d);
+* the model's mesh (phase 13, ``[mesh]`` lines, a ``{"mesh": ...}`` JSON
+  line) — ``dbrx_132b`` at full width cut to 2 layers, its kernel
+  forward (B=2, S=1024) with no mesh (the routed ``moe_apply``) and over
+  ``make_host_mesh(4, 1)`` and ``make_host_mesh(2, 2)`` of the one card
+  (``moe_apply_ep``: capacity buckets, 4 exchanges a dispatch chunk):
+  at the smallest capacity factor at which the plain drop rule drops
+  nothing, the meshes' logits against no mesh on its expert picks,
+  under ``set_sync_debug_mode("error")`` (``flash_attention``); at the
+  config's 1.25 the dropped share of (token, slot) pairs and each MoE
+  layer's output against the plain function with exactly those pairs
+  zeroed (13a); ``prefill`` (``flash_attention``) and 8 teacher-forced
+  ``decode_step``s over the (4, 1) mesh against no mesh (13b); one
+  layer's grads over the (4, 1) mesh against no mesh and ``Trainer``
+  steps each way, ms a step and peak memory (13c).
 
 Every kernel is held against its plain version on the arguments each
 layer of its path gave it, and timed there beside its bound (for the
@@ -1988,8 +2002,9 @@ def big_memory(torch, dev, sess, main, per_path, smi):
 # MemoServer over the clustered store, and save/load of both. The lowrank
 # build encodes on the host, one numpy SVD per (entry, head): 5.56 ms
 # each on the H100's host, 205 s for 8 calibration batches (PERF.md), so
-# it takes 2 (768 entries, 9216 SVDs)
-SCALE_CALIB_BATCHES, LOWRANK_CALIB_BATCHES = 16, 2
+# it takes 1 (384 entries, 4608 SVDs; 2 took 57.6 s of the script, which
+# phase 13 pushed past ~1,050 s)
+SCALE_CALIB_BATCHES, LOWRANK_CALIB_BATCHES = 16, 1
 # rows at dim 128, B = 32; 262,144 and 524,288 bracket the crossover with
 # nn_search (between 65,536 and 1,048,576 in PERF.md's first runs)
 SCALE_SWEEP = (4096, 65536, 1 << 18, 1 << 19, 1 << 20)
@@ -6309,6 +6324,510 @@ def sharded_store(torch, dev, per_path, errs, smi):
     return out
 
 
+# ------------------------------------------------------------ phase 13
+MESH_ARCH = "dbrx_132b"
+# 13a/13b: dbrx_132b at full width cut to 2 layers (~31 GB of f32
+# weights), B=2, S=1024; the meshes, all slots on the one card
+MESH_LAYERS, MESH_B, MESH_S = 2, 2, 1024
+MESH_SHAPES = ((4, 1), (2, 2))
+# the capacity factors tried, smallest first: the first at which no
+# (token, slot) pair drops on any mesh is the no-drop factor (at a
+# factor of ep every pair fits, so 4.0 always does here)
+MESH_FACTORS = (1.25, 1.5, 2.0, 3.0, 4.0)
+# mesh vs no-mesh logits at the no-drop factor, every row on the same
+# expert picks: the same products of every routed row in GEMMs of other
+# shapes (and, on (2, 2), two ff halves summed), relative to max|logit|,
+# as FORWARD_RTOL holds the kernel forward to the plain one
+MESH_RTOL = 1e-5
+MESH_DECODE_STEPS = 8
+# 13c: one training step, as 11b (dbrx_132b cut to 1 layer, Adafactor)
+MESH_TRAIN_LAYERS, MESH_TRAIN_B, MESH_TRAIN_S = 1, 2, 256
+
+
+class Record:
+    """While active, ``mod.attr`` records each call's (args, kwargs,
+    result) in ``calls``."""
+
+    def __init__(self, mod, attr):
+        self.mod, self.attr, self.calls = mod, attr, []
+
+    def __enter__(self):
+        self.real = getattr(self.mod, self.attr)
+
+        def recording(*a, **kw):
+            out = self.real(*a, **kw)
+            self.calls.append((a, kw, out))
+            return out
+        setattr(self.mod, self.attr, recording)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.real)
+
+
+class CountExchanges:
+    """While active, counts ``models/moe.py``'s ``_ALL_TO_ALL`` calls
+    (the expert-parallel form's exchanges: 4 a dispatch chunk)."""
+
+    def __enter__(self):
+        import repro_torch.models.moe as moe_mod
+        self.mod, self.real, self.n = moe_mod, moe_mod._ALL_TO_ALL, 0
+
+        def counting(*a, **kw):
+            self.n += 1
+            return self.real(*a, **kw)
+        moe_mod._ALL_TO_ALL = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._ALL_TO_ALL = self.real
+
+
+def ep_chunks(T_loc, dispatch_chunks):
+    """``_moe_body``'s chunk count: the largest up to ``dispatch_chunks``
+    that divides a shard's tokens."""
+    return next(c for c in range(min(dispatch_chunks, T_loc), 0, -1)
+                if T_loc % c == 0)
+
+
+def ep_call_ids(ids_layers, ep, dispatch_chunks):
+    """A routed forward's expert picks (one (T, k) a MoE layer) in the
+    order the expert-parallel form calls its router: per layer, chunk by
+    chunk, shard by shard, each on its t tokens (``ForcedRoutes`` replays
+    them call by call)."""
+    out = []
+    for ids in ids_layers:
+        T_loc = ids.shape[0] // ep
+        n = ep_chunks(T_loc, dispatch_chunks)
+        t = T_loc // n
+        out += [ids[s * T_loc + c * t:s * T_loc + (c + 1) * t]
+                for c in range(n) for s in range(ep)]
+    return out
+
+
+def ep_layer_ids(torch, call_ids, T, ep, dispatch_chunks):
+    """The inverse of ``ep_call_ids``: the router's per-call picks of an
+    expert-parallel forward back to one (T, k) a layer."""
+    T_loc = T // ep
+    n = ep_chunks(T_loc, dispatch_chunks)
+    per = n * ep
+    layers = []
+    for li in range(len(call_ids) // per):
+        calls = call_ids[li * per:(li + 1) * per]
+        layers.append(torch.cat([calls[c * ep + s] for s in range(ep)
+                                 for c in range(n)]))
+    return layers
+
+
+def ep_kept(ids, n_experts, ep, cf, dispatch_chunks):
+    """The plain drop rule of ``moe_apply_ep`` on one layer's picks (a
+    (T, k) numpy array, tokens split over ep shards, one mesh group):
+    per chunk, a shard's rows go to the expert shard that owns their
+    expert in (token, slot) order, the first C of them; each expert shard
+    takes its arrivals in (source shard, arrival) order, the first Ce an
+    expert. Returns the (T, k) kept mask, counted row by row on the host
+    (no sort, no bucket)."""
+    import math
+
+    import numpy as np
+    T, k = ids.shape
+    E_loc, T_loc = n_experts // ep, T // ep
+    n = ep_chunks(T_loc, dispatch_chunks)
+    t = T_loc // n
+    C = max(1, math.ceil(t * k / ep * cf))
+    Ce = max(1, math.ceil(ep * C / E_loc * cf))
+    kept = np.ones((T, k), bool)
+    for c in range(n):
+        arrived = [[] for _ in range(ep)]
+        for s in range(ep):
+            base, sent = s * T_loc + c * t, [0] * ep
+            for r, e in enumerate(ids[base:base + t].reshape(-1).tolist()):
+                d = e // E_loc
+                if sent[d] < C:
+                    arrived[d].append((s, sent[d], base + r // k, r % k,
+                                       e % E_loc))
+                else:
+                    kept[base + r // k, r % k] = False
+                sent[d] += 1
+        for rows in arrived:
+            taken = [0] * E_loc
+            for _, _, tok, slot, le in sorted(rows):
+                if taken[le] >= Ce:
+                    kept[tok, slot] = False
+                taken[le] += 1
+    return kept
+
+
+def moe_dropped(torch, chan, x, cfg, ids, kept):
+    """``moe_ref``'s function on the picks ``ids`` with the (token, slot)
+    pairs not ``kept`` zeroed: each expert on its kept tokens, weighted
+    by the router's probabilities at the picks renormalised over all k
+    (a dropped pair keeps its share of the normalisation, as in the
+    reference)."""
+    from repro_torch.models.moe import _expert, _router
+    xf = x.reshape(-1, x.shape[-1])
+    probs = _router(xf, chan["w_router"], cfg.moe.top_k)[0]
+    w = probs.gather(1, ids)
+    w = (w / w.sum(-1, keepdim=True)).to(xf.dtype)
+    w = w * torch.as_tensor(kept, device=w.device, dtype=w.dtype)
+    y = torch.zeros_like(xf)
+    for e in range(cfg.moe.n_experts):
+        we = (w * (ids == e)).sum(1)
+        tok = torch.nonzero(we).flatten()
+        if tok.numel():
+            y.index_add_(0, tok, we[tok, None] * _expert(
+                xf[tok], chan["w_gate"][e], chan["w_up"][e],
+                chan["w_down"][e]))
+    return y.reshape(x.shape)
+
+
+def mesh_forward(torch, dev, per_path, smi):
+    """13a: dbrx_132b at full width cut to MESH_LAYERS layers, its kernel
+    forward with no mesh (the routed ``moe_apply``) and over each mesh of
+    MESH_SHAPES on the one card: at the smallest factor of MESH_FACTORS
+    at which nothing drops, every mesh's logits within MESH_RTOL of the
+    no-mesh ones (on its expert picks), with no host sync, its
+    ``flash_attention`` launches and its exchanges counted; at the
+    config's 1.25 the dropped share of (token, slot) pairs and each MoE
+    layer's output against ``moe_dropped``. Returns (model, params,
+    tokens, the no-drop factor, the fields)."""
+    import dataclasses
+
+    import numpy as np
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+
+    full = get_config(MESH_ARCH)
+    base = full.replace(n_layers=MESH_LAYERS)
+    m = base.moe
+
+    def at(cf):
+        return base.replace(moe=dataclasses.replace(m, capacity_factor=cf))
+    t0 = time.perf_counter()
+    plain = build_model(base, device=dev, attn_impl="kernel")
+    params = plain.init(generator=torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, base.vocab, (MESH_B, MESH_S))).to(dev)
+    batch, T = {"tokens": tokens}, MESH_B * MESH_S
+    n_params = sum(p.numel() for p in _leaves(params))
+    meshes = {f"{d}x{mm}": make_host_mesh(d, mm, device=dev.type)
+              for d, mm in MESH_SHAPES}
+    torch.cuda.synchronize()
+    print(f"[mesh] 13a {base.name} at full width, {MESH_LAYERS} of "
+          f"{full.n_layers} layers ({m.n_experts} experts top-{m.top_k}, "
+          f"d_ff {m.d_ff}): {n_params * 4 / 1e9:.2f} GB f32 made on the "
+          f"card in {time.perf_counter() - t0:.1f} s; B={MESH_B} "
+          f"S={MESH_S}, attn_impl='kernel'; meshes "
+          + ", ".join(f"{k} {v!r}" for k, v in meshes.items()))
+    res = dict(layers=MESH_LAYERS, B=MESH_B, S=MESH_S, meshes={})
+    want = {name: MESH_LAYERS if name == "flash_attention" else 0
+            for name in KERNELS}
+    with torch.no_grad():
+        # warm-up, outside the counts (the process's first "warn" mode may
+        # report a sync of its own)
+        with HostSyncs(torch, counted=True):
+            plain.forward(params, batch)
+        torch.cuda.synchronize()
+        zero_counts()
+        with RouteLog() as routes, HostSyncs(torch, counted=True) as hs:
+            logits0 = plain.forward(params, batch)[0]
+        per_path["mesh_none"] = counts = read_counts()
+        torch.cuda.synchronize()
+        require_syncs([hs.count], MESH_LAYERS, "no-mesh dbrx forward")
+        require(counts == want, f"no-mesh launches {counts}")
+        scale = max(1.0, logits0.abs().max().item())
+        ms0 = forward_ms(torch, lambda: plain.forward(params, batch))
+        res["none"] = dict(ms=ms0, host_syncs=hs.count, launches=counts)
+        print(f"[mesh] no mesh (routed moe_apply): {ms0:.2f} ms a forward "
+              f"(CUDA events, median of 3), {hs.count} host syncs (one a "
+              f"MoE layer), flash_attention x{counts['flash_attention']}")
+
+        ids_host = [i.cpu().numpy() for i in routes.ids]
+        drops = {cf: {name: sum(int((~ep_kept(ids, m.n_experts,
+                                              mesh.shape["data"], cf,
+                                              m.dispatch_chunks)).sum())
+                                for ids in ids_host)
+                      for name, mesh in meshes.items()}
+                 for cf in MESH_FACTORS}
+        nodrop = next((cf for cf in MESH_FACTORS
+                       if not any(drops[cf].values())), None)
+        require(nodrop is not None, f"every factor drops: {drops}")
+        print(f"[mesh] (token, slot) pairs dropped by the plain rule on the "
+              f"routed forward's picks ({T * m.top_k} a layer): "
+              + "; ".join(f"factor {cf}: {d}" for cf, d in drops.items())
+              + f" -> no-drop factor {nodrop}")
+        res.update(nodrop_factor=nodrop, drops_by_factor={
+            str(cf): d for cf, d in drops.items()})
+
+        for name, mesh in meshes.items():
+            ep = mesh.shape["data"]
+            n_chunks = ep_chunks(T // ep, m.dispatch_chunks)
+            model = build_model(at(nodrop), mesh=mesh, attn_impl="kernel")
+            forced_ids = ep_call_ids(routes.ids, ep, m.dispatch_chunks)
+            model.forward(params, batch)
+            torch.cuda.synchronize()
+            zero_counts()
+            with ForcedRoutes(forced_ids) as forced, \
+                    CountExchanges() as ex, HostSyncs(torch):
+                logits = model.forward(params, batch)[0]
+            per_path[f"mesh_{name}"] = counts = read_counts()
+            torch.cuda.synchronize()
+            require(counts == want, f"mesh {name} launches {counts}")
+            n_ex = 4 * n_chunks * MESH_LAYERS
+            require(ex.n == n_ex, f"mesh {name}: {ex.n} exchanges, want "
+                    f"{n_ex}")
+            require(bool(torch.isfinite(logits).all()), f"mesh {name}: "
+                    f"non-finite logits")
+            gap = (logits - logits0).abs().max().item()
+            agree = (logits.argmax(-1) == logits0.argmax(-1)).float().mean()
+            del logits
+            # one timed run: a forward at the no-drop factor is ~1.4 s
+            ms = forward_ms(torch, lambda: model.forward(params, batch),
+                            runs=1)
+            print(f"[mesh] {name} mesh at factor {nodrop} (0 pairs "
+                  f"dropped): max|dlogits| {gap:.3e} against no mesh "
+                  f"(tolerance {MESH_RTOL:.0e} of max|logit| {scale:.3f}), "
+                  f"argmax agreement {agree.item():.6f}, on the no-mesh "
+                  f"expert picks ({forced.moved} (token, call) picks of its "
+                  f"own differed); 0 host syncs "
+                  f"(set_sync_debug_mode('error')); flash_attention "
+                  f"x{counts['flash_attention']}; {ex.n} exchanges "
+                  f"({n_chunks} chunks x 4 x {MESH_LAYERS} layers); "
+                  f"{ms:.2f} ms a forward (one timed run) against "
+                  f"{ms0:.2f} with no mesh")
+            require(gap <= MESH_RTOL * scale, f"mesh {name} logits {gap}")
+
+            # the config's factor: drops, held to the plain drop rule
+            model = build_model(base, mesh=mesh, attn_impl="kernel")
+            with Record(moe_mod, "moe_apply_ep") as rec, \
+                    RouteLog() as r125:
+                model.forward(params, batch)
+            ms125 = forward_ms(torch, lambda: model.forward(params, batch))
+            ids125 = ep_layer_ids(torch, r125.ids, T, ep, m.dispatch_chunks)
+            layers = []
+            for li, (args, _kw, (y, _aux)) in enumerate(rec.calls):
+                chan, x = args[0], args[1]
+                kept = ep_kept(ids125[li].cpu().numpy(), m.n_experts, ep,
+                               m.capacity_factor, m.dispatch_chunks)
+                y_plain = moe_dropped(torch, chan, x, base, ids125[li], kept)
+                err = (y - y_plain).abs().max().item()
+                y_scale = y_plain.abs().max().item()
+                share = float((~kept).mean())
+                layers.append(dict(dropped_share=share, max_abs_err=err,
+                                   y_scale=y_scale))
+                print(f"[mesh] {name} mesh at the config's factor "
+                      f"{m.capacity_factor}, MoE layer {li}: "
+                      f"{int((~kept).sum())} of {kept.size} (token, slot) "
+                      f"pairs dropped ({share:.4f}); the layer's output "
+                      f"against moe_dropped (the same picks, those pairs "
+                      f"zeroed): max|dy| {err:.3e} (tolerance "
+                      f"{MOE_RTOL:.0e} of max|y| {y_scale:.3f}); "
+                      f"{ms125:.2f} ms a forward at this factor")
+                require(err <= MOE_RTOL * max(1.0, y_scale),
+                        f"mesh {name} layer {li} vs moe_dropped {err}")
+            del rec, model
+            res["meshes"][name] = dict(
+                ms=ms, max_dlogits=gap, logit_scale=scale,
+                argmax_agreement=agree.item(), route_moved=forced.moved,
+                host_syncs=0, launches=counts, exchanges=ex.n,
+                chunks=n_chunks, default_factor=layers,
+                default_factor_ms=ms125)
+    torch.cuda.empty_cache()
+    return plain, params, tokens, nodrop, res
+
+
+def mesh_serve(torch, plain, params, tokens, nodrop, per_path):
+    """13b: on the (4, 1) mesh at the no-drop factor, ``prefill`` of all
+    but MESH_DECODE_STEPS tokens (the chunked body) and that many
+    teacher-forced ``decode_step``s (T = B < 4 dp: the small-token body),
+    each against no mesh on its expert picks, relative to max|logit| (as
+    ``zoo_decode`` measures); decode ms a step each way."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.tree import flat_params
+
+    cfg = plain.cfg.replace(moe=dataclasses.replace(
+        plain.cfg.moe, capacity_factor=nodrop))
+    d, mm = MESH_SHAPES[0]
+    model = build_model(cfg, mesh=make_host_mesh(d, mm, device="cuda"),
+                        attn_impl="kernel")
+    P = MESH_S - MESH_DECODE_STEPS
+    prompt = {"tokens": tokens[:, :P]}
+    with torch.no_grad():
+        with RouteLog() as r0:
+            le, ce = plain.prefill(params, prompt, cache_len=MESH_S)
+        zero_counts()
+        with ForcedRoutes(ep_call_ids(r0.ids, d, cfg.moe.dispatch_chunks)
+                          ) as forced, HostSyncs(torch, counted=True) as hs:
+            lm, cm = model.prefill(params, prompt, cache_len=MESH_S)
+        per_path["mesh_prefill_4x1"] = counts = read_counts()
+        torch.cuda.synchronize()
+        require(counts["flash_attention"] == MESH_LAYERS,
+                f"mesh prefill launches {counts}")
+        require(hs.count == 0, f"mesh prefill: {hs.count} host syncs")
+        scale = max(1.0, le.abs().max().item())
+        p_gap = (lm - le).abs().max().item()
+        fc, fe = flat_params(cm), flat_params(ce)
+        c_gap = max((fc[k] - v).abs().max().item() for k, v in fe.items())
+        c_scale = max(v.abs().max().item() for v in fe.values())
+        moved = forced.moved
+        dmax, agree_n, n_tok = 0.0, 0, 0
+        ms_m, ms_e = [], []
+        for step in range(MESH_DECODE_STEPS):
+            te = le.argmax(-1)
+            agree_n += int((lm.argmax(-1) == te).sum())
+            n_tok += te.numel()
+            a, b, c = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+            with RouteLog() as routes:
+                a.record()
+                le, ce = plain.decode_step(params, te[:, None], ce, P + step)
+                b.record()
+            with ForcedRoutes(routes.ids) as forced:
+                lm, cm = model.decode_step(params, te[:, None], cm, P + step)
+                c.record()
+            torch.cuda.synchronize()
+            ms_e.append(a.elapsed_time(b))
+            ms_m.append(b.elapsed_time(c))
+            moved += forced.moved
+            dmax = max(dmax, (lm - le).abs().max().item())
+        d_scale = le.abs().max().item()
+    rel = dmax / d_scale
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    print(f"[mesh] 13b 4x1 mesh at factor {nodrop}: prefill of {P} tokens "
+          f"max|dlogits| {p_gap:.3e} (tolerance {MESH_RTOL:.0e} of "
+          f"{scale:.3f}), caches max|d| {c_gap:.3e} (tolerance "
+          f"{MESH_RTOL:.0e} of max|K/V| {c_scale:.3f}), flash_attention "
+          f"x{counts['flash_attention']}, {hs.count} host syncs; "
+          f"{MESH_DECODE_STEPS} teacher-forced decode steps (the "
+          f"small-token body): max|dlogits| {dmax:.3e} = {rel:.3e} of "
+          f"max|logit| {d_scale:.3f}, greedy agreement {agree_n}/{n_tok}; "
+          f"on the no-mesh expert picks, {moved} (token, call) picks of its "
+          f"own differed; decode {med(ms_m):.2f} ms a step against "
+          f"{med(ms_e):.2f} with no mesh (CUDA events, median)")
+    require(p_gap <= MESH_RTOL * scale, f"mesh prefill logits {p_gap}")
+    require(c_gap <= MESH_RTOL * c_scale, f"mesh prefill caches {c_gap}")
+    require(rel <= MESH_RTOL, f"mesh decode {rel}")
+    res = dict(prompt=P, prefill_max_dlogits=p_gap, prefill_cache_max_d=c_gap,
+               cache_scale=c_scale, logit_scale=scale, decode_max_dlogits=dmax,
+               decode_rel=rel, decode_agreement=agree_n / n_tok,
+               route_moved=moved, decode_ms=med(ms_m),
+               decode_ms_no_mesh=med(ms_e), prefill_host_syncs=hs.count,
+               prefill_launches=counts)
+    del model, lm, cm, le, ce
+    return res
+
+
+def mesh_train(torch, dev, smi):
+    """13c: dbrx_132b cut to MESH_TRAIN_LAYERS layer(s), B=MESH_TRAIN_B,
+    S=MESH_TRAIN_S, Adafactor: the grads over the (4, 1) mesh against no
+    mesh at the batch's no-drop factor (``grad_gap``; the router's aux
+    term left out of both, since the expert-parallel aux is the mean of
+    each dispatch chunk's load-balance term, the reference's, not the
+    whole batch's); then Trainer steps each way, ms a step and peak
+    memory."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.trainer import value_and_grad
+
+    t0 = time.perf_counter()
+    cfg = get_config(MESH_ARCH).replace(n_layers=MESH_TRAIN_LAYERS)
+    m = cfg.moe
+    d, mm = MESH_SHAPES[0]
+    mesh = make_host_mesh(d, mm, device="cuda")
+    plain = build_model(cfg, device=dev)
+    params = plain.init(1)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab, (MESH_TRAIN_B, MESH_TRAIN_S))).to(dev)}
+    with torch.no_grad(), RouteLog() as routes:
+        plain.forward(params, batch)
+    ids = [i.cpu().numpy() for i in routes.ids]
+    nodrop = next((cf for cf in MESH_FACTORS if not any(
+        (~ep_kept(i, m.n_experts, d, cf, m.dispatch_chunks)).any()
+        for i in ids)), None)
+    require(nodrop is not None, "13c: every factor drops")
+
+    def at(cf, coef):
+        return cfg.replace(moe=dataclasses.replace(
+            m, capacity_factor=cf, aux_loss_coef=coef))
+    no_aux = at(nodrop, 0.0)
+    l0, g0 = value_and_grad(build_model(no_aux, device=dev).train_loss,
+                            params, batch)
+    l1, g1 = value_and_grad(build_model(no_aux, mesh=mesh).train_loss,
+                            params, batch)
+    gap, leaf, ok = grad_gap(g1, g0, TRAIN_GRAD_RTOL)
+    lgap = abs(l1.item() - l0.item()) / abs(l0.item())
+    del g0, g1
+    print(f"[mesh] 13c {cfg.name}, {MESH_TRAIN_LAYERS} layer, "
+          f"B={MESH_TRAIN_B} S={MESH_TRAIN_S}, 4x1 mesh at the batch's "
+          f"no-drop factor {nodrop}: loss (no aux) {lgap:.2e} relative, "
+          f"grads up to {gap:.2e} of max|g| at {leaf} (bound "
+          f"{TRAIN_GRAD_RTOL:.0e} of max|g| + 1e-7) against no mesh")
+    require(ok and lgap <= TRAIN_GRAD_RTOL, f"13c grads {gap} at {leaf}, "
+            f"loss {lgap}")
+    torch.cuda.empty_cache()
+    out = dict(nodrop_factor=nodrop, grad_gap=gap, grad_gap_leaf=leaf,
+               loss_gap=lgap)
+    # Trainer steps (donate=True: the params update in place), mesh and
+    # no mesh in turns after a warm-up step each
+    tc = TrainConfig(steps=8, optimizer=cfg.optimizer)
+    trainers = {"mesh": Trainer(build_model(at(nodrop, m.aux_loss_coef),
+                                            mesh=mesh), tc),
+                "none": Trainer(build_model(at(nodrop, m.aux_loss_coef),
+                                            device=dev), tc)}
+    opt = trainers["mesh"].init_opt(params)
+    times, losses = {"mesh": [], "none": []}, []
+    torch.cuda.reset_peak_memory_stats()
+    for i, name in enumerate(("mesh", "none", "mesh", "none", "none",
+                              "mesh")):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        _, _, loss = trainers[name].step(params, opt, batch, i)
+        b.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times[name].append(a.elapsed_time(b))
+        losses.append(loss.item())
+        require(np.isfinite(losses[-1]), f"13c loss {losses[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[mesh] 13c Trainer steps (Adafactor, donate=True): mesh "
+          f"{times['mesh']} ms, no mesh {times['none']} ms (CUDA events; "
+          f"after a warm-up each); losses {[round(x, 4) for x in losses]}; "
+          f"peak memory {peak / 1e9:.2f} GB; {time.perf_counter() - t0:.1f}"
+          f" s ({smi})")
+    out.update(step_ms_mesh=times["mesh"], step_ms_none=times["none"],
+               losses=losses, peak_gb=peak / 1e9)
+    del params, opt, trainers
+    return out
+
+
+def model_mesh(torch, dev, per_path, smi):
+    """Phase 13: the model's mesh (13a forward, 13b serving, 13c one
+    training step). Returns the JSON fields."""
+    t0 = time.perf_counter()
+    plain, params, tokens, nodrop, out = mesh_forward(torch, dev, per_path,
+                                                      smi)
+    out["serve"] = mesh_serve(torch, plain, params, tokens, nodrop,
+                              per_path)
+    del plain, params, tokens
+    torch.cuda.empty_cache()
+    out["train"] = mesh_train(torch, dev, smi)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[mesh] phase 13 took {out['seconds']:.1f}s ({smi})")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6444,6 +6963,12 @@ def main() -> int:
         shard_res["kernels"]["nn_search"],
         launches={p: per_path[f"shard_full_{p}"]["nn_search"]
                   for p in ("kernel", "bucket")})
+    torch.cuda.empty_cache()
+    mesh_res = model_mesh(torch, dev, per_path, smi)
+    print(json.dumps({"mesh": mesh_res}))
+    times["flash_attention"]["dh128"]["launches"].update(
+        {p: per_path[p]["flash_attention"]
+         for p in ("mesh_none", "mesh_4x1", "mesh_2x2", "mesh_prefill_4x1")})
     print(json.dumps({"kernel_launches_per_path": per_path}))
 
     meta = {

@@ -1,7 +1,8 @@
 """Attention mixers: GQA/MQA/MHA and MLA (Multi-head Latent Attention),
 the reference's ``models/attention.py``: the full-sequence apply, the
-memo-only apply, one-token decode and the decode caches of each
-(the reference's mesh specs wait for the expert-parallel slice).
+memo-only apply, one-token decode and the decode caches of each, and
+the mesh specs (``gqa_specs``, ``mla_specs``: logical-axis names for
+``sharding/rules.py``).
 
 Functions over dicts of tensors whose keys and layouts are the JAX
 tree's (``wq (d,H,dh)``, ``wo (H,dh,d)``). Each full-sequence apply can
@@ -88,6 +89,19 @@ def gqa_init(gen, cfg, dtype=torch.float32, device=None):
         p.update(q_norm=torch.ones((dh,), **kw),
                  k_norm=torch.ones((dh,), **kw))
     return p
+
+
+def gqa_specs(cfg):
+    s = {"wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        s.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                 bv=("kv_heads", "head_dim"))
+    if cfg.qk_norm:
+        s.update(q_norm=("head_dim",), k_norm=("head_dim",))
+    return s
 
 
 def _rms(x, scale, eps=1e-6):
@@ -231,6 +245,16 @@ def mla_init(gen, cfg, dtype=torch.float32, device=None):
         "wo": dense_init(gen, (H, m.v_head_dim, d),
                          scale=(H * m.v_head_dim) ** -0.5, **kw),
     }
+
+
+def mla_specs(cfg):
+    return {"w_dq": ("embed", "q_lora"), "q_norm": ("q_lora",),
+            "w_uq": ("q_lora", "heads", "head_dim"),
+            "w_dkv": ("embed", "kv_lora"), "kv_norm": ("kv_lora",),
+            "w_kr": ("embed", "head_dim"),
+            "w_uk": ("kv_lora", "heads", "head_dim"),
+            "w_uv": ("kv_lora", "heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
 
 
 def _mla_qkr(params, x, cfg, positions):

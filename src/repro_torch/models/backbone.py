@@ -27,7 +27,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (
-    dense_init, embed_init, mlp_apply, mlp_init, norm_apply, norm_init,
+    dense_init, embed_init, mlp_apply, mlp_init, mlp_specs, norm_apply,
+    norm_init, norm_specs,
 )
 from repro_torch.tree import leaves, tree_map
 
@@ -77,11 +78,14 @@ def _dense_ff(cfg, layer_idx: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# per-layer init / apply
+# per-layer init / specs / apply
 # ---------------------------------------------------------------------------
 
 _MIX_INIT = {"attn": attn.gqa_init, "mla": attn.mla_init,
              "rwkv6": rwkv_mod.rwkv_time_init, "rglru": rglru_mod.rglru_init}
+_MIX_SPECS = {"attn": attn.gqa_specs, "mla": attn.mla_specs,
+              "rwkv6": rwkv_mod.rwkv_time_specs,
+              "rglru": rglru_mod.rglru_specs}
 
 
 def _layer_init(gen, cfg, layer_idx, kind, dtype, device):
@@ -100,15 +104,33 @@ def _layer_init(gen, cfg, layer_idx, kind, dtype, device):
     return p
 
 
+def _layer_specs(cfg, layer_idx, kind):
+    s = {"norm1": norm_specs(cfg.norm), "norm2": norm_specs(cfg.norm),
+         "mix": _MIX_SPECS[kind](cfg)}
+    ck = _chan_kind(cfg, layer_idx)
+    if ck == "rwkvc":
+        s["chan"] = rwkv_mod.rwkv_channel_specs(cfg)
+    elif ck == "moe":
+        s["chan"] = moe_mod.moe_specs(cfg)
+    else:
+        s["chan"] = mlp_specs(cfg.glu)
+    return s
+
+
 def _layer_apply(lp, h, cfg, kind, layer_idx, *, mode, positions,
                  pos=None, cache=None, memo=None, capture=False,
-                 window=None, attn_impl="plain", kpad=None):
+                 mesh=None, dp_axes=("data",), window=None,
+                 attn_impl="plain", kpad=None):
     """Returns (h, new_cache, apm, aux) — ``apm`` is ``{"apm",
     "hidden"}`` under capture, ``aux`` the MoE router's load-balance loss
     (0 for other channel mixers). ``mode``: "full" (no cache), "prefill"
     (the prompt, building the layer's decode cache or recurrent state
     from ``cache``'s template) or "decode" (one token at absolute
-    position ``pos``)."""
+    position ``pos``). ``mesh`` reaches the MoE layer (its
+    expert-parallel form); every other layer runs where ``h`` is. The
+    reference's ``cfg.act_shard_batch`` (a batch-sharding constraint on
+    the activations, a placement that changes no value) is not acted
+    on: one controller places nothing but the experts."""
     mask_kind = "causal" if cfg.causal else "bidir"
     x = norm_apply(lp["norm1"], h, cfg.norm)
     apm = None
@@ -166,7 +188,8 @@ def _layer_apply(lp, h, cfg, kind, layer_idx, *, mode, positions,
             None if mode == "full" else cache and cache.get("chan"))
         cache = dict(cache or {}, chan=cache_c)
     elif ck == "moe":
-        y, aux = moe_mod.moe_apply(lp["chan"], x, cfg)
+        y, aux = moe_mod.moe_apply(lp["chan"], x, cfg, mesh=mesh,
+                                   dp_axes=dp_axes)
     else:
         y = mlp_apply(lp["chan"], x, cfg.act, cfg.glu)
     return h + y, cache, apm, aux
@@ -224,7 +247,7 @@ def init_caches(cfg, batch, seq, dtype=torch.float32, window=None,
 
 
 # ---------------------------------------------------------------------------
-# backbone init
+# backbone init / specs
 # ---------------------------------------------------------------------------
 
 def backbone_init(gen, cfg, dtype=torch.float32, device=None):
@@ -250,6 +273,26 @@ def backbone_init(gen, cfg, dtype=torch.float32, device=None):
             layers[f"seg{si}"] = _stacked(group_init, seg.reps)
     p["layers"] = layers
     return p
+
+
+def backbone_specs(cfg):
+    """Logical-axis names mirroring ``backbone_init``'s tree; a scan
+    segment's stacked leaves lead with ``"layers"``."""
+    s: Dict[str, Any] = {"embed": ("vocab", "embed"),
+                         "final_norm": norm_specs(cfg.norm)}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ("embed", "vocab")
+    if cfg.n_classes:
+        s["cls"] = ("embed", None)
+    layers = {}
+    for si, seg in enumerate(scan_plan(cfg)):
+        group = {f"l{u}": _layer_specs(cfg, seg.start + u, kind)
+                 for u, kind in enumerate(seg.unit)}
+        if seg.kind == "scan":
+            group = tree_map(lambda t: ("layers",) + t, group)
+        layers[f"seg{si}"] = group
+    s["layers"] = layers
+    return s
 
 
 def _stacked(make, reps):
@@ -329,10 +372,12 @@ def _tree_unbind(tree, n):
 
 def forward_hidden(params, h, cfg, *, mode="full", positions=None,
                    pos=None, caches=None, memo_plan=None, capture=False,
-                   window=None, attn_impl="plain", remat=False):
+                   mesh=None, dp_axes=("data",), window=None,
+                   attn_impl="plain", remat=False):
     """Run all layers. Returns (h, new_caches, apms{layer_idx: apm},
     aux): ``new_caches`` has ``caches``' layout (None per segment in
-    "full" mode), ``aux`` the summed MoE router losses. With ``remat``
+    "full" mode), ``aux`` the summed MoE router losses. ``mesh`` and
+    ``dp_axes`` reach every MoE layer (``moe_apply_ep``). With ``remat``
     each layer of a "full" pass runs under activation checkpointing
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
     its scan body): its activations are recomputed in the backward
@@ -366,7 +411,8 @@ def forward_hidden(params, h, cfg, *, mode="full", positions=None,
                     positions=positions, pos=pos,
                     cache=gc.get(f"l{u}") if gc else None, memo=memo,
                     capture=capture and kind in ("attn", "mla"),
-                    window=window, attn_impl=attn_impl)
+                    mesh=mesh, dp_axes=dp_axes, window=window,
+                    attn_impl=attn_impl)
                 out[f"l{u}"] = c
                 aux_total = aux_total + aux
                 if apm is not None:

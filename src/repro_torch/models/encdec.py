@@ -25,8 +25,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models.backbone import _stacked, _tree_index, _tree_stack
 from repro_torch.models.layers import (
-    dense_init, embed_init, mlp_apply, mlp_init, norm_apply, norm_init,
+    dense_init, embed_init, mlp_apply, mlp_init, mlp_specs, norm_apply,
+    norm_init, norm_specs,
 )
+from repro_torch.tree import tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -42,6 +44,13 @@ def cross_init(gen, d, d_kv, n_heads, dh, dtype=torch.float32, device=None):
                              **kw),
             "wo": dense_init(gen, (n_heads, dh, d),
                              scale=(n_heads * dh) ** -0.5, **kw)}
+
+
+def cross_specs():
+    return {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "heads", "head_dim"),
+            "wv": ("embed", "heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
 
 
 def cross_kv(params, enc_h):
@@ -108,6 +117,28 @@ def encdec_init(gen, cfg, max_seq=4096, dtype=torch.float32, device=None):
         "dec_layers": _stacked(dec_layer, cfg.n_layers),
         "final_norm": norm_init(d, cfg.norm, **kw),
     }, ecfg
+
+
+def encdec_specs(cfg):
+    """Logical-axis names mirroring ``encdec_init``'s tree; the stacked
+    layers lead with ``"layers"``."""
+    def stacked(group):
+        return tree_map(lambda t: ("layers",) + t, group)
+    enc = {"norm1": norm_specs(cfg.norm),
+           "attn": attn.gqa_specs(cfg.replace(qkv_bias=False,
+                                              qk_norm=False)),
+           "norm2": norm_specs(cfg.norm),
+           "mlp": mlp_specs(cfg.glu)}
+    dec = {"norm1": norm_specs(cfg.norm),
+           "attn": attn.gqa_specs(cfg),
+           "norm_x": norm_specs(cfg.norm),
+           "cross": cross_specs(),
+           "norm2": norm_specs(cfg.norm),
+           "mlp": mlp_specs(cfg.glu)}
+    return {"enc_pos": ("frames", "embed"), "enc_layers": stacked(enc),
+            "enc_norm": norm_specs(cfg.norm), "embed": ("vocab", "embed"),
+            "dec_pos": ("seq", "embed"), "dec_layers": stacked(dec),
+            "final_norm": norm_specs(cfg.norm)}
 
 
 # ---------------------------------------------------------------------------

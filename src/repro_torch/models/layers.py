@@ -102,3 +102,22 @@ def mlp_apply(params, x, act: str, glu: bool):
         return h @ params["w_down"]
     h = f(x @ params["w_up"] + params["b_up"])
     return h @ params["w_down"] + params["b_down"]
+
+
+# ---------------------------------------------------------------------------
+# mesh specs: logical-axis names mirroring each init's tree
+# ---------------------------------------------------------------------------
+
+def mlp_specs(glu: bool):
+    """Logical-axis names mirroring mlp_init."""
+    if glu:
+        return {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+                "w_down": ("ff", "embed")}
+    return {"w_up": ("embed", "ff"), "b_up": ("ff",),
+            "w_down": ("ff", "embed"), "b_down": ("embed",)}
+
+
+def norm_specs(kind: str):
+    if kind == "rmsnorm":
+        return {"scale": ("embed",)}
+    return {"scale": ("embed",), "bias": ("embed",)}

@@ -23,6 +23,15 @@ kernel-backed layers:
   the decoder's self-attention over the prompt (causal); the reference
   reaches it in its encoder only, the same values within f32 rounding.
 
+``mesh`` (a ``ModelMesh``, ``launch/mesh.py``) reaches every MoE layer
+of ``forward``, ``train_loss``, ``classify``, ``prefill`` and
+``decode_step``, which then runs the expert-parallel ``moe_apply_ep``
+over the mesh's devices, capacity drops included, with the tokens split
+over ``dp_axes_of(mesh)``. Every other layer runs on the mesh's lead device (the model's
+``device``): the reference leaves those layers to GSPMD, whose placement
+changes no value. ``specs()`` is the params tree's logical-axis names
+for ``sharding/rules.py``.
+
 ``remat`` runs each layer of the full-sequence forward under activation
 checkpointing (the reference's ``remat``). ``train_loss`` and
 ``classify_loss`` are differentiable under ``attn_impl="plain"`` only:
@@ -37,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import dp_axes_of, indexed_device
 from repro_torch.models import backbone as bb
 from repro_torch.models import encdec as ed
 
@@ -45,7 +55,7 @@ ATTN_IMPLS = ("plain", "kernel")
 
 
 class Model:
-    def __init__(self, cfg, *, device=None, attn_impl="plain",
+    def __init__(self, cfg, *, device=None, mesh=None, attn_impl="plain",
                  remat=False, max_seq=4096):
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
@@ -53,6 +63,16 @@ class Model:
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.remat = remat
+        self.mesh = mesh
+        self.dp_axes = ("data",)
+        if mesh is not None:
+            self.dp_axes = dp_axes_of(mesh)
+            lead = mesh.lead               # an abstract mesh raises here
+            if (device is not None
+                    and indexed_device(torch.device(device)) != lead):
+                raise ValueError(f"device {device} is not the mesh's lead "
+                                 f"device {lead}")
+            device = lead
         self.device = resolve_device(device)
         self.max_seq = max_seq          # enc-dec: rows of dec_pos
         self.is_encdec = cfg.encoder is not None
@@ -70,6 +90,16 @@ class Model:
             return ed.encdec_init(gen, self.cfg, self.max_seq, dtype,
                                   self.device)[0]
         return bb.backbone_init(gen, self.cfg, dtype, self.device)
+
+    def specs(self):
+        """Logical-axis names mirroring ``init``'s tree (one tuple a leaf,
+        its length the leaf's rank)."""
+        if self.is_encdec:
+            return ed.encdec_specs(self.cfg)
+        return bb.backbone_specs(self.cfg)
+
+    def _mesh_kw(self):
+        return dict(mesh=self.mesh, dp_axes=self.dp_axes)
 
     def _tokens(self, batch):
         return torch.as_tensor(batch["tokens"], device=self.device)
@@ -102,7 +132,7 @@ class Model:
         h, _, apms, aux = bb.forward_hidden(
             params, h, self.cfg, mode="full", memo_plan=memo_plan,
             capture=capture, window=window, attn_impl=self.attn_impl,
-            remat=self.remat)
+            remat=self.remat, **self._mesh_kw())
         return bb.logits_from_hidden(params, h, self.cfg), apms, aux
 
     def _differentiable(self, what):
@@ -130,7 +160,7 @@ class Model:
         h = bb.embed_tokens(params, self._tokens(batch), self.cfg)
         h, _, apms, _ = bb.forward_hidden(
             params, h, self.cfg, mode="full", memo_plan=memo_plan,
-            capture=capture, attn_impl=self.attn_impl)
+            capture=capture, attn_impl=self.attn_impl, **self._mesh_kw())
         logits = bb.classify_from_hidden(params, h, self.cfg)
         return (logits, apms) if capture else logits
 
@@ -169,7 +199,7 @@ class Model:
         h = bb.embed_tokens(params, tokens, self.cfg)
         h, caches, _, _ = bb.forward_hidden(
             params, h, self.cfg, mode="prefill", caches=caches,
-            window=window, attn_impl=self.attn_impl)
+            window=window, attn_impl=self.attn_impl, **self._mesh_kw())
         logits = bb.logits_from_hidden(params, h[:, -1:], self.cfg)
         return logits[:, 0], caches
 
@@ -185,11 +215,12 @@ class Model:
         h = bb.embed_tokens(params, tokens, self.cfg)
         h, caches, _, _ = bb.forward_hidden(
             params, h, self.cfg, mode="decode", caches=caches, pos=pos,
-            window=window, attn_impl=self.attn_impl)
+            window=window, attn_impl=self.attn_impl, **self._mesh_kw())
         logits = bb.logits_from_hidden(params, h, self.cfg)
         return logits[:, 0], caches
 
 
-def build_model(cfg, *, device=None, attn_impl="plain",
+def build_model(cfg, *, device=None, mesh=None, attn_impl="plain",
                 remat=False) -> Model:
-    return Model(cfg, device=device, attn_impl=attn_impl, remat=remat)
+    return Model(cfg, device=device, mesh=mesh, attn_impl=attn_impl,
+                 remat=remat)

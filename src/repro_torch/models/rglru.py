@@ -40,6 +40,14 @@ def rglru_init(gen, cfg, dtype=torch.float32, device=None):
     }
 
 
+def rglru_specs(cfg):
+    return {"w_in": ("embed", "rec"), "w_gate": ("embed", "rec"),
+            "conv_w": ("conv", "rec"), "conv_b": ("rec",),
+            "w_a": ("rec", "rec_in"), "b_a": ("rec",),
+            "w_x": ("rec", "rec_in"), "b_x": ("rec",),
+            "lam": ("rec",), "w_out": ("rec", "embed")}
+
+
 def _conv(params, y, cfg, conv_state=None):
     """Causal depthwise temporal conv. y: (B,S,dr) → (out, the last W-1
     inputs, the next call's history). The taps sum in the reference's

@@ -1,5 +1,5 @@
 """RWKV-6 "Finch" mixer — attention-free, data-dependent decay (the
-reference's ``models/rwkv.py`` without its sharding specs).
+reference's ``models/rwkv.py``).
 
 [arXiv:2404.05892]. Per head (dim N): state S ∈ R^{N×N},
     o_t = (S_t + diag(u)·k_tᵀv_t)ᵀ r_t,    S_{t+1} = diag(w_t)·S_t + k_tᵀ v_t
@@ -12,7 +12,9 @@ reference's ``"scan"``), ``"kernel"`` runs the ``rwkv6`` kernel wrapper
 (the reference's ``"pallas_interpret"``) on fresh-state sequences: the
 kernel starts from a zero state and returns no final state, so a call
 with a ``state`` (prefill and decode) always takes the scan, as the
-reference's does.
+reference's does. The reference's ``cfg.act_shard_batch`` pins the
+scan's operands to a batch sharding over the mesh, a placement that
+changes no value; the port's one controller does not act on it.
 """
 from __future__ import annotations
 
@@ -55,6 +57,17 @@ def _shift(x, state=None):
     if state is None:
         return F.pad(x, (0, 0, 1, 0))[:, :-1]
     return torch.cat([state["x_prev"][:, None], x[:, :-1]], 1)
+
+
+def rwkv_time_specs(cfg):
+    return {"mu_x": ("embed",), "ddlerp_a": ("embed", "lora"),
+            "ddlerp_b": ("proj5", "lora", "embed"), "mu": ("proj5", "embed"),
+            "w0": ("embed",), "decay_a": ("embed", "lora"),
+            "decay_b": ("lora", "embed"), "u": ("embed",),
+            "wr": ("embed", "heads_embed"), "wk": ("embed", "heads_embed"),
+            "wv": ("embed", "heads_embed"), "wg": ("embed", "heads_embed"),
+            "wo": ("heads_embed", "embed"),
+            "ln_scale": ("heads", "head_dim")}
 
 
 def _ddlerp(params, x, x_prev):
@@ -131,6 +144,11 @@ def rwkv_channel_init(gen, cfg, dtype=torch.float32, device=None):
             "wk": dense_init(gen, (d, ff), **kw),
             "wv": dense_init(gen, (ff, d), **kw),
             "wr": dense_init(gen, (d, d), **kw)}
+
+
+def rwkv_channel_specs(cfg):
+    return {"mu_k": ("embed",), "mu_r": ("embed",), "wk": ("embed", "ff"),
+            "wv": ("ff", "embed"), "wr": ("embed", "heads_embed")}
 
 
 def rwkv_channel_apply(params, x, cfg, state=None):

@@ -5,9 +5,18 @@ checkpoints, on the model's device.
 
 A step reads nothing back from the device: the LR comes from the
 schedule on the host, the optimizers keep their step count on the host,
-and the loss is read only at a log step. The reference's
-``in_shardings`` and ``donate`` (mesh placement and XLA buffer
-donation) are not taken: the port trains on one device.
+and the loss is read only at a log step. A model built over a mesh
+(``Model(mesh=...)``) trains through its expert-parallel MoE layers.
+
+``donate`` is the reference's XLA buffer donation: with ``donate=True``
+(the default) a step hands the caller's params and optimizer-state
+tensors the updated values in place (``Tensor.set_``: the caller's
+tensor objects take the new storage, the old is freed once nothing else
+holds it), so the trees passed in ARE the trees returned. With
+``donate=False`` the trees passed in are left unchanged. The values are
+the same either way. The reference's ``in_shardings`` is not taken: its
+own ``jax.jit`` does not pass it on, and one controller places nothing
+but the MoE layers' expert blocks, which ``Model(mesh=...)`` decides.
 """
 from __future__ import annotations
 
@@ -56,13 +65,28 @@ def value_and_grad(loss_fn, params, batch):
     return loss.detach(), nest_params(grads)
 
 
+@torch.no_grad()
+def _donate(old, new):
+    """Give every tensor of the tree ``old`` the value of its counterpart
+    in ``new`` (its storage), and every other leaf (an optimizer's step
+    count) its new value, in place."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _donate(old[k], v)
+        elif isinstance(v, torch.Tensor):
+            old[k].set_(v)
+        else:
+            old[k] = v
+
+
 class Trainer:
-    def __init__(self, model, tcfg: TrainConfig):
+    def __init__(self, model, tcfg: TrainConfig, *, donate: bool = True):
         if tcfg.loss not in LOSSES:
             raise ValueError(f"loss must be one of {LOSSES}, got "
                              f"{tcfg.loss!r}")
         self.model = model
         self.tcfg = tcfg
+        self.donate = donate
         self._opt_init, self._opt_update = make_optimizer(tcfg.optimizer)
         self.loss_fn = (model.train_loss if tcfg.loss == "lm"
                         else model.classify_loss)
@@ -90,13 +114,20 @@ class Trainer:
         return loss / n, tree_map(lambda g: g / n, grads)
 
     def step(self, params, opt_state, batch, step_idx: int):
-        """One optimizer step; returns (params, opt_state, loss)."""
+        """One optimizer step; returns (params, opt_state, loss). Under
+        ``donate`` the returned trees are ``params`` and ``opt_state``
+        themselves, updated in place."""
         tc = self.tcfg
         lr = float(cosine_schedule(step_idx, tc.warmup, tc.steps, tc.lr))
         loss, grads = self.value_and_grad(params, batch)
-        params, opt_state = self._opt_update(
+        new_params, new_opt = self._opt_update(
             params, grads, opt_state, lr=lr, weight_decay=tc.weight_decay,
             grad_clip=tc.grad_clip)
+        if not self.donate:
+            return new_params, new_opt, loss
+        del grads
+        _donate(params, new_params)
+        _donate(opt_state, new_opt)
         return params, opt_state, loss
 
     def fit(self, params, batches: Iterator[dict], *, opt_state=None,

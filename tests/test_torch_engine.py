@@ -371,6 +371,9 @@ def test_port_imports_neither_jax_nor_reference():
         "        'repro_torch.optim.adafactor',\n"
         "        'repro_torch.optim.schedule',\n"
         "        'repro_torch.train.trainer',\n"
+        "        'repro_torch.launch.mesh',\n"
+        "        'repro_torch.launch.steps',\n"
+        "        'repro_torch.sharding.rules',\n"
         "        'repro_torch.launch.train'} <= set(names), names\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))

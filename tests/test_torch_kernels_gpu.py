@@ -32,7 +32,9 @@ kernels are held at head_dim 16, 32, 64, 112 (kimi_k2's), 128 (the
 zoo's GQA decoders, qwen2_1_5b's serving shape among them) and 256
 (recurrentgemma_2b's MQA local attention, at its serving and forward
 shapes) and must refuse any other. The routed MoE is held to the dense ``moe_ref`` on
-the card. Each wrapper refuses, with grad enabled, inputs that require
+the card, and the expert-parallel form on a (4, 1) and a (2, 2) mesh of
+the one card to the routed form (nothing dropped) and to itself on the
+CPU (rows dropped). Each wrapper refuses, with grad enabled, inputs that require
 grad (its result would come back detached)."""
 import pytest
 import torch
@@ -185,6 +187,39 @@ def test_moe_apply_matches_moe_ref_on_card(cuda, arch, over, T):
     print(f"moe_apply {arch} T={T} max|err|={err:.3e}")
     assert err <= 1e-5 and abs(float(aux) - float(aux_ref)) <= 1e-6
     assert torch.equal(y, moe_apply(params, x, cfg)[0])
+
+
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)], ids=["4x1", "2x2"])
+@pytest.mark.parametrize("T", [1024, 4])       # the chunked body, decode's
+def test_moe_apply_ep_on_a_mesh_of_one_card(cuda, shape, T):
+    """The expert-parallel form on a mesh of one card (reduced dbrx): at
+    a capacity factor of ep (nothing drops) it is the routed form's
+    function within 1e-5; at the config's factor (rows drop) it is the
+    same function run on the CPU over a CPU mesh, within 1e-5 and aux
+    within 1e-6."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.moe import moe_apply, moe_init
+    cfg = get_reduced("dbrx_132b")
+    gen = torch.Generator(device=cuda).manual_seed(T + shape[0])
+    params = moe_init(gen, cfg, device=cuda)
+    x = torch.randn((T, cfg.d_model), generator=gen, device=cuda)
+    mesh = make_host_mesh(*shape, device="cuda")
+    wide = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(shape[0])))
+    y, _ = moe_apply(params, x, wide, mesh=mesh)
+    err = (y - moe_apply(params, x, wide)[0]).abs().max().item()
+    y, aux = moe_apply(params, x, cfg, mesh=mesh)
+    y_h, aux_h = moe_apply({k: v.cpu() for k, v in params.items()},
+                           x.cpu(), cfg,
+                           mesh=make_host_mesh(*shape, device="cpu"))
+    err_h = (y.cpu() - y_h).abs().max().item()
+    print(f"moe_apply_ep {shape} T={T}: vs routed {err:.3e}, card vs CPU "
+          f"{err_h:.3e}")
+    assert err <= 1e-5 and err_h <= 1e-5
+    assert abs(float(aux) - float(aux_h)) <= 1e-6
 
 
 # (B, dim, N, norms, shift): query tiles of 1, 31, 33 and 128 rows,

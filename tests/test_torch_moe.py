@@ -6,10 +6,14 @@ Three shapes: dbrx's reduced config (4 experts, top-2, d 256), kimi_k2's
 over 384 experts, so most experts get no token) and decode's T = B (four
 tokens through reduced dbrx). The router's expert ids must be EQUAL, its
 probabilities, weights and aux loss within 1e-6; ``moe_apply`` (routed)
-and ``moe_ref`` (dense) within 1e-5 of the reference's ``moe_ref``. Last,
+and ``moe_ref`` (dense) within 1e-5 of the reference's ``moe_ref``;
+over a mesh ``moe_apply`` runs the expert-parallel form
+(tests/test_torch_mesh.py holds it to the reference's). Last,
 kimi's segment plan (a ``single`` dense layer, then a ``scan`` of MoE
 layers stacked on a leading axis) crosses the bridge leaf for leaf and
 its forward (logits and aux) matches."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +25,7 @@ from repro.models import build_model as jax_build_model
 from repro.models import moe as jmoe
 from repro_torch.bridge import tree_to_torch
 from repro_torch.configs import MoEConfig, get_reduced
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build_model
 from repro_torch.models import moe as tmoe
 from repro_torch.models.backbone import scan_plan
@@ -79,16 +84,33 @@ def test_moe_matches_reference(case, fn):
     np.testing.assert_allclose(float(aux), float(jaux), atol=1e-6)
 
 
-def test_moe_apply_is_deterministic_and_refuses_a_mesh(case):
+def test_moe_apply_is_deterministic_and_refuses_a_mesh(case, monkeypatch):
     """The routed form sums in a fixed order (no atomics): two runs are
-    bit-equal. The expert-parallel form over a mesh raises, naming its
-    slice (the last of the port)."""
+    bit-equal. Over a mesh (``make_host_mesh(2, 1)`` on the CPU) it no
+    longer refuses (the name is kept from when it raised): it runs the
+    expert-parallel form, ``moe_apply_ep`` called with that mesh, and
+    with a capacity factor at which nothing drops its y is the routed
+    form's function."""
     _, cfg, _, p, x = case
     tp, tx = tree_to_torch(p, CPU), torch.from_numpy(x)
     assert torch.equal(tmoe.moe_apply(tp, tx, cfg)[0],
                        tmoe.moe_apply(tp, tx, cfg)[0])
-    with pytest.raises(NotImplementedError, match="expert-parallel slice"):
-        tmoe.moe_apply(tp, tx, cfg, mesh=object())
+    mesh = make_host_mesh(2, 1, device="cpu")
+    calls = []
+    real = tmoe.moe_apply_ep
+
+    def ep(*a, **k):
+        calls.append(a[3])
+        return real(*a, **k)
+    monkeypatch.setattr(tmoe, "moe_apply_ep", ep)
+    wide = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                               capacity_factor=8.0))
+    y, aux = tmoe.moe_apply(tp, tx, wide, mesh=mesh)
+    assert calls == [mesh]
+    np.testing.assert_allclose(y.numpy(),
+                               tmoe.moe_apply(tp, tx, wide)[0].numpy(),
+                               atol=ATOL)
+    assert np.isfinite(float(aux))
 
 
 def _shapes(t):
