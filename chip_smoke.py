@@ -111,8 +111,8 @@ and read just after:
   (``flash_attention``), the replayed batch's caches against its stored
   K/V and decode from them, ``moe_apply``
   against ``moe_ref`` on a layer's experts and the kernel forward
-  against plain (9b); ``minicpm3_4b`` at full width and depth (62 MLA
-  layers) served in kernel and bucket mode through ``nn_search`` alone,
+  against plain (9b); ``minicpm3_4b`` at full width cut to 32 of its 62
+  MLA layers, served in kernel and bucket mode through ``nn_search`` alone,
   its prefill memoization refused, prefill + 8 absorbed decode steps
   against the forward (9c); ``kimi_k2_1t_a32b`` at full width cut to its
   dense first layer, served (``memo_attention`` at dh 112) and its kernel
@@ -136,7 +136,7 @@ and read just after:
   forward at full depth (B=2, S=448 over 1,500 frames; 24
   bidirectional and 24 causal ``flash_attention`` launches) against
   plain, prefill and decode, and its memoized encoder through
-  ``MemoEngine.infer`` at full width cut to 4 + 4 layers (10c);
+  ``MemoEngine.infer`` at full width cut to 2 + 2 layers (10c);
 * training (phase 11, ``[train]`` lines, a ``{"train": ...}`` JSON
   line) — ``gpt2_small`` whole trained for 30 steps at B=8, S=1024
   through ``repro_torch.launch.train`` (AdamW; step ms from CUDA events,
@@ -144,7 +144,12 @@ and read just after:
   step under ``set_sync_debug_mode("error")``, ``grad_accum=2`` and
   ``remat=True`` against one plain step's grads, its checkpoint served
   by ``launch/serve.py --ckpt --prefill`` (``nn_search``) and its kernel
-  forward against plain (``flash_attention``) (11a); ``dbrx_132b`` at
+  forward against plain (``flash_attention``); a ``[dryrun]`` line:
+  ``launch/cost_utils.py``'s ``StepCounter`` over a meta copy of the
+  phase's step, its predicted peak against ``max_memory_allocated``
+  (and ``value_and_grad``'s with and without remat) within
+  ``DRYRUN_PEAK_RTOL``, its counted FLOPs over the measured ms a step
+  (11a); ``dbrx_132b`` at
   full width cut to 1 of 40 layers trained 4 steps with Adafactor, the
   router's aux term checked, one host sync a step (11b); and
   ``bert_base``'s classifier trained 100 steps
@@ -183,7 +188,14 @@ and read just after:
   zeroed (13a); ``prefill`` (``flash_attention``) and 8 teacher-forced
   ``decode_step``s over the (4, 1) mesh against no mesh (13b); one
   layer's grads over the (4, 1) mesh against no mesh and ``Trainer``
-  steps each way, ms a step and peak memory (13c).
+  steps each way, ms a step and peak memory, and a ``[dryrun]`` line
+  for the mesh step as in 11a (13c);
+* the port's examples (phase 14, ``[example]`` lines, an
+  ``{"examples": ...}`` JSON line) — ``examples/torch_quickstart.py``,
+  ``torch_serve_memo.py``, ``torch_train_memoize.py`` (30 steps) and
+  ``torch_warm_start.py`` through their ``main`` with ``--device
+  cuda``: ``nn_search`` launches in the three that serve bucket mode,
+  each example's invariant, the phase within ``EXAMPLES_WALL_S``.
 
 Every kernel is held against its plain version on the arguments each
 layer of its path gave it, and timed there beside its bound (for the
@@ -2512,7 +2524,8 @@ def store_scale(torch, dev, per_path, errs, smi):
 # its Poisson arrivals ask for
 SERVER_BUCKETS = (32, 64, 128)
 SERVER_MAX_BATCH, SERVER_QUANTUM, SERVER_DELAY = 32, 4, 4e-3
-SERVER_REQUESTS, SERVER_UTILIZATION = 256, 0.7
+# (192 requests: 256 until phase 14 joined the script, the cut pays for it)
+SERVER_REQUESTS, SERVER_UTILIZATION = 192, 0.7
 # async vs sync runtime with admission off: the same kernels on the same
 # snapshot (the tolerance of tests/test_runtime.py)
 SERVER_TOL = 1e-5
@@ -4405,7 +4418,9 @@ ZOO2_DH = 112
 ZOO2_GROUPS = (1, 8)
 ZOO2_FRESH = 2       # fresh batches a served model takes, then a replayed one
 # 9b: dbrx_132b cut to 4 of its 40 layers (57.1 GB of f32 weights; all 40
-# are 526 GB); 4 calibration batches: 4 x 32 x 4 = 512 entries
+# are 526 GB); 4 calibration batches: 4 x 32 x 4 = 512 entries. Not cut
+# further: ZOO2_DECODE_RTOL was measured at 4 layers, and at 2 the decode
+# gap read 1.37e-2 (H100, PERF.md)
 DBRX_LAYERS, DBRX_CALIB = 4, 4
 MOE_T = 1024         # tokens of 9b's moe_apply-vs-moe_ref check
 # moe_apply vs moe_ref on one layer's weights: the same products of each
@@ -4421,10 +4436,12 @@ MOE_RTOL = 1e-5
 # last layer's KV heads reversed (H100, PERF.md). Held to 1.2e-2, between
 # the two, with greedy agreement of at least ZOO_DECODE_AGREE
 ZOO2_DECODE_RTOL = 1.2e-2
-# 9c: minicpm3_4b at full depth, 1 calibration batch: 62 x 32 = 1,984
-# entries, under the clustered crossover (4,096): the flat index (2
-# batches' 3,968 entries took ~50 s of host int8 encode)
-MINICPM_CALIB = 1
+# 9c: minicpm3_4b at full width cut to 32 of its 62 layers (whole until
+# phase 14 joined the script: the cut pays for it), 1 calibration batch:
+# 32 x 32 = 1,024 entries, under the clustered crossover (4,096): the
+# flat index (2 batches' 3,968 entries at full depth took ~50 s of host
+# int8 encode)
+MINICPM_LAYERS, MINICPM_CALIB = 32, 1
 # 9d: kimi_k2 cut to its dense first layer (11.4 GB; one MoE layer alone
 # is 67.7 GB of f32 experts); 4 calibration batches: 128 entries
 KIMI_LAYERS, KIMI_CALIB = 1, 4
@@ -4756,8 +4773,8 @@ def zoo2_dbrx(torch, dev, per_path, errs, smi):
 
 
 def zoo2_minicpm(torch, dev, per_path, errs, smi):
-    """Phase 9c: minicpm3_4b at full width and depth (62 MLA layers,
-    random weights from a seed, made on the card): a session from
+    """Phase 9c: minicpm3_4b at full width cut to MINICPM_LAYERS of its 62
+    MLA layers (random weights from a seed, made on the card): a session from
     MINICPM_CALIB calibration batches (the flat index) served in kernel,
     bucket and memo-free mode. An MLA layer takes the bucketed form in
     kernel mode too: ``nn_search`` once a layer, ``memo_attention``
@@ -4770,7 +4787,10 @@ def zoo2_minicpm(torch, dev, per_path, errs, smi):
 
     t_phase = time.perf_counter()
     arch = "minicpm3_4b"
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = full.replace(n_layers=MINICPM_LAYERS)
+    print(f"[zoo2] {arch} depth cut from {full.n_layers} to "
+          f"{MINICPM_LAYERS} layers")
     model, params, sess, calib, requests, thr, res = zoo2_model(
         torch, dev, arch, cfg, 2, MINICPM_CALIB, False)
     L, nb = cfg.n_layers, len(requests)
@@ -4893,12 +4913,13 @@ RG_DECODE_RTOL = 5e-3
 # 10c: whisper_medium. The kernel forward at full depth (24 + 24 layers),
 # B=2, the decoder at Whisper's longest target (448 tokens) over 1,500
 # frames. The engine leg at full width with encoder and decoder cut to
-# WHISPER_LAYERS layers each: one encoder entry is 16 x 1500^2 = 36 M APM
-# values (36 MB in int8), encoded on the host at build and decoded on the
-# host at every memoized layer (the reference's host path)
+# WHISPER_LAYERS layers each (4 until phase 14 joined the script: the cut
+# pays for it): one encoder entry is 16 x 1500^2 = 36 M APM values (36 MB
+# in int8), encoded on the host at build and decoded on the host at every
+# memoized layer (the reference's host path)
 WHISPER_ARCH = "whisper_medium"
 WHISPER_B, WHISPER_S = 2, 448
-WHISPER_LAYERS, WHISPER_CALIB, WHISPER_FRESH = 4, 2, 2
+WHISPER_LAYERS, WHISPER_CALIB, WHISPER_FRESH = 2, 2, 2
 WHISPER_EMBED_STEPS = 50
 # the replayed calibration batch's logits (every row on its own entry)
 # against the memo-free path's, relative to max|logit|.
@@ -5655,6 +5676,7 @@ def train_gpt2(torch, dev, per_path, errs, smi, tmp):
                remat_loss_gap=lgap_r, peak_gb_no_remat=peaks[False],
                peak_gb_remat=peaks[True])
     del g1, gr, params, opt
+    res["dryrun"] = dryrun_gpt2(torch, cfg, med, peak, peaks, smi)
 
     # the checkpoint, served: launch/serve.py --ckpt --prefill, then the
     # trained weights' kernel forward against plain
@@ -6786,28 +6808,37 @@ def mesh_train(torch, dev, smi):
                                             device=dev), tc)}
     opt = trainers["mesh"].init_opt(params)
     times, losses = {"mesh": [], "none": []}, []
-    torch.cuda.reset_peak_memory_stats()
+    peaks = {"mesh": 0, "none": 0}     # each trainer's own steps' peak
     for i, name in enumerate(("mesh", "none", "mesh", "none", "none",
                               "mesh")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         _, _, loss = trainers[name].step(params, opt, batch, i)
         b.record()
         torch.cuda.synchronize()
+        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
         if i >= 2:
             times[name].append(a.elapsed_time(b))
         losses.append(loss.item())
         require(np.isfinite(losses[-1]), f"13c loss {losses[-1]}")
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peaks.values())
     print(f"[mesh] 13c Trainer steps (Adafactor, donate=True): mesh "
           f"{times['mesh']} ms, no mesh {times['none']} ms (CUDA events; "
           f"after a warm-up each); losses {[round(x, 4) for x in losses]}; "
-          f"peak memory {peak / 1e9:.2f} GB; {time.perf_counter() - t0:.1f}"
-          f" s ({smi})")
+          f"peak memory {peak / 1e9:.2f} GB (mesh steps "
+          f"{peaks['mesh'] / 1e9:.2f}, no mesh {peaks['none'] / 1e9:.2f}); "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
     out.update(step_ms_mesh=times["mesh"], step_ms_none=times["none"],
-               losses=losses, peak_gb=peak / 1e9)
+               losses=losses, peak_gb=peak / 1e9,
+               peak_gb_mesh=peaks["mesh"] / 1e9,
+               peak_gb_none=peaks["none"] / 1e9)
     del params, opt, trainers
+    out["dryrun"] = dryrun_dbrx(torch, at(nodrop, m.aux_loss_coef), tc,
+                                float(np.median(times["mesh"])),
+                                peaks["mesh"], batch["tokens"].dtype, smi)
     return out
 
 
@@ -6825,6 +6856,198 @@ def model_mesh(torch, dev, per_path, smi):
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     print(f"[mesh] phase 13 took {out['seconds']:.1f}s ({smi})")
+    return out
+
+
+# ------------------------------------------------------------ dry run
+# phases 11a and 13c: repro_torch.launch.cost_utils.StepCounter over a
+# meta copy of the phase's own step predicts its peak device memory;
+# the prediction may miss max_memory_allocated by at most this share of
+# the measured value. Measured on an H100 (PERF.md): -0.42% to -0.61%
+# (11a's launcher run, which also holds its batches and cuBLAS's
+# workspace), -0.02% to -0.03% (value_and_grad without and with remat),
+# -0.12% to -0.18% (13c); the bound is ~5x the largest
+DRYRUN_PEAK_RTOL = 0.03
+
+
+def dryrun_count(torch, fn, *args):
+    """``fn(*args)`` on meta tensors under ``StepCounter``, the args held
+    live from the start; returns (counter, seconds)."""
+    from repro_torch.launch.cost_utils import StepCounter
+    t0 = time.perf_counter()
+    c = StepCounter(*args)
+    c.run(fn, *args)
+    return c, time.perf_counter() - t0
+
+
+def dryrun_gap(what, predicted, measured):
+    """(predicted - measured) / measured, required within the bound."""
+    gap = (predicted - measured) / measured
+    require(abs(gap) <= DRYRUN_PEAK_RTOL,
+            f"[dryrun] {what}: predicted {predicted / 1e9:.3f} GB against "
+            f"{measured / 1e9:.3f} GB measured ({gap:+.1%})")
+    return gap
+
+
+def dryrun_gpt2(torch, cfg, step_ms, peak, peaks, smi):
+    """11a's dry run: the launcher's AdamW ``Trainer.step`` (B=TRAIN_B,
+    S=TRAIN_S, f32, donate) on meta tensors, its counted peak against
+    the launcher run's ``max_memory_allocated`` and its counted FLOPs
+    over the measured ms a step; then ``value_and_grad`` with and without
+    remat, each counted peak above its arguments against the measured
+    peak above the params."""
+    from repro_torch.launch.steps import abstract_params
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    model = build_model(cfg, device="meta")
+    params = abstract_params(model)
+    tr = Trainer(model, TrainConfig(steps=TRAIN_STEPS,
+                                    optimizer=cfg.optimizer))
+    opt = tr.init_opt(params)
+    batch = {"tokens": torch.empty((TRAIN_B, TRAIN_S), dtype=torch.int32,
+                                   device="meta")}
+    step, sec = dryrun_count(torch, lambda p, o, b: tr.step(p, o, b, 1),
+                             params, opt, batch)
+    tflops = step.flops / (step_ms / 1e3) / 1e12
+    gap = dryrun_gap("11a step", step.peak_bytes, peak)
+    out = dict(flops=step.flops, bytes=step.bytes,
+               transcendentals=step.transcendentals,
+               predicted_peak_gb=step.peak_bytes / 1e9,
+               measured_peak_gb=peak / 1e9, peak_gap=gap, step_ms=step_ms,
+               tflops_by_count=tflops, count_s=sec)
+    print(f"[dryrun] 11a {cfg.name} AdamW step, B={TRAIN_B} S={TRAIN_S} "
+          f"f32: predicted peak {step.peak_bytes / 1e9:.3f} GB (meta, "
+          f"StepCounter, counted in {sec:.1f} s) vs max_memory_allocated "
+          f"{peak / 1e9:.3f} GB ({gap:+.2%}; bound "
+          f"{DRYRUN_PEAK_RTOL:.0%}); {step.flops:.4e} FLOPs counted over "
+          f"{step_ms:.2f} ms a step = {tflops:.2f} TFLOP/s by count ({smi})")
+    for remat in (False, True):
+        m = build_model(cfg, device="meta", remat=remat)
+        c, sec = dryrun_count(torch, Trainer(m, TrainConfig()).value_and_grad,
+                              params, batch)
+        inc = c.peak_bytes - c.base_bytes
+        g = dryrun_gap(f"11a value_and_grad remat={remat}", inc,
+                       peaks[remat] * 1e9)
+        out[f"remat_{remat}"] = dict(predicted_gb=inc / 1e9,
+                                     measured_gb=peaks[remat], gap=g,
+                                     flops=c.flops)
+        print(f"[dryrun] 11a value_and_grad remat={remat}: predicted peak "
+              f"above the params {inc / 1e9:.3f} GB vs measured "
+              f"{peaks[remat]:.3f} GB ({g:+.2%}); {c.flops:.4e} FLOPs "
+              f"counted")
+    return out
+
+
+def dryrun_dbrx(torch, cfg, tc, step_ms, peak, tok_dtype, smi):
+    """13c's dry run: the (4, 1) mesh's Adafactor ``Trainer.step`` on meta
+    tensors (the same config, a meta mesh of the same shape), its counted
+    peak against ``max_memory_allocated`` over the mesh steps alone (the
+    stats reset before each step) and its FLOPs over
+    the measured ms a mesh step. The no-mesh step reads expert offsets
+    on the host, which a meta tensor cannot give: it is not counted."""
+    from repro_torch.launch.cost_utils import collective_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import abstract_params
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer
+    d, mm = MESH_SHAPES[0]
+    model = build_model(cfg, mesh=make_host_mesh(d, mm, device="meta"))
+    params = abstract_params(model)
+    tr = Trainer(model, tc)
+    opt = tr.init_opt(params)
+    batch = {"tokens": torch.empty((MESH_TRAIN_B, MESH_TRAIN_S),
+                                   dtype=tok_dtype, device="meta")}
+    step, sec = dryrun_count(torch, lambda p, o, b: tr.step(p, o, b, 2),
+                             params, opt, batch)
+    tflops = step.flops / (step_ms / 1e3) / 1e12
+    gap = dryrun_gap("13c mesh step", step.peak_bytes, peak)
+    coll = collective_bytes(step)
+    print(f"[dryrun] 13c {cfg.name} {cfg.n_layers} layer over ({d}, {mm}), "
+          f"Adafactor step, B={MESH_TRAIN_B} S={MESH_TRAIN_S}: predicted "
+          f"peak {step.peak_bytes / 1e9:.3f} GB (counted in {sec:.1f} s) vs "
+          f"max_memory_allocated {peak / 1e9:.3f} GB ({gap:+.2%}; bound "
+          f"{DRYRUN_PEAK_RTOL:.0%}); {step.flops:.4e} FLOPs counted over "
+          f"{step_ms:.2f} ms a step = {tflops:.2f} TFLOP/s by count; "
+          f"exchanges {coll['counts']} ({coll['total'] / 1e6:.1f} MB) "
+          f"({smi})")
+    return dict(flops=step.flops, bytes=step.bytes,
+                predicted_peak_gb=step.peak_bytes / 1e9,
+                measured_peak_gb=peak / 1e9, peak_gap=gap, step_ms=step_ms,
+                tflops_by_count=tflops, collectives=coll, count_s=sec)
+
+
+# ------------------------------------------------------------ phase 14
+# the port's examples on the card, each through its main() as a user
+# runs it (train_memoize at 30 of its 300 default steps); the first
+# three serve bucket mode on the device fast path, so they launch
+# nn_search
+EXAMPLES = (("torch_quickstart", []), ("torch_serve_memo", []),
+            ("torch_train_memoize", ["--steps", "30"]),
+            ("torch_warm_start", []))
+EXAMPLES_NN = ("torch_quickstart", "torch_serve_memo", "torch_warm_start")
+EXAMPLES_WALL_S = 90.0
+
+
+def examples_phase(torch, per_path, errs, smi):
+    """Phase 14: the four examples on the card, the nn_search launches of
+    each (counts at 0 just before it, read just after), every one of its
+    nn_search calls held to the plain version on the inputs it was given
+    (``RecordNN``, ``hold_nn_calls``) and its own invariant. Returns the
+    JSON fields."""
+    import contextlib
+    import io
+    import runpy
+    import tempfile
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in EXAMPLES:
+            argv = ["--device", "cuda"] + extra
+            if name == "torch_train_memoize":
+                argv += ["--ckpt", str(Path(tmp) / "gpt2_memo.npz")]
+            main = runpy.run_path(str(ROOT / "examples" / f"{name}.py"),
+                                  run_name="example")["main"]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            zero_counts()
+            with contextlib.redirect_stdout(buf), RecordNN() as rec:
+                r = main(argv)
+            torch.cuda.synchronize()
+            per_path[f"example_{name}"] = read_counts()
+            sec = time.perf_counter() - t0
+            for line in buf.getvalue().splitlines()[-4:]:
+                print(f"[example] {name}: {line}")
+            out[name] = dict(r, seconds=sec,
+                             launches=per_path[f"example_{name}"])
+            print(f"[example] {name} took {sec:.1f} s, launches "
+                  f"{per_path[f'example_{name}']}")
+            # every launch went through the index's search, and each one
+            # is held to the plain version on the example's own inputs
+            n_nn = per_path[f"example_{name}"]["nn_search"]
+            require(len(rec.calls) == n_nn, f"{name}: {len(rec.calls)} "
+                    f"recorded nn_search calls, {n_nn} launches")
+            if rec.calls:
+                out[name]["nn_max_d2_err"] = hold_nn_calls(
+                    torch, rec.calls, errs, f"example {name}")
+            del rec
+            torch.cuda.empty_cache()
+    for name in EXAMPLES_NN:
+        require(out[name]["launches"]["nn_search"] > 0,
+                f"{name} launched no nn_search: {out[name]['launches']}")
+    q, sm = out["torch_quickstart"], out["torch_serve_memo"]
+    tm, ws = out["torch_train_memoize"], out["torch_warm_start"]
+    require(q["finite"] and q["entries"] > 0, f"quickstart {q}")
+    require(sm["served"] == sm["requests"] and sm["evicted"] == 8
+            and sm["admitted"] > 0, f"serve_memo {sm}")
+    require(tm["last_loss"] < tm["first_loss"], f"train_memoize {tm}")
+    require(ws["identical"] and ws["memo_rate"] == ws["memo_rate_offline"]
+            and ws["served"] == ws["requests"], f"warm_start {ws}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[example] phase 14 took {out['seconds']:.1f}s (bound "
+          f"{EXAMPLES_WALL_S:.0f} s) ({smi})")
+    require(out["seconds"] <= EXAMPLES_WALL_S,
+            f"phase 14 took {out['seconds']:.1f} s")
     return out
 
 
@@ -6969,6 +7192,12 @@ def main() -> int:
     times["flash_attention"]["dh128"]["launches"].update(
         {p: per_path[p]["flash_attention"]
          for p in ("mesh_none", "mesh_4x1", "mesh_2x2", "mesh_prefill_4x1")})
+    torch.cuda.empty_cache()
+    examples = examples_phase(torch, per_path, errs, smi)
+    print(json.dumps({"examples": examples}))
+    times["nn_search"]["examples_launches"] = {
+        name: per_path[f"example_{name}"]["nn_search"]
+        for name, _ in EXAMPLES}
     print(json.dumps({"kernel_launches_per_path": per_path}))
 
     meta = {

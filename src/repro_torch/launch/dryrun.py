@@ -1,0 +1,192 @@
+"""Dry run of every (architecture × input shape) on the production grids
+(the reference's ``launch/dryrun.py``), on the ``meta`` device.
+
+``build_step`` makes a step's function and its arguments as meta
+tensors; ``count_step`` runs it under ``cost_utils.StepCounter``, which
+proves the step runs through every layer at full production size and
+counts its FLOPs, bytes, transcendentals, explicit exchanges and peak
+of live bytes; ``cost_summary`` says what each device of the grid holds
+of its arguments under the sharding rules. Nothing is allocated and no
+card is used: this is analysis on the host.
+
+Unit correction (the reference's DESIGN.md §7): the reference's HLO
+cost analysis counts a scan body once, so its totals come from 1-unit
+and 2-unit variants of the same config at full width,
+    corrected = unit1 + (reps − 1) · (unit2 − unit1).
+The port loops over its layers in Python, so its full-depth count is
+already exact; the correction is still computed, and on a config whose
+units all cost the same it equals ``full``: a check of the method.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch qwen2_1_5b --shape train_4k
+  python -m repro_torch.launch.dryrun --all [--single-pod-only] [--out DIR]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+import traceback
+from dataclasses import replace
+
+from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
+from repro_torch.launch.cost_utils import (StepCounter, collective_bytes,
+                                           cost_summary)
+from repro_torch.launch.mesh import make_production_mesh, use_mesh
+from repro_torch.launch.steps import build_step
+
+ASSIGNED = [a for a in ARCH_IDS if a not in ("bert_base", "gpt2_small")]
+
+
+def unit_info(cfg):
+    unit = len(cfg.layer_pattern) if cfg.layer_pattern != ("mix",) else 1
+    start = cfg.dense_first_n
+    reps = (cfg.n_layers - start) // unit
+    tail = cfg.n_layers - start - reps * unit
+    return unit, start, reps, tail
+
+
+def small_variant(cfg, n_units: int):
+    """Same config at full width with ``n_units`` repeats of its layer
+    unit (leading dense layers and hybrid tails preserved)."""
+    unit, start, reps, tail = unit_info(cfg)
+    cfg2 = cfg.replace(n_layers=start + unit * n_units + tail)
+    if cfg.encoder is not None:
+        cfg2 = cfg2.replace(encoder=replace(cfg.encoder, n_layers=n_units))
+    return cfg2
+
+
+def count_step(arch, shape_name, mesh, *, cfg=None, rules_overrides=None,
+               verbose=False, donate=False):
+    """The counterpart of the reference's ``lower_and_compile``: build the
+    step and run it on meta tensors under ``StepCounter``. Returns
+    (built, metrics) with ``cost_summary``'s keys and ``collectives``,
+    or (None, None) for a skipped pair."""
+    built = build_step(arch, shape_name, mesh,
+                       rules_overrides=rules_overrides, cfg=cfg)
+    if built is None:
+        return None, None
+    counter = StepCounter(*built["args"])
+    with use_mesh(mesh):
+        counter.run(built["fn"], *built["args"])
+    metrics = cost_summary(counter, built, donate=donate)
+    metrics["collectives"] = collective_bytes(counter)
+    if verbose:
+        print("  memory: args %.3e B/device, peak %.3e B (one controller)"
+              % (metrics["arg_bytes"], metrics["peak_bytes"]))
+        print("  cost: flops=%.3e bytes=%.3e" % (metrics["flops"],
+                                                 metrics["bytes"]))
+    return built, metrics
+
+
+def run_one(arch, shape_name, multi_pod, *, correct_scan=True,
+            rules_overrides=None, verbose=True, tag="", cfg_override=None,
+            donate=False):
+    mesh_name = "pod512" if multi_pod else "pod256"
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+           "devices": 512 if multi_pod else 256, "tag": tag}
+    t0 = time.time()
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    cfg = cfg_override or get_config(arch)
+    try:
+        built, metrics = count_step(
+            arch, shape_name, mesh, cfg=cfg_override,
+            rules_overrides=rules_overrides, verbose=verbose,
+            donate=donate)
+        if built is None:
+            rec["status"] = "skipped"
+            rec["reason"] = ("long_500k needs a sub-quadratic variant; "
+                             "this arch has none configured")
+            return rec
+        rec["meta"] = built["meta"]
+        rec["full"] = metrics
+        del built
+        unit, start, reps, tail = unit_info(cfg)
+        rec["scan_reps"] = reps
+        if correct_scan and reps > 1:
+            _, m1 = count_step(arch, shape_name, mesh,
+                               cfg=small_variant(cfg, 1),
+                               rules_overrides=rules_overrides)
+            _, m2 = count_step(arch, shape_name, mesh,
+                               cfg=small_variant(cfg, 2),
+                               rules_overrides=rules_overrides)
+            corr = {}
+            for k in ("flops", "bytes", "transcendentals"):
+                corr[k] = m1[k] + (reps - 1) * (m2[k] - m1[k])
+            dcoll = (m2["collectives"]["total"]
+                     - m1["collectives"]["total"])
+            corr["collective_bytes"] = (m1["collectives"]["total"]
+                                        + (reps - 1) * dcoll)
+            rec["unit1"] = {k: m1[k] for k in ("flops", "bytes")}
+            rec["unit1"]["collective_bytes"] = m1["collectives"]["total"]
+            rec["unit2"] = {k: m2[k] for k in ("flops", "bytes")}
+            rec["unit2"]["collective_bytes"] = m2["collectives"]["total"]
+            rec["corrected"] = corr
+        else:
+            rec["corrected"] = {
+                "flops": metrics["flops"], "bytes": metrics["bytes"],
+                "collective_bytes": metrics["collectives"]["total"]}
+        rec["status"] = "ok"
+    except Exception as e:  # noqa: BLE001 — report failures as data
+        rec["status"] = "error"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+    rec["elapsed_s"] = round(time.time() - t0, 1)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--single-pod-only", action="store_true")
+    ap.add_argument("--multi-pod-only", action="store_true")
+    ap.add_argument("--no-correct", action="store_true")
+    ap.add_argument("--donate", action="store_true",
+                    help="count the donated input buffers (alias_bytes), "
+                         "the launchers' production configuration")
+    ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--out", default="experiments/dryrun_torch")
+    args = ap.parse_args(argv)
+
+    os.makedirs(args.out, exist_ok=True)
+    archs = [args.arch] if args.arch else ASSIGNED
+    shapes = [args.shape] if args.shape else list(INPUT_SHAPES)
+    meshes = [False, True]
+    if args.multi_pod or args.multi_pod_only:
+        meshes = [True]
+    elif args.single_pod_only:
+        meshes = [False]
+
+    results = []
+    for arch in archs:
+        for shape in shapes:
+            for mp in meshes:
+                key = f"{arch}_{shape}_{'pod512' if mp else 'pod256'}"
+                path = os.path.join(args.out, key + ".json")
+                if args.skip_existing and os.path.exists(path):
+                    print(f"[skip existing] {key}")
+                    continue
+                print(f"[dryrun] {key} ...", flush=True)
+                # the multi-pod pass proves the step runs; corrections are
+                # for the single-pod table
+                rec = run_one(arch, shape, mp, donate=args.donate,
+                              correct_scan=(not args.no_correct) and not mp)
+                with open(path, "w") as f:
+                    json.dump(rec, f, indent=1)
+                print(f"   -> {rec['status']} ({rec.get('elapsed_s', 0)}s)"
+                      + (f"  {rec.get('error', '')}"
+                         if rec["status"] == "error" else ""), flush=True)
+                results.append(rec)
+    n_ok = sum(r["status"] == "ok" for r in results)
+    n_skip = sum(r["status"] == "skipped" for r in results)
+    print(f"\n{n_ok} ok, {n_skip} skipped, "
+          f"{len(results) - n_ok - n_skip} failed / {len(results)}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

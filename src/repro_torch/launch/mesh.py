@@ -13,12 +13,14 @@ on one JAX host. A one-axis ``ModelMesh`` describes what
 ``core/shard.py``'s ``StoreMesh`` describes (an ordered tuple of devices
 on one named axis); the store keeps its own class.
 
-Not ported: ``make_production_mesh`` (256 or 512 TPU chips) and
-``use_mesh`` (the ambient-mesh context) serve the reference's XLA
-dry-run tooling (``launch/dryrun.py``), which has no counterpart here.
+``make_production_mesh`` is the dry run's device grid
+(``launch/dryrun.py``): 256 or 512 slots on the ``meta`` device, where
+a step runs on shapes alone. ``use_mesh`` is the reference's
+ambient-mesh context, which one controller does not need.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -121,3 +123,26 @@ def make_host_mesh(data: int = 1, model: int = 1, device=None) -> ModelMesh:
                            "pass device='cpu' for a mesh on the CPU")
     return ModelMesh((data, model), ("data", "model"),
                      [dev] * (int(data) * int(model)))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="meta") -> ModelMesh:
+    """The production grids of the dry run: ``(data=16, model=16)``, 256
+    devices, or ``(pod=2, data=16, model=16)``, 512, every slot on
+    ``device``. No machine this code runs on holds 256 cards: the dry
+    run is analysis on the host, a step run on ``meta`` tensors
+    (shapes and dtypes, no storage), not an entry point for a card. The
+    ``pod`` axis composes with ``data`` (``dp_axes_of``) for the batch
+    and FSDP shardings."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return ModelMesh(shape, axes,
+                     [torch.device(device)] * int(np.prod(shape)))
+
+
+def use_mesh(mesh):
+    """The reference's ambient-mesh context (``jax.set_mesh``). One
+    controller places every tensor itself and reads no ambient mesh, so
+    this is a ``contextlib.nullcontext``: callers keep the reference's
+    ``with use_mesh(mesh):`` shape."""
+    return contextlib.nullcontext(mesh)

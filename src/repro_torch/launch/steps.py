@@ -1,26 +1,53 @@
-"""Sharding helpers of the reference's ``launch/steps.py``: the optimizer
+"""Step builders of the dry run (the reference's ``launch/steps.py``).
+
+For every (arch, input shape, mesh) ``build_step`` makes:
+    fn            — train_step | prefill | serve_step (one token)
+    args          — ``torch.device("meta")`` tensors (no storage): the
+                    reference's ``ShapeDtypeStruct`` stand-ins
+    in_shardings  — a ``NamedSharding`` for every leaf of ``args``
+    out_shardings — the same for the step's outputs
+so ``fn(*args)`` under ``cost_utils.StepCounter`` is the whole dry run
+of a step (``launch/dryrun.py``), where the reference lowers and
+compiles ``jax.jit(fn, in_shardings=...)``. Also here: the optimizer
 state's logical specs (``opt_spec_tree``), the decode caches' specs
 (``_cache_pspec`` / ``cache_shardings_for``) and ``abstract_params``
-(the params tree as ``torch.device("meta")`` tensors, the port's
-``jax.eval_shape`` of ``model.init``).
-
-Not ported: ``build_step`` and ``batch_abstract``, which lower and
-compile a train, prefill or decode step with XLA for the reference's
-dry-run on virtual 256- and 512-chip meshes (``launch/dryrun.py``);
-PyTorch runs eagerly and has no such lowering.
+(the params tree as meta tensors, the port's ``jax.eval_shape`` of
+``model.init``).
 """
 from __future__ import annotations
 
+from typing import Any, Dict, Optional, Tuple
+
 import torch
 
-from repro_torch.sharding.rules import NamedSharding, P
+from repro_torch.configs import INPUT_SHAPES, get_config
+from repro_torch.launch.mesh import dp_axes_of
+from repro_torch.models.model import Model
+from repro_torch.optim import make_optimizer
+from repro_torch.sharding.rules import (
+    NamedSharding, P, batch_shardings, logical_to_shardings, make_rules)
+from repro_torch.train.trainer import value_and_grad
 from repro_torch.tree import tree_map
+
+PARAM_DTYPE = torch.bfloat16
+
+
+def sub_quadratic_window(cfg, shape) -> Tuple[Optional[int], bool]:
+    """(window, supported) for the given input shape. long_500k requires a
+    sub-quadratic configuration: native for ssm/hybrid, sliding-window for
+    the rest (DESIGN.md §4)."""
+    if shape.name != "long_500k":
+        return None, True
+    if cfg.mixer == "rwkv6" or cfg.mixer == "rglru_hybrid":
+        return None, True                   # natively sub-quadratic
+    if cfg.decode_window:
+        return cfg.decode_window, True
+    return None, False
 
 
 def abstract_params(model, dtype=torch.float32):
     """``model``'s params tree with every leaf on the meta device: shapes
     and dtypes, no storage."""
-    from repro_torch.models.model import Model
     meta = Model(model.cfg, device="meta", max_seq=model.max_seq)
     return meta.init(dtype=dtype, generator=torch.Generator())
 
@@ -98,3 +125,113 @@ def cache_shardings_for(caches_abs, mesh, dp):
     return _map_with_path(
         lambda path, leaf: NamedSharding(
             mesh, _cache_pspec(path, leaf, mesh, dp)), caches_abs)
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_abstract(cfg, shape, kind: str):
+    """The step's batch as meta tensors: int32 tokens (B, S), S = 1 for a
+    decode step; an enc-dec model's frames (B, F, d_enc) in
+    ``PARAM_DTYPE`` where the step runs its encoder."""
+    B, S = shape.global_batch, shape.seq_len
+    if kind == "decode":
+        S = 1
+    batch: Dict[str, Any] = {"tokens": _meta((B, S), torch.int32)}
+    if cfg.encoder is not None and kind != "decode":
+        e = cfg.encoder
+        batch["frames"] = _meta((B, e.n_frames, e.d_model), PARAM_DTYPE)
+    return batch
+
+
+def build_step(arch: str, shape_name: str, mesh, *, rules_overrides=None,
+               lr: float = 1e-4, cfg=None):
+    """Returns dict(fn, args, in_shardings, out_shardings, cfg, model,
+    meta) or None if the (arch, shape) pair is skipped (documented in
+    DESIGN.md). ``mesh`` is a ``ModelMesh`` with devices
+    (``make_production_mesh`` or ``make_host_mesh(..., device="meta")``):
+    the model runs on its lead device, so a meta mesh gives a step on
+    shapes alone, whose MoE layers take ``moe_apply_ep`` (static
+    capacities, no host read)."""
+    cfg = cfg or get_config(arch)
+    shape = INPUT_SHAPES[shape_name]
+    dp = dp_axes_of(mesh)
+    window, ok = sub_quadratic_window(cfg, shape)
+    if not ok:
+        return None
+    kind = shape.kind
+    max_seq = min(shape.seq_len, 32_768) if cfg.encoder is not None else 4096
+    if window:
+        max_seq = min(max_seq, window)
+    model = Model(cfg, mesh=mesh, remat=(kind == "train"), max_seq=max_seq)
+    rules = make_rules(cfg, mesh, overrides=rules_overrides)
+    params_abs = abstract_params(model, dtype=PARAM_DTYPE)
+    param_specs = model.specs()
+    params_sh = logical_to_shardings(param_specs, rules, mesh, params_abs)
+    meta = {"arch": arch, "shape": shape_name, "kind": kind,
+            "window": window, "n_layers": cfg.n_layers}
+
+    if kind == "train":
+        opt_init, opt_update = make_optimizer(cfg.optimizer)
+        opt_abs = opt_init(params_abs)
+        opt_sh = logical_to_shardings(
+            opt_spec_tree(cfg.optimizer, param_specs), rules, mesh, opt_abs)
+        batch_abs = batch_abstract(cfg, shape, kind)
+        batch_sh = batch_shardings(batch_abs, mesh, dp)
+
+        def train_step(params, opt_state, batch):
+            loss, grads = value_and_grad(model.train_loss, params, batch)
+            params, opt_state = opt_update(params, grads, opt_state, lr=lr,
+                                           grad_clip=1.0)
+            return params, opt_state, loss
+
+        return dict(
+            fn=train_step,
+            args=(params_abs, opt_abs, batch_abs),
+            in_shardings=(params_sh, opt_sh, batch_sh),
+            out_shardings=(params_sh, opt_sh, NamedSharding(mesh, P())),
+            cfg=cfg, model=model, meta=meta)
+
+    if kind == "prefill":
+        batch_abs = batch_abstract(cfg, shape, kind)
+        batch_sh = batch_shardings(batch_abs, mesh, dp)
+        caches_abs = model.init_caches(shape.global_batch, shape.seq_len,
+                                       dtype=PARAM_DTYPE, window=window)
+        caches_sh = cache_shardings_for(caches_abs, mesh, dp)
+
+        def prefill(params, batch):
+            return model.prefill(params, batch, cache_len=shape.seq_len,
+                                 window=window, dtype=PARAM_DTYPE)
+
+        return dict(
+            fn=prefill,
+            args=(params_abs, batch_abs),
+            in_shardings=(params_sh, batch_sh),
+            out_shardings=(batch_shardings(
+                _meta((shape.global_batch, cfg.vocab), torch.float32),
+                mesh, dp), caches_sh),
+            cfg=cfg, model=model, meta=meta)
+
+    # decode
+    B = shape.global_batch
+    cache_len = min(shape.seq_len, window) if window else shape.seq_len
+    tokens_abs = _meta((B, 1), torch.int32)
+    caches_abs = model.init_caches(B, cache_len, dtype=PARAM_DTYPE,
+                                   window=window)
+    caches_sh = cache_shardings_for(caches_abs, mesh, dp)
+    pos_abs = _meta((), torch.int32)
+    meta["cache_len"] = cache_len
+
+    def serve_step(params, tokens, caches, pos):
+        return model.decode_step(params, tokens, caches, pos, window=window)
+
+    return dict(
+        fn=serve_step,
+        args=(params_abs, tokens_abs, caches_abs, pos_abs),
+        in_shardings=(params_sh,
+                      batch_shardings(tokens_abs, mesh, dp),
+                      caches_sh, NamedSharding(mesh, P())),
+        out_shardings=(batch_shardings(
+            _meta((B, cfg.vocab), torch.float32), mesh, dp), caches_sh),
+        cfg=cfg, model=model, meta=meta)

@@ -1,0 +1,507 @@
+"""The port's dry run (``launch/steps.py::build_step``,
+``launch/cost_utils.py``, ``launch/dryrun.py``, ``launch/hillclimb.py``)
+against the JAX package's.
+
+One reference subprocess (``--xla_force_host_platform_device_count=8``;
+the device count locks at JAX's first init) computes, for the six pairs
+of ``tests/test_dryrun_small.py`` (one per family) at reduced configs:
+the ``in_shardings`` specs and ``memory_analysis().argument_size_in_bytes``
+over a (4, 2) mesh, and ``cost_analysis()["flops"]`` of the whole program
+over a (1, 1) mesh with the layers unrolled (over (4, 2) XLA counts one
+device's share, an eighth of the (1, 1) figure for the dense pairs, and
+its scanned layers once). Both lowerings keep unused arguments
+(``keep_unused=True``): ``jax.jit`` drops an argument the step never
+reads, such as rwkv6's decode position, from its argument bytes. It
+also gives ``sub_quadratic_window`` for every assigned arch and shape,
+and the output of the hillclimb's pair-3 memo forward
+(``_prefill_memo_step``) at a reduced deepseek_7b with tiny S.
+
+The port holds the specs tuple for tuple and the per-device argument
+bytes exactly. Its FLOPs are the tensor products' only, where XLA's
+count elementwise ops too, and include remat's recomputed forward,
+which XLA's count of the reference's train step does not: the measured
+ratio of each pair is held within ``FLOP_RATIO``.
+"""
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.bridge import tree_to_torch
+from repro_torch.configs import INPUT_SHAPES, get_config, get_reduced
+from repro_torch.launch import dryrun, hillclimb, steps
+from repro_torch.launch.cost_utils import (StepCounter, _tensors,
+                                           collective_bytes, cost_summary,
+                                           device_bytes, shape_bytes,
+                                           shard_bytes)
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
+                                     use_mesh)
+from repro_torch.launch.steps import build_step, sub_quadratic_window
+from repro_torch.sharding.rules import NamedSharding, P
+from repro_torch.tree import nest_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+META = torch.device("meta")
+
+PAIRS = [
+    ("qwen2_1_5b", "train_4k"),          # dense train
+    ("dbrx_132b", "decode_32k"),         # MoE decode (EP path)
+    ("rwkv6_3b", "long_500k"),           # ssm long-context decode
+    ("recurrentgemma_2b", "prefill_32k"),  # hybrid prefill
+    ("whisper_medium", "train_4k"),      # enc-dec train
+    ("minicpm3_4b", "decode_32k"),       # MLA absorbed decode
+]
+# port FLOPs / XLA FLOPs of the whole step at the reduced config, as
+# measured (jax 0.9.0): above 1 where the port's remat recompute
+# dominates, below where XLA's elementwise count does (a decode step
+# over a 32k cache is mostly elementwise)
+FLOP_RATIO = {
+    "qwen2_1_5b": (1.20, 1.31),        # measured 1.254
+    "dbrx_132b": (0.30, 0.35),         # 0.324
+    "rwkv6_3b": (0.27, 0.32),          # 0.293
+    "recurrentgemma_2b": (0.95, 1.01),  # 0.979
+    "whisper_medium": (0.92, 0.98),    # 0.950
+    "minicpm3_4b": (0.52, 0.58),       # 0.550
+}
+# pair 3 at a reduced deepseek_7b: S, batch (half memoized), DB entries
+MEMO_S, MEMO_B, MEMO_DB = 8, 32, 8
+
+REF = r"""
+import os, sys, json
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax
+import jax.numpy as jnp
+import numpy as np
+jax.devices()          # lock 8 devices before the launchers set 512
+from repro.configs import INPUT_SHAPES, get_config, get_reduced
+from repro.launch.hlo_utils import cost_summary
+from repro.launch.mesh import make_host_mesh, use_mesh
+from repro.launch.steps import build_step, sub_quadratic_window
+from repro.launch import dryrun, hillclimb
+from repro.models import build_model
+
+pairs, out_dir, memo = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3]
+S, B, N = (int(x) for x in memo.split(","))
+
+
+def specs(t, path=()):
+    if isinstance(t, (tuple, list)):
+        return [x for i, v in enumerate(t) for x in specs(v, path + (i,))]
+    if isinstance(t, dict):
+        return [x for k, v in t.items() for x in specs(v, path + (k,))]
+    if t is None:
+        return []
+    return [["/".join(map(str, path)), list(t.spec)]]
+
+
+def compiled(b, mesh):
+    with use_mesh(mesh):
+        return jax.jit(b["fn"], in_shardings=b["in_shardings"],
+                       out_shardings=b["out_shardings"],
+                       keep_unused=True).lower(*b["args"]).compile()
+
+
+res = {"assigned": dryrun.ASSIGNED, "windows": {}, "pairs": {}}
+for arch in dryrun.ASSIGNED:
+    for shape in INPUT_SHAPES:
+        res["windows"][f"{arch}/{shape}"] = list(sub_quadratic_window(
+            get_config(arch), INPUT_SHAPES[shape]))
+for arch, shape in pairs:
+    cfg = get_reduced(arch)
+    mesh = make_host_mesh(4, 2)
+    b = build_step(arch, shape, mesh, cfg=cfg)
+    b["model"].layer_loop = "unroll"
+    c = compiled(b, mesh)
+    mesh1 = make_host_mesh(1, 1)
+    b1 = build_step(arch, shape, mesh1, cfg=cfg)
+    b1["model"].layer_loop = "unroll"
+    res["pairs"][arch] = {
+        "specs": specs(b["in_shardings"]),
+        "arg_bytes": int(c.memory_analysis().argument_size_in_bytes),
+        "flops_per_device": cost_summary(c)["flops"],
+        "flops": cost_summary(compiled(b1, mesh1))["flops"]}
+
+# pair 3: the hillclimb's memo forward at a reduced deepseek_7b
+cfg = get_reduced("deepseek_7b")
+hillclimb.get_config = lambda arch: cfg
+mesh = make_host_mesh(4, 2)
+fn, args, in_sh, meta = hillclimb._prefill_memo_step(mesh, S, B, 0.5,
+                                                     n_db=N)
+rng = np.random.default_rng(0)
+params = build_model(cfg).init(jax.random.PRNGKey(3))
+db = rng.random((N, cfg.n_heads, S, S), dtype=np.float32)
+db /= db.sum(-1, keepdims=True)
+inputs = {"toks_hit": rng.integers(0, cfg.vocab, (meta["B_hit"], S)),
+          "apm_idx": rng.integers(0, N, (meta["B_hit"], cfg.n_layers)),
+          "db": db,
+          "toks_miss": rng.integers(0, cfg.vocab, (meta["B_miss"], S))}
+inputs = {k: (v.astype(np.int32) if v.dtype.kind == "i" else v)
+          for k, v in inputs.items()}
+y = fn(params, *(jnp.asarray(inputs[k]) for k in
+                 ("toks_hit", "apm_idx", "db", "toks_miss")))
+flat = {}
+def walk(t, prefix):
+    for k, v in t.items():
+        if isinstance(v, dict):
+            walk(v, prefix + k + "/")
+        else:
+            flat["param:" + prefix + k] = np.asarray(v)
+walk(params, "")
+np.savez(os.path.join(out_dir, "memo.npz"), y=np.asarray(y), **inputs,
+         **flat)
+res["memo"] = {"meta": meta, "specs": specs(in_sh[1:]),
+               "shapes": [list(a.shape) for a in args[1:]]}
+with open(os.path.join(out_dir, "ref.json"), "w") as f:
+    json.dump(res, f)
+print("REF-OK")
+"""
+
+
+def _specs(t, path=()):
+    """[[path, spec as a list]] of a tree of the port's shardings, in the
+    reference subprocess's form (its dicts come back key-sorted, so the
+    two compare as path → spec maps)."""
+    if isinstance(t, (tuple, list)) and not isinstance(t, P):
+        return [x for i, v in enumerate(t) for x in _specs(v, path + (i,))]
+    if isinstance(t, dict):
+        return [x for k, v in t.items() for x in _specs(v, path + (k,))]
+    if t is None:
+        return []
+    return [["/".join(map(str, path)), json.loads(json.dumps(t.spec))]]
+
+
+@pytest.fixture(scope="module")
+def both():
+    """(reference results, the reference's memo npz, port flops at
+    (1, 1)): the reference subprocess runs while the port counts."""
+    tmp = tempfile.mkdtemp()
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", REF, json.dumps(PAIRS), tmp,
+         f"{MEMO_S},{MEMO_B},{MEMO_DB}"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=REPO)
+    try:
+        mesh1 = make_host_mesh(1, 1, device=META)
+        flops = {arch: dryrun.count_step(arch, shape, mesh1,
+                                         cfg=get_reduced(arch))[1]["flops"]
+                 for arch, shape in PAIRS}
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    assert "REF-OK" in out, err[-3000:]
+    with open(os.path.join(tmp, "ref.json")) as f:
+        ref = json.load(f)
+    return ref, dict(np.load(os.path.join(tmp, "memo.npz"))), flops
+
+
+# ------------------------------------------------------------ the grids
+
+def test_production_mesh_and_use_mesh():
+    m = make_production_mesh()
+    assert m.shape == {"data": 16, "model": 16}
+    assert m.devices.size == 256 and m.lead == META
+    mp = make_production_mesh(multi_pod=True, device="cpu")
+    assert mp.axis_names == ("pod", "data", "model")
+    assert mp.devices.size == 512 and mp.lead == torch.device("cpu")
+    with use_mesh(m) as got:
+        assert got is m
+
+
+def test_sub_quadratic_window_matches_reference(both):
+    ref = both[0]
+    assert sorted(dryrun.ASSIGNED) == sorted(ref["assigned"])
+    assert len(ref["windows"]) == 10 * 4
+    for arch in dryrun.ASSIGNED:
+        for shape in INPUT_SHAPES:
+            got = sub_quadratic_window(get_config(arch), INPUT_SHAPES[shape])
+            assert list(got) == ref["windows"][f"{arch}/{shape}"], \
+                (arch, shape)
+
+
+@pytest.mark.parametrize("arch,shape", PAIRS)
+def test_build_step_specs_and_arg_bytes_match_reference(both, arch, shape):
+    """``in_shardings`` tuple for tuple and each device's argument bytes
+    over a (4, 2) mesh; the args are meta tensors of the reference's
+    dtypes (bf16 params and frames, int32 tokens)."""
+    ref = both[0]["pairs"][arch]
+    built = build_step(arch, shape, make_host_mesh(4, 2, device=META),
+                       cfg=get_reduced(arch))
+    assert dict(_specs(built["in_shardings"])) == dict(ref["specs"])
+    assert len(_specs(built["in_shardings"])) == len(ref["specs"])
+    assert device_bytes(built["args"], built["in_shardings"]) == \
+        ref["arg_bytes"]
+    leaves = list(_tensors(built["args"]))
+    assert all(t.device == META for t in leaves)
+    assert {t.dtype for t in leaves} <= {torch.bfloat16, torch.float32,
+                                         torch.int32}
+    assert built["args"][0]["embed"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch,shape", PAIRS)
+def test_flops_within_stated_gap_of_xla(both, arch, shape):
+    """The port's whole-step count against XLA's whole-program count
+    (printed with ``-s``)."""
+    ref = both[0]["pairs"][arch]
+    ratio = both[2][arch] / ref["flops"]
+    print(f"[flops] {arch} {shape}: port {both[2][arch]:.4e} / XLA "
+          f"{ref['flops']:.4e} = {ratio:.3f}; XLA over (4, 2), one "
+          f"device: {ref['flops_per_device']:.4e} (x8 / whole "
+          f"{8 * ref['flops_per_device'] / ref['flops']:.3f})")
+    lo, hi = FLOP_RATIO[arch]
+    assert lo <= ratio <= hi, (arch, ratio)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "recurrentgemma_2b",
+                                  "whisper_medium"])
+def test_xla_counts_one_devices_share(both, arch):
+    """Why the port's count is compared with XLA's over a (1, 1) mesh:
+    over (4, 2) ``cost_analysis`` counts the partitioned program of one
+    device, an eighth of the whole for the dense pairs (the MoE, MLA and
+    ssm decode pairs replicate work, so their share is larger)."""
+    ref = both[0]["pairs"][arch]
+    assert 0.95 <= 8 * ref["flops_per_device"] / ref["flops"] <= 1.05
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_unit_correction_equals_full_on_dense_config(shape):
+    """The port counts every layer, so the reference's unit correction
+    must give back the full-depth count on a config whose layers all
+    cost the same."""
+    cfg = get_reduced("qwen2_1_5b").replace(n_layers=4)
+    rec = dryrun.run_one("qwen2_1_5b", shape, False, cfg_override=cfg,
+                         verbose=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["scan_reps"] == 4
+    for k in ("flops", "bytes", "transcendentals"):
+        assert rec["corrected"][k] == rec["full"][k], k
+    assert rec["unit2"]["flops"] > rec["unit1"]["flops"] > 0
+    for k in ("meta", "full", "scan_reps", "unit1", "unit2", "corrected",
+              "status", "elapsed_s"):
+        assert k in rec
+    assert rec["full"]["arg_bytes"] > 0 and rec["full"]["peak_bytes"] > 0
+
+
+def test_dryrun_main_writes_a_record(tmp_path, monkeypatch):
+    # both the record's reading of the config and build_step's
+    monkeypatch.setattr(dryrun, "get_config", get_reduced)
+    monkeypatch.setattr(steps, "get_config", get_reduced)
+    out = tmp_path / "dry"
+    recs = dryrun.main(["--arch", "rwkv6_3b", "--shape", "long_500k",
+                        "--single-pod-only", "--no-correct", "--out",
+                        str(out)])
+    assert [r["status"] for r in recs] == ["ok"]
+    with open(out / "rwkv6_3b_long_500k_pod256.json") as f:
+        rec = json.load(f)
+    assert rec["devices"] == 256 and rec["meta"]["kind"] == "decode"
+    reduced = get_reduced("rwkv6_3b")
+    assert rec["meta"]["n_layers"] == reduced.n_layers
+    assert rec["scan_reps"] == dryrun.unit_info(reduced)[2]
+    skipped = dryrun.run_one("qwen2_1_5b", "long_500k", False,
+                             cfg_override=get_reduced(
+                                 "qwen2_1_5b").replace(decode_window=None))
+    assert skipped["status"] == "skipped"
+
+
+# ------------------------------------------------------------ StepCounter
+
+def _m(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def test_step_counter_matmul_and_tanh():
+    a, b = _m(64, 128), _m(128, 32)
+    c = StepCounter(a, b)
+    c.run(lambda a, b: torch.tanh(a @ b), a, b)
+    assert c.flops == 2 * 64 * 128 * 32
+    # mm reads a, b and writes y; tanh reads y and writes the output
+    assert c.bytes == (64 * 128 + 128 * 32 + 64 * 32) * 4 + 2 * 64 * 32 * 4
+    assert c.transcendentals == 64 * 32
+    assert c.base_bytes == (64 * 128 + 128 * 32) * 4
+    assert c.peak_bytes == c.base_bytes + 2 * 64 * 32 * 4
+
+
+def test_step_counter_views_share_storage():
+    x = _m(1024)
+    c = StepCounter(x)
+
+    def fn(x):
+        v = x.view(32, 32).t()          # views: no bytes, no storage
+        y = v[:4].contiguous()          # a copy of 128 elements
+        return y, x[:2]                 # a slice keeps x's storage
+    c.run(fn, x)
+    assert c.flops == 0
+    assert c.bytes == 2 * 128 * 4
+    assert c.peak_bytes == 1024 * 4 + 128 * 4
+    del x
+    assert c.live_bytes == 1024 * 4 + 128 * 4   # the output's slice
+
+
+@pytest.mark.parametrize("grad", [True, False])
+def test_step_counter_holds_autograd_saved_tensors(grad):
+    """tanh saves its output for the backward: with grad both tanh
+    outputs stay live after the forward though no Python name holds
+    them, until the backward frees them; without grad each dies when
+    its consumer returns."""
+    n = 256 * 4
+    x = _m(256).requires_grad_(grad)
+    c = StepCounter(x)
+    with torch.set_grad_enabled(grad):
+        c.run(lambda x: torch.tanh(torch.tanh(x)).sum(), x)
+    # after the second tanh: x and both outputs; then the 4-byte sum
+    assert c.peak_bytes == 3 * n + (4 if grad else 0)
+    assert c.live_bytes == n + (2 * n if grad else 0) + 4
+    if grad:
+        c2 = StepCounter(x, c.out)
+        c2.run(lambda loss: torch.autograd.grad(loss, x), c.out)
+        assert c2.transcendentals == 0      # tanh_backward uses the output
+        assert c2.out[0].shape == x.shape
+        assert c.live_bytes == n + 4        # the backward freed the saved
+    c.out = None
+    assert c.live_bytes == n
+
+
+def test_shape_bytes_and_shard_bytes():
+    assert shape_bytes((8, 128), torch.float32) == 8 * 128 * 4
+    assert shape_bytes((4,), torch.bfloat16) == 4 * 2
+    assert shape_bytes((), torch.int32) == 4
+    assert shape_bytes((3, 0), torch.uint8) == 0
+    mesh = make_host_mesh(4, 2, device=META)
+    leaf = _m(8, 6)
+    for spec, want in ((P("data", "model"), 2 * 3 * 4),
+                       (P(("data", "model")), 1 * 6 * 4),
+                       (P(None, "model"), 8 * 3 * 4), (P(), 8 * 6 * 4)):
+        assert shard_bytes(leaf, NamedSharding(mesh, spec)) == want
+    assert shard_bytes(0, NamedSharding(mesh, P())) == 4
+
+
+def test_step_counter_counts_the_moe_exchanges():
+    """``moe_apply_ep`` over a (2, 2) mesh: 4 exchanges a dispatch chunk
+    (dispatch x, local ids, keep flags, the outputs back), each shard's
+    received buffer counted, and one partial sum over the 2 ff shards
+    a token shard a chunk."""
+    import dataclasses
+    import math
+    from repro_torch.models import moe
+    cfg = get_reduced("dbrx_132b")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch_chunks=2))
+    m, D, T = cfg.moe, cfg.d_model, 32
+    E, F = m.n_experts, m.d_ff
+    params = {"w_router": _m(D, E), "w_gate": _m(E, D, F),
+              "w_up": _m(E, D, F), "w_down": _m(E, F, D)}
+    x = _m(T, D)
+    mesh = make_host_mesh(2, 2, device=META)
+    c = StepCounter(params, x)
+    with torch.no_grad():
+        c.run(lambda p, x: moe.moe_apply_ep(p, x, cfg, mesh), params, x)
+    got = collective_bytes(c)
+    dp, ep, tp, chunks = 2, 2, 2, 2
+    t = T // dp // chunks
+    C = max(1, math.ceil(t * m.top_k / ep * m.capacity_factor))
+    Ce = max(1, math.ceil(ep * C / (m.n_experts // ep) * m.capacity_factor))
+    per_chunk = dp * (2 * ep * C * D * 4 + ep * C * 8 + ep * C * 1)
+    assert got["counts"]["all-to-all"] == 4 * dp * chunks
+    assert got["all-to-all"] == per_chunk * chunks
+    assert got["counts"]["all-reduce"] == dp * chunks
+    assert got["all-reduce"] == dp * chunks * (m.n_experts // ep) * Ce * D * 4
+    assert got["total"] == got["all-to-all"] + got["all-reduce"]
+    assert moe._ALL_TO_ALL is moe.all_to_all    # restored on exit
+    assert tp == mesh.shape["model"]
+
+
+def test_cost_summary_keys_and_donation():
+    built = build_step("rwkv6_3b", "long_500k",
+                       make_host_mesh(4, 2, device=META),
+                       cfg=get_reduced("rwkv6_3b"))
+    c = StepCounter(*built["args"])
+    c.run(built["fn"], *built["args"])
+    plain = cost_summary(c, built)
+    donated = cost_summary(c, built, donate=True)
+    assert set(plain) == {"flops", "bytes", "transcendentals", "arg_bytes",
+                          "out_bytes", "temp_bytes", "alias_bytes",
+                          "peak_bytes"}
+    assert plain["alias_bytes"] == 0
+    assert donated["alias_bytes"] == device_bytes(
+        [built["args"][2]], [built["in_shardings"][2]]) > 0
+    assert plain["peak_bytes"] >= c.base_bytes
+
+
+# ------------------------------------------------------------ hillclimb
+
+def test_prefill_memo_step_matches_reference(both, monkeypatch):
+    """The hillclimb's pair-3 step at a reduced deepseek_7b: its args'
+    shapes and shardings as the reference's, and its memo forward (hit
+    rows APM·V from the DB, miss rows the full forward) on the
+    reference's params and inputs within f32 rounding of the
+    reference's."""
+    ref, npz = both[0]["memo"], both[1]
+    cfg = get_reduced("deepseek_7b")
+    monkeypatch.setattr(hillclimb, "get_config", lambda arch: cfg)
+    mesh = make_host_mesh(4, 2, device="cpu")
+    fn, args, in_sh, meta = hillclimb._prefill_memo_step(
+        mesh, MEMO_S, MEMO_B, 0.5, n_db=MEMO_DB)
+    assert meta == ref["meta"]
+    assert [list(a.shape) for a in args[1:]] == ref["shapes"]
+    assert dict(_specs(in_sh[1:])) == dict(ref["specs"])
+    params = tree_to_torch(nest_params(
+        {k[len("param:"):]: v for k, v in npz.items()
+         if k.startswith("param:")}), "cpu")
+    with torch.no_grad():
+        y = fn(params, *(torch.from_numpy(npz[k]) for k in
+                         ("toks_hit", "apm_idx", "db", "toks_miss")))
+    want = npz["y"]
+    assert y.shape == want.shape
+    scale = float(np.abs(want).max())
+    assert float(np.abs(y.numpy() - want).max()) <= 1e-5 * scale + 1e-6
+
+
+def test_climb_counts_a_config_once_and_rerules_the_rest(tmp_path,
+                                                         monkeypatch):
+    """Pairs 1 and 2's iterations: the step is counted once for a config
+    (``act_shard_batch`` aside, which the port does not act on); an
+    iteration that changes only the rules overrides gets the record a
+    whole dry run of it gives, its per-device bytes under its own
+    shardings."""
+    mesh = make_host_mesh(4, 2, device=META)
+    monkeypatch.setattr(hillclimb, "make_production_mesh", lambda: mesh)
+    monkeypatch.setattr(dryrun, "make_production_mesh",
+                        lambda multi_pod=False: mesh)
+    monkeypatch.setattr(hillclimb, "OUT", str(tmp_path))
+    runs = []
+
+    class Counted(StepCounter):
+        def run(self, fn, *args):
+            runs.append(1)
+            return super().run(fn, *args)
+    monkeypatch.setattr(hillclimb, "StepCounter", Counted)
+    cfg = get_reduced("qwen2_1_5b").replace(n_layers=2)
+    fsdp = {"embed": "data"}
+    hillclimb._climb("qwen2_1_5b", "train_4k", [
+        ("base", "it1", cfg, None),
+        ("fsdp", "it2", cfg, fsdp),
+        ("act", "it3", cfg.replace(act_shard_batch=("data", "model")),
+         fsdp)])
+    assert len(runs) == 1
+    recs = {}
+    for name in ("base", "fsdp", "act"):
+        with open(tmp_path / f"{name}.json") as f:
+            recs[name] = json.load(f)
+        assert recs[name]["status"] == "ok", recs[name].get("traceback")
+        assert recs[name]["corrected"]["flops"] == \
+            recs[name]["full"]["flops"] > 0
+    whole = dryrun.run_one("qwen2_1_5b", "train_4k", False,
+                           cfg_override=cfg, rules_overrides=fsdp,
+                           correct_scan=False, verbose=False)
+    assert recs["fsdp"]["full"] == json.loads(json.dumps(whole["full"]))
+    assert recs["act"]["full"] == recs["fsdp"]["full"]
+    assert recs["fsdp"]["full"]["arg_bytes"] < \
+        recs["base"]["full"]["arg_bytes"]
+    for k in ("flops", "bytes", "peak_bytes"):
+        assert recs["fsdp"]["full"][k] == recs["base"]["full"][k]

@@ -373,6 +373,9 @@ def test_port_imports_neither_jax_nor_reference():
         "        'repro_torch.train.trainer',\n"
         "        'repro_torch.launch.mesh',\n"
         "        'repro_torch.launch.steps',\n"
+        "        'repro_torch.launch.cost_utils',\n"
+        "        'repro_torch.launch.dryrun',\n"
+        "        'repro_torch.launch.hillclimb',\n"
         "        'repro_torch.sharding.rules',\n"
         "        'repro_torch.launch.train'} <= set(names), names\n"
         "assert not bad, bad\n")
