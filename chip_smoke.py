@@ -259,6 +259,10 @@ SEQ, BATCH, CALIB_BATCHES, FRESH_BATCHES = 128, 32, 8, 6
 # H100 (PERF.md), held here with a 10x margin.
 MODE_GAP = 2e-3
 SIM_MARGIN = 1e-3    # a decision within this of the threshold may flip
+# phase 3's similarity API check: the TV similarity of f32 APMs on the card
+# against the CPU and against pair_similarity, a sum of 128 terms in [0, 2]
+# averaged over heads and rows, in another order
+SIM_API_TOL = 1e-6
 # two paths that replay the same f16-decoded APMs (host bucket vs select,
 # device_quanta 4 vs 1) differ by f32 reassociation alone: 5.96e-6 and
 # 9.30e-6 measured on the H100 (PERF.md), held here with a 10x margin
@@ -1061,9 +1065,51 @@ def serve_main_path(torch, dev):
           f"{replay[0].mean():.4f}, all layers {replay.mean():.4f}")
     compare_decisions(torch, "kernel", results["kernel"], "bucket",
                       results["bucket"], thr, MODE_GAP, "int8 gap")
+    similarity_api(torch, sess, results["kernel"]["stats"])
     return sess, per_path, captured, dict(
         requests=requests, calib=calib, thr=thr, plain=plain,
         plain_ms=plain_ms, **results)
+
+
+def similarity_api(torch, sess, stats):
+    """Eq. 2 and the batch similarity matrix on the session's store:
+    ``pairwise_similarity`` of 8 stored APMs against 8 others on the card
+    equals the CPU's and, on its diagonal, ``pair_similarity``, each
+    within SIM_API_TOL; ``memo_rate`` of the kernel-mode run's hits, rows
+    and memoized layers equals its hit rate."""
+    from repro_torch.core import memo_rate, pairwise_similarity
+    from repro_torch.core.similarity import pair_similarity
+    t0 = time.perf_counter()
+    db = sess.store.device_db
+    apms = db.codec.decode_rows(tuple(p[:16] for p in db.parts)).float()
+    a, b = apms[:8], apms[8:16]
+    sim = pairwise_similarity(a, b)
+    sim_cpu = pairwise_similarity(a.cpu(), b.cpu())
+    idx = torch.arange(8, device=apms.device)
+    pair = pair_similarity(apms, idx, idx + 8)
+    err_cpu = float((sim.cpu() - sim_cpu).abs().max())
+    err_pair = float((torch.diagonal(sim) - pair).abs().max())
+    n_layers = len(sess.engine.layers)
+    rate = memo_rate(stats.n_hits, stats.n_inputs, n_layers)
+    torch.cuda.synchronize()
+    print(f"[main] similarity API: pairwise_similarity (8, 8) on the card "
+          f"vs the CPU max|err| {err_cpu:.3e}, its diagonal vs "
+          f"pair_similarity {err_pair:.3e} (tol {SIM_API_TOL:.0e}); sims "
+          f"{float(sim.min()):.4f}..{float(sim.max()):.4f}; memo_rate("
+          f"{stats.n_hits}, {stats.n_inputs}, {n_layers}) = {rate:.6f} vs "
+          f"hit rate {stats.memo_rate:.6f}; "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    require(tuple(sim.shape) == (8, 8) and sim.device == apms.device,
+            f"pairwise_similarity: {tuple(sim.shape)} on {sim.device}")
+    require(err_cpu <= SIM_API_TOL, f"pairwise_similarity card vs CPU "
+            f"{err_cpu:.3e} > {SIM_API_TOL}")
+    require(err_pair <= SIM_API_TOL, f"pairwise_similarity diagonal vs "
+            f"pair_similarity {err_pair:.3e} > {SIM_API_TOL}")
+    require(stats.n_layer_attempts == stats.n_inputs * n_layers,
+            f"{stats.n_layer_attempts} layer attempts for "
+            f"{stats.n_inputs} rows x {n_layers} layers")
+    require(abs(rate - stats.memo_rate) <= 1e-12,
+            f"memo_rate {rate} vs hit rate {stats.memo_rate}")
 
 
 # ------------------------------------------------------------ phase 4

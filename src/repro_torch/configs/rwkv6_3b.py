@@ -2,9 +2,10 @@
 
 [arXiv:2404.05892] 32L d_model=2560 d_ff=8960 vocab=65536. Head dim 64
 (40 heads). AttMemo is inapplicable (no APM). A copy of the reference's
-``configs/rwkv6_3b.py`` without ``optimized()``, the reference's
-mesh-sharded variant (batch-sharded scan over a device mesh), which waits
-for the sharding slice.
+``configs/rwkv6_3b.py``. ``optimized()`` is the reference's mesh variant
+(the recurrent scan's operands batch-sharded over the device mesh); it
+sets ``act_shard_batch``, a placement hint that one controller does not
+act on, so the port's dry-run count of it equals the default's.
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -29,3 +30,10 @@ def reduced() -> ModelConfig:
         name="rwkv6-reduced", n_layers=2, d_model=256, n_heads=4,
         n_kv_heads=4, d_ff=896, vocab=512, rwkv_head_dim=64,
     )
+
+
+def optimized() -> ModelConfig:
+    """The reference's adopted pair-2 (it6) configuration: the
+    batch-sharded recurrent scan (``act_shard_batch``), one activation
+    resharding a layer in place of one a scan step on its mesh."""
+    return CONFIG.replace(act_shard_batch=("data", "model"))

@@ -124,7 +124,9 @@ from repro_torch.core.similarity import pair_similarity, similarity_score
 from repro_torch.core.store import MemoStore, StoreSnapshot
 from repro_torch.device import synchronize
 from repro_torch.kernels.memo_attention.ops import memo_attention
-from repro_torch.memo.specs import MemoSpec
+# MemoConfig lives in repro_torch.memo.specs; re-exported here as the
+# reference's core/engine.py re-exports it
+from repro_torch.memo.specs import MemoConfig, MemoSpec  # noqa: F401
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import backbone as bb
 from repro_torch.models import encdec as ed

@@ -2,6 +2,8 @@
 
 Eq. 1 — total-variation similarity between attention probability matrices:
     SC(A, A') = 1 - (1/L) Σ_p ½ ‖A[p,:] − A'[p,:]‖₁   ∈ [0, 1]
+Eq. 2 — memoization rate: ms = M / (N·L), M memoized layer passes of N
+inputs through L layers.
 """
 from __future__ import annotations
 
@@ -17,6 +19,10 @@ def similarity_score(a, a_prime):
         return 1.0 - torch.mean(tv)
     return 1.0 - torch.mean(tv, dim=tuple(range(1, a.ndim - 1)))
 
+
+def memo_rate(n_memoized: int, n_inputs: int, n_layers: int) -> float:
+    """Eq. 2."""
+    return n_memoized / float(n_inputs * n_layers)
 
 
 # elements of one (B, H, L, L) APM pair block that ``pair_similarity``
@@ -35,3 +41,22 @@ def pair_similarity(apms, ia, ib):
     return torch.cat([similarity_score(apms[ia[i:i + step]],
                                        apms[ib[i:i + step]])
                       for i in range(0, len(ia), step)])
+
+
+def pairwise_similarity(a_batch, b_batch):
+    """a_batch: (N, H, L, L) vs b_batch: (M, H, L, L) → (N, M)
+    head-averaged similarity matrix, on the inputs' device. Rows of
+    ``a_batch`` go in chunks whose (rows, M, H, L, L) difference holds at
+    most PAIR_CHUNK_ELEMS elements (one row at least), where the
+    reference maps one row at a time (``lax.map``)."""
+    b = b_batch.float()
+    per = max(1, b.numel())
+    step = max(1, PAIR_CHUNK_ELEMS // per)
+    out = []
+    for i in range(0, a_batch.shape[0], step):
+        a = a_batch[i:i + step].float()
+        tv = 0.5 * torch.sum(torch.abs(a[:, None] - b[None]), dim=-1)
+        out.append(1.0 - torch.mean(tv, dim=(2, 3)))
+    if not out:
+        return b.new_empty((0, b_batch.shape[0]))
+    return torch.cat(out)

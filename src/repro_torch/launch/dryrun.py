@@ -17,9 +17,19 @@ The port loops over its layers in Python, so its full-depth count is
 already exact; the correction is still computed, and on a config whose
 units all cost the same it equals ``full``: a check of the method.
 
+A pair in ``SCALED`` is the exception: its walk of every layer cannot
+finish in an hour on one host core, so ``full`` is the same correction
+(``scale_units``) of its 1-unit and 2-unit walks, the peak phase by
+phase, and its record's ``meta["scaled"]`` says so. At reduced configs
+the scaled FLOPs, bytes, transcendentals and exchanges equal the walk's
+and the peak lies within a few bytes of it (``tests/test_torch_dryrun.py``);
+``scripts/dryrun_scale_check.py`` holds a scaled count against a walked
+record at full size.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2_1_5b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--single-pod-only] [--out DIR]
+  python3 scripts/dryrun_batch.py --jobs 8 --hillclimb   # every pair, batched
 """
 from __future__ import annotations
 
@@ -30,13 +40,23 @@ import time
 import traceback
 from dataclasses import replace
 
+import torch
+
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
-from repro_torch.launch.cost_utils import (StepCounter, collective_bytes,
-                                           cost_summary)
+from repro_torch.launch.cost_utils import (COLLECTIVES, StepCounter,
+                                           arg_summary, collective_bytes,
+                                           cost_summary, device_bytes)
 from repro_torch.launch.mesh import make_production_mesh, use_mesh
 from repro_torch.launch.steps import build_step
 
 ASSIGNED = [a for a in ARCH_IDS if a not in ("bert_base", "gpt2_small")]
+
+# (arch, shape, mesh) pairs whose walk of every layer cannot finish on
+# one host core in an hour: ``main`` counts them with ``scale=True``.
+# kimi_k2's train step walks 60 MoE layers of 16 dispatch chunks,
+# forward, remat and backward: 2,775 s on (16, 16)'s 256 slots on an
+# 8-core host running 8 pairs at once, and (2, 16, 16) has 512.
+SCALED = frozenset({("kimi_k2_1t_a32b", "train_4k", "pod512")})
 
 
 def unit_info(cfg):
@@ -72,6 +92,7 @@ def count_step(arch, shape_name, mesh, *, cfg=None, rules_overrides=None,
         counter.run(built["fn"], *built["args"])
     metrics = cost_summary(counter, built, donate=donate)
     metrics["collectives"] = collective_bytes(counter)
+    metrics["peak_by_phase"] = dict(counter.phase_peaks)
     if verbose:
         print("  memory: args %.3e B/device, peak %.3e B (one controller)"
               % (metrics["arg_bytes"], metrics["peak_bytes"]))
@@ -80,37 +101,107 @@ def count_step(arch, shape_name, mesh, *, cfg=None, rules_overrides=None,
     return built, metrics
 
 
+def unit_counts(arch, shape_name, mesh, cfg, rules_overrides=None):
+    """``count_step``'s metrics of the 1-unit and 2-unit variants of
+    ``cfg`` (``small_variant``)."""
+    return tuple(count_step(arch, shape_name, mesh,
+                            cfg=small_variant(cfg, n),
+                            rules_overrides=rules_overrides)[1]
+                 for n in (1, 2))
+
+
+SCALED_KEYS = ("flops", "bytes", "transcendentals")
+
+
+def scale_units(m1, m2, reps):
+    """The full-depth counts from the 1-unit and 2-unit ones,
+    unit1 + (reps − 1)·(unit2 − unit1), for every count ``count_step``
+    returns that grows with depth: FLOPs, bytes, transcendentals and
+    every exchange. The peak is scaled phase by phase
+    (``StepCounter.phase_peaks``) and the largest taken: a phase's peak
+    grows linearly with depth, but which phase holds the step's peak can
+    change with it: on kimi_k2's train step at full width the secant of
+    the whole step's peaks gives 69% of the walked peak, this all of it
+    (``scripts/dryrun_scale_check.py``). The temporaries are that peak
+    less the step's arguments and outputs, which grow linearly."""
+    def lin(a, b):
+        return a + (reps - 1) * (b - a)
+    out = {k: lin(m1[k], m2[k]) for k in SCALED_KEYS}
+    p1, p2 = m1["peak_by_phase"], m2["peak_by_phase"]
+    out["peak_bytes"] = max(lin(p1[ph], p2[ph]) for ph in p1 if ph in p2)
+    held = lin(m1["peak_bytes"] - m1["temp_bytes"],
+               m2["peak_bytes"] - m2["temp_bytes"])
+    out["temp_bytes"] = max(0, out["peak_bytes"] - held)
+    c1, c2 = m1["collectives"], m2["collectives"]
+    out["collectives"] = {k: lin(c1[k], c2[k])
+                          for k in COLLECTIVES + ("total",)}
+    out["collectives"]["counts"] = {k: lin(c1["counts"][k],
+                                           c2["counts"][k])
+                                    for k in COLLECTIVES}
+    return out
+
+
 def run_one(arch, shape_name, multi_pod, *, correct_scan=True,
             rules_overrides=None, verbose=True, tag="", cfg_override=None,
-            donate=False):
+            donate=False, scale=False):
+    """One pair's record. ``scale=True`` (train steps) walks only the
+    1-unit and 2-unit variants and scales them to full depth
+    (``scale_units``), for a pair whose walk of every layer cannot finish
+    (``SCALED``); its ``meta["scaled"]`` says so, and the argument and
+    output bytes a device still come from the full-depth step."""
     mesh_name = "pod512" if multi_pod else "pod256"
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
            "devices": 512 if multi_pod else 256, "tag": tag}
     t0 = time.time()
     mesh = make_production_mesh(multi_pod=multi_pod)
     cfg = cfg_override or get_config(arch)
+    unit, start, reps, tail = unit_info(cfg)
+    scaled = scale and reps > 1
+    m1 = m2 = None
     try:
-        built, metrics = count_step(
-            arch, shape_name, mesh, cfg=cfg_override,
-            rules_overrides=rules_overrides, verbose=verbose,
-            donate=donate)
+        if scaled:
+            built = build_step(arch, shape_name, mesh,
+                               rules_overrides=rules_overrides,
+                               cfg=cfg_override)
+            if built is not None:
+                if built["meta"]["kind"] != "train":
+                    raise ValueError("scale=True counts train steps only")
+                m1, m2 = unit_counts(arch, shape_name, mesh, cfg,
+                                     rules_overrides)
+                metrics = scale_units(m1, m2, reps)
+                metrics.update(arg_summary(built, donate=donate))
+                # a train step returns new params and optimizer state of
+                # its arguments' shapes, and the loss: their per-device
+                # bytes come from the full-depth step, as the arguments'
+                # do (a 1- or 2-unit stack shards otherwise)
+                args = built["args"]
+                metrics["out_bytes"] = device_bytes(
+                    (args[0], args[1], torch.empty((), device="meta")),
+                    built["out_shardings"])
+                built["meta"]["scaled"] = {
+                    "loop": "layers", "walked_units": [1, 2],
+                    "units": reps,
+                    "walked_layers": [small_variant(cfg, n).n_layers
+                                      for n in (1, 2)]}
+        else:
+            built, metrics = count_step(
+                arch, shape_name, mesh, cfg=cfg_override,
+                rules_overrides=rules_overrides, verbose=verbose,
+                donate=donate)
         if built is None:
             rec["status"] = "skipped"
             rec["reason"] = ("long_500k needs a sub-quadratic variant; "
                              "this arch has none configured")
             return rec
         rec["meta"] = built["meta"]
+        metrics.pop("peak_by_phase", None)
         rec["full"] = metrics
         del built
-        unit, start, reps, tail = unit_info(cfg)
         rec["scan_reps"] = reps
-        if correct_scan and reps > 1:
-            _, m1 = count_step(arch, shape_name, mesh,
-                               cfg=small_variant(cfg, 1),
-                               rules_overrides=rules_overrides)
-            _, m2 = count_step(arch, shape_name, mesh,
-                               cfg=small_variant(cfg, 2),
-                               rules_overrides=rules_overrides)
+        if (correct_scan or scaled) and reps > 1:
+            if m1 is None:
+                m1, m2 = unit_counts(arch, shape_name, mesh, cfg,
+                                     rules_overrides)
             corr = {}
             for k in ("flops", "bytes", "transcendentals"):
                 corr[k] = m1[k] + (reps - 1) * (m2[k] - m1[k])
@@ -165,7 +256,8 @@ def main(argv=None):
     for arch in archs:
         for shape in shapes:
             for mp in meshes:
-                key = f"{arch}_{shape}_{'pod512' if mp else 'pod256'}"
+                grid = "pod512" if mp else "pod256"
+                key = f"{arch}_{shape}_{grid}"
                 path = os.path.join(args.out, key + ".json")
                 if args.skip_existing and os.path.exists(path):
                     print(f"[skip existing] {key}")
@@ -174,7 +266,8 @@ def main(argv=None):
                 # the multi-pod pass proves the step runs; corrections are
                 # for the single-pod table
                 rec = run_one(arch, shape, mp, donate=args.donate,
-                              correct_scan=(not args.no_correct) and not mp)
+                              correct_scan=(not args.no_correct) and not mp,
+                              scale=(arch, shape, grid) in SCALED)
                 with open(path, "w") as f:
                     json.dump(rec, f, indent=1)
                 print(f"   -> {rec['status']} ({rec.get('elapsed_s', 0)}s)"

@@ -24,7 +24,7 @@ places nothing by them yet, nor by ``act_shard_batch``. So pairs 1 and
 only these its own ``cost_summary`` under its own shardings. The port
 counts every layer, so ``corrected`` is the full count (no unit passes).
 
-Run:  python -m repro_torch.launch.hillclimb [--pair 1|2|3]
+Run:  python -m repro_torch.launch.hillclimb [--pair 1|2|3] [--out DIR]
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ import traceback
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, rwkv6_3b
 from repro_torch.launch.cost_utils import (StepCounter, collective_bytes,
                                            cost_summary)
 from repro_torch.launch.dryrun import unit_info
@@ -143,7 +143,7 @@ def pair2():
          {"heads_embed": "data", "embed": "data"}),
         # it4: it1 + the scan's batch/state over both axes
         ("rwkv6_train_it4_state_batch_shard", "it4_state_batch_shard",
-         cfg.replace(act_shard_batch=("data", "model")),
+         rwkv6_3b.optimized(),
          {"heads_embed": None})])
 
 
@@ -206,6 +206,7 @@ def pair3():
     seq, batch = 2048, 256          # paper-scale sequence; APM DB feasible
     for tag, hit in (("it0_baseline", 0.0), ("it1_hit50", 0.5),
                      ("it2_hit94", 0.94)):
+        t0 = time.time()
         fn, args, in_sh, meta = _prefill_memo_step(mesh, seq, batch, hit)
         rec = {"arch": "deepseek_7b", "shape": f"prefill_{seq}",
                "mesh": "pod256", "devices": 256, "tag": tag, "meta": meta,
@@ -227,13 +228,17 @@ def pair3():
         except Exception as e:  # noqa: BLE001 — report failures as data
             rec["status"] = "error"
             rec["error"] = f"{type(e).__name__}: {e}"
+        rec["elapsed_s"] = round(time.time() - t0, 1)
         _save(rec, f"deepseek_prefill2k_{tag}")
 
 
 def main(argv=None):
+    global OUT
     ap = argparse.ArgumentParser()
     ap.add_argument("--pair", type=int, default=0)
+    ap.add_argument("--out", default=OUT)
     args = ap.parse_args(argv)
+    OUT = args.out
     if args.pair in (0, 1):
         pair1()
     if args.pair in (0, 2):

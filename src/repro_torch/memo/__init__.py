@@ -2,8 +2,8 @@
 specs, the extension registries and ``MemoSession`` (build → infer →
 serve → stats), with the serving runtime's and failure model's names.
 
-The names are those of the reference's ``repro.memo`` whose module the
-port has (the deprecated ``MemoConfig`` shim was not carried over).
+The names are those of the reference's ``repro.memo``, the deprecated
+``MemoConfig`` shim included.
 Attributes resolve lazily (PEP 562) so ``repro_torch.memo.specs`` and
 the registries are importable by core modules without a circular import
 through the session layer.
@@ -17,6 +17,7 @@ _EXPORTS = {
     "MemoSession": ("repro_torch.memo.session", "MemoSession"),
     # specs
     "MemoSpec": ("repro_torch.memo.specs", "MemoSpec"),
+    "MemoConfig": ("repro_torch.memo.specs", "MemoConfig"),
     "EmbedSpec": ("repro_torch.memo.specs", "EmbedSpec"),
     "IndexSpec": ("repro_torch.memo.specs", "IndexSpec"),
     "CodecSpec": ("repro_torch.memo.specs", "CodecSpec"),

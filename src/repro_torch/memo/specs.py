@@ -11,16 +11,17 @@ names stay available as write-through, re-validating properties
 over as ``MemoSpec.from_dict(ref_spec.to_dict())`` (fields this package
 has no use for are dropped).
 
-Not carried over: the deprecated ``MemoConfig`` shim, and the fields
-that select JAX implementations (``RuntimeSpec.interpret``,
-``RuntimeSpec.kernel_impl`` — a kernel wrapper here picks its path from
-the tensor's device). String-keyed fields validate against this
-package's registries. ``IndexSpec``, ``CapacitySpec`` and
+``MemoConfig`` is the reference's deprecated flat-kwargs shim. Not
+carried over: the fields that select JAX implementations
+(``RuntimeSpec.interpret``, ``RuntimeSpec.kernel_impl`` — a kernel
+wrapper here picks its path from the tensor's device). String-keyed
+fields validate against this package's registries. ``IndexSpec``, ``CapacitySpec`` and
 ``PrefillSpec`` and ``ShardSpec`` have every field of the reference's.
 """
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import asdict, dataclass, field, fields, replace
 from typing import Dict, Optional, Tuple
 
@@ -32,7 +33,7 @@ def _registries():
 __all__ = [
     "EmbedSpec", "IndexSpec", "CodecSpec", "AdmissionPolicy",
     "EvictionPolicy", "RuntimeSpec", "CapacitySpec", "ShardSpec",
-    "PrefillSpec", "MemoSpec", "FLAT_FIELDS",
+    "PrefillSpec", "MemoSpec", "MemoConfig", "FLAT_FIELDS",
 ]
 
 
@@ -435,3 +436,40 @@ def _flat_property(comp: str, attr: str) -> property:
 for _name, (_comp, _attr) in FLAT_FIELDS.items():
     setattr(MemoSpec, _name, _flat_property(_comp, _attr))
 del _name, _comp, _attr
+
+
+_flat_config_warned = False
+
+
+def _reset_flat_config_warning() -> None:
+    """Test hook: re-arm the once-per-process deprecation warning."""
+    global _flat_config_warned
+    _flat_config_warned = False
+
+
+class MemoConfig(MemoSpec):
+    """Deprecated flat-kwargs shim: ``MemoConfig(threshold=0.9, ...)``
+    maps the old flat surface onto the composed ``MemoSpec`` (the result
+    compares equal to ``MemoSpec.flat(**same_kwargs)``) and emits a
+    ``DeprecationWarning`` once per process. New code: compose specs,
+    or use ``MemoSpec.flat`` for the kwargs convenience."""
+
+    def __init__(self, **kwargs):
+        # component-kwargs form: how dataclasses.replace() and the
+        # inherited flat()/from_dict() classmethods construct; passes
+        # straight through (no warning: the caller already has a spec)
+        if kwargs and all(k in self._COMPONENTS for k in kwargs):
+            super().__init__(**kwargs)
+            return
+        global _flat_config_warned
+        if not _flat_config_warned:
+            _flat_config_warned = True
+            warnings.warn(
+                "MemoConfig(flat kwargs) is deprecated: compose "
+                "repro_torch.memo specs (EmbedSpec/IndexSpec/CodecSpec/"
+                "AdmissionPolicy/EvictionPolicy/RuntimeSpec) or use "
+                "MemoSpec.flat(**kwargs); see MIGRATION.md",
+                DeprecationWarning, stacklevel=2)
+        spec = MemoSpec.flat(**kwargs)
+        super().__init__(**{c: getattr(spec, c)
+                            for c in self._COMPONENTS})

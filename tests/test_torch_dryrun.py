@@ -27,6 +27,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -35,10 +36,10 @@ import torch
 from repro_torch.bridge import tree_to_torch
 from repro_torch.configs import INPUT_SHAPES, get_config, get_reduced
 from repro_torch.launch import dryrun, hillclimb, steps
-from repro_torch.launch.cost_utils import (StepCounter, _tensors,
-                                           collective_bytes, cost_summary,
-                                           device_bytes, shape_bytes,
-                                           shard_bytes)
+from repro_torch.launch.cost_utils import (COLLECTIVES, StepCounter,
+                                           _tensors, collective_bytes,
+                                           cost_summary, device_bytes,
+                                           shape_bytes, shard_bytes)
 from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
                                      use_mesh)
 from repro_torch.launch.steps import build_step, sub_quadratic_window
@@ -69,6 +70,9 @@ FLOP_RATIO = {
     "whisper_medium": (0.92, 0.98),    # 0.950
     "minicpm3_4b": (0.52, 0.58),       # 0.550
 }
+# a 4000-step recurrence's count over a 1000-step one's: ~4 when an op's
+# cost does not grow with the live storages, 12.1 when it did
+STEP_COST_RATIO = 7.0
 # pair 3 at a reduced deepseek_7b: S, batch (half memoized), DB entries
 MEMO_S, MEMO_B, MEMO_DB = 8, 32, 8
 
@@ -358,9 +362,12 @@ def test_step_counter_holds_autograd_saved_tensors(grad):
     # after the second tanh: x and both outputs; then the 4-byte sum
     assert c.peak_bytes == 3 * n + (4 if grad else 0)
     assert c.live_bytes == n + (2 * n if grad else 0) + 4
+    assert c.phase_peaks == {"before": c.peak_bytes}
     if grad:
         c2 = StepCounter(x, c.out)
         c2.run(lambda loss: torch.autograd.grad(loss, x), c.out)
+        assert set(c2.phase_peaks) == {"before", "backward"}
+        assert max(c2.phase_peaks.values()) == c2.peak_bytes
         assert c2.transcendentals == 0      # tanh_backward uses the output
         assert c2.out[0].shape == x.shape
         assert c.live_bytes == n + 4        # the backward freed the saved
@@ -431,6 +438,145 @@ def test_cost_summary_keys_and_donation():
     assert donated["alias_bytes"] == device_bytes(
         [built["args"][2]], [built["in_shardings"][2]]) > 0
     assert plain["peak_bytes"] >= c.base_bytes
+
+
+def _recurrence(a, b, h0):
+    h = h0
+    for t in range(a.shape[0]):
+        h = torch.addcmul(b[t], a[t], h)
+    return h
+
+
+def _recurrence_seconds(n):
+    """Best of two counts of an ``n``-step recurrence with grad: every
+    step's output stays live (the next step saves it for the backward),
+    as a plain wkv or RG-LRU scan's do in a train step."""
+    best = float("inf")
+    for _ in range(2):
+        a, b = _m(n, 64).requires_grad_(), _m(n, 64).requires_grad_()
+        h0 = _m(64)
+        c = StepCounter(a, b, h0)
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            c.run(_recurrence, a, b, h0)
+        best = min(best, time.perf_counter() - t0)
+        assert c.peak_bytes == c.base_bytes + n * 64 * 4
+    return best
+
+
+def test_step_counter_cost_is_linear_in_live_storages():
+    """The fault the full-size pairs found: the counter re-checked every
+    live storage after each op that raised the live total past the peak,
+    so an op's cost grew with the number of live storages and a step
+    that keeps one a time step alive cost the square of its length
+    (rwkv6_3b's train_4k at a reduced width: 426 s a layer). Storage
+    finalizers make it linear: 4x the steps cost ~4x the time (3.4x
+    measured; 12.1x before the repair)."""
+    _recurrence_seconds(100)                     # warm-up
+    t1, t4 = _recurrence_seconds(1000), _recurrence_seconds(4000)
+    assert t4 / t1 < STEP_COST_RATIO, (t1, t4)
+
+
+# scaled pairs at reduced configs over a (4, 2) mesh: the scaled counts
+# equal the walked ones exactly, the peak (and the temporaries beside it)
+# within PEAK_SCALE_RTOL (measured: 4 and 8 bytes of 2.1e11)
+SCALED_CASES = [("kimi_k2_1t_a32b", "train_4k", 4),
+                ("dbrx_132b", "train_4k", 4)]
+PEAK_SCALE_RTOL = 1e-9
+
+
+@pytest.mark.parametrize("arch,shape,n_layers", SCALED_CASES)
+def test_scaled_count_equals_walked_count(arch, shape, n_layers,
+                                          monkeypatch):
+    mesh = make_host_mesh(4, 2, device=META)
+    monkeypatch.setattr(dryrun, "make_production_mesh",
+                        lambda multi_pod=False: mesh)
+    cfg = get_reduced(arch).replace(n_layers=n_layers)
+    walked = dryrun.run_one(arch, shape, False, cfg_override=cfg,
+                            verbose=False)
+    scaled = dryrun.run_one(arch, shape, False, cfg_override=cfg,
+                            verbose=False, scale=True)
+    assert walked["status"] == scaled["status"] == "ok", \
+        (walked.get("traceback"), scaled.get("traceback"))
+    w, s = walked["full"], scaled["full"]
+    for k in ("flops", "bytes", "transcendentals", "out_bytes",
+              "arg_bytes", "alias_bytes", "collectives"):
+        assert s[k] == w[k], k
+    assert w["collectives"]["total"] > 0
+    for k in ("peak_bytes", "temp_bytes"):
+        assert abs(s[k] - w[k]) <= PEAK_SCALE_RTOL * w[k], (k, s[k], w[k])
+    assert scaled["corrected"] == walked["corrected"]
+    unit, start, reps, tail = dryrun.unit_info(cfg)
+    assert scaled["meta"]["scaled"] == {
+        "loop": "layers", "walked_units": [1, 2], "units": reps,
+        "walked_layers": [start + unit + tail, start + 2 * unit + tail]}
+    assert "scaled" not in walked["meta"]
+
+
+def test_scale_units_takes_the_peak_phase_by_phase():
+    """Each phase's peak is scaled on its own and the largest taken: the
+    secant of the two steps' peaks would follow the phase that holds the
+    peak at 1 and 2 units (here the one before the backward, as the
+    logits hold kimi_k2's at full width) past the depth where another
+    (the optimizer's) overtakes it."""
+    def m(before, backward, after, held):
+        peak = max(before, backward, after)
+        cols = {k: 0 for k in COLLECTIVES}
+        return {"flops": 1.0, "bytes": 2.0, "transcendentals": 3.0,
+                "peak_bytes": peak, "temp_bytes": peak - held,
+                "peak_by_phase": {"before": before, "backward": backward,
+                                  "after": after},
+                "collectives": dict(cols, total=0, counts=dict(cols))}
+    m1, m2 = m(1000, 900, 100, 50), m(1010, 920, 400, 80)
+    got = dryrun.scale_units(m1, m2, reps=10)
+    assert got["peak_bytes"] == 100 + 9 * 300          # the optimizer's
+    assert got["peak_bytes"] > 1010 + 8 * 10           # the secant's
+    assert got["temp_bytes"] == got["peak_bytes"] - (50 + 9 * 30)
+    assert (got["flops"], got["bytes"]) == (1.0, 2.0)
+
+
+def test_main_scales_only_the_scaled_pairs(tmp_path, monkeypatch):
+    mesh = make_host_mesh(4, 2, device=META)
+    monkeypatch.setattr(dryrun, "make_production_mesh",
+                        lambda multi_pod=False: mesh)
+    cfg = get_reduced("dbrx_132b").replace(n_layers=3)
+    monkeypatch.setattr(dryrun, "get_config", lambda a: cfg)
+    monkeypatch.setattr(steps, "get_config", lambda a: cfg)
+    monkeypatch.setattr(dryrun, "SCALED",
+                        frozenset({("dbrx_132b", "train_4k", "pod512")}))
+    recs = {r["mesh"]: r for r in dryrun.main(
+        ["--arch", "dbrx_132b", "--shape", "train_4k", "--out",
+         str(tmp_path)])}
+    assert "scaled" not in recs["pod256"]["meta"]
+    assert recs["pod512"]["meta"]["scaled"]["walked_layers"] == [1, 2]
+    walked = dryrun.run_one("dbrx_132b", "train_4k", True,
+                            correct_scan=False, verbose=False)
+    for k in ("flops", "bytes", "collective_bytes"):
+        assert recs["pod512"]["corrected"][k] == walked["corrected"][k], k
+    # only a train step is scaled
+    rec = dryrun.run_one("dbrx_132b", "decode_32k", True, verbose=False,
+                         scale=True)
+    assert rec["status"] == "error" and "train steps only" in rec["error"]
+
+
+def test_rwkv6_optimized_counts_what_the_default_counts():
+    """``act_shard_batch`` is a placement hint one controller does not
+    act on: ``rwkv6_3b.optimized()`` at a reduced config counts what the
+    default config counts (the hillclimb's pair-2 it4)."""
+    from repro_torch.configs import rwkv6_3b
+    red = get_reduced("rwkv6_3b").replace(n_layers=1)
+    opt = rwkv6_3b.optimized().replace(**{
+        f: getattr(red, f) for f in ("name", "n_layers", "d_model",
+                                     "n_heads", "n_kv_heads", "d_ff",
+                                     "vocab")})
+    assert opt == red.replace(act_shard_batch=("data", "model"))
+    recs = [dryrun.run_one("rwkv6_3b", "train_4k", False, cfg_override=c,
+                           verbose=False) for c in (red, opt)]
+    assert [r["status"] for r in recs] == ["ok", "ok"], \
+        [r.get("traceback") for r in recs]
+    assert recs[0]["full"] == recs[1]["full"]
+    assert recs[0]["corrected"] == recs[1]["corrected"]
+    assert recs[0]["full"]["flops"] > 0
 
 
 # ------------------------------------------------------------ hillclimb
