@@ -22,6 +22,11 @@ and read just after:
 * on the same session and requests (phase 5b): ``select`` mode, the
   host-synchronous ``bucket`` and ``kernel`` paths (``memo_attention``),
   the bucket fast path at ``device_quanta=4`` (``nn_search``), the
+  per-quantum hit-skip (``graph_cond``, ``[hitskip]`` lines) at quanta 1
+  and 4 under thresholds -inf, +inf and the calibrated one against its
+  plain every-row mixed form (logits, hits, 0 host syncs, the softmax
+  and QKᵀ launches of a traced batch against the non-all-hit quanta, ms
+  a batch, capture time, pool bytes), the
   selective-memoization profiler (its lookup probe: ``nn_search``; the
   PB table and kernel-mode latency over its active layers), and last,
   online admission in kernel mode with a budget that evicts
@@ -83,7 +88,9 @@ and read just after:
   batch whose rows must hit their own entries, with caches equal to the
   decode of the stored K/V, then 8 teacher-forced greedy decode steps
   from both cache sets held to the reference's int8 bound; 32 prefill
-  requests through ``MemoServer``; and ``launch/serve.py`` on the card,
+  requests through ``MemoServer``; the per-quantum hit-skip as in 5b
+  (caches held too, an all-hit quantum's bit-equal); and
+  ``launch/serve.py`` on the card,
   with its defaults and with ``--prefill --arch gpt2_small``;
 * the zoo's dense GQA decoders at head_dim 128 (phase 8, ``[zoo]``
   lines, a ``{"zoo": ...}`` JSON line) — both attention kernels at
@@ -96,8 +103,8 @@ and read just after:
   memoized ``prefill`` (``nn_search``) and ``prefill_exact``
   (``flash_attention``), a replayed batch whose caches are the decode of
   the stored K/V, and 8 decode steps from both cache sets (8b); the
-  kernel forwards of ``qwen3_8b`` and ``deepseek_7b`` at full width and
-  depth and ``chameleon_34b`` at full width cut to 8 layers (B=2,
+  kernel forwards of ``qwen3_8b`` and ``deepseek_7b`` at full width cut
+  to 12 layers and ``chameleon_34b`` at full width cut to 8 layers (B=2,
   S=1024, ``flash_attention``) against the plain forward, with prefill +
   8 decode steps (8c);
 * the zoo's MLA and MoE models (phase 9, ``[zoo2]`` lines, a
@@ -456,6 +463,7 @@ def wrappers():
 def zero_counts():
     for fn in wrappers().values():
         fn.launches = 0
+    graph_cond_wrapper().launches = 0
 
 
 def read_counts():
@@ -936,6 +944,7 @@ def drive(torch, sess, requests, name, per_path, keep=None, syncs=0, **kw):
                 sims.append(np.asarray(list(st.sims)).reshape(
                     len(hits[-1]), -1))
         per_path[name] = read_counts()
+        GRAPH_LAUNCHES[name] = graph_cond_wrapper().launches
     if fast and syncs:
         ctx.require_syncs(name)
     return dict(outs=outs, hits=hits, sims=sims, slots=slots,
@@ -1046,6 +1055,8 @@ def serve_main_path(torch, dev):
             f"kernel mode never launched memo_attention: {per_path}")
     require(per_path["bucket"]["nn_search"] > 0,
             f"bucket mode never launched nn_search: {per_path}")
+    require(GRAPH_LAUNCHES["bucket"] > 0,
+            f"bucket mode never launched graph_cond: {GRAPH_LAUNCHES}")
     r = drive(torch, sess, requests, "memo-free", per_path, use_memo=False)
     plain, plain_ms = r["outs"], r["ms"]
 
@@ -1323,6 +1334,418 @@ def profile_batch(torch, sess, batch):
     device_profile(torch, "kernel-mode batch", lambda: sess.infer(batch))
 
 
+# ------------------------------------------------------------ hit-skip
+# the device branch (core/cond.py, csrc/graph_cond.cu): the bucket fast
+# path (5b) and memoized prefill (7) at these device_quanta, each under a
+# threshold that makes every row hit, none, and the calibrated one
+HITSKIP_QUANTA = (1, 4)
+HITSKIP_BATCHES = 3
+# the counting process's session: calibration batches and embedder steps
+# (it counts branches; its hit rates need not match phase 3's)
+HITSKIP_CHILD_CALIB, HITSKIP_CHILD_EMBED_STEPS = 1, 50
+# traced reads of a leg's batch; the counts most of them give are held.
+# The profiler now and then misnames or drops a record of a kernel in a
+# conditional body (one read in a leg of 12 GEMM-heavy layers gave 69
+# GEMMs above the all-hit batch's where the branch's 72 ran, while the
+# bodies' device counters matched the hit masks exactly)
+HITSKIP_TRACE_READS = 3
+# the branch (bodies at quantum size) against the plain every-row mixed
+# form (whole batch): the same operations over other GEMM shapes, so f32
+# reassociation alone; REPLAY_GAP's margin. An all-hit prefill quantum's
+# caches are the stored K/V themselves: held bit-equal
+HITSKIP_TOL = REPLAY_GAP
+# device kernels counted by name in a traced batch: cuBLAS's GEMMs (the
+# QKᵀ among them) and the softmax
+GEMM_NAMES = ("gemm", "xmma", "nvjet", "cutlass", "gemv")
+# wrapper launches of the device branch by path (the four TPU kernels'
+# counts stay in per_path, whose checks compare them whole)
+GRAPH_LAUNCHES = {}
+
+
+def graph_cond_wrapper():
+    from repro_torch.core.cond import run_quanta
+    return run_quanta
+
+
+def non_hit_quanta(pend, nq):
+    """Σ over memoized layers of the quanta that are not all-hit, from the
+    hits a batch returned (``prep.pend``), sorted hit-first as the engine
+    sorts them: the quanta that must run QKᵀ and softmax."""
+    from repro_torch.core.cond import quantum_branches
+    total = 0
+    for p in pend:
+        h = sorted(p[2].cpu().tolist(), reverse=True)
+        total += sum(b != 0 for b in quantum_branches(h, nq))
+    return total
+
+
+def kernel_counts(rows):
+    """(softmax, GEMM, where) launches of a trace's (ms, count, name)."""
+    def n(keys):
+        return sum(c for _, c, k in rows if any(s in k.lower() for s in keys))
+    return n(("softmax",)), n(GEMM_NAMES), n(("where",))
+
+
+def window_kernels(torch, fn, warm=True):
+    """One ``fn()`` (after a warm-up, unless ``warm`` is False) under
+    ``torch.profiler``: per kernel
+    name, its launches that began inside the window of that call (a
+    record a profiler flushes late from an earlier session falls
+    outside it), as ``trace``'s (ms, count, name) rows; and how many
+    device records fell outside."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("hitskip_window"):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    win = next(e for e in events if e.name == "hitskip_window"
+               and e.device_type == DeviceType.CPU).time_range
+    counts, ms, outside = {}, {}, 0
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if win.start <= e.time_range.start <= win.end:
+            counts[e.name] = counts.get(e.name, 0) + 1
+            ms[e.name] = ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        else:
+            outside += 1
+    return [(ms[k], c, k) for k, c in counts.items()], outside
+
+
+def hitskip_batch(torch, eng, batch, thr, prefill, mixed_form):
+    """One fast-path batch (``prepare_batch`` → ``run_layers`` under
+    ``set_sync_debug_mode("error")`` → ``finalize``): the device branch,
+    or with ``mixed_form`` its plain version. Returns (outputs, pend)."""
+    prep = eng.prepare_batch(batch, threshold=thr, prefill=prefill,
+                             mixed_form=mixed_form)
+    with HostSyncs(torch):
+        eng.run_layers(prep)
+    out, st, payload = eng.finalize(prep)
+    eng.apply_maintenance(payload, stats=st)
+    return out, prep.pend
+
+
+def hitskip_gap(torch, a, b, prefill, exact):
+    """Largest |a - b| over logits (and every layer's caches)."""
+    if not prefill:
+        return (a - b).abs().max().item()
+    (la, ca), (lb, cb) = a, b
+    gap = (la - lb).abs().max().item()
+    for x, y in zip(_leaves(ca), _leaves(cb)):
+        if exact:
+            require(bool(torch.equal(x, y)), "an all-hit quantum's cache "
+                    "is not the stored K/V")
+        gap = max(gap, (x.float() - y.float()).abs().max().item())
+    return gap
+
+
+def hitskip(torch, sess, batches, thr, memo_free_ms, tag, smi,
+            prefill=False, record=None):
+    """The device branch against its plain version on one session, at
+    every HITSKIP_QUANTA and three thresholds (-inf: every row hits;
+    +inf: none; ``thr``): logits (and caches) within HITSKIP_TOL of the
+    every-row mixed form, equal hits, 0 host syncs in run_layers on
+    replayed batches, one branch launch a layer, ms a batch of both forms
+    beside ``memo_free_ms``, the capture time and the pool's bytes; then
+    the branches counted in a fresh process (``hitskip_trace``).
+    ``record(nq, name)`` may return a context entered around the last
+    graph batch of that leg."""
+    import contextlib
+    import numpy as np
+    eng = sess.engine
+    rt = sess.spec.runtime
+    run_quanta = graph_cond_wrapper()
+    L = len(eng.layers)
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    out = {}
+    for nq in HITSKIP_QUANTA:
+        rt.device_quanta = nq
+        c0 = eng.graphs.captures
+        t = time.perf_counter()
+        hitskip_batch(torch, eng, batches[0], thr, prefill, False)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        caps = eng.graphs.captures - c0
+        for name, t_ in hitskip_thresholds(thr):
+            gaps, ms_g, ms_p, n_launch = [], [], [], 0
+            for i, batch in enumerate(batches):
+                torch.cuda.synchronize()
+                run_quanta.launches = 0
+                ctx = (record(nq, name) if record and i == len(batches) - 1
+                       else contextlib.nullcontext())
+                t = time.perf_counter()
+                with ctx:
+                    g, pend_g = hitskip_batch(torch, eng, batch, t_,
+                                              prefill, False)
+                torch.cuda.synchronize()
+                ms_g.append((time.perf_counter() - t) * 1e3)
+                n_launch += run_quanta.launches
+                t = time.perf_counter()
+                p, pend_p = hitskip_batch(torch, eng, batch, t_, prefill,
+                                          True)
+                torch.cuda.synchronize()
+                ms_p.append((time.perf_counter() - t) * 1e3)
+                for a, b in zip(pend_g, pend_p):
+                    require(bool(torch.equal(a[2], b[2])),
+                            f"{tag}: the two forms' hits differ")
+                gaps.append(hitskip_gap(torch, g, p, prefill,
+                                        exact=name == "all_hit"))
+            require(n_launch == L * len(batches),
+                    f"{tag} quanta={nq} {name}: {n_launch} device-branch "
+                    f"launches, want {L * len(batches)}")
+            gap = max(gaps)
+            require(gap <= HITSKIP_TOL, f"{tag} quanta={nq} {name}: branch "
+                    f"vs mixed form {gap:.3e}")
+            hits = np.stack([p_[2].cpu().numpy() for p_ in pend_g])
+            r = dict(hit_rate=float(hits.mean()),
+                     non_hit_quanta=non_hit_quanta(pend_g, nq), max_gap=gap,
+                     ms=med(ms_g), plain_ms=med(ms_p),
+                     memo_free_ms=memo_free_ms)
+            out[f"q{nq}_{name}"] = r
+            print(f"[hitskip] {tag} quanta={nq} {name}: hit rate "
+                  f"{r['hit_rate']:.4f}, {r['non_hit_quanta']} non-hit "
+                  f"quanta over {L} layers (last batch); branch vs "
+                  f"every-row mixed form max|d| {gap:.3e} (bound "
+                  f"{HITSKIP_TOL:.0e}); {L} branch launches a batch; "
+                  f"run_layers 0 host syncs (set_sync_debug_mode('error')); "
+                  f"ms a batch: device branch {r['ms']:.2f}, plain mixed "
+                  f"form {r['plain_ms']:.2f}, memo-free {memo_free_ms:.2f} "
+                  f"({smi})")
+        g = eng.graphs
+        out[f"q{nq}_capture"] = dict(
+            new_sites=caps, first_batch_ms=first_ms, sites=len(g),
+            captures=g.captures, capture_s=g.capture_seconds,
+            pool_bytes=g.pool_bytes(), buffer_bytes=g.buffer_bytes())
+        print(f"[hitskip] {tag} quanta={nq}: first batch {first_ms:.1f} ms "
+              f"({caps} new sites; a site is captured at the first batch "
+              f"of its shape); the session's {g.captures} captures took "
+              f"{g.capture_seconds:.3f} s "
+              f"({g.capture_seconds / max(1, g.captures) * 1e3:.1f} ms a "
+              f"site of 3 x quanta bodies); graph pool "
+              f"{g.pool_bytes() / 1e6:.1f} MB, fixed buffers "
+              f"{g.buffer_bytes() / 1e6:.1f} MB, {len(g)} live sites "
+              f"({smi})")
+    rt.device_quanta = 1
+    out["trace"] = hitskip_trace("prefill" if prefill else "bucket", smi)
+    return out
+
+
+def hitskip_thresholds(thr):
+    return (("all_hit", float("-inf")), ("all_miss", float("inf")),
+            ("calibrated", thr))
+
+
+def hitskip_trace(kind, smi):
+    """``hitskip_child(kind)`` in a fresh process (its lines echoed).
+    Late in a long process the profiler names some kernels of
+    conditional bodies wrongly (a softmax in an all-hit batch whose
+    bodies' device counters show that no non-hit body ran); in a fresh
+    one it names them all right. Returns its JSON."""
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--hitskip-child", kind], capture_output=True,
+                         text=True, timeout=600)
+    for line in res.stdout.splitlines()[:-1]:
+        print(line)
+    require(res.returncode == 0, f"hitskip child {kind} failed: "
+            f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+    return json.loads(res.stdout.splitlines()[-1])
+
+
+def hitskip_child(kind, dev=None):
+    """``python3 chip_smoke.py --hitskip-child bucket|prefill``: in a
+    fresh process, a full-width session (bert_base bucket mode, or
+    gpt2_small memoized prefill; int8, HITSKIP_CHILD_CALIB calibration
+    batches, HITSKIP_CHILD_EMBED_STEPS embedder steps) whose branch bodies each add one to a device counter of their
+    own (the increment is captured with the body, so it moves only when
+    the card runs that body). At every HITSKIP_QUANTA and threshold: the
+    counters over HITSKIP_BATCHES batches equal the branches the hit
+    masks call for; in one traced batch the softmax launches equal the
+    non-all-hit quanta (0 when every row hits) and the GEMMs above the
+    all-hit batch's are that many sets of the non-hit branch's extra
+    GEMMs (its Q/K projections and QKᵀ, measured as the all-miss batch's
+    excess over its quanta). Prints a line a leg and a JSON line last."""
+    import collections
+
+    import torch
+
+    import repro_torch.core.engine as engine_mod
+    from repro_torch.configs import get_config
+    from repro_torch.core.cond import quantum_branches
+    from repro_torch.data import TemplateCorpus
+    from repro_torch.kernels import build
+    from repro_torch.memo import MemoSpec
+    from repro_torch.memo.session import MemoSession
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_info()
+    dev = torch.device("cuda") if dev is None else dev
+    prefill = kind == "prefill"
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    attr = "_prefill_branches" if prefill else "_bucket_branches"
+    real = getattr(engine_mod.MemoEngine, attr)
+
+    def counted(self, *args):
+        def wrap(b, f):
+            def body(*ops):
+                counts[b].add_(1)
+                return f(*ops)
+            return body
+        return tuple(wrap(b, f) for b, f in enumerate(real(self, *args)))
+    setattr(engine_mod.MemoEngine, attr, counted)
+    arch = "gpt2_small" if prefill else "bert_base"
+    kw = dict(mode="bucket", apm_codec="int8",
+              embed_steps=HITSKIP_CHILD_EMBED_STEPS)
+    spec = (MemoSpec.flat(prefill_enabled=True, prefill_cache_len=2 * SEQ,
+                          **kw) if prefill else MemoSpec.flat(**kw))
+    cfg = get_config(arch)
+    model = build_model(cfg, device=dev)
+    params = model.init(generator=torch.Generator(device=dev).manual_seed(0))
+    corpus = TemplateCorpus(vocab=cfg.vocab, seq_len=SEQ, seed=0)
+    calib = [{"tokens": corpus.sample(BATCH)[0]}
+             for _ in range(HITSKIP_CHILD_CALIB)]
+    fresh = [{"tokens": corpus.sample(BATCH)[0]}
+             for _ in range(HITSKIP_BATCHES + 1)]
+    sess = MemoSession.build(model, params, spec, batches=calib, device=dev)
+    sess.autotune(fresh[:2], "moderate")
+    eng, thr = sess.engine, sess.spec.runtime.threshold
+    L, tag = len(eng.layers), f"{arch} {'prefill' if prefill else 'bucket'}"
+    out = {}
+    for nq in HITSKIP_QUANTA:
+        sess.spec.runtime.device_quanta = nq
+        hitskip_batch(torch, eng, fresh[0], thr, prefill, False)
+        torch.cuda.synchronize()
+        gemm_hit = d_qkt = None
+        for name, t in hitskip_thresholds(thr):
+            c0, want = counts.clone(), [0, 0, 0]
+            for batch in fresh[1:]:
+                _, pend = hitskip_batch(torch, eng, batch, t, prefill, False)
+                for p in pend:
+                    for b in quantum_branches(
+                            sorted(p[2].cpu().tolist(), reverse=True), nq):
+                        want[b] += 1
+            torch.cuda.synchronize()
+            ran = (counts - c0).tolist()
+            require(ran == want, f"{tag} quanta={nq} {name}: bodies ran "
+                    f"{ran} times on the card, the hit masks call for "
+                    f"{want}")
+            _, pend = hitskip_batch(torch, eng, fresh[-1], t, prefill,
+                                    False)
+            non_hit = non_hit_quanta(pend, nq)
+            reads = []
+            for i in range(HITSKIP_TRACE_READS):
+                rows, outside = window_kernels(
+                    torch, lambda: hitskip_batch(torch, eng, fresh[-1], t,
+                                                 prefill, False),
+                    warm=i == 0)
+                reads.append(kernel_counts(rows) + (outside,))
+            (soft, gemm, where, outside), n_same = collections.Counter(
+                reads).most_common(1)[0]
+            require(2 * n_same > len(reads), f"{tag} quanta={nq} {name}: "
+                    f"no majority among the traced reads (softmax, GEMM, "
+                    f"where, outside) {reads}")
+            if name == "all_hit":
+                require(soft == 0 and non_hit == 0, f"{tag}: the all-hit "
+                        f"batch ran {soft} softmax launches")
+                gemm_hit = gemm
+            elif name == "all_miss":
+                d_qkt, rem = divmod(gemm - gemm_hit, non_hit)
+                require(non_hit == L * nq and rem == 0 and d_qkt > 0,
+                        f"{tag}: {gemm - gemm_hit} GEMMs above the all-hit "
+                        f"batch over {non_hit} quanta")
+            qkt = (gemm - gemm_hit) // d_qkt if d_qkt else 0
+            require(soft == non_hit and qkt == non_hit,
+                    f"{tag} quanta={nq} {name}: softmax {soft}, QKᵀ-branch "
+                    f"GEMM sets {qkt}, want {non_hit} non-hit quanta")
+            out[f"q{nq}_{name}"] = dict(
+                body_runs=ran, non_hit_quanta=non_hit, softmax=soft,
+                gemm=gemm, qkt_sets=qkt, gemm_per_set=d_qkt, where=where,
+                records_outside=outside, reads=reads)
+            print(f"[hitskip] {tag} quanta={nq} {name} (fresh process): "
+                  f"bodies run on the card (all_hit, all_miss, mixed) "
+                  f"{ran} over {HITSKIP_BATCHES} batches, as the hit masks "
+                  f"call for; traced batch: {soft} softmax launches and "
+                  f"{qkt} QKᵀ-branch GEMM sets ({gemm} GEMMs, "
+                  f"{d_qkt} a set) = {non_hit} non-hit quanta over {L} "
+                  f"layers; {where} where launches; {outside} device "
+                  f"records outside the traced call; {n_same} of "
+                  f"{len(reads)} reads agree"
+                  + ("" if n_same == len(reads) else f" (reads {reads})"))
+    out["device"] = (torch.cuda.get_device_name(0) if dev.type == "cuda"
+                     else str(dev))
+    return out
+
+
+class RecordQuanta:
+    """While active, records the engine's ``run_quanta`` calls (arguments
+    and outputs)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import repro_torch.core.engine as engine_mod
+        self.mod, self.real = engine_mod, engine_mod.run_quanta
+
+        def call(*args, **kw):
+            out = self.real(*args, **kw)
+            self.calls.append((args, kw, out))
+            return out
+        engine_mod.run_quanta = call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.run_quanta = self.real
+
+
+def graph_cond_time(torch, cfg, call, errs):
+    """One layer's device branch, replayed on the card on the arguments
+    the bucket path gave it, against the plain mixed form on the same
+    inputs: its error, ms, plain ms and its bound (the bytes it moves:
+    operands, output and the weights the taken branches read; the FLOPs
+    of the taken branches' products at the f32 SIMT rate: cuBLAS runs
+    f32 without TF32 here)."""
+    from repro_torch.core.cond import quantum_branches
+    args, kw, outs = call
+    hit, nq, branches, ops = args
+    run_quanta = graph_cond_wrapper()
+    plain = branches[2](*ops)
+    err = (outs[0] - plain).abs().max().item()
+    errs["graph_cond"] = max(errs.get("graph_cond", 0.0), err)
+    require(err <= HITSKIP_TOL, f"graph_cond vs mixed form {err:.3e}")
+    n0 = run_quanta.launches
+    ms = event_ms(lambda: run_quanta(*args, **kw))
+    run_quanta.launches = n0
+    plain_ms = event_ms(lambda: branches[2](*ops))
+    x = ops[0]
+    B, S, D = x.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qs = B // nq
+    taken = quantum_branches(hit.cpu().tolist(), nq)
+    proj = 2 * qs * S * D * dh
+    attn = 2 * qs * H * S * S * dh
+    flops = sum(proj * (Hkv + H) + attn if b == 0
+                else proj * (2 * H + 2 * Hkv) + 2 * attn for b in taken)
+    w = sum(t.numel() * t.element_size() for t in ops if t is not None)
+    wbytes = D * dh * 4 * (Hkv + H if all(b == 0 for b in taken)
+                           else 2 * H + 2 * Hkv)
+    nbytes = w + outs[0].numel() * 4 + wbytes
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"[time] graph_cond (one bert_base layer's branch site, B={B}, "
+          f"S={S}, quanta={nq}, branches {taken}): {ms:.4f} ms replayed "
+          f"(copies in and out included) vs the plain mixed form "
+          f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); max|d| "
+          f"{err:.3e}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, branches=taken, quanta=nq)
+
+
 # ------------------------------------------------------------ phase 5b
 def admission_read_back(torch, store, slots):
     """Writes read back from the device tier the next batch serves (the
@@ -1367,12 +1790,13 @@ def admission_read_back(torch, store, slots):
     return worst, other
 
 
-def serve_policies(torch, dev, sess, main, per_path):
+def serve_policies(torch, dev, sess, main, per_path, errs, smi):
     """The engine's other serving policies on the session of phase 3, over
     the same requests: select mode, the host-synchronous bucket and
     kernel paths, the bucket fast path with ``device_quanta=4``, the
     selective-memoization profiler, and online admission (last: it
     changes the store). Returns the per-path results for the JSON."""
+    import contextlib
     import numpy as np
     eng, spec, store = sess.engine, sess.spec, sess.store
     rt = spec.runtime
@@ -1431,8 +1855,8 @@ def serve_policies(torch, dev, sess, main, per_path):
     out["apm_copy"] = dict(mb=apm.nbytes / 1e6, ms=copy_ms)
     del host
 
-    # the bucket fast path at device_quanta=4 (served as one mixed
-    # quantum: the same values as quanta 1, no host read)
+    # the bucket fast path at device_quanta=4: rows sorted hit-first into
+    # 4 quanta, each taking its branch on the card
     rt.mode, rt.device_quanta = "bucket", 4
     r = drive(torch, sess, requests, "quanta", per_path)
     device_profile(torch, "bucket fast-path batch, device_quanta=4",
@@ -1450,6 +1874,18 @@ def serve_policies(torch, dev, sess, main, per_path):
                                              thr, REPLAY_GAP,
                                              "f32 reassociation"))
     del r
+
+    # the per-quantum hit-skip against its plain version (every row
+    # mixed), quanta 1 and 4, thresholds -inf / +inf / calibrated; layer
+    # 0's branch site is recorded at quanta 1, calibrated, and timed
+    rec = RecordQuanta()
+    out["hitskip"] = hitskip(
+        torch, sess, requests[:HITSKIP_BATCHES], thr, main["plain_ms"],
+        "bert_base bucket", smi,
+        record=lambda nq, name: (rec if (nq, name) == (1, "calibrated")
+                                 else contextlib.nullcontext()))
+    out["graph_cond"] = graph_cond_time(torch, eng.cfg, rec.calls[0], errs)
+    del rec
 
     # selective memoization: the profiler, then kernel mode over its
     # active layers beside all layers and memo-free
@@ -2063,9 +2499,10 @@ def big_memory(torch, dev, sess, main, per_path, smi):
 # it takes 1 (384 entries, 4608 SVDs; 2 took 57.6 s of the script, which
 # phase 13 pushed past ~1,050 s)
 SCALE_CALIB_BATCHES, LOWRANK_CALIB_BATCHES = 16, 1
-# rows at dim 128, B = 32; 262,144 and 524,288 bracket the crossover with
-# nn_search (between 65,536 and 1,048,576 in PERF.md's first runs)
-SCALE_SWEEP = (4096, 65536, 1 << 18, 1 << 19, 1 << 20)
+# rows at dim 128, B = 32; the crossover with nn_search lies between
+# 524,288 and 1,048,576 (PERF.md), so 262,144 and 1,048,576 bracket it
+# (524,288 went to pay for the hit-skip legs' time)
+SCALE_SWEEP = (4096, 65536, 1 << 18, 1 << 20)
 SCALE_SERVER_REQUESTS, SCALE_SERVER_RATE = 64, 100.0
 # the server leg's admission headroom (entries above the built store, so
 # it evicts and recycled slots patch packed rows) and the clustered
@@ -2570,8 +3007,9 @@ def store_scale(torch, dev, per_path, errs, smi):
 # its Poisson arrivals ask for
 SERVER_BUCKETS = (32, 64, 128)
 SERVER_MAX_BATCH, SERVER_QUANTUM, SERVER_DELAY = 32, 4, 4e-3
-# (192 requests: 256 until phase 14 joined the script, the cut pays for it)
-SERVER_REQUESTS, SERVER_UTILIZATION = 192, 0.7
+# (128 requests: 256 until phase 14 joined the script, 192 until the
+# hit-skip legs of phases 5b and 7 did; the cuts pay for them)
+SERVER_REQUESTS, SERVER_UTILIZATION = 128, 0.7
 # async vs sync runtime with admission off: the same kernels on the same
 # snapshot (the tolerance of tests/test_runtime.py)
 SERVER_TOL = 1e-5
@@ -3580,6 +4018,10 @@ def serve_prefill(torch, dev, per_path, errs, smi):
             ms_memo.append((time.perf_counter() - t) * 1e3)
             outs.append(lg)
         per_path["prefill"] = read_counts()
+        GRAPH_LAUNCHES["prefill"] = graph_cond_wrapper().launches
+    require(GRAPH_LAUNCHES["prefill"] == L * len(fresh),
+            f"memoized prefill launched graph_cond "
+            f"{GRAPH_LAUNCHES['prefill']} times, want {L * len(fresh)}")
     want = {k: 0 for k in KERNELS}
     want["nn_search"] = L * len(fresh)
     require(per_path["prefill"] == want,
@@ -3617,6 +4059,10 @@ def serve_prefill(torch, dev, per_path, errs, smi):
           f"{total.memo_rate:.4f} ({int(hits.sum())}/{hits.size}); argmax "
           f"agreement of the last-token logits {agree:.4f}; launches "
           f"{per_path['prefill']} and {per_path['prefill_exact']}")
+    # the per-quantum hit-skip against its plain version
+    res["hitskip"] = hitskip(torch, sess, fresh[:HITSKIP_BATCHES], thr,
+                             res["ms_prefill_exact"], "gpt2_small prefill",
+                             smi, prefill=True)
 
     # a replayed calibration batch, every row a hit (threshold -1e9)
     replay = calib[0]
@@ -3937,9 +4383,11 @@ ZOO_CALIB = 4
 # last 16): a whole batch's (32, 128, 151936) f32 logits are 2.49 GB, and
 # 7 batches in 3 modes would not fit beside the model
 ZOO_KEEP = 16
-# phase 8c: (arch, n_layers or None for the full depth), at B=2, S=1024.
-# chameleon_34b's 48 layers are 136 GB of f32 weights: cut to 8 (26 GB)
-ZOO_FORWARDS = (("qwen3_8b", None), ("deepseek_7b", None),
+# phase 8c: (arch, n_layers), at B=2, S=1024. chameleon_34b's 48 layers
+# are 136 GB of f32 weights: cut to 8 (26 GB); qwen3_8b (36) and
+# deepseek_7b (30) to 12 each to pay for the hit-skip legs' time (their
+# full depth ran until then, within the same FORWARD_RTOL)
+ZOO_FORWARDS = (("qwen3_8b", 12), ("deepseek_7b", 12),
                 ("chameleon_34b", 8))
 ZOO_FWD_B, ZOO_FWD_S = 2, 1024
 
@@ -4444,9 +4892,8 @@ def zoo(torch, dev, per_path, errs, smi):
         cfg = get_config(arch)
         if n_layers:
             print(f"[{arch}] depth cut from {cfg.n_layers} to {n_layers} "
-                  f"layers: all {cfg.n_layers} are "
-                  f"{cfg.param_count() * 4 / 1e9:.0f} GB of f32 weights, "
-                  f"past the card's memory")
+                  f"layers (all {cfg.n_layers} are "
+                  f"{cfg.param_count() * 4 / 1e9:.0f} GB of f32 weights)")
             cfg = cfg.replace(n_layers=n_layers)
         per_path[arch], out[arch] = forward_path(
             torch, dev, arch, ZOO_FWD_B, ZOO_FWD_S, "flash_attention",
@@ -4847,6 +5294,20 @@ def zoo2_minicpm(torch, dev, per_path, errs, smi):
          "minicpm3_bucket": {"nn_search": L * nb}, "minicpm3_memo_free": {}})
     zoo2_report(torch, arch, cfg, results, per_path, "minicpm3",
                 res)
+    # both modes take the bucketed form's device branch on MLA layers
+    g = sess.engine.graphs
+    for mode in ("kernel", "bucket"):
+        n = GRAPH_LAUNCHES[f"minicpm3_{mode}"]
+        require(n == L * nb, f"{arch} {mode}: {n} graph_cond launches, "
+                f"want {L * nb}")
+    res["graphs"] = dict(sites=len(g), captures=g.captures,
+                         capture_s=g.capture_seconds,
+                         pool_bytes=g.pool_bytes(),
+                         buffer_bytes=g.buffer_bytes())
+    print(f"[zoo2] {arch} device branch over {L} MLA layers: {len(g)} "
+          f"sites, captured in {g.capture_seconds:.2f} s; graph pool "
+          f"{res['graphs']['pool_bytes'] / 1e9:.3f} GB, fixed buffers "
+          f"{res['graphs']['buffer_bytes'] / 1e9:.3f} GB ({smi})")
     res["decisions"] = compare_decisions(
         torch, "minicpm3 kernel", results["kernel"], "minicpm3 bucket",
         results["bucket"], thr, REPLAY_GAP, "MLA: one form in both modes")
@@ -7110,6 +7571,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--hitskip-child"]:
+        print(json.dumps(hitskip_child(sys.argv[2])))
+        return 0
     from repro_torch.kernels import build
 
     dev = torch.device("cuda")
@@ -7144,7 +7608,10 @@ def main() -> int:
     sess, per_path, captured, main_path = serve_main_path(torch, dev)
     times = time_kernels(torch, dev, sess, captured, errs)
     profile_batch(torch, sess, main_path["requests"][0])
-    policies = serve_policies(torch, dev, sess, main_path, per_path)
+    policies = serve_policies(torch, dev, sess, main_path, per_path, errs,
+                              smi)
+    times["graph_cond"] = dict(policies["graph_cond"],
+                               hitskip=policies["hitskip"])
     print(json.dumps({"policies": policies}))
     bigmem = big_memory(torch, dev, sess, main_path, per_path, smi)
     print(json.dumps({"big_memory": bigmem}))
@@ -7255,13 +7722,20 @@ def main() -> int:
                             "src/repro/kernels/flash_attention/kernel.py:86"),
         "rwkv6": ("src/repro_torch/csrc/rwkv6.cu",
                   "src/repro/kernels/rwkv6/kernel.py:75"),
+        # no pallas_call: the nested jax.lax.cond of the reference's
+        # bucketed fast path
+        "graph_cond": ("src/repro_torch/csrc/graph_cond.cu",
+                       "src/repro/core/engine.py:832"),
     }
+    launches["graph_cond"] = GRAPH_LAUNCHES["bucket"]
     times["rwkv6"]["resources"] = wkv_res
     times["nn_search"]["resources"] = nn_res
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name],
-                    launches_per_path={path: c[name]
-                                       for path, c in per_path.items()},
+                    launches_per_path=(
+                        dict(GRAPH_LAUNCHES) if name == "graph_cond"
+                        else {path: c[name]
+                              for path, c in per_path.items()}),
                     max_abs_err=errs[name], **times[name],
                     **({"sass_tensor_core_instructions": sass[name]}
                        if name in sass else {}))

@@ -24,13 +24,17 @@ sizes on the host: one sync per MoE layer.
   in the reference: ``memo_attention`` serves GQA layers only.
 * ``bucket`` — the search goes through the ``nn_search`` kernel; the
   batch's APM rows are gathered and decoded (through f16, like the host
-  decode) and attention runs the mixed formulation (``gqa_apply`` with a
-  ``Memo`` override) over the whole batch. ``device_quanta > 1`` is
-  served the same way: the reference sorts rows hit-first into quanta
-  and picks all-hit / all-miss / mixed per quantum with ``lax.cond`` on
-  a device scalar; eager PyTorch would need a host read for that branch,
-  and without it every quantum runs the mixed form, so the port runs one
-  mixed quantum — the same values, no hit-skip (ROADMAP known gaps).
+  decode). Then, as the reference's ``bucketed``, the rows are sorted
+  hit-first (``device_quanta > 1``) and cut into quanta, and each
+  quantum takes one of three branches on its hit count: ``all_hit``
+  runs the memo-only attention (V and APM·V: no Q/K projection, QKᵀ or
+  softmax), ``all_miss`` plain attention (no memo combine), ``mixed``
+  both, picked per row (``gqa_apply`` with a ``Memo`` override). The
+  branch is ``core/cond.py``'s: on the card, CUDA-graph conditional
+  nodes over captured bodies, with no host read (the reference's
+  ``lax.cond`` on a device scalar); on the CPU a Python ``if``. The
+  every-row mixed form stays as the plain version
+  (``prepare_batch(mixed_form=True)``), for tests and chip_smoke.
 
 **The host-synchronous path** (``select``, and ``bucket``/``kernel``
 with ``device_fast_path=False`` or the host store): per layer, embed on
@@ -73,13 +77,12 @@ lookup overhead and memo rate feed ``PerfModel``; serve its
 admission by prefill batches only. ``prefill`` runs the fast path with
 ``prepare_batch(prefill=True)``: memoized layers (``_layer_fused_prefill``)
 search through ``nn_search``, decode the matched row's APM and K/V, and
-run the mixed form for every row — a hit row takes the stored APM and
-its decode cache from the stored K/V, a miss row exact attention and its
-fresh K/V, chosen by ``torch.where`` (the reference picks all-hit,
-all-miss or mixed per quantum with ``lax.cond``; eager PyTorch would need
-a host read for that branch; the values are the same). Kernel-mode
-engines take this form too: ``memo_attention`` hands back no K/V, as in
-the reference. Other layers build their caches exactly
+take the bucket path's per-quantum branch: an all-hit quantum replays
+the stored APM and takes its decode cache straight from the stored K/V,
+an all-miss quantum runs exact attention and caches its fresh K/V, a
+mixed quantum does both and picks per row with ``torch.where``.
+Kernel-mode engines take this form too: ``memo_attention`` hands back
+no K/V, as in the reference. Other layers build their caches exactly
 (``_layer_plain_prefill``); ``finalize`` returns the last-token logits
 and the caches ``Model.decode_step`` consumes. ``prefill_exact`` is
 ``Model.prefill``, the memo-free leg.
@@ -115,6 +118,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.cond import GraphCache, n_quanta, run_quanta, site_key
 from repro_torch.core.database import AttentionDB
 from repro_torch.core.embedding import Embedder, embed_apply, train_embedder
 from repro_torch.core.faults import FaultInjector
@@ -251,6 +255,8 @@ class PreparedBatch:
     cache_len: int = 0
     cache_tpls: Optional[dict] = None
     caches_by_li: dict = field(default_factory=dict)
+    # the plain version of the device branch (every row mixed)
+    mixed_form: bool = False
 
 
 @dataclass
@@ -292,6 +298,7 @@ class MemoEngine:
         self._recal_buf: List = []       # rolling (apms, embs) captures
         self._flush_count = 0
         self.faults = FaultInjector.from_spec(self.mc.runtime.faults)
+        self.graphs = GraphCache()        # the device branch's sites
 
     # --- store delegation ------------------------------------------------
     @property
@@ -584,7 +591,8 @@ class MemoEngine:
     def prepare_batch(self, batch, *, threshold: Optional[float] = None,
                       active_layers: Optional[Sequence[int]] = None,
                       sync_store: bool = True,
-                      prefill: bool = False) -> PreparedBatch:
+                      prefill: bool = False,
+                      mixed_form: bool = False) -> PreparedBatch:
         """Stage one device-resident batch: freeze the policy inputs
         (threshold, active layers, admission sampling), read the store
         snapshot the whole batch serves against, and move every host
@@ -599,7 +607,12 @@ class MemoEngine:
         ``prefill=True`` stages a memoized causal prefill: the batch also
         carries per-layer decode-cache templates, memoized layers run
         ``_layer_fused_prefill`` and ``finalize`` returns
-        ``(last_logits, caches)``."""
+        ``(last_logits, caches)``.
+
+        ``mixed_form=True`` runs the plain version of the device branch:
+        every row of a bucketed layer takes the mixed form, with no
+        per-quantum branch. Tests and chip_smoke hold the branch against
+        it; serving never asks for it."""
         if not self._use_fast_path():
             raise RuntimeError(
                 "prepare_batch drives the device fast path; build() the "
@@ -656,7 +669,8 @@ class MemoEngine:
             tokens=tokens, h=h, positions=positions, kpad=kpad,
             lengths_dev=len_dev, lengths=lengths, n_valid=n_valid, thr=thr,
             active=active, capture=capture, view=view, t0=t0,
-            prefill=prefill, cache_len=cache_len, cache_tpls=cache_tpls)
+            prefill=prefill, cache_len=cache_len, cache_tpls=cache_tpls,
+            mixed_form=mixed_form)
 
     @torch.no_grad()
     def run_layers(self, prep: PreparedBatch) -> PreparedBatch:
@@ -678,7 +692,7 @@ class MemoEngine:
                         lp, h, li, prep.thr, prep.positions,
                         view=prep.view, cache_tpl=prep.cache_tpls[li],
                         kpad=prep.kpad, qlen=prep.lengths_dev,
-                        capture=prep.capture)
+                        capture=prep.capture, mixed_form=prep.mixed_form)
                     prep.caches_by_li[li] = {"k": ck, "v": cv}
                     prep.pend.append((li, *rest))
                 else:
@@ -693,7 +707,7 @@ class MemoEngine:
                 h, *rest = self._layer_fused(
                     lp, h, kind, li, prep.thr, prep.positions,
                     view=prep.view, kpad=prep.kpad, qlen=prep.lengths_dev,
-                    capture=prep.capture)
+                    capture=prep.capture, mixed_form=prep.mixed_form)
                 prep.pend.append((li, *rest))
             else:
                 h = self._layer_plain(lp, h, kind, li, None, prep.positions,
@@ -727,7 +741,8 @@ class MemoEngine:
         return out, st, payload
 
     def _layer_fused(self, lp, h, kind, li, thr: float, positions, view,
-                     kpad=None, qlen=None, capture: bool = False):
+                     kpad=None, qlen=None, capture: bool = False,
+                     mixed_form: bool = False):
         """The serving layer (see the module docstring). Returns
         (h', sims, hits, slots) — plus (embs, apms_f16) under ``capture``
         — all device tensors."""
@@ -759,8 +774,14 @@ class MemoEngine:
             apm = self.store.codec.decode_rows(rows).float()
             if apm.shape[-1] != S:
                 apm = apm[..., :S, :S]
-            y = self._attend(lp, x, kind, positions, kpad=kpad,
-                             memo=attn_mod.Memo(apm=apm, hit=hit))[0]
+            branches = self._bucket_branches(lp, kind)
+            ops = (x, apm, hit, positions, kpad)
+            if mixed_form:
+                y = branches[2](*ops)
+            else:
+                spec = ("bucket", kind, tuple(x.shape), tuple(apm.shape),
+                        varlen, view.codec_key)
+                (y,) = self._run_quanta(lp, li, spec, branches, ops)
         out = (self._chan_tail(lp, h + y, li), sim, hit, idx0)
         if capture:
             # miss capture for online admission: the TRUE APM of this
@@ -843,14 +864,17 @@ class MemoEngine:
     # ------------------------------------------------------ prefill layers
     def _layer_fused_prefill(self, lp, h, li, thr: float, positions, view,
                              cache_tpl, kpad=None, qlen=None,
-                             capture: bool = False):
+                             capture: bool = False,
+                             mixed_form: bool = False):
         """The memoized-prefill layer: ``_layer_fused``'s lookup (the
         search through ``nn_search``, the threshold and the length gate,
         which a replayed K/V prefix doubly needs) plus the K/V leg. The
-        gather decodes the entry's K/V next to its APM; every row runs
-        the mixed form: attention with the stored APM on hit rows, and
-        the decode cache from the stored K/V on hit rows, the exact K/V
-        on miss rows. Both are zero-padded to the template's length, as
+        gather decodes the entry's K/V next to its APM; each quantum
+        takes its branch (``_prefill_branches``): an all-hit quantum
+        skips Q/K, QKᵀ and softmax and takes its decode cache straight
+        from the stored K/V, an all-miss quantum runs exact attention and
+        caches its fresh K/V, a mixed one does both and picks per row.
+        Both are zero-padded to the template's length, as
         ``gqa_prefill_cache`` pads, so a hit's cache and the exact cache
         differ only by the K/V codec's quantization. Returns
         (h', k_cache, v_cache, sims, hits, slots[, embs, apms, kvs])."""
@@ -874,21 +898,83 @@ class MemoEngine:
             apm = apm[..., :S, :S]
         kv = codec.decode_kv_rows(rows).float()
         mk, mv = unstack_kv_rows(kv[:, :, :S], cfg.n_kv_heads, cfg.head_dim)
-        y = self._attend(lp, x, "attn", positions, kpad=kpad,
-                         memo=attn_mod.Memo(apm=apm, hit=hit))[0]
-        k, v = self._true_kv(lp, x, positions, kpad)
-        m = hit[:, None, None, None]
+        branches = self._prefill_branches(lp)
+        ops = (x, apm, mk, mv, hit, positions, kpad)
+        if mixed_form:
+            y, k_new, v_new = branches[2](*ops)
+        else:
+            spec = ("prefill", tuple(x.shape), tuple(apm.shape), varlen,
+                    Sc, cdt, view.codec_key)
+            y, k_new, v_new = self._run_quanta(lp, li, spec, branches, ops)
         pad = (0, 0, 0, 0, 0, Sc - S)
-        ck = F.pad(torch.where(m, mk, k), pad).to(cdt)
-        cv = F.pad(torch.where(m, mv, v), pad).to(cdt)
+        ck = F.pad(k_new, pad).to(cdt)
+        cv = F.pad(v_new, pad).to(cdt)
         out = (self._chan_tail(lp, h + y, li), ck, cv, sim, hit, idx0)
         if capture:
             # miss capture: the true APM and K/V, computed exactly like
             # the miss path (an admitted entry replays bit for bit)
+            k, v = self._true_kv(lp, x, positions, kpad)
             out = out + (emb, self._apm_probe(lp, x, "attn", positions,
                                               kpad=kpad),
                          stack_kv(k, v).half())
         return out
+
+    # --------------------------------------------------- the device branch
+    def _run_quanta(self, lp, li, spec, branches, ops):
+        """The reference's ``bucketed`` over ``nq`` quanta: sort the rows
+        hit-first (stable, as ``jnp.argsort``), run each quantum's branch
+        (``core/cond.py``: a Python ``if`` on the CPU, conditional graph
+        nodes on the card) and unsort. ``ops`` ends with
+        ``(hit, positions, kpad)``."""
+        hit = ops[-3]
+        nq = n_quanta(self.mc.device_quanta, hit.shape[0])
+        order = None
+        if nq > 1:
+            order = torch.argsort(~hit, stable=True)
+            ops = tuple(None if o is None else o.index_select(0, order)
+                        for o in ops)
+        key = (site_key((li, spec[0]), (nq,) + spec[1:],
+                        list(lp["mix"].values()))
+               if hit.device.type == "cuda" else None)
+        outs = run_quanta(ops[-3], nq, branches, ops, cache=self.graphs,
+                          key=key)
+        if order is not None:
+            inv = torch.argsort(order)
+            outs = tuple(o.index_select(0, inv) for o in outs)
+        return outs
+
+    def _bucket_branches(self, lp, kind):
+        """(all_hit, all_miss, mixed) of a bucketed layer, over
+        (x, apm, hit, positions, kpad): the reference's ``bucketed``."""
+        def all_hit(xs, apm, hit, pos, kp):
+            return self._memo_only(lp, xs, kind, apm)
+
+        def all_miss(xs, apm, hit, pos, kp):
+            return self._attend(lp, xs, kind, pos, kpad=kp)[0]
+
+        def mixed(xs, apm, hit, pos, kp):
+            return self._attend(lp, xs, kind, pos, kpad=kp,
+                                memo=attn_mod.Memo(apm=apm, hit=hit))[0]
+        return all_hit, all_miss, mixed
+
+    def _prefill_branches(self, lp):
+        """(all_hit, all_miss, mixed) of a memoized-prefill layer, over
+        (x, apm, mk, mv, hit, positions, kpad), each returning
+        (y, k, v): the stored K/V, the exact K/V, or per row."""
+        def all_hit(xs, apm, mk, mv, hit, pos, kp):
+            return self._memo_only(lp, xs, "attn", apm), mk, mv
+
+        def all_miss(xs, apm, mk, mv, hit, pos, kp):
+            y = self._attend(lp, xs, "attn", pos, kpad=kp)[0]
+            return (y,) + self._true_kv(lp, xs, pos, kp)
+
+        def mixed(xs, apm, mk, mv, hit, pos, kp):
+            y = self._attend(lp, xs, "attn", pos, kpad=kp,
+                             memo=attn_mod.Memo(apm=apm, hit=hit))[0]
+            k, v = self._true_kv(lp, xs, pos, kp)
+            m = hit[:, None, None, None]
+            return y, torch.where(m, mk, k), torch.where(m, mv, v)
+        return all_hit, all_miss, mixed
 
     def _true_kv(self, lp, x, positions, kpad=None):
         """Exact post-RoPE K/V of a batch in f32, padded rows zeroed (the

@@ -140,8 +140,9 @@ class RuntimeSpec:
     mode: str = "select"            # select | bucket | kernel
     store: str = "device"           # serving store: device | host
     device_fast_path: Optional[bool] = None   # None → auto by mode/store
-    device_quanta: int = 1          # fused-path bucket granularity (the
-    #                                 port serves one mixed quantum)
+    device_quanta: int = 1          # fused-path bucket granularity: rows
+    #                                 sorted hit-first into this many
+    #                                 quanta, each all-hit/all-miss/mixed
     bucket_quantum: int = 4         # host-path hit-bucket padding quantum
     #                                 (the port's buckets are exact-size)
     max_layers: Optional[int] = None

@@ -350,6 +350,7 @@ def test_port_imports_neither_jax_nor_reference():
         "        'repro_torch.core.runtime',\n"
         "        'repro_torch.core.capacity',\n"
         "        'repro_torch.core.shard',\n"
+        "        'repro_torch.core.cond',\n"
         "        'repro_torch.memo.registry',\n"
         "        'repro_torch.memo.session',\n"
         "        'repro_torch.launch.server',\n"

@@ -110,8 +110,9 @@ def test_host_paths_match_reference(built, path, which):
 @pytest.mark.parametrize("quanta", [2, 4])
 @pytest.mark.parametrize("which", ["all_hit", "all_miss", "mid"])
 def test_device_quanta_match_reference(built, quanta, which):
-    """The bucket fast path at ``device_quanta`` > 1, which the port serves
-    as one mixed quantum, against the reference's hit-first quanta."""
+    """The bucket fast path at ``device_quanta`` > 1 against the
+    reference: both sort the rows hit-first into quanta and take each
+    quantum's all-hit / all-miss / mixed branch."""
     jeng, teng, queries = built
     thr = _threshold(jeng, teng, which, queries[0])
     _set(jeng, teng, mode="bucket", device_fast_path=None,
