@@ -6,11 +6,14 @@
 Builds the port's hand-written CUDA kernels from ``src/repro_torch/csrc``
 (``build/`` at the repository root), requires the attention kernels,
 the three rwkv6 kernels and nn_search's to spill nothing (ptxas; the
-runtime's local bytes for rwkv6 and nn_search) and the attention
-kernels to hold tensor-core instructions (their SASS, from
-``cuobjdump``), and holds each kernel against its plain PyTorch version
-on synthetic cases, the attention tiles' edges, rwkv6's chunk edges and
-nn_search's tile and row-range edges among them. Then
+runtime's local bytes for every attention instantiation, rwkv6 and
+nn_search) and the attention kernels to hold tensor-core instructions
+(their SASS, from ``cuobjdump``: warpgroup MMA, HGMMA, at head_dim 112
+and 128, mma.sync, HMMA, at the other widths), and holds each kernel
+against its plain PyTorch version on synthetic cases, the attention
+tiles' edges (the 64-row query tiles; the wgmma tile's 32-key tiles),
+rwkv6's chunk edges and nn_search's tile and row-range edges among
+them. Then
 it drives every path, each with every launch count at 0 just before it
 and read just after:
 
@@ -296,6 +299,11 @@ ADMIT_HEADROOM = 256
 KERNELS = ("memo_attention", "nn_search", "flash_attention", "rwkv6")
 # sequence lengths at the edges of the attention kernels' 64-row tiles
 TILE_EDGES = (63, 64, 65, 127, 129)
+# the wgmma tile's key tile (head_dim 112 and 128: KT in
+# src/repro_torch/csrc/attention_wgmma.cuh) and sequence lengths at its
+# edges: KT - 1, KT, KT + 1, 2 KT + 1
+WG_KT = 32
+WG_EDGES = (WG_KT - 1, WG_KT, WG_KT + 1, 2 * WG_KT + 1)
 # rwkv6 chunk lengths timed at rwkv6_3b's shape; 0 stands for C = S (one
 # chunk: one block per (b, h) walking all S steps, one launch)
 WKV_SWEEP = (64, 128, 256, 0)
@@ -403,9 +411,11 @@ def check_build(info):
     """The compiler's report and the built code: prints ptxas's register
     and spill lines; every kernel of SPILL_FREE must appear there and
     spill nothing. From ``cuobjdump --dump-sass`` of the library, the
-    tensor-core instructions (HMMA, HGMMA) of every instantiation of the
-    attention kernels, each of which must hold some. Returns those counts
-    summed by kernel."""
+    tensor-core instructions of every instantiation of the attention
+    kernels: warpgroup MMA (HGMMA) at head_dim 112 and 128 (the wgmma
+    tile, ``attention_wgmma.cuh``), mma.sync (HMMA) at the other widths;
+    each instantiation must hold its kind. Returns the counts summed by
+    kernel."""
     import re
     import shutil
     from repro_torch.kernels import build
@@ -435,19 +445,48 @@ def check_build(info):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            per_fn[fn] = 0
-        elif fn and re.search(r"\b(HMMA|HGMMA)\b", line):
-            per_fn[fn] += 1
+            per_fn[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn:
+            m = re.search(r"\b(HMMA|HGMMA)\b", line)
+            if m:
+                per_fn[fn][m.group(1)] += 1
     totals = {}
     for a in attention:
         fns = {f: n for f, n in per_fn.items() if a in f}
         require(len(fns) > 0, f"no {a} in the SASS of {info['path']}")
         for f, n in sorted(fns.items()):
-            print(f"[setup] SASS {n} tensor-core instructions (HMMA/HGMMA) "
-                  f"in {f}")
-            require(n > 0, f"{f} has no tensor-core instruction")
-        totals[a.removesuffix("_kernel")] = sum(fns.values())
+            want = "HGMMA" if re.search(r"ILi(112|128)E", f) else "HMMA"
+            print(f"[setup] SASS {n['HGMMA']} HGMMA, {n['HMMA']} HMMA "
+                  f"tensor-core instructions in {f} (wants {want})")
+            require(n[want] > 0, f"{f} has no {want} instruction")
+        totals[a.removesuffix("_kernel")] = sum(
+            sum(n.values()) for n in fns.values())
     return totals
+
+
+ATTENTION_DH = (16, 32, 64, 112, 128, 256)
+
+
+def attention_resources():
+    """Each attention kernel instantiation as the runtime reports it
+    (blocks per SM, registers, local bytes, shared bytes, threads),
+    printed under ``[setup]``; none may use local memory. Returns them
+    by "flash dh" / "memo dh int8|f16"."""
+    from repro_torch.kernels.flash_attention.ops import resources as fres
+    from repro_torch.kernels.memo_attention.ops import resources as mres
+    out = {}
+    for dh in ATTENTION_DH:
+        out[f"flash_attention dh {dh}"] = fres(dh)
+        for quant in (True, False):
+            out[f"memo_attention dh {dh} {'int8' if quant else 'f16'}"] = (
+                mres(dh, quant))
+    for name, r in out.items():
+        print(f"[setup] {name}: {r['blocks_per_sm']} resident blocks per SM "
+              f"of {r['threads']} threads, {r['registers']} registers, "
+              f"{r['local_bytes']} local bytes, {r['shared_bytes']} shared "
+              f"bytes per block")
+        require(r["local_bytes"] == 0, f"{name} uses local memory")
+    return out
 
 
 def wrappers():
@@ -1339,7 +1378,9 @@ def profile_batch(torch, sess, batch):
 # path (5b) and memoized prefill (7) at these device_quanta, each under a
 # threshold that makes every row hit, none, and the calibrated one
 HITSKIP_QUANTA = (1, 4)
-HITSKIP_BATCHES = 3
+# batches a leg (3 until the script reached 1181.7 s of its 1200 on a slow
+# host; ms a batch is the larger of the two)
+HITSKIP_BATCHES = 2
 # the counting process's session: calibration batches and embedder steps
 # (it counts branches; its hit rates need not match phase 3's)
 HITSKIP_CHILD_CALIB, HITSKIP_CHILD_EMBED_STEPS = 1, 50
@@ -2008,6 +2049,10 @@ BIGMEM_FREE_BYTES = 6 << 30
 # the capacity session's host budget, in entries: the build's 3072
 # entries live on disk and all but this many are demoted
 CAPACITY_HOST_ENTRIES = 1024
+# the server over the tier: requests before the disk fault, under it and
+# after recover() (64, 64, 32 until the script reached 1181.7 s of its
+# 1200 on a slow host)
+CAPACITY_SERVER_REQUESTS = (32, 32, 16)
 # the SIGKILL child: opens a copy of the session's tier, appends two
 # random rows at a time (acked once journaled), checkpoints every other
 KILL_CHILD = """\
@@ -2369,19 +2414,19 @@ def capacity_server(torch, sess, corpus, per_path):
     zero_counts()
     with timers, sess.serve(buckets=SERVER_BUCKETS,
                             max_batch=SERVER_MAX_BATCH) as srv:
-        comps = serve_all(srv, requests(64))
+        comps = serve_all(srv, requests(CAPACITY_SERVER_REQUESTS[0]))
         srv.drain_maintenance(timeout=120)
         require(srv.n_checkpoints > 0, "no checkpoint in the trace")
         n_ckpt = srv.n_checkpoints
         inj.arm("capacity.disk_write_io", p=1.0)
-        comps += serve_all(srv, requests(64))
+        comps += serve_all(srv, requests(CAPACITY_SERVER_REQUESTS[1]))
         srv.drain_maintenance(timeout=120, raise_errors=False)
         degraded = srv.health
         ok_while = store.capacity_ok
         inj.disarm()
         report = srv.recover()
         healthy = srv.health
-        comps += serve_all(srv, requests(32))
+        comps += serve_all(srv, requests(CAPACITY_SERVER_REQUESTS[2]))
         srv.drain_maintenance(timeout=120)
         flushes = max(1, srv.n_batches)
     per_path["capacity-server"] = read_counts()
@@ -2389,7 +2434,8 @@ def capacity_server(torch, sess, corpus, per_path):
             "the server over the tier launched no nn_search")
     for c in comps:
         require(bool(np.isfinite(c.logits).all()), "non-finite logits")
-    require(len(comps) == 160, f"{len(comps)} of 160 requests served")
+    n_req = sum(CAPACITY_SERVER_REQUESTS)
+    require(len(comps) == n_req, f"{len(comps)} of {n_req} requests served")
     require(degraded is Health.DISK_DEGRADED and not ok_while,
             f"disk_write_io: health {degraded}, capacity_ok {ok_while}")
     require(report["capacity_ok"] is True and healthy is Health.HEALTHY
@@ -2398,7 +2444,7 @@ def capacity_server(torch, sess, corpus, per_path):
                                                      timers.calls["checkpoint"])
     secs = {k: (v - secs0[k]) * 1e3 / flushes
             for k, v in store.promote_secs.items()}
-    print(f"[bigmem] server: 160 requests over the tier, {n_ckpt} "
+    print(f"[bigmem] server: {n_req} requests over the tier, {n_ckpt} "
           f"checkpoints before the fault ({ckpt_ms:.1f} ms each, "
           f"{timers.calls['checkpoint']} in all); disk_write_io -> "
           f"{degraded.value} with every request served (finite logits); "
@@ -3007,9 +3053,10 @@ def store_scale(torch, dev, per_path, errs, smi):
 # its Poisson arrivals ask for
 SERVER_BUCKETS = (32, 64, 128)
 SERVER_MAX_BATCH, SERVER_QUANTUM, SERVER_DELAY = 32, 4, 4e-3
-# (128 requests: 256 until phase 14 joined the script, 192 until the
-# hit-skip legs of phases 5b and 7 did; the cuts pay for them)
-SERVER_REQUESTS, SERVER_UTILIZATION = 128, 0.7
+# (96 requests: 256 until phase 14 joined the script, 192 until the
+# hit-skip legs of phases 5b and 7 did, 128 until the script reached
+# 1181.7 s of its 1200 on a slow host; the cuts pay for them)
+SERVER_REQUESTS, SERVER_UTILIZATION = 96, 0.7
 # async vs sync runtime with admission off: the same kernels on the same
 # snapshot (the tolerance of tests/test_runtime.py)
 SERVER_TOL = 1e-5
@@ -4234,6 +4281,57 @@ def memo_bound(B, S, H, Hkv, dh, n_hit, causal):
     return attention_bounds(nbytes, mm, softmax)
 
 
+def wgmma_edges(torch, dev, errs, dh, tag, drift=False):
+    """The wgmma tile (head_dim ``dh``, 112 or 128) at the edges of its key
+    tile (WG_EDGES), flash_attention and memo_attention against their
+    plain versions over causal / windowed / bidirectional masks, memo over
+    all-hit, all-miss and mixed rows and int8 and f16 DBs; with ``drift``,
+    both at S=1024, causal with window 70 (where one long chain of
+    tensor-core sums would drift). Errors fold into ``errs``."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.memo_attention.ops import memo_attention
+    from repro_torch.kernels.memo_attention.ref import memo_attention_ref
+    worst = {"flash_attention": 0.0, "memo_attention": 0.0}
+    cases = [(S, i) for i, S in enumerate(WG_EDGES)]
+    if drift:
+        cases.append((1024, None))
+    for S, i in cases:
+        masks = ((True, 70),) if i is None else (
+            ((True, None), (True, 20), (False, None))[i % 3],)
+        for causal, window in masks:
+            q, k, v = flash_case(torch, dev, B=2, S=S, H=4, Hkv=2, dh=dh,
+                                 seed=1200 + S)
+            err = (flash_attention(q, k, v, causal=causal, window=window)
+                   - flash_attention_ref(q, k, v, causal=causal,
+                                         window=window)).abs().max().item()
+            require(err <= ATOL, f"flash_attention dh {dh} S={S} causal="
+                    f"{causal} window={window} error {err}")
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            for j, hits in enumerate(("all", "none", "mixed")):
+                quant = (j + (i or 0)) % 2 == 0
+                args, kw = attention_case(
+                    torch, dev, B=3, S=S, H=4, Hkv=2, dh=dh, N=3, L=S,
+                    quant=quant, varlen=j == 2, seed=1300 + S + j,
+                    hits=hits)
+                err = (memo_attention(*args, causal=causal, window=window,
+                                      **kw)
+                       - memo_attention_ref(*args, causal=causal,
+                                            window=window, **kw)
+                       ).abs().max().item()
+                require(err <= ATOL, f"memo_attention dh {dh} S={S} "
+                        f"{hits} causal={causal} window={window} error {err}")
+                worst["memo_attention"] = max(worst["memo_attention"], err)
+    for name, err in worst.items():
+        errs[name] = max(errs[name], err)
+    print(f"[{tag}] wgmma tile dh {dh} at its key-tile edges S={WG_EDGES}"
+          f"{' and S=1024 causal window 70' if drift else ''}: max|err| "
+          f"flash {worst['flash_attention']:.3e}, memo (all-hit / all-miss "
+          f"/ mixed, int8 and f16) {worst['memo_attention']:.3e} "
+          f"(tolerance {ATOL:.0e})")
+    return worst
+
+
 def zoo_kernels(torch, dev, errs):
     """Phase 8a: flash_attention and memo_attention at head_dim 128
     against their plain versions at every tile edge, GQA group
@@ -4288,6 +4386,7 @@ def zoo_kernels(torch, dev, errs):
           f"H=12 dh={dh}: max|err| {err:.3e} (tolerance {ATOL:.0e})")
     require(err <= ATOL, f"memo_attention lowrank dh {dh} error {err}")
     errs["memo_attention"] = max(errs["memo_attention"], err)
+    wgmma_edges(torch, dev, errs, dh, "zoo", drift=True)
 
     # timed at the slice's shapes: qwen2_1_5b serving (B=32, S=128,
     # H=12, Hkv=2) for both kernels, qwen3_8b's forward (B=2, S=1024,
@@ -5010,6 +5109,7 @@ def zoo2_kernels(torch, dev, errs, info):
                     n += 1
     for name, err in worst.items():
         errs[name] = max(errs[name], err)
+    wgmma_edges(torch, dev, errs, dh, "zoo2")
     print(f"[zoo2] dh {dh}: flash_attention (B=2, S=129) and memo_attention "
           f"(B=4, S={SEQ}, int8 and f16 DBs, all-hit / all-miss / mixed, "
           f"{n} cases) at {ZOO2_GROUPS[0]} and {ZOO2_GROUPS[1]} query heads "
@@ -7566,6 +7666,22 @@ def _leaves(tree):
         yield tree
 
 
+class Lap:
+    """Prints the seconds since the last lap (the script's start first)
+    as ``[setup] phase NAME took S s``: where the wall clock goes, for
+    phases that print no time of their own. ``name=None`` starts the next
+    lap without a line (after a phase that prints its own)."""
+
+    def __init__(self, t0):
+        self.t = t0
+
+    def __call__(self, name=None):
+        now = time.perf_counter()
+        if name is not None:
+            print(f"[setup] phase {name} took {now - self.t:.1f} s")
+        self.t = now
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7588,6 +7704,7 @@ def main() -> int:
     print(f"[setup] kernels built in {time.perf_counter() - t0:.1f}s "
           f"({info['path']})")
     sass = check_build(info)
+    att_res = attention_resources()
     from repro_torch.kernels.rwkv6.ops import resources
     wkv_res = resources(64)
     for phase, r in wkv_res.items():
@@ -7604,12 +7721,18 @@ def main() -> int:
               f"bytes per block")
         require(r["local_bytes"] == 0, f"nn_search {kind} kernel spills")
 
+    lap = Lap(t_start)
+    lap("setup")
     errs = check_kernels(torch, dev)
+    lap("2 (kernel checks)")
     sess, per_path, captured, main_path = serve_main_path(torch, dev)
+    lap("3 (the main path)")
     times = time_kernels(torch, dev, sess, captured, errs)
     profile_batch(torch, sess, main_path["requests"][0])
+    lap("4 (kernel times)")
     policies = serve_policies(torch, dev, sess, main_path, per_path, errs,
                               smi)
+    lap("5b (policies, hit-skip)")
     times["graph_cond"] = dict(policies["graph_cond"],
                                hitskip=policies["hitskip"])
     print(json.dumps({"policies": policies}))
@@ -7620,14 +7743,17 @@ def main() -> int:
     scale = store_scale(torch, dev, per_path, errs, smi)
     print(json.dumps({"scale": scale}))
     torch.cuda.empty_cache()
+    lap()
     runtime = serve_runtime(torch, dev, per_path, smi)
     print(json.dumps({"server": runtime}))
+    lap("5c (the serving runtime)")
     launches = {"memo_attention": per_path["kernel"]["memo_attention"],
                 "nn_search": per_path["bucket"]["nn_search"]}
     for arch, B, S, kname, site in FORWARDS:
         per_path[arch], times[kname] = forward_path(torch, dev, arch, B, S,
                                                     kname, site, errs)
         launches[kname] = per_path[arch][kname]
+    lap("6 (forwards)")
     torch.cuda.empty_cache()
     prefill = serve_prefill(torch, dev, per_path, errs, smi)
     print(json.dumps({"prefill": prefill}))
@@ -7730,6 +7856,9 @@ def main() -> int:
     launches["graph_cond"] = GRAPH_LAUNCHES["bucket"]
     times["rwkv6"]["resources"] = wkv_res
     times["nn_search"]["resources"] = nn_res
+    for name in ("memo_attention", "flash_attention"):
+        times[name]["resources"] = {k: r for k, r in att_res.items()
+                                    if k.startswith(name)}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name],
                     launches_per_path=(

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Build variants of the attention tile and time them on one card.
+"""Build variants of the attention tiles and time them on one card.
 
     python3 scripts/attention_tile_variants.py [--old CSRC] [--dh 64 128]
+        [--variants NAME ...]
 
 Each variant is a copy of ``src/repro_torch/csrc`` with a few source
-edits (tile sizes, launch bounds), built under ``build/`` beside the
-port's own library; ``--old CSRC`` adds an earlier ``csrc`` directory
-(unpacked from git under ``build/``) as the variant "old", run before and
-after the others so that the card's drift shows. For each it prints
-ptxas's registers and spill bytes per kernel, then times, at each head
-width asked for (``--dh``):
+edits (tile sizes, stages, producer warps, launch bounds), built under
+``build/`` beside the port's own library; ``--old CSRC`` adds an earlier
+``csrc`` directory (unpacked from git under ``build/``) as the variant
+"old", run before and after the others so that the card's drift shows.
+Variants named "diagnostic: ..." take a piece of work out of the wgmma
+tile (head_dim 112 and 128: the split, the copies, a product, the
+exponentials) to show what it costs; their outputs are wrong and are not
+checked. For each variant it prints ptxas's registers and spill bytes
+per kernel, then times, at each head width asked for (``--dh``):
 
 * dh 64: ``flash_attention`` at gpt2_small's shape (B=8, S=1024, H=12,
   causal) and ``memo_attention`` at bert_base's serving shape (B=32,
@@ -55,7 +59,8 @@ VARIANTS = {
     "Q in shared memory at every width": [
         ("attention_tile.cuh", "Q_SMEM = DH > 64", "Q_SMEM = DH > 0")],
     "3 blocks per SM": [
-        (f, "__launch_bounds__(NT)", "__launch_bounds__(NT, 3)")
+        (f, "__launch_bounds__(attn_wg::threads(DH))",
+         "__launch_bounds__(attn_wg::threads(DH), attn_wg::uses(DH) ? 1 : 3)")
         for f in ("flash_attention.cu", "memo_attention.cu")],
     # the K/V row copy over the flat chunk index (the tile before the
     # padded passes): the dh-112 kernels spill 4-20 bytes this way
@@ -75,6 +80,46 @@ VARIANTS = {
         """#pragma unroll
   for (int it = 0; it < ROWS * CPR / NT; ++it) {
     const int i = threadIdx.x + it * NT, j = i / CPR, c = i % CPR;""")],
+    # the wgmma tile at head_dim 112 / 128 (attention_wgmma.cuh): ring
+    # depth, key-tile width (a 64-key stage, 160 KB at dh 128, fits only
+    # alone beside Q), producer warps, and the split's rounding by
+    # cvt.rna.tf32.f32 (the same bits as the committed integer operations)
+    "wgmma: one stage": [
+        ("attention_wgmma.cuh", "int STAGES = 2;", "int STAGES = 1;")],
+    "wgmma: 64-key tiles, one stage": [
+        ("attention_wgmma.cuh", "int KT = 32;", "int KT = 64;"),
+        ("attention_wgmma.cuh", "int STAGES = 2;", "int STAGES = 1;")],
+    "wgmma: one producer warp": [
+        ("attention_wgmma.cuh", "int PW = 4;", "int PW = 1;")],
+    "wgmma: two producer warps": [
+        ("attention_wgmma.cuh", "int PW = 4;", "int PW = 2;")],
+    "wgmma: cvt.rna in the split": [(
+        "attention_wgmma.cuh",
+        "  hi = rna(x);\n  lo = rna(x - __uint_as_float(hi));\n",
+        "  attn_tile::split(x, hi, lo);\n")],
+    "diagnostic: no split": [
+        ("attention_wgmma.cuh",
+         "      split_k<DH>(base + Lay::k(st), p);\n"
+         "      split_v<DH>(base + Lay::vth(st), base + Lay::vl(st), p);\n",
+         ""),
+        ("memo_attention.cu",
+         "      attn_wg::split_v<DH>(base + Lay::vth(st), base + Lay::vl(st),"
+         " p);\n", "")],
+    "diagnostic: no copies": [
+        ("attention_wgmma.cuh", "      load(j, j);\n", ""),
+        ("attention_wgmma.cuh", "      load(j + STAGES, st);\n", "")],
+    "diagnostic: no QK^T products": [
+        ("attention_wgmma.cuh", f"      wgmma_ss({a}, kstep<BQ>({b}, kk), "
+         f"kstep<2 * KT>(dk, kk), kk > 0);\n", "")
+        for a, b in (("hk", "dqh"), ("lk", "dql"))],
+    "diagnostic: no P.V products": [
+        ("attention_wgmma.cuh", f"      wgmma_rs(acc[h], {a}[kk], "
+         f"kstep<DH>({b}, kk) + h * HALF, {c});\n", "      ;\n")
+        for a, b, c in (("al", "vh", "kk > 0"), ("ah", "vl", "1"),
+                        ("ah", "vh", "1"))],
+    "diagnostic: no exponentials": [
+        ("attention_wgmma.cuh", "expf(s[kk][e] - m[e >> 1])",
+         "(s[kk][e] - m[e >> 1])")],
 }
 
 # dh -> flash_attention shapes (B, S, H, Hkv) and the memo_attention one
@@ -89,8 +134,13 @@ SHAPES = {
 
 
 def ptxas_summary(log: str) -> str:
-    """'kernel<args>: registers r / spill-store bytes' per entry."""
+    """'kernel<args>: registers r / spill-store bytes' per entry, and how
+    many functions ptxas serialized wgmmas in (its C7514-style notes)."""
     out, fn, spill = [], None, "?"
+    serialized = sum("wgmma.mma_async instructions are serialized" in line
+                     for line in log.splitlines())
+    if serialized:
+        out.append(f"[wgmma serialized in {serialized} functions]")
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(\d+)"
                       r"(flash_attention_kernel|memo_attention_kernel)"
@@ -132,9 +182,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     print(cs.nvidia_smi_line())
     build.SOURCES = ("memo_attention.cu", "flash_attention.cu")
+    # the attention entry points an earlier csrc has too
     build.SIGNATURES = {k: v for k, v in build.SIGNATURES.items()
-                        if "attention" in k}
-    csrc = build.CSRC
+                        if k.endswith("attention_f32")}
+    csrc, headers = build.CSRC, build.HEADERS
     cases = {}
     for dh in args.dh:
         flashes, (B, S, H, Hkv, N, causal) = SHAPES[dh]
@@ -167,6 +218,8 @@ def main(argv=None) -> int:
                 cs.require(a in text, f"{a!r} not in {f}")
                 (src / f).write_text(text.replace(a, b))
         build.CSRC, build._State.lib, build._State.log = src, None, ""
+        build.HEADERS = tuple(h for h in headers if (src / h).exists())
+        diagnostic = name.startswith("diagnostic")
         t0 = time.perf_counter()
         info = build.build_info()
         print(f"== {name} (built in {time.perf_counter() - t0:.0f}s): "
@@ -179,7 +232,7 @@ def main(argv=None) -> int:
             for flabel, f in fq:
                 err = (flash_attention(*f) - flash_attention_ref(
                     *f)).abs().max()
-                cs.require(err.item() <= cs.ATOL,
+                cs.require(diagnostic or err.item() <= cs.ATOL,
                            f"flash_attention error {err}")
                 ms = cs.event_ms(lambda: flash_attention(*f))
                 line.append(f"flash_attention {flabel} {ms:.4f} ms")
@@ -187,7 +240,7 @@ def main(argv=None) -> int:
                 a = margs + (h,)
                 err = (memo_attention(*a, **kw)
                        - memo_attention_ref(*a, **kw)).abs().max()
-                cs.require(err.item() <= cs.ATOL,
+                cs.require(diagnostic or err.item() <= cs.ATOL,
                            f"memo_attention error {err}")
                 ms = cs.event_ms(lambda: memo_attention(*a, **kw))
                 line.append(f"memo_attention {label} {mlabel} {ms:.4f} ms")

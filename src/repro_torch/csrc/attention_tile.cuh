@@ -1,6 +1,10 @@
 // Attention tiles on Hopper's tensor cores in split TF32, shared by
 // flash_attention.cu and memo_attention.cu (its miss branch runs
-// online_softmax; its hit branch, apm_pv, runs pv_slice on the APM).
+// online_softmax; its hit branch, apm_pv, runs pv_slice on the APM). This
+// header is the mma.sync tile, run at head_dim 16, 32, 64 and 256; head_dim
+// 112 and 128 run the warpgroup-MMA tile of attention_wgmma.cuh, which
+// computes the same function (and reuses split, cp_async16 and
+// store_rows from here).
 //
 // Replaces the inner loops of the TPU kernels
 // src/repro/kernels/flash_attention/kernel.py (_flash_kernel) and
@@ -32,59 +36,44 @@
 //   blocks per SM, which spills, both ran slower on an H100:
 //   scripts/attention_tile_variants.py.)
 // * Where the Q fragments live depends on the width (Layout::Q_SMEM).
-//   Up to dh = 64 they stay in registers. At dh = 128 they would take 128
-//   registers beside O's 64, the step's P·V accumulator's 64 and the
-//   scores' 16: past the 255 a thread may have. There each warp stores
-//   its fragments once, in fragment order, to a region of shared memory
-//   past the ring (BQ x DH x 2 words, 65,536 bytes: 200,704 with the
-//   135,168-byte ring, of the 232,448 a block may use; one block of 4
-//   warps per SM) and reads them back with two 16-byte loads per 8
-//   columns in each 32-key step, the columns in the outer loop, so a
-//   fragment is read once a step. Only the lane that stored a fragment
-//   reads it, so no barrier is needed, and the loads are contiguous
-//   across the warp (no bank conflict). The numerics do not change: every
-//   score sums the same products in the same order. Chosen over splitting
-//   O's columns between warp pairs (which needs a score exchange through
-//   shared memory and a barrier in every step, and twice the softmax
-//   work) and over 32-key tiles (which shrink the ring but not the 272
-//   registers), as the change that keeps one tile for every width and
-//   leaves the dh <= 64 code as it was. Q in shared memory at every
-//   width (variant "Q in shared memory at every width" of
+//   Up to dh = 64 they stay in registers. Past it they would not fit
+//   beside O and the step's P·V accumulator: each warp stores its
+//   fragments once, in fragment order, to a region of shared memory past
+//   the ring (BQ x DH x 2 words) and reads them back with two 16-byte
+//   loads per 8 columns in each 32-key step, the columns in the outer
+//   loop, so a fragment is read once a step. Only the lane that stored a
+//   fragment reads it, so no barrier is needed, and the loads are
+//   contiguous across the warp (no bank conflict). Q in shared memory at
+//   every width (variant "Q in shared memory at every width" of
 //   scripts/attention_tile_variants.py) runs flash_attention at dh 64
 //   1% faster (0.3900 vs 0.3942 ms at B=8, S=1024) but memo_attention
 //   1.6% slower (0.0558 vs 0.0549 ms, mixed rows at B=32, S=128) and
 //   4.3% slower all-hit (0.0336 vs 0.0322), its larger shared memory
 //   leaving fewer blocks per SM (H100 80GB HBM3, 700 W); so dh <= 64
-//   keeps Q in registers. dh = 112 (kimi_k2: 7168 / 64 heads) takes the
-//   dh-128 layout unchanged: 14 column steps of 8, O and the step's
-//   accumulator at 56 registers each, a 118,784-byte ring and 57,344
-//   bytes of Q fragments (176,128 in all); its rows, LD = 116 floats
-//   apart (116 mod 32 = 20), keep both fragment reads conflict-free.
-// * dh = 256 (recurrentgemma_2b: 10 heads of 256 over one KV head) does
-//   not fit that layout: a 266,240-byte ring beside 131,072 bytes of Q
-//   fragments, and O plus the step's P·V accumulator at 128 registers
-//   each. There a block owns a 128-column block of O (out_cols; the row
-//   tile's NCOL = 2 blocks are neighbours in the grid): the scores still
-//   take all 256 columns of Q and K, the softmax runs whole in each
-//   block, and P·V, O and the stored rows take the block's 128 columns
-//   of V. Registers are then dh 128's (O and the accumulator at 64
-//   each), the Q fragments stay in shared memory (131,072 bytes), and
-//   key tiles shrink to KT = 32 keys (one softmax step): a stage is a
-//   33,280-byte K tile and a 16,896-byte V tile, 231,424 bytes in all of
-//   the 232,448. The price is QK^T and the softmax computed twice per
-//   row tile, 1.5x the products; chosen over a warp pair sharing scores
-//   through shared memory (a barrier in every step) and over O in two
-//   passes inside one block (the same recomputation, half the blocks),
-//   as the layout that changes no dh <= 128 code: KT, DV and NCOL
-//   reduce to 64, DH and 1 there. K rows (LD = 260, 260 mod 32 = 4) and
-//   V rows (LDV = 132) keep both fragment reads conflict-free. Blocks of
-//   64 columns (variant "dh 256 in 64-column blocks" of
-//   scripts/attention_tile_variants.py: 168 and 128 registers, four
-//   softmax passes a row tile) ran flash_attention 1.83x slower at
-//   B=1, S=2560, 10 heads over 1, causal (3.1508 vs 1.7201 ms; its flash
-//   kernel spilled 12 bytes) and memo_attention 1.21x slower on mixed
-//   rows at B=32, S=128 (0.2913 vs 0.2407 ms), so a block keeps 128
-//   columns (H100 80GB HBM3, 700 W).
+//   keeps Q in registers. (This layout ran dh 112 and 128 until they
+//   moved to attention_wgmma.cuh: one block of 4 warps per SM there.)
+// * dh = 256 (recurrentgemma_2b: 10 heads of 256 over one KV head): a
+//   block owns a 128-column block of O (out_cols; the row tile's NCOL = 2
+//   blocks are neighbours in the grid): the scores still take all 256
+//   columns of Q and K, the softmax runs whole in each block, and P·V, O
+//   and the stored rows take the block's 128 columns of V. Registers are
+//   then those of 128 columns (O and the accumulator at 64 each), the Q
+//   fragments stay in shared memory (131,072 bytes), and key tiles shrink
+//   to KT = 32 keys (one softmax step): a stage is a 33,280-byte K tile
+//   and a 16,896-byte V tile, 231,424 bytes in all of the 232,448. The
+//   price is QK^T and the softmax computed twice per row tile, 1.5x the
+//   products; chosen over a warp pair sharing scores through shared
+//   memory (a barrier in every step) and over O in two passes inside one
+//   block (the same recomputation, half the blocks), as the layout that
+//   changes no narrower code: KT, DV and NCOL reduce to 64, DH and 1
+//   there. K rows (LD = 260, 260 mod 32 = 4) and V rows (LDV = 132) keep
+//   both fragment reads conflict-free. Blocks of 64 columns (variant "dh
+//   256 in 64-column blocks" of scripts/attention_tile_variants.py: 168
+//   and 128 registers, four softmax passes a row tile) ran
+//   flash_attention 1.83x slower at B=1, S=2560, 10 heads over 1, causal
+//   (3.1508 vs 1.7201 ms; its flash kernel spilled 12 bytes) and
+//   memo_attention 1.21x slower on mixed rows at B=32, S=128 (0.2913 vs
+//   0.2407 ms), so a block keeps 128 columns (H100 80GB HBM3, 700 W).
 // * The tensor cores do not round their f32 sums to nearest, so a long
 //   chain of products into one accumulator drifts: each step's P·V sums
 //   into a fresh accumulator that joins O in f32 (add_tile), and each
@@ -94,9 +83,8 @@
 //   overlaps this tile's products. Rows past S are zero-filled by the
 //   copy itself (src-size 0), so the ragged last tile needs no padding.
 //   One stage is a K (or APM) region and a V region of KT rows of DH + 4
-//   floats: 69,632 bytes for the two stages at dh = 64 and 135,168 at
-//   dh = 128, which needs cudaFuncAttributeMaxDynamicSharedMemorySize
-//   (allow_smem).
+//   floats: 69,632 bytes for the two stages at dh = 64, which needs
+//   cudaFuncAttributeMaxDynamicSharedMemorySize (allow_smem).
 // * The row padding DH + 4 makes both fragment reads conflict-free: K is
 //   read as B with n = key (8 rows apart by 4 banks) and V as B with
 //   k = key (rows 2t and 2t+1, 8 banks apart).

@@ -6,11 +6,11 @@
 // transposes to (B*H, S, dh) and its padding of S to the block
 // (ops.py::flash_attention).
 //
-// One block of 128 threads per (q-tile of 64 rows, head, batch row) runs
-// the online-softmax tile of attention_tile.cuh, which memo_attention.cu's
-// miss branch shares: scale dh^-1/2, masks kpos < S, causal
-// kpos <= qpos, window kpos > qpos - window, NEG_INF = -1e30, fully
-// masked rows zeroed. Q/K/V are read in the model's (B,S,H,dh) layout by
+// One block per (q-tile of 64 rows, head, batch row) runs an online-
+// softmax tile that memo_attention.cu's miss branch shares (128 threads,
+// attention_tile.cuh; 256 at dh 112 and 128, attention_wgmma.cuh): scale
+// dh^-1/2, masks kpos < S, causal kpos <= qpos, window kpos > qpos -
+// window, NEG_INF = -1e30, fully masked rows zeroed. Q/K/V are read in the model's (B,S,H,dh) layout by
 // their strides (the last dim contiguous; base and strides 16-byte
 // aligned, which the wrapper ensures, as cp.async needs), and the ragged
 // last tile is masked in the kernel: no transpose, no padding copy. GQA
@@ -24,28 +24,31 @@
 // causal) the 58.7 MB of Q/K/V/out (0.0175 ms) outweigh the 1.62 GFLOP of
 // products (0.0098 ms): set by bytes; at qwen3_8b's (B=2, S=1024, H=32,
 // Hkv=8) the 17.2 GFLOP of products take 0.104 ms: set by operations.
-// What the design does about it: QK^T and P·V run on the tensor cores
-// (mma.sync m16n8k8 tf32, three products per f32 product), K/V tiles of
-// 64 keys stream by cp.async through a two-stage ring in dynamic shared
-// memory (69,632 bytes at dh = 64; at dh = 128 the ring's 135,168 plus
-// the Q fragments' 65,536, attention_tile.cuh) while the previous tile
-// computes, key
-// tiles after the causal diagonal or before the window are skipped, and
-// the q-tiles with the most key tiles launch first (the block index runs
-// from the last q-tile down), so the long causal tiles do not finish last.
+// What the design does about it: QK^T and P·V run on the tensor cores,
+// three products per f32 product: mma.sync m16n8k8 tf32 at head_dim 16,
+// 32, 64 and 256, where K/V tiles of 64 keys (32 at dh 256) stream by
+// cp.async through a two-stage ring in dynamic shared memory (69,632
+// bytes at dh = 64, attention_tile.cuh) while the previous tile computes;
+// wgmma m64nNk8 tf32 at dh 112 and 128, where a producer warpgroup copies
+// and splits 32-key tiles for a consumer warpgroup (230,400 bytes at dh
+// 128, attention_wgmma.cuh). Key tiles after the causal diagonal or
+// before the window are skipped, and the q-tiles with the most key tiles
+// launch first (the block index runs from the last q-tile down), so the
+// long causal tiles do not finish last.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
 using attn_tile::BQ;
-using attn_tile::NT;
 
 template <int DH>
-__global__ void __launch_bounds__(NT) flash_attention_kernel(
+__global__ void __launch_bounds__(attn_wg::threads(DH))
+    flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out, int S, int H,
     int Hkv, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
@@ -63,6 +66,14 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
   const int cb = hbc % NCOL, hb = hbc / NCOL;
   const int h = hb % H, b = hb / H;
   const int hk = h / (H / Hkv);
+  if constexpr (attn_wg::uses(DH)) {   // the wgmma tile stores its rows
+    const size_t o_row = (size_t)H * DH;
+    attn_wg::attend<DH, 0>(
+        smem, q + b * q_sb + h * q_sh, q_ss, k + b * k_sb + hk * k_sh, k_ss,
+        v + b * v_sb + hk * v_sh, v_ss, S, S, q0, causal, has_window, window,
+        scale, out + (size_t)b * S * o_row + (size_t)h * DH, o_row);
+    return;
+  }
   float o[DV / 8][4] = {};
   float l[2];
   attn_tile::online_softmax<DH, 0>(
@@ -80,17 +91,39 @@ cudaError_t launch(const float* q, const float* k, const float* v,
                    float* out, int B, int S, int H, int Hkv,
                    const int64_t* st, int causal, int has_window, int window,
                    float scale, cudaStream_t stream) {
-  constexpr int smem = attn_tile::Layout<DH>::SMEM;
+  constexpr int smem = attn_wg::smem_bytes<DH>();
   static unsigned smem_set = 0;
   const cudaError_t e =
       attn_tile::allow_smem(flash_attention_kernel<DH>, smem, smem_set);
   if (e != cudaSuccess) return e;
   const int blocks =
       (S + BQ - 1) / BQ * attn_tile::Layout<DH>::NCOL * H * B;
-  flash_attention_kernel<DH><<<blocks, NT, smem, stream>>>(
+  flash_attention_kernel<DH>
+      <<<blocks, attn_wg::threads(DH), smem, stream>>>(
       q, k, v, out, S, H, Hkv, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], causal, has_window, window, scale);
   return cudaGetLastError();
+}
+
+// resident blocks per SM, registers, local (spill) bytes, dynamic shared
+// bytes and threads of a block, as the runtime reports them for this card
+template <int DH>
+cudaError_t resources(int* out) {
+  constexpr int smem = attn_wg::smem_bytes<DH>();
+  static unsigned smem_set = 0;
+  cudaError_t e =
+      attn_tile::allow_smem(flash_attention_kernel<DH>, smem, smem_set);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], flash_attention_kernel<DH>, attn_wg::threads(DH), smem);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, flash_attention_kernel<DH>);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = smem;
+  out[4] = attn_wg::threads(DH);
+  return e;
 }
 
 }  // namespace
@@ -131,5 +164,20 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                          has_window, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// out[5]: resident blocks per SM, registers, local bytes, dynamic shared
+// bytes and threads of flash_attention_kernel<dh>
+extern "C" int flash_attention_resources(int dh, void* out) {
+  auto* o = static_cast<int*>(out);
+  switch (dh) {
+    case 16: return (int)resources<16>(o);
+    case 32: return (int)resources<32>(o);
+    case 64: return (int)resources<64>(o);
+    case 112: return (int)resources<112>(o);
+    case 128: return (int)resources<128>(o);
+    case 256: return (int)resources<256>(o);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -5,9 +5,11 @@
 // (_memo_kernel / memo_attention_bhsd) together with its wrapper's
 // ragged-S padding and _fit_db (ops.py).
 //
-// One block of 128 threads per (q-tile of 64 rows, head, batch row). The
-// block reads its own hit[b], hit_idx[b] (clamped to [0, N)) and
-// lengths[b]:
+// One block per (q-tile of 64 rows, head, batch row): 128 threads on the
+// mma.sync tile (attention_tile.cuh), 256 at head_dim 112 and 128 on the
+// wgmma tile (attention_wgmma.cuh: a producer warpgroup copies and splits,
+// a consumer warpgroup runs the products; memo_wg). The block reads its
+// own hit[b], hit_idx[b] (clamped to [0, N)) and lengths[b]:
 //   hit  — never loads Q or K. Streams the entry's APM rows straight from
 //          the device DB, 16 bytes per thread by cp.async, and V beside
 //          them; dequantizes each int8 code against its row's f16 scale
@@ -17,8 +19,9 @@
 //   miss — never touches the DB. Online-softmax attention over K/V tiles
 //          with scale dh^-1/2, the mask kpos < lengths[b], causal and
 //          window, NEG_INF = -1e30, fully masked rows zeroed: the
-//          online_softmax tile of attention_tile.cuh, which
-//          flash_attention.cu shares.
+//          online-softmax tile flash_attention.cu shares
+//          (attention_tile.cuh's online_softmax, attention_wgmma.cuh's
+//          attend at dh 112 and 128).
 // The DB is indexed with its own L stride and only [:S, :S] is read (zero
 // past L), which replaces the reference's pad/slice copies; the ragged
 // last q-tile and k-tile are masked here. Where a DB row is not 16-byte
@@ -35,16 +38,17 @@
 // f32-level accuracy (three TF32 products each), a hit block reads V
 // plus the compressed APM and no Q/K, a miss block reads Q/K/V and
 // nothing of the DB, tiles stream through a two-stage cp.async ring in
-// dynamic shared memory (69,632 bytes at dh = 64, 200,704 with the Q
-// fragments at dh = 128; the APM tile takes the
-// K tile's place), and fully masked key tiles (past lengths[b], after the
-// causal diagonal, before the window) are neither loaded nor computed.
+// dynamic shared memory (69,632 bytes at dh = 64, 230,400 at dh = 128;
+// the APM tile takes the K tile's place), and fully masked key tiles
+// (past lengths[b], after the causal diagonal, before the window) are
+// neither loaded nor computed.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -54,16 +58,19 @@ using attn_tile::NT;
 // APM tile of rows [q0, q0 + BQ) and keys [k0, k0 + KT) of one DB plane
 // (rows L elements apart, row r at db + (plane + r) * L) into an A region
 // of APM_LD-byte rows, raw codes; zero at or past kend in either index.
-template <typename RAW_T, int APM_LD, int KT>
+// By threads tid = 0..THREADS-1: the block's, or the wgmma tile's
+// producer warps.
+template <typename RAW_T, int APM_LD, int KT, int THREADS = NT>
 __device__ __forceinline__ void load_apm(unsigned char* A, const RAW_T* db,
                                          size_t plane, int L, int q0, int k0,
-                                         int kend, int vec) {
+                                         int kend, int vec,
+                                         int tid = threadIdx.x) {
   if (vec) {
     constexpr int EPC = 16 / sizeof(RAW_T);   // elements per 16 bytes
     constexpr int CPR = KT / EPC;
 #pragma unroll
-    for (int it = 0; it < BQ * CPR / NT; ++it) {
-      const int i = threadIdx.x + it * NT, j = i / CPR, c = i % CPR;
+    for (int it = 0; it < BQ * CPR / THREADS; ++it) {
+      const int i = tid + it * THREADS, j = i / CPR, c = i % CPR;
       const int r = q0 + j, ks = k0 + c * EPC;
       int n = kend - ks;
       n = r < kend ? (n < 0 ? 0 : (n > EPC ? EPC : n)) : 0;
@@ -72,7 +79,7 @@ __device__ __forceinline__ void load_apm(unsigned char* A, const RAW_T* db,
                             n * (int)sizeof(RAW_T));
     }
   } else {
-    for (int i = threadIdx.x; i < BQ * KT; i += NT) {
+    for (int i = tid; i < BQ * KT; i += THREADS) {
       const int j = i / KT, c = i % KT, r = q0 + j, ks = k0 + c;
       reinterpret_cast<RAW_T*>(A + j * APM_LD)[c] =
           r < kend && ks < kend ? db[(plane + r) * L + ks] : RAW_T(0);
@@ -149,8 +156,111 @@ __device__ __forceinline__ void apm_pv(
   }
 }
 
+// The hit branch at head_dim 112 / 128 on the wgmma tile
+// (attention_wgmma.cuh): the producer warps copy each tile's APM codes
+// into the stage's A region and V beside them, and split V into V^T
+// hi/lo; the consumer dequantizes the codes in f32 (no f16 round) straight
+// into m64k8 A fragments, split, runs APM·V on wgmma (a fresh accumulator
+// a 32-key tile, added to o in f32) and stores its rows of out (rows os
+// apart, from ob on).
 template <int DH, typename RAW_T, bool QUANT>
-__global__ void __launch_bounds__(NT) memo_attention_kernel(
+__device__ __forceinline__ void apm_pv_wg(unsigned char* smem,
+                                          const RAW_T* db,
+                                          const __half* scales, size_t plane,
+                                          int L, int kend, int vec,
+                                          const float* vb, size_t vs, int S,
+                                          int q0, float* ob, size_t os) {
+  using Lay = attn_wg::Layout<DH, sizeof(RAW_T)>;
+  constexpr int KT = attn_wg::KT, STAGES = attn_wg::STAGES;
+  unsigned char* base = attn_wg::aligned(smem);
+  const int n = (kend + KT - 1) / KT;
+  if (threadIdx.x >= attn_wg::NC) {
+    const int p = threadIdx.x - attn_wg::NC;
+    auto load = [&](int j, int st) {
+      load_apm<RAW_T, Lay::APM_LD, KT, 32 * attn_wg::PW>(
+          base + Lay::k(st), db, plane, L, q0, j * KT, kend, vec, p);
+      attn_wg::load_v<DH>(base + Lay::vl(st), vb, vs, j * KT, S, p);
+    };
+    attn_wg::prefetch(n, load);
+    attn_wg::produce(n, load, [&](int, int st) {
+      attn_wg::split_v<DH>(base + Lay::vth(st), base + Lay::vl(st), p);
+    });
+  } else {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int rl = warp * 16 + g;            // local row of a0
+    float s[2] = {1.f, 1.f};
+    if (QUANT) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = q0 + rl + 8 * i;
+        s[i] = r < kend ? __half2float(scales[plane + r]) : 0.f;
+      }
+    }
+    float o[DH / 8][4] = {};
+    for (int j = 0; j < n; ++j) {
+      const int st = j % STAGES;
+      attn_wg::bar_sync(attn_wg::FULL + st);
+      const unsigned char* A = base + Lay::k(st) + rl * Lay::APM_LD;
+      uint32_t ah[KT / 8][4], al[KT / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < KT / 8; ++kk) {   // codes past kend are 0
+        const unsigned char* c = A + (kk * 8 + 2 * t) * sizeof(RAW_T);
+        const float2 x0 = dequant2(c, s[0], RAW_T());
+        const float2 x1 = dequant2(c + 8 * Lay::APM_LD, s[1], RAW_T());
+        attn_wg::split(x0.x, ah[kk][0], al[kk][0]);
+        attn_wg::split(x1.x, ah[kk][1], al[kk][1]);
+        attn_wg::split(x0.y, ah[kk][2], al[kk][2]);
+        attn_wg::split(x1.y, ah[kk][3], al[kk][3]);
+      }
+      if (j + STAGES < n) attn_wg::bar_arrive(attn_wg::A_FREE + st);
+      float acc[2][DH / 4];
+      attn_wg::av<DH>(acc, ah, al,
+                      attn_wg::desc(attn_wg::saddr(base + Lay::vth(st))),
+                      attn_wg::desc(attn_wg::saddr(base + Lay::vtl(st))));
+      if (j + STAGES < n) attn_wg::bar_arrive(attn_wg::V_FREE + st);
+      attn_wg::add_tile<DH>(o, acc, {1.f, 1.f});
+    }
+    attn_tile::store_rows<DH>(ob, os, S, q0, o, {1.f, 1.f});
+  }
+}
+
+// memo_attention_kernel at head_dim 112 / 128, on the wgmma tile. Its
+// block order is flash_attention's: the linear block id walks (head,
+// batch row) fastest and the q-tiles from the last one down, so the
+// q-tiles with the most key tiles start first.
+template <int DH, typename RAW_T, bool QUANT>
+__device__ __forceinline__ void memo_wg(
+    unsigned char* smem, const float* q, const float* k, const float* v,
+    const RAW_T* db, const __half* scales, const int* hit_idx,
+    const int* hit, const int* lengths, float* out, int S, int H, int Hkv,
+    int L, int N, int db_vec, int causal, int has_window, int window,
+    float scale) {
+  const int hb = gridDim.y * gridDim.z;
+  const int id = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int q0 = (gridDim.x - 1 - id / hb) * BQ;
+  const int h = id % hb % H, b = id % hb / H;
+  const int hk = h / (H / Hkv);
+  const size_t q_row = (size_t)H * DH, kv_row = (size_t)Hkv * DH;
+  const float* vb = v + (size_t)b * S * kv_row + (size_t)hk * DH;
+  float* ob = out + (size_t)b * S * q_row + (size_t)h * DH;
+  if (hit[b] == 1) {
+    int e = hit_idx[b];
+    e = e < 0 ? 0 : (e >= N ? N - 1 : e);
+    apm_pv_wg<DH, RAW_T, QUANT>(smem, db, scales, ((size_t)e * H + h) * L,
+                                L, S < L ? S : L, db_vec, vb, kv_row, S, q0,
+                                ob, q_row);
+  } else {
+    attn_wg::attend<DH, sizeof(RAW_T)>(
+        smem, q + (size_t)b * S * q_row + (size_t)h * DH, q_row,
+        k + (size_t)b * S * kv_row + (size_t)hk * DH, kv_row, vb, kv_row, S,
+        lengths[b], q0, causal, has_window, window, scale, ob, q_row);
+  }
+}
+
+template <int DH, typename RAW_T, bool QUANT>
+__global__ void __launch_bounds__(attn_wg::threads(DH))
+    memo_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const RAW_T* __restrict__ db,
     const __half* __restrict__ scales, const int* __restrict__ hit_idx,
@@ -158,6 +268,12 @@ __global__ void __launch_bounds__(NT) memo_attention_kernel(
     float* __restrict__ out, int S, int H, int Hkv, int L, int N, int db_vec,
     int causal, int has_window, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (attn_wg::uses(DH)) {   // the wgmma tile stores its rows
+    memo_wg<DH, RAW_T, QUANT>(smem, q, k, v, db, scales, hit_idx, hit,
+                              lengths, out, S, H, Hkv, L, N, db_vec, causal,
+                              has_window, window, scale);
+    return;
+  }
   constexpr int DV = attn_tile::out_cols(DH), NCOL = DH / DV;
   const int h = blockIdx.y, b = blockIdx.z;
   // block x: the q-tile, then its column block (past dh 128)
@@ -191,7 +307,7 @@ cudaError_t launch_db(const float* q, const float* k, const float* v,
                       float* out, int B, int S, int H, int Hkv, int L, int N,
                       int causal, int has_window, int window, float scale,
                       cudaStream_t stream) {
-  constexpr int smem = attn_tile::Layout<DH, sizeof(RAW_T)>::SMEM;
+  constexpr int smem = attn_wg::smem_bytes<DH, sizeof(RAW_T)>();
   static unsigned smem_set = 0;
   const cudaError_t e = attn_tile::allow_smem(
       memo_attention_kernel<DH, RAW_T, QUANT>, smem, smem_set);
@@ -199,7 +315,8 @@ cudaError_t launch_db(const float* q, const float* k, const float* v,
   const int db_vec = (uintptr_t)db % 16 == 0 &&
                      (size_t)L * sizeof(RAW_T) % 16 == 0;
   dim3 grid((S + BQ - 1) / BQ * attn_tile::Layout<DH>::NCOL, H, B);
-  memo_attention_kernel<DH, RAW_T, QUANT><<<grid, NT, smem, stream>>>(
+  memo_attention_kernel<DH, RAW_T, QUANT>
+      <<<grid, attn_wg::threads(DH), smem, stream>>>(
       q, k, v, static_cast<const RAW_T*>(db), scales, hit_idx, hit, lengths,
       out, S, H, Hkv, L, N, db_vec, causal, has_window, window, scale);
   return cudaGetLastError();
@@ -222,6 +339,33 @@ cudaError_t launch(const float* q, const float* k, const float* v,
                                         lengths, out, B, S, H, Hkv, L, N,
                                         causal, has_window, window, scale,
                                         stream);
+}
+
+// resident blocks per SM, registers, local (spill) bytes, dynamic shared
+// bytes and threads of a block, as the runtime reports them for this card
+template <int DH, typename RAW_T, bool QUANT>
+cudaError_t resources_db(int* out) {
+  constexpr int smem = attn_wg::smem_bytes<DH, sizeof(RAW_T)>();
+  static unsigned smem_set = 0;
+  cudaError_t e = attn_tile::allow_smem(
+      memo_attention_kernel<DH, RAW_T, QUANT>, smem, smem_set);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], memo_attention_kernel<DH, RAW_T, QUANT>,
+      attn_wg::threads(DH), smem);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, memo_attention_kernel<DH, RAW_T, QUANT>);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = smem;
+  out[4] = attn_wg::threads(DH);
+  return e;
+}
+template <int DH>
+cudaError_t resources(int db_kind, int* out) {
+  return db_kind == 1 ? resources_db<DH, int8_t, true>(out)
+                      : resources_db<DH, uint16_t, false>(out);
 }
 
 }  // namespace
@@ -266,6 +410,22 @@ extern "C" int memo_attention_f32(
                          N, db_kind, causal, has_window, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// out[5]: resident blocks per SM, registers, local bytes, dynamic shared
+// bytes and threads of memo_attention_kernel at dh over an int8 (db_kind
+// 1) or f16 DB
+extern "C" int memo_attention_resources(int dh, int db_kind, void* out) {
+  auto* o = static_cast<int*>(out);
+  switch (dh) {
+    case 16: return (int)resources<16>(db_kind, o);
+    case 32: return (int)resources<32>(db_kind, o);
+    case 64: return (int)resources<64>(db_kind, o);
+    case 112: return (int)resources<112>(db_kind, o);
+    case 128: return (int)resources<128>(db_kind, o);
+    case 256: return (int)resources<256>(db_kind, o);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

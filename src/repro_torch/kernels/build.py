@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("memo_attention.cu", "nn_search.cu", "flash_attention.cu",
            "rwkv6.cu", "graph_cond.cu")
-HEADERS = ("attention_tile.cuh",)   # included by sources: hashed too
+HEADERS = ("attention_tile.cuh", "attention_wgmma.cuh")   # included by sources: hashed too
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,8 +39,10 @@ SIGNATURES = {
     "nn_search_f32": [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _P],
     "nn_search_resources": [_P],
+    "memo_attention_resources": [_I, _I, _P],
     "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P64,
                             _I, _I, _I, _F, _P],
+    "flash_attention_resources": [_I, _P],
     "wkv6_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "wkv6_resources": [_I, _P],
     "graph_cond_build": [_P, _I, _I, _P, _P, _P],

@@ -4,8 +4,10 @@ and GQA.
 Replaces the TPU kernel ``src/repro/kernels/flash_attention/kernel.py``
 (``flash_attention_bhsd``, body ``_flash_kernel``) and its wrapper
 ``ops.py::flash_attention``. Hand-written CUDA C++ for ``sm_90a``:
-``csrc/flash_attention.cu``, whose online-softmax tile
-(``csrc/attention_tile.cuh``) ``memo_attention``'s miss branch shares.
+``csrc/flash_attention.cu``, whose online-softmax tiles
+``memo_attention``'s miss branch shares: ``csrc/attention_wgmma.cuh``
+(wgmma) at head_dim 112 and 128, ``csrc/attention_tile.cuh`` (mma.sync)
+at the other widths.
 
 Contract (the JAX layout): q (B,S,H,dh), k/v (B,S,Hkv,dh) → (B,S,H,dh),
 ``causal``, ``window``; query head h reads kv head h // (H/Hkv). The
@@ -85,3 +87,14 @@ def flash_attention(q, k, v, *, causal=True, window=None):
 
 
 flash_attention.launches = 0
+
+
+def resources(dh: int) -> dict:
+    """The kernel at head_dim ``dh`` as the CUDA runtime reports it for
+    this card: resident blocks per SM, registers per thread, local (spill)
+    bytes, dynamic shared bytes and threads of a block."""
+    out = (ctypes.c_int * 5)()
+    build.check(build.library().flash_attention_resources(
+        dh, ctypes.addressof(out)), "flash_attention resources")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes",
+                     "shared_bytes", "threads"), out))

@@ -475,3 +475,77 @@ def test_split_tf32_keeps_f32_accuracy(B, H, S, causal):
                    .double() - ref).abs().max().item()
            for split in (True, False)}
     assert err[True] <= CARD_ATOL < err[False], err
+
+
+def _slices(a, b, pairs):
+    """sum over k in slices of 8 of sum_i a_i[..., ks] @ b_i[..., ks, :],
+    each product added to one f32 accumulator in turn (a wgmma chain)."""
+    acc = torch.zeros(a[0].shape[:-1] + b[0].shape[-1:],
+                      dtype=torch.float32)
+    for k0 in range(0, a[0].shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        for i, j in pairs:
+            acc = acc + a[i][..., ks] @ b[j][..., ks, :]
+    return acc
+
+
+def _wgmma_attention(q, k, v, *, causal, split, kt=32):
+    """The head_dim 112/128 tile's schedule (csrc/attention_wgmma.cuh) on
+    (B,H,S,dh) f32: keys in tiles of ``kt`` (one online-softmax step
+    each). With ``split`` the scores sum Q hi [K hi; K lo] as one chain
+    and Q lo K hi as another, the small sums joined in f32 before the
+    large one; each tile's P·V sums p_lo v_hi, p_hi v_lo, p_hi v_hi per
+    8-key slice into a fresh accumulator that joins O in f32 (O = O alpha
+    + acc). Without, one TF32 product each. Rows divide by their sums
+    last, clamped at 1e-30."""
+    B, H, S, dh = q.shape
+    qh, kh, vh = _tf32(q), _tf32(k), _tf32(v)
+    ql, kl, vl = _tf32(q - qh), _tf32(k - kh), _tf32(v - vh)
+    o = torch.zeros_like(q)
+    m = torch.full((B, H, S, 1), -1e30)
+    lsum = torch.zeros((B, H, S, 1))
+    rows = torch.arange(S)[:, None]
+    for c0 in range(0, S, kt):
+        ks = slice(c0, min(c0 + kt, S))
+        kt_h = kh[..., ks, :].transpose(-1, -2)
+        kt_l = kl[..., ks, :].transpose(-1, -2)
+        big = _slices([qh], [kt_h], [(0, 0)])
+        if split:
+            s = (_slices([qh], [kt_l], [(0, 0)])
+                 + _slices([ql], [kt_h], [(0, 0)])) + big
+        else:
+            s = big
+        s = s * dh ** -0.5
+        if causal:
+            s = s.masked_fill(torch.arange(c0, ks.stop)[None, :] > rows,
+                              -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(s <= -5e29, torch.zeros(()), torch.exp(s - m_new))
+        m, lsum = m_new, lsum * alpha + p.sum(-1, keepdim=True)
+        ph = _tf32(p)
+        pairs = [(1, 0), (0, 1), (0, 0)] if split else [(0, 0)]
+        acc = _slices([ph, _tf32(p - ph)], [vh[..., ks, :], vl[..., ks, :]],
+                      pairs)
+        o = o * alpha + acc
+    return o / lsum.clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("dh", [112, 128])
+def test_wgmma_tile_schedule_keeps_f32_accuracy(dh):
+    """The head_dim 112/128 tile's accumulation schedule at S=1024,
+    causal: 32-key steps, each step's P·V in a fresh accumulator joined to
+    O in f32, the scores' small products summed apart. With split TF32
+    (three products per f32 product) the output lands within the card's
+    tolerance (chip_smoke.ATOL) of an f64 reference; with one TF32
+    product it does not."""
+    from chip_smoke import ATOL as CARD_ATOL
+    rng = np.random.default_rng(dh)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 1024, dh)))
+               for _ in range(3))
+    ref = _attention(q, k, v, causal=True, mm=torch.matmul)       # f64
+    q, k, v = q.float(), k.float(), v.float()
+    err = {split: (_wgmma_attention(q, k, v, causal=True, split=split)
+                   .double() - ref).abs().max().item()
+           for split in (True, False)}
+    assert err[True] <= CARD_ATOL < err[False], err

@@ -31,7 +31,9 @@ search indices must be EQUAL (ties → the lowest index). The attention
 kernels are held at head_dim 16, 32, 64, 112 (kimi_k2's), 128 (the
 zoo's GQA decoders, qwen2_1_5b's serving shape among them) and 256
 (recurrentgemma_2b's MQA local attention, at its serving and forward
-shapes) and must refuse any other. The routed MoE is held to the dense ``moe_ref`` on
+shapes) and must refuse any other; at 112 and 128 (the wgmma tile) also
+at the edges of its 32-key tile and over a 1,024-key chain with a
+window. The routed MoE is held to the dense ``moe_ref`` on
 the card, and the expert-parallel form on a (4, 1) and a (2, 2) mesh of
 the one card to the routed form (nothing dropped) and to itself on the
 CPU (rows dropped). Each wrapper refuses, with grad enabled, inputs that require
@@ -39,7 +41,7 @@ grad (its result would come back detached)."""
 import pytest
 import torch
 
-from chip_smoke import (ATOL, TILE_EDGES, admission_read_back,
+from chip_smoke import (ATOL, TILE_EDGES, WG_EDGES, admission_read_back,
                         attention_case, capacity_promotion,
                         compare_decisions, drive, flash_case, lowrank_case,
                         nn_case,
@@ -347,6 +349,49 @@ def test_flash_attention_tile_edges(cuda, S, dh, causal, window):
                                      window=window)).abs().max().item()
     print(f"flash_attention S={S} dh={dh} max|err|={err:.3e}")
     assert err <= ATOL
+
+
+@pytest.mark.parametrize("hits", ["all", "none", "mixed"])
+@pytest.mark.parametrize("dh", [112, 128])
+@pytest.mark.parametrize("S", WG_EDGES)
+def test_attention_wgmma_key_tile_edges(cuda, S, dh, hits):
+    """The wgmma tile (head_dim 112 and 128; dh 112's last 128-byte atom
+    half used) at the edges of its 32-key tile, both kernels, every mask,
+    GQA, int8 and f16 DBs, ragged lengths."""
+    i = WG_EDGES.index(S)
+    for causal, window in ((True, None), (True, 20), (False, 24)):
+        q, k, v = flash_case(torch, cuda, B=2, S=S, H=4, Hkv=2, dh=dh,
+                             seed=S + dh + i)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        err = (out - flash_attention_ref(q, k, v, causal=causal,
+                                         window=window)).abs().max().item()
+        print(f"flash_attention S={S} dh={dh} max|err|={err:.3e}")
+        assert err <= ATOL
+        args, kw = attention_case(torch, cuda, B=3, S=S, H=4, Hkv=2, dh=dh,
+                                  N=3, L=S, quant=(i + dh) % 2 == 0,
+                                  varlen=window is not None,
+                                  seed=S + dh + 1, hits=hits)
+        _check(args, kw, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("kernel", ["flash", "memo"])
+def test_attention_wgmma_long_chain(cuda, kernel):
+    """dh 128 at S=1024, causal with window 70: 32 key tiles a row tile,
+    each one's P·V summed in a fresh accumulator joined to O in f32 (one
+    long chain of tensor-core sums would drift past the tolerance)."""
+    if kernel == "flash":
+        q, k, v = flash_case(torch, cuda, B=2, S=1024, H=8, Hkv=2, dh=128,
+                             seed=70)
+        out = flash_attention(q, k, v, causal=True, window=70)
+        err = (out - flash_attention_ref(q, k, v, causal=True,
+                                         window=70)).abs().max().item()
+        print(f"flash_attention S=1024 window 70 max|err|={err:.3e}")
+        assert err <= ATOL
+    else:
+        args, kw = attention_case(torch, cuda, B=4, S=1024, H=4, Hkv=2,
+                                  dh=128, N=2, L=1024, quant=True,
+                                  varlen=False, seed=70, hits="mixed")
+        _check(args, kw, causal=True, window=70)
 
 
 @pytest.mark.parametrize("dh", [8, 48, 96, 192])
