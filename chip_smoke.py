@@ -8,8 +8,8 @@ Builds the port's hand-written CUDA kernels from ``src/repro_torch/csrc``
 the three rwkv6 kernels and nn_search's to spill nothing (ptxas; the
 runtime's local bytes for every attention instantiation, rwkv6 and
 nn_search) and the attention kernels to hold tensor-core instructions
-(their SASS, from ``cuobjdump``: warpgroup MMA, HGMMA, at head_dim 112
-and 128, mma.sync, HMMA, at the other widths), and holds each kernel
+(their SASS, from ``cuobjdump``: warpgroup MMA, HGMMA, at head_dim 112,
+128 and 256, mma.sync, HMMA, at the other widths), and holds each kernel
 against its plain PyTorch version on synthetic cases, the attention
 tiles' edges (the 64-row query tiles; the wgmma tile's 32-key tiles),
 rwkv6's chunk edges and nn_search's tile and row-range edges among
@@ -134,8 +134,10 @@ and read just after:
   JSON line) — both attention kernels at head_dim 256 against their
   plain versions at every tile edge (query heads per KV head 1, 2 and
   10, every mask, all-hit / all-miss / mixed rows, int8 and f16 DBs),
-  their registers and spills, timed at recurrentgemma_2b's shapes
-  (10a); ``recurrentgemma_2b`` at full width and depth (the RG-LRU
+  the wgmma tile's two-block cluster at its 32-key tile's edges and at
+  the forward's S=2,560 with its 2,048 window, their registers and
+  spills, timed at recurrentgemma_2b's shapes (10a), beside the rows
+  before the wgmma tile; ``recurrentgemma_2b`` at full width and depth (the RG-LRU
   hybrid) served through ``MemoSession`` in kernel
   (``memo_attention`` at dh 256, 8 a batch), bucket (``nn_search``)
   and memo-free mode, memoized ``prefill`` and ``prefill_exact``
@@ -299,7 +301,7 @@ ADMIT_HEADROOM = 256
 KERNELS = ("memo_attention", "nn_search", "flash_attention", "rwkv6")
 # sequence lengths at the edges of the attention kernels' 64-row tiles
 TILE_EDGES = (63, 64, 65, 127, 129)
-# the wgmma tile's key tile (head_dim 112 and 128: KT in
+# the wgmma tile's key tile (head_dim 112, 128 and 256: KT in
 # src/repro_torch/csrc/attention_wgmma.cuh) and sequence lengths at its
 # edges: KT - 1, KT, KT + 1, 2 KT + 1
 WG_KT = 32
@@ -412,7 +414,7 @@ def check_build(info):
     and spill lines; every kernel of SPILL_FREE must appear there and
     spill nothing. From ``cuobjdump --dump-sass`` of the library, the
     tensor-core instructions of every instantiation of the attention
-    kernels: warpgroup MMA (HGMMA) at head_dim 112 and 128 (the wgmma
+    kernels: warpgroup MMA (HGMMA) at head_dim 112, 128 and 256 (the wgmma
     tile, ``attention_wgmma.cuh``), mma.sync (HMMA) at the other widths;
     each instantiation must hold its kind. Returns the counts summed by
     kernel."""
@@ -455,7 +457,8 @@ def check_build(info):
         fns = {f: n for f, n in per_fn.items() if a in f}
         require(len(fns) > 0, f"no {a} in the SASS of {info['path']}")
         for f, n in sorted(fns.items()):
-            want = "HGMMA" if re.search(r"ILi(112|128)E", f) else "HMMA"
+            want = ("HGMMA" if re.search(r"ILi(112|128|256)E", f)
+                    else "HMMA")
             print(f"[setup] SASS {n['HGMMA']} HGMMA, {n['HMMA']} HMMA "
                   f"tensor-core instructions in {f} (wants {want})")
             require(n[want] > 0, f"{f} has no {want} instruction")
@@ -469,9 +472,10 @@ ATTENTION_DH = (16, 32, 64, 112, 128, 256)
 
 def attention_resources():
     """Each attention kernel instantiation as the runtime reports it
-    (blocks per SM, registers, local bytes, shared bytes, threads),
-    printed under ``[setup]``; none may use local memory. Returns them
-    by "flash dh" / "memo dh int8|f16"."""
+    (blocks per SM, registers, local bytes, shared bytes, threads; where
+    a row tile's blocks form a cluster, its size and the clusters resident
+    at once), printed under ``[setup]``; none may use local memory.
+    Returns them by "flash dh" / "memo dh int8|f16"."""
     from repro_torch.kernels.flash_attention.ops import resources as fres
     from repro_torch.kernels.memo_attention.ops import resources as mres
     out = {}
@@ -481,11 +485,17 @@ def attention_resources():
             out[f"memo_attention dh {dh} {'int8' if quant else 'f16'}"] = (
                 mres(dh, quant))
     for name, r in out.items():
+        cluster = (f", clusters of {r['cluster']} blocks, "
+                   f"{r['max_active_clusters']} resident at once "
+                   f"(cudaOccupancyMaxActiveClusters)"
+                   if r["cluster"] > 1 else "")
         print(f"[setup] {name}: {r['blocks_per_sm']} resident blocks per SM "
               f"of {r['threads']} threads, {r['registers']} registers, "
               f"{r['local_bytes']} local bytes, {r['shared_bytes']} shared "
-              f"bytes per block")
+              f"bytes per block{cluster}")
         require(r["local_bytes"] == 0, f"{name} uses local memory")
+        require(r["cluster"] == 1 or r["max_active_clusters"] > 0,
+                f"{name}: no cluster of {r['cluster']} blocks fits the card")
     return out
 
 
@@ -4281,13 +4291,14 @@ def memo_bound(B, S, H, Hkv, dh, n_hit, causal):
     return attention_bounds(nbytes, mm, softmax)
 
 
-def wgmma_edges(torch, dev, errs, dh, tag, drift=False):
-    """The wgmma tile (head_dim ``dh``, 112 or 128) at the edges of its key
-    tile (WG_EDGES), flash_attention and memo_attention against their
-    plain versions over causal / windowed / bidirectional masks, memo over
-    all-hit, all-miss and mixed rows and int8 and f16 DBs; with ``drift``,
-    both at S=1024, causal with window 70 (where one long chain of
-    tensor-core sums would drift). Errors fold into ``errs``."""
+def wgmma_edges(torch, dev, errs, dh, tag, drift=None):
+    """The wgmma tile (head_dim ``dh``: 112, 128 or 256) at the edges of
+    its key tile (WG_EDGES), flash_attention and memo_attention against
+    their plain versions over causal / windowed / bidirectional masks,
+    memo over all-hit, all-miss and mixed rows and int8 and f16 DBs; with
+    ``drift`` = (S, window), both at that S, causal with that window
+    (where one long chain of tensor-core sums would drift). Errors fold
+    into ``errs``."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.memo_attention.ops import memo_attention
@@ -4295,9 +4306,9 @@ def wgmma_edges(torch, dev, errs, dh, tag, drift=False):
     worst = {"flash_attention": 0.0, "memo_attention": 0.0}
     cases = [(S, i) for i, S in enumerate(WG_EDGES)]
     if drift:
-        cases.append((1024, None))
+        cases.append((drift[0], None))
     for S, i in cases:
-        masks = ((True, 70),) if i is None else (
+        masks = ((True, drift[1]),) if i is None else (
             ((True, None), (True, 20), (False, None))[i % 3],)
         for causal, window in masks:
             q, k, v = flash_case(torch, dev, B=2, S=S, H=4, Hkv=2, dh=dh,
@@ -4324,8 +4335,10 @@ def wgmma_edges(torch, dev, errs, dh, tag, drift=False):
                 worst["memo_attention"] = max(worst["memo_attention"], err)
     for name, err in worst.items():
         errs[name] = max(errs[name], err)
+    drifted = (f" and S={drift[0]} causal window {drift[1]}" if drift
+               else "")
     print(f"[{tag}] wgmma tile dh {dh} at its key-tile edges S={WG_EDGES}"
-          f"{' and S=1024 causal window 70' if drift else ''}: max|err| "
+          f"{drifted}: max|err| "
           f"flash {worst['flash_attention']:.3e}, memo (all-hit / all-miss "
           f"/ mixed, int8 and f16) {worst['memo_attention']:.3e} "
           f"(tolerance {ATOL:.0e})")
@@ -4386,7 +4399,7 @@ def zoo_kernels(torch, dev, errs):
           f"H=12 dh={dh}: max|err| {err:.3e} (tolerance {ATOL:.0e})")
     require(err <= ATOL, f"memo_attention lowrank dh {dh} error {err}")
     errs["memo_attention"] = max(errs["memo_attention"], err)
-    wgmma_edges(torch, dev, errs, dh, "zoo", drift=True)
+    wgmma_edges(torch, dev, errs, dh, "zoo", drift=(1024, 70))
 
     # timed at the slice's shapes: qwen2_1_5b serving (B=32, S=128,
     # H=12, Hkv=2) for both kernels, qwen3_8b's forward (B=2, S=1024,
@@ -5502,6 +5515,12 @@ def zoo2(torch, dev, per_path, errs, smi, info):
 # 256 over one KV head, is the attention kernels' new width: query heads
 # per KV head 1, 2 and 10 (MQA)
 ZOO3_DH = 256
+# the dh-256 rows on the mma.sync tile, before the wgmma tile took dh
+# 256, ms (PERF.md §6: recurrentgemma_2b's forward and memo layer; the
+# layer's all-miss and all-hit from an earlier run of the same tile),
+# printed beside this run's
+DH256_BEFORE = {"flash forward": 1.6675, "memo layer": 0.2158,
+                "memo layer all-miss": 0.3033, "memo layer all-hit": 0.1139}
 ZOO3_GROUPS = (1, 2, 10)
 ZOO3_FRESH = 2       # fresh batches a served model takes, then a replayed one
 # 10b: recurrentgemma_2b at full width and depth (26 layers, 8 of them
@@ -5543,8 +5562,10 @@ def zoo3_kernels(torch, dev, errs, info):
     against their plain versions at every tile edge (TILE_EDGES), query
     heads per KV head ZOO3_GROUPS, causal / causal with a window shorter
     than S / bidirectional masks, all-hit, all-miss and mixed rows, int8
-    and f16 DBs; their registers and spills (none may spill, and each
-    must hold tensor-core instructions: check_build). Then both timed at
+    and f16 DBs; the wgmma tile's key-tile edges (``wgmma_edges``) with
+    its drift case at the forward's shape (S=2,560, window 2,048); their
+    registers and spills (none may spill, and each must hold tensor-core
+    instructions: check_build). Then both timed at
     recurrentgemma_2b's shapes (flash at its forward, B=1, S=2,560,
     window 2,048; memo at serving, B=32, S=128, 10 heads over 1) beside
     their bounds, plain versions and SDPA. Returns the timings."""
@@ -5590,6 +5611,7 @@ def zoo3_kernels(torch, dev, errs, info):
                 n += 1
     for name, err in worst.items():
         errs[name] = max(errs[name], err)
+    wgmma_edges(torch, dev, errs, dh, "zoo3", drift=(RG_FWD_S, 2048))
     print(f"[zoo3] dh {dh}: flash_attention (B=2) and memo_attention (B=3, "
           f"int8 and f16 DBs, all-hit / all-miss / mixed, {n} cases) at S "
           f"{TILE_EDGES}, {ZOO3_GROUPS} query heads per KV head, causal / "
@@ -7807,6 +7829,13 @@ def main() -> int:
         synthetic=zoo3_res["kernels_dh256"]["memo_attention"],
         launches=per_path["rg_kernel"]["memo_attention"],
         recurrentgemma_2b=rg["memo_attention"])
+    now = {"flash forward": rg["forward"]["ms"],
+           "memo layer": rg["memo_attention"]["ms"],
+           "memo layer all-miss": rg["memo_attention"]["miss_ms"],
+           "memo layer all-hit": rg["memo_attention"]["hit_ms"]}
+    print(f"[zoo3] dh 256 on the wgmma tile, ms (before it, PERF.md's "
+          f"rows): " + ", ".join(f"{k} {now[k]:.4f} ({v:.4f})"
+                                 for k, v in DH256_BEFORE.items()))
     times["flash_attention"]["dh64_whisper"] = dict(
         launches={WHISPER_ARCH: per_path[WHISPER_ARCH]["flash_attention"]},
         encoder=wh["forward"]["encoder"], decoder=wh["forward"]["decoder"])

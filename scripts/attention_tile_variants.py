@@ -10,9 +10,11 @@ edits (tile sizes, stages, producer warps, launch bounds), built under
 ``csrc`` directory (unpacked from git under ``build/``) as the variant
 "old", run before and after the others so that the card's drift shows.
 Variants named "diagnostic: ..." take a piece of work out of the wgmma
-tile (head_dim 112 and 128: the split, the copies, a product, the
-exponentials) to show what it costs; their outputs are wrong and are not
-checked. For each variant it prints ptxas's registers and spill bytes
+tile (head_dim 112, 128 and 256: the split, the copies, a product, the
+exponentials, dh 256's exchange of partial scores) to show what it
+costs; their outputs are wrong and are not checked. "wgmma: dh 256 in one
+block" builds the design measured against dh 256's cluster: each block
+of a row tile computes QK^T over all 256 columns itself, one stage. For each variant it prints ptxas's registers and spill bytes
 per kernel, then times, at each head width asked for (``--dh``):
 
 * dh 64: ``flash_attention`` at gpt2_small's shape (B=8, S=1024, H=12,
@@ -25,8 +27,8 @@ per kernel, then times, at each head width asked for (``--dh``):
   S=128, H=12, Hkv=2, causal) and at qwen3_8b's (B=2, S=1024, H=32,
   Hkv=8, causal), and ``memo_attention`` at qwen2_1_5b's serving shape
   (3584 int8 entries, causal);
-* dh 256: ``flash_attention`` at recurrentgemma_2b's forward length
-  (B=1, S=2560, H=10, Hkv=1, causal) and ``memo_attention`` at its
+* dh 256: ``flash_attention`` at recurrentgemma_2b's forward (B=1,
+  S=2560, H=10, Hkv=1, causal, window 2048) and ``memo_attention`` at its
   serving shape (B=32, S=128, 1024 int8 entries, causal);
 
 ``memo_attention`` with mixed, all-miss and all-hit rows, everything
@@ -51,11 +53,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # name -> [(file in csrc, text, replacement)]
 VARIANTS = {
     "as committed": [],
-    # (dh 256's 32-key tiles hold one 32-key step: not built here)
-    "64-key softmax steps": [("attention_tile.cuh", "KC = 32", "KC = 64")]
-    + [(f, a, b) for f in ("flash_attention.cu", "memo_attention.cu")
-       for a, b in (("case 256:", "case -256:"),
-                    ("launch<256>(", "launch<128>("))],
+    # the mma.sync tile (dh 16, 32, 64)
+    "64-key softmax steps": [("attention_tile.cuh", "KC = 32", "KC = 64")],
     "Q in shared memory at every width": [
         ("attention_tile.cuh", "Q_SMEM = DH > 64", "Q_SMEM = DH > 0")],
     "3 blocks per SM": [
@@ -63,13 +62,7 @@ VARIANTS = {
          "__launch_bounds__(attn_wg::threads(DH), attn_wg::uses(DH) ? 1 : 3)")
         for f in ("flash_attention.cu", "memo_attention.cu")],
     # the K/V row copy over the flat chunk index (the tile before the
-    # padded passes): the dh-112 kernels spill 4-20 bytes this way
-    # past dh 128, blocks of 64 of O's columns in place of 128: half the
-    # registers for O and the P.V accumulator, four softmax passes a row
-    # tile instead of two
-    "dh 256 in 64-column blocks": [
-        ("attention_tile.cuh", "return dh > 128 ? 128 : dh;",
-         "return dh > 128 ? 64 : dh;")],
+    # padded passes)
     "row copy over the flat chunk index": [(
         "attention_tile.cuh",
         """  const int c = threadIdx.x % CPP;
@@ -80,10 +73,43 @@ VARIANTS = {
         """#pragma unroll
   for (int it = 0; it < ROWS * CPR / NT; ++it) {
     const int i = threadIdx.x + it * NT, j = i / CPR, c = i % CPR;""")],
-    # the wgmma tile at head_dim 112 / 128 (attention_wgmma.cuh): ring
-    # depth, key-tile width (a 64-key stage, 160 KB at dh 128, fits only
-    # alone beside Q), producer warps, and the split's rounding by
-    # cvt.rna.tf32.f32 (the same bits as the committed integer operations)
+    # the wgmma tile (attention_wgmma.cuh): ring depth, key-tile width (a
+    # 64-key stage, 160 KB at dh 128, fits only alone beside Q), producer
+    # warps, and the split's rounding by cvt.rna.tf32.f32 (the same bits
+    # as the committed integer operations); at dh 256, one block a column
+    # half computing QK^T over all of dh (no cluster, one stage)
+    "wgmma: dh 256 in one block": [
+        ("attention_wgmma.cuh", "bool CLUSTER = true;",
+         "bool CLUSTER = false;")],
+    # dh 256's exchange of partial scores by plain remote stores and one
+    # remote release arrival a consumer thread (128 a phase), in place of
+    # st.async counted on the mbarrier's transaction bytes
+    "wgmma: dh 256 exchange by st.shared::cluster": [
+        ("attention_wgmma.cuh", f"mbar_init(saddr(base + Lay::bar({i})), 1);",
+         f"mbar_init(saddr(base + Lay::bar({i})), NC);") for i in (0, 1)] + [
+        ("attention_wgmma.cuh",
+         "  if (i == 0) mbar_expect(bar, Lay::X_BYTES);\n", ""),
+        ("attention_wgmma.cuh",
+         """    st_async(there + k * NC * 16, s[k][0], s[k][1], s[k][2], s[k][3],
+             there_bar);
+""", """    asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
+                 ::"r"(there + k * NC * 16), "f"(s[k][0]), "f"(s[k][1]),
+                 "f"(s[k][2]), "f"(s[k][3]) : "memory");
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, "
+               "[%0];" ::"r"(there_bar) : "memory");
+""")],
+    # dh 256's opening cluster barrier waited on at once, before Q's fill
+    "wgmma: dh 256 cluster barrier before Q's fill": [
+        ("attention_wgmma.cuh",
+         "if constexpr (Lay::PAIR) cluster_wait();   // cluster_open's", ""),
+        ("attention_wgmma.cuh", """    cluster_arrive();
+  }
+}
+// ... and last""", """    cluster_arrive();
+    cluster_wait();
+  }
+}
+// ... and last""")],
     "wgmma: one stage": [
         ("attention_wgmma.cuh", "int STAGES = 2;", "int STAGES = 1;")],
     "wgmma: 64-key tiles, one stage": [
@@ -99,22 +125,34 @@ VARIANTS = {
         "  attn_tile::split(x, hi, lo);\n")],
     "diagnostic: no split": [
         ("attention_wgmma.cuh",
-         "      split_k<DH>(base + Lay::k(st), p);\n"
-         "      split_v<DH>(base + Lay::vth(st), base + Lay::vl(st), p);\n",
+         "        split_k<Lay>(base + Lay::k(st), p);\n"
+         "        split_v<Lay>(base + Lay::vth(st), base + Lay::vl(st), p);\n",
+         ""),
+        ("attention_wgmma.cuh",
+         "        split_k<Lay>(base + Lay::k(st), p);\n"
+         "        split_v_regs<Lay>(base + Lay::vth(st), vr, p);\n", ""),
+        ("memo_attention.cu",
+         "        attn_wg::split_v_regs<Lay>(base + Lay::vth(st), vr, p);\n",
          ""),
         ("memo_attention.cu",
-         "      attn_wg::split_v<DH>(base + Lay::vth(st), base + Lay::vl(st),"
+         "        attn_wg::split_v<Lay>(base + Lay::vth(st), base + Lay::vl(st),"
          " p);\n", "")],
     "diagnostic: no copies": [
         ("attention_wgmma.cuh", "      load(j, j);\n", ""),
-        ("attention_wgmma.cuh", "      load(j + STAGES, st);\n", "")],
+        ("attention_wgmma.cuh", "      load(j + ST, st);\n", ""),
+        ("attention_wgmma.cuh",
+         "      vr.x[it][e] = r < S ? vb[(size_t)r * vs + c.d] : 0.f;\n",
+         "      vr.x[it][e] = 0.f;\n")],
+    "diagnostic: no exchange": [
+        ("attention_wgmma.cuh",
+         "    if constexpr (Lay::PAIR) exchange<Lay>(base, s, j);\n", "")],
     "diagnostic: no QK^T products": [
         ("attention_wgmma.cuh", f"      wgmma_ss({a}, kstep<BQ>({b}, kk), "
          f"kstep<2 * KT>(dk, kk), kk > 0);\n", "")
         for a, b in (("hk", "dqh"), ("lk", "dql"))],
     "diagnostic: no P.V products": [
         ("attention_wgmma.cuh", f"      wgmma_rs(acc[h], {a}[kk], "
-         f"kstep<DH>({b}, kk) + h * HALF, {c});\n", "      ;\n")
+         f"kstep<DV>({b}, kk) + h * HALF, {c});\n", "      ;\n")
         for a, b, c in (("al", "vh", "kk > 0"), ("ah", "vl", "1"),
                         ("ah", "vh", "1"))],
     "diagnostic: no exponentials": [
@@ -122,14 +160,14 @@ VARIANTS = {
          "(s[kk][e] - m[e >> 1])")],
 }
 
-# dh -> flash_attention shapes (B, S, H, Hkv) and the memo_attention one
-# (B, S, H, Hkv, N, causal)
+# dh -> flash_attention shapes (B, S, H, Hkv, window; causal) and the
+# memo_attention one (B, S, H, Hkv, N, causal)
 SHAPES = {
-    64: ([(8, 1024, 12, 12)], (32, 128, 12, 12, 3072, False)),
-    112: ([(2, 1024, 64, 8)], (32, 128, 64, 8, 128, True)),
-    128: ([(32, 128, 12, 2), (2, 1024, 32, 8)],
+    64: ([(8, 1024, 12, 12, None)], (32, 128, 12, 12, 3072, False)),
+    112: ([(2, 1024, 64, 8, None)], (32, 128, 64, 8, 128, True)),
+    128: ([(32, 128, 12, 2, None), (2, 1024, 32, 8, None)],
           (32, 128, 12, 2, 3584, True)),
-    256: ([(1, 2560, 10, 1)], (32, 128, 10, 1, 1024, True)),
+    256: ([(1, 2560, 10, 1, 2048)], (32, 128, 10, 1, 1024, True)),
 }
 
 
@@ -189,10 +227,11 @@ def main(argv=None) -> int:
     cases = {}
     for dh in args.dh:
         flashes, (B, S, H, Hkv, N, causal) = SHAPES[dh]
-        fq = [(f"({b}, {s}, {h}/{hk}, {dh})",
+        fq = [(f"({b}, {s}, {h}/{hk}, {dh})"
+               + (f" window {w}" if w else ""), w,
                cs.flash_case(torch, dev, B=b, S=s, H=h, Hkv=hk, dh=dh,
                              seed=1))
-              for b, s, h, hk in flashes]
+              for b, s, h, hk, w in flashes]
         (q, k, v, db, hit_idx, hit), kw = cs.attention_case(
             torch, dev, B=B, S=S, H=H, Hkv=Hkv, dh=dh, N=N, L=S,
             quant=True, varlen=False, seed=2)
@@ -229,12 +268,12 @@ def main(argv=None) -> int:
                 print(f"   dh {dh}: not in this variant")
                 continue
             line = []
-            for flabel, f in fq:
-                err = (flash_attention(*f) - flash_attention_ref(
-                    *f)).abs().max()
+            for flabel, w, f in fq:
+                err = (flash_attention(*f, window=w) - flash_attention_ref(
+                    *f, window=w)).abs().max()
                 cs.require(diagnostic or err.item() <= cs.ATOL,
                            f"flash_attention error {err}")
-                ms = cs.event_ms(lambda: flash_attention(*f))
+                ms = cs.event_ms(lambda: flash_attention(*f, window=w))
                 line.append(f"flash_attention {flabel} {ms:.4f} ms")
             for mlabel, h in masks.items():
                 a = margs + (h,)
@@ -246,10 +285,8 @@ def main(argv=None) -> int:
                 line.append(f"memo_attention {label} {mlabel} {ms:.4f} ms")
             print(f"   dh {dh}: " + ", ".join(line))
     for dh, (fq, (label, margs, kw, _)) in cases.items():
-        for flabel, f in fq:
-            qt, kt, vt = cs.sdpa_args(*f)
-            ms = cs.event_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))
+        for flabel, w, f in fq:
+            ms = cs.event_ms(cs.sdpa_call(*f, True, w))
             print(f"SDPA {flabel} causal {ms:.4f} ms")
         qt, kt, vt = cs.sdpa_args(*margs[:3])
         ms = cs.event_ms(lambda: F.scaled_dot_product_attention(

@@ -1,10 +1,10 @@
 // Attention tiles on Hopper's tensor cores in split TF32, shared by
 // flash_attention.cu and memo_attention.cu (its miss branch runs
 // online_softmax; its hit branch, apm_pv, runs pv_slice on the APM). This
-// header is the mma.sync tile, run at head_dim 16, 32, 64 and 256; head_dim
-// 112 and 128 run the warpgroup-MMA tile of attention_wgmma.cuh, which
-// computes the same function (and reuses split, cp_async16 and
-// store_rows from here).
+// header is the mma.sync tile, run at head_dim 16, 32 and 64 (a block of
+// 128 threads, 69,632 shared bytes at dh 64); head_dim 112, 128 and 256
+// run the warpgroup-MMA tile of attention_wgmma.cuh, which computes the
+// same function (and reuses cp_async16 and store_rows from here).
 //
 // Replaces the inner loops of the TPU kernels
 // src/repro/kernels/flash_attention/kernel.py (_flash_kernel) and
@@ -36,8 +36,9 @@
 //   blocks per SM, which spills, both ran slower on an H100:
 //   scripts/attention_tile_variants.py.)
 // * Where the Q fragments live depends on the width (Layout::Q_SMEM).
-//   Up to dh = 64 they stay in registers. Past it they would not fit
-//   beside O and the step's P·V accumulator: each warp stores its
+//   Up to dh = 64, every width the tile runs, they stay in registers.
+//   Past it they would not fit beside O and the step's P·V accumulator,
+//   and the layout kept for such widths stores them: each warp stores its
 //   fragments once, in fragment order, to a region of shared memory past
 //   the ring (BQ x DH x 2 words) and reads them back with two 16-byte
 //   loads per 8 columns in each 32-key step, the columns in the outer
@@ -50,30 +51,8 @@
 //   1.6% slower (0.0558 vs 0.0549 ms, mixed rows at B=32, S=128) and
 //   4.3% slower all-hit (0.0336 vs 0.0322), its larger shared memory
 //   leaving fewer blocks per SM (H100 80GB HBM3, 700 W); so dh <= 64
-//   keeps Q in registers. (This layout ran dh 112 and 128 until they
-//   moved to attention_wgmma.cuh: one block of 4 warps per SM there.)
-// * dh = 256 (recurrentgemma_2b: 10 heads of 256 over one KV head): a
-//   block owns a 128-column block of O (out_cols; the row tile's NCOL = 2
-//   blocks are neighbours in the grid): the scores still take all 256
-//   columns of Q and K, the softmax runs whole in each block, and P·V, O
-//   and the stored rows take the block's 128 columns of V. Registers are
-//   then those of 128 columns (O and the accumulator at 64 each), the Q
-//   fragments stay in shared memory (131,072 bytes), and key tiles shrink
-//   to KT = 32 keys (one softmax step): a stage is a 33,280-byte K tile
-//   and a 16,896-byte V tile, 231,424 bytes in all of the 232,448. The
-//   price is QK^T and the softmax computed twice per row tile, 1.5x the
-//   products; chosen over a warp pair sharing scores through shared
-//   memory (a barrier in every step) and over O in two passes inside one
-//   block (the same recomputation, half the blocks), as the layout that
-//   changes no narrower code: KT, DV and NCOL reduce to 64, DH and 1
-//   there. K rows (LD = 260, 260 mod 32 = 4) and V rows (LDV = 132) keep
-//   both fragment reads conflict-free. Blocks of 64 columns (variant "dh
-//   256 in 64-column blocks" of scripts/attention_tile_variants.py: 168
-//   and 128 registers, four softmax passes a row tile) ran
-//   flash_attention 1.83x slower at B=1, S=2560, 10 heads over 1, causal
-//   (3.1508 vs 1.7201 ms; its flash kernel spilled 12 bytes) and
-//   memo_attention 1.21x slower on mixed rows at B=32, S=128 (0.2913 vs
-//   0.2407 ms), so a block keeps 128 columns (H100 80GB HBM3, 700 W).
+//   keeps Q in registers. (This layout ran dh 112, 128 and 256 until
+//   they moved to attention_wgmma.cuh: one block of 4 warps per SM there.)
 // * The tensor cores do not round their f32 sums to nearest, so a long
 //   chain of products into one accumulator drifts: each step's P·V sums
 //   into a fresh accumulator that joins O in f32 (add_tile), and each
@@ -119,24 +98,15 @@ constexpr int STAGES = 2;       // K/V ring depth
 constexpr int KC = 32;          // keys per online-softmax step
 constexpr float NEG_INF = -1e30f;
 
-// Output columns one block computes: all of them up to dh = 128; past it
-// a block owns a 128-column block of O (blockIdx), and the NCOL = DH / DV
-// blocks of a row tile each run the whole softmax
-__host__ __device__ constexpr int out_cols(int dh) {
-  return dh > 128 ? 128 : dh;
-}
-
 // Dynamic shared memory of one block. A stage is an A region (a K tile,
 // or an APM tile of APM_ELEM-byte values, whichever is larger) and a V
-// tile of the block's DV columns; K rows are LD floats apart, V rows LDV,
-// APM rows APM_LD bytes. A tile holds KT keys: 64, or 32 past dh = 128.
+// tile; K rows are LD floats apart, V rows LDV, APM rows APM_LD bytes. A
+// tile holds KT = 64 keys.
 template <int DH, int APM_ELEM = 0>
 struct Layout {
-  static constexpr int DV = out_cols(DH);
-  static constexpr int NCOL = DH / DV;
-  static constexpr int KT = DH > 128 ? 32 : 64;
+  static constexpr int KT = 64;
   static constexpr int LD = DH + 4;
-  static constexpr int LDV = DV + 4;
+  static constexpr int LDV = DH + 4;
   static constexpr int K_BYTES = KT * LD * 4;
   static constexpr int V_BYTES = KT * LDV * 4;
   static constexpr int APM_LD = KT * APM_ELEM + 16;
@@ -150,12 +120,10 @@ struct Layout {
   static constexpr int Q_BYTES = Q_SMEM ? BQ * DH * 2 * 4 : 0;
   static constexpr int SMEM = STAGES * STAGE + Q_BYTES;
   // what every width relies on: whole 8-column fragment steps, rows
-  // 16-byte aligned for cp.async (LD = 116 at dh = 112: 464 bytes), whole
-  // softmax steps in a tile, and a block's shared memory within the 227 KB
-  // an H100 block may take (176,128 bytes at dh = 112, 231,424 at dh =
-  // 256); the row copy's tiling is checked in load_rows_async
-  static_assert(DH % 8 == 0 && DH % DV == 0, "head_dim must be a multiple "
-                "of 8, and of 128 past 128");
+  // 16-byte aligned for cp.async, whole softmax steps in a tile, and a
+  // block's shared memory within the 227 KB an H100 block may take; the
+  // row copy's tiling is checked in load_rows_async
+  static_assert(DH % 8 == 0, "head_dim must be a multiple of 8");
   static_assert(LD * 4 % 16 == 0 && LDV * 4 % 16 == 0,
                 "rows must be 16-byte aligned");
   static_assert(KT % KC == 0, "a tile must hold whole softmax steps");
@@ -276,8 +244,7 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* src,
   }
 }
 
-// K rows (all DH columns) and V rows (the block's DV columns: vb already
-// points at the first) of the tile at key k0 into stage st
+// K rows and V rows of the tile at key k0 into stage st
 template <int DH, int APM_ELEM>
 __device__ __forceinline__ void load_kv_async(unsigned char* smem, int st,
                                               const float* kb, size_t ks,
@@ -286,8 +253,7 @@ __device__ __forceinline__ void load_kv_async(unsigned char* smem, int st,
   using Lay = Layout<DH, APM_ELEM>;
   load_rows_async<DH, Lay::LD, Lay::KT>(
       reinterpret_cast<float*>(Lay::a(smem, st)), kb, ks, k0, S);
-  load_rows_async<Lay::DV, Lay::LDV, Lay::KT>(Lay::v(smem, st), vb, vs, k0,
-                                              S);
+  load_rows_async<DH, Lay::LDV, Lay::KT>(Lay::v(smem, st), vb, vs, k0, S);
 }
 
 // o += P · V for key slice kk (8 keys) of the V tile (DV columns, rows
@@ -320,9 +286,7 @@ __device__ __forceinline__ void add_tile(float (&o)[DV / 8][4],
 }
 
 // Rows [q0, q0 + BQ) of q (rows qs apart) attend over keys [0, len) of
-// k/v (rows ks / vs apart); warp w owns rows q0 + 16 w + {g, g + 8}. The
-// scores take all DH columns of q and k; P·V takes the DV = out_cols(DH)
-// columns of v from vb on (the block's column block).
+// k/v (rows ks / vs apart); warp w owns rows q0 + 16 w + {g, g + 8}.
 // o must start at 0 and ends holding this thread's columns
 // (8 n + 2t, 8 n + 2t + 1) of its two rows' unnormalised outputs; l ends
 // holding their softmax denominators, clamped at 1e-30 so a fully masked
@@ -332,9 +296,9 @@ __device__ __forceinline__ void online_softmax(
     unsigned char* smem, const float* qb, size_t qs, const float* kb,
     size_t ks, const float* vb, size_t vs, int S, int len, int q0,
     int causal, int has_window, int window, float scale,
-    float (&o)[out_cols(DH) / 8][4], float (&l)[2]) {
+    float (&o)[DH / 8][4], float (&l)[2]) {
   using Lay = Layout<DH, APM_ELEM>;
-  constexpr int LD = Lay::LD, LDV = Lay::LDV, DV = Lay::DV, KT = Lay::KT;
+  constexpr int LD = Lay::LD, LDV = Lay::LDV, KT = Lay::KT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wq = q0 + warp * 16;           // the warp's first row
@@ -479,7 +443,7 @@ __device__ __forceinline__ void online_softmax(
       }
 
       // O = O alpha + P V: P's accumulator is its A operand
-      float acc[DV / 8][4] = {};
+      float acc[DH / 8][4] = {};
 #pragma unroll
       for (int kk = 0; kk < KC / 8; ++kk) {
         uint32_t ph[4], pl[4];
@@ -487,9 +451,9 @@ __device__ __forceinline__ void online_softmax(
         split(s[kk][2], ph[1], pl[1]);
         split(s[kk][1], ph[2], pl[2]);
         split(s[kk][3], ph[3], pl[3]);
-        pv_slice<DV, LDV>(acc, ph, pl, V, kk);
+        pv_slice<DH, LDV>(acc, ph, pl, V, kk);
       }
-      add_tile<DV>(o, acc, alpha);
+      add_tile<DH>(o, acc, alpha);
     }
     __syncthreads();   // stage st is refilled two tiles on
   }

@@ -1,7 +1,7 @@
-// The attention tile at head_dim 112 and 128 on Hopper's warpgroup MMA
-// (wgmma.mma_async), in split TF32. flash_attention.cu and
+// The attention tile at head_dim 112, 128 and 256 on Hopper's warpgroup
+// MMA (wgmma.mma_async), in split TF32. flash_attention.cu and
 // memo_attention.cu (both its branches) run it at those widths;
-// attention_tile.cuh's mma.sync tile keeps head_dim 16, 32, 64 and 256.
+// attention_tile.cuh's mma.sync tile keeps head_dim 16, 32 and 64.
 //
 // Replaces, at those widths, the inner loops of the TPU kernels
 // src/repro/kernels/flash_attention/kernel.py (_flash_kernel) and
@@ -23,10 +23,12 @@
 // dh=128, causal) 17.2 GFLOP of products at 3xTF32's 494.7 / 3 TFLOP/s:
 // 0.104 ms, set by operations; at qwen2_1_5b's serving shape (B=32,
 // S=128, H=12 over 2) the 58.7 MB of Q/K/V/out at 3.35 TB/s, 0.0175 ms:
-// set by bytes.
+// set by bytes. At recurrentgemma_2b's forward (B=1, S=2,560, H=10 over
+// 1, dh=256, causal, window 2,048) 32.2 GFLOP: 0.195 ms, set by
+// operations.
 //
 // What the design does about it (the mma.sync tile ran these widths at
-// 4-10x their bound: one block of 4 warps per SM, each warp splitting
+// 4-12x their bound: one block of 4 warps per SM, each warp splitting
 // every K and V element of every tile):
 // * A block of NT = 256 threads is two warpgroups. Warpgroup 0 (the
 //   consumer) owns the BQ = 64 query rows and issues every product as
@@ -35,61 +37,110 @@
 //   K lo side by side) and one m64n32 of Q lo with K hi, A and B from
 //   shared memory. P·V and APM·V take P (or the dequantized APM) hi/lo
 //   from registers in the m64k8 A layout and V^T hi/lo from shared memory,
-//   O's columns in two halves (m64n64 at dh 128, m64n56 at dh 112), so
-//   that consecutive wgmmas never wait on each other's sums. Warpgroup 1
-//   (the producer) copies K/V tiles by cp.async and splits them: each K
+//   O's columns in two halves (m64n64 at dh 128 and 256, m64n56 at dh
+//   112), so that consecutive wgmmas never wait on each other's sums.
+//   Warpgroup 1 (the producer) copies K/V tiles and splits them: each K
 //   and V element is split once per tile per block, and two warps share
 //   each scheduler. The split rounds with integer operations (half a TF32
 //   ulp added to the magnitude, 13 bits cleared: cvt.rna's bits).
 // * TF32 wgmma reads only K-major operands. K's rows (dh contiguous) are
 //   K-major for QK^T as they come; P·V needs keys contiguous per column of
-//   V, so the split writes V transposed (V^T: DH rows of KT = 32 keys).
-//   Every operand lies in the 128-byte swizzle: rows of 128 bytes (32
-//   values), chunk c of row r at chunk c ^ (r mod 8), 8-row groups 1,024
-//   bytes apart (SBO), a k-step of 8 values 32 bytes on within an atom.
-//   Rows wider than 32 values are atoms side by side (Q and K: 4 atoms);
-//   dh 112's last atom is half used and its other chunks are never read
-//   (14 k-steps), so no padding is written. Every shared-memory access is
-//   conflict-free: K's copy and in-place split and Q's split (4 rows x 8
-//   chunks of one atom a warp), V's row-major landing tile (a warp's 32
-//   consecutive chunks), and V^T's split, where a lane reads the 4 keys of
-//   one 16-byte V^T chunk from one column of the landing tile (a warp: 32
-//   consecutive columns) and stores the chunk (8 lanes: 8 rows, whose
-//   swizzled chunks differ).
+//   V, so the split writes V transposed (V^T: one row per column of O, of
+//   KT = 32 keys). Every operand lies in the 128-byte swizzle: rows of 128
+//   bytes (32 values), chunk c of row r at chunk c ^ (r mod 8), 8-row
+//   groups 1,024 bytes apart (SBO), a k-step of 8 values 32 bytes on
+//   within an atom. Rows wider than 32 values are atoms side by side (Q
+//   and K: 4 atoms); dh 112's last atom is half used and its other chunks
+//   are never read (14 k-steps), so no padding is written. Every
+//   shared-memory access is conflict-free: K's copy and in-place split and
+//   Q's split (4 rows x 8 chunks of one atom a warp), V's row-major
+//   landing tile (a warp's 32 consecutive chunks), and V^T's split, where
+//   a lane takes the 4 keys of one 16-byte V^T chunk from one column of V
+//   (a warp: 32 consecutive columns) and stores the chunk (8 lanes: 8
+//   rows, whose swizzled chunks differ).
 // * P never leaves registers: V^T's key columns are permuted within each
 //   8-key slice (column t holds key 2t, column t + 4 key 2t + 1), which is
 //   where the m64nN accumulator of QK^T holds P for the A layout.
-// * Shared memory (dh 128, dh 112 in brackets): Q hi and lo, 64 rows x 4
-//   atoms x 128 B each, 65,536 bytes; then STAGES = 2 stages of the K
-//   region (per atom 32 K hi rows, where the copy lands and is split in
-//   place, then 32 K lo rows: 32,768), V^T hi and lo (DH rows x 128 B each:
-//   32,768 [28,672]) and V's landing tile (32 x DH f32: 16,384 [14,336]):
-//   81,920 [75,776] a stage, 229,376 [217,088] in all, plus 1,024 bytes to
-//   align the base to the swizzle's 1,024: 230,400 [218,112] of the
-//   232,448 a block may use, so one block (8 warps) runs on an SM. A hit
-//   block's APM codes (64 x 32, rows of KT * elem + 16 bytes) take the K
-//   region; it never touches the Q region, but one launch has one
-//   shared-memory size, so hit blocks too run one a SM. A 64-key stage
-//   (160 KB at dh 128) or a third stage does not fit beside Q and a second
-//   stage.
-// * The producer keeps two tiles in flight: tile j lands (a barrier of
-//   the producer's own, LANDED, since a thread splits V that others
-//   copied), waits for its stage's K lo and V^T (tile j - 2's P·V: V_FREE),
-//   is split and handed over (FULL, after fence.proxy.async so the
-//   wgmma's async proxy sees the split's stores); tile j + 2's copy into
-//   the stage is issued once tile j's QK^T is done with K hi (A_FREE).
-//   Named barriers, bar.arrive by one warpgroup and bar.sync by the other,
-//   carry the hand-offs; every arrival has its wait. The consumer splits Q
-//   itself (Q_READY, its own barrier) while the producer splits the first
-//   tiles. Registers: 182 [166] a thread in flash_attention, 180 [164] in
-//   memo_attention, no spills; 256 threads leave every thread 255.
+// * dh 256 (recurrentgemma_2b: 10 heads over one KV head): the two blocks
+//   of a row tile (NCOL = 2, neighbours in the grid) run as a thread-block
+//   cluster of 2 (cudaLaunchKernelEx, cudaLaunchAttributeClusterDimension),
+//   each the dh-128 tile over half of dh: block rank cb holds Q hi/lo and K
+//   hi/lo for dh columns [128 cb, 128 cb + 128) (DQ = 128: dh 128's
+//   regions and swizzle offsets, 4 atoms a row) and V^T for its 128 output
+//   columns (DV = 128). Each block's partial scores (its small chains
+//   joined to its large one in f32, as at dh 128) go to its peer's shared
+//   memory (st.async at the mapa'd address, 16 floats a thread, 8,192
+//   bytes a block a tile, counted as transaction bytes on the peer's
+//   mbarrier), and each block adds the two partials: f32
+//   addition is commutative, so both hold rank 0's + rank 1's bit for bit,
+//   and both run the same softmax on the same P, then P·V over their own
+//   columns. The products are those of the function (1x; the mma.sync
+//   tile computed QK^T in both blocks, 1.5x), a block's Q fill halves and
+//   its registers are dh 128's. A hit cluster's blocks read the same APM
+//   tile and exchange nothing: hit[b] is the same in both blocks of a
+//   cluster, so both skip the cluster barriers together.
+// * Shared memory, from the block's first 1,024-byte boundary (1,024
+//   bytes reserved for the alignment): Q hi and lo (64 rows x 4 atoms x
+//   128 B each: 65,536 bytes), then STAGES = 2 stages of the K region (per
+//   atom 32 K hi rows, where the copy lands and is split in place, then 32
+//   K lo rows: 32,768), V^T hi and lo (DV rows x 128 B each: 32,768
+//   [28,672 at dh 112]) and, at dh 112 and 128, V's landing tile (32 x DH
+//   f32: 16,384 [14,336]): 81,920 [75,776] a stage, 230,400 bytes in all
+//   at dh 128, 218,112 at dh 112, of the 232,448 a block may use: one
+//   block (8 warps) a SM. At dh 256 V lands through registers (each
+//   producer thread loads the 32 values it splits, a tile ahead), so no
+//   landing tile: 65,536 a stage, then two exchange buffers (8,192 each)
+//   and their two mbarriers (16): 214,032 bytes. One exchange buffer
+//   beside the landing tiles would take 238,592. Two buffers need no
+//   "buffer free" signal: a block writes its peer's buffer j % 2 for tile
+//   j + 2 only after waiting for the peer's whole tile j + 1 partial,
+//   which each peer thread sends (st.async's complete-tx releases at
+//   cluster scope) after reading its tile j values from that buffer
+//   (program order). A hit block's APM codes (64 x 32, rows of KT *
+//   elem + 16 bytes) take the K region; one launch has one shared-memory
+//   size, so hit blocks too run one a SM.
+// * The producer keeps two tiles in flight: tile j lands (at dh 112/128 a
+//   barrier of the producer's own, LANDED, since a thread splits V that
+//   others copied; at dh 256 a thread splits only what it loaded), waits
+//   for its stage's K lo and V^T (tile j - 2's P·V: V_FREE), is split and
+//   handed over (FULL, after fence.proxy.async so the wgmma's async proxy
+//   sees the split's stores); tile j + 2's copy into the stage is issued
+//   once tile j's QK^T is done with K hi (A_FREE). Named barriers,
+//   bar.arrive by one warpgroup and bar.sync by the other, carry the
+//   hand-offs; every arrival has its wait. The consumer splits Q itself
+//   (Q_READY, its own barrier) while the producer splits the first tiles.
+//   Cluster synchronisation at dh 256, per miss block: two barrier.cluster
+//   arrive/wait pairs by every thread of both blocks. The first opens the
+//   cluster after thread 0 made the mbarriers (arrive at once; a consumer
+//   thread waits after Q's fill, before its first remote store, a
+//   producer thread after its ring, before it arrives again), the second
+//   closes it (arrive and wait before exit, so no block leaves while its
+//   peer may still write to it). Per key tile j, one phase of the
+//   block's mbarrier j % 2 (parity (j / 2) % 2): one arrival, thread 0's
+//   expect_tx of 8,192 bytes, and the peer's 512 16-byte st.async
+//   complete it; each of the 128 consumer threads waits on it
+//   (try_wait.parity.acquire.cluster) before reading the buffer. A block
+//   waits in tile j for exactly the bytes its peer sends in tile j, and
+//   thread 0 opens a phase only after it waited on the previous one of
+//   that mbarrier. Registers: 182 [166] a thread in flash_attention, 180
+//   [164] in memo_attention at dh 128 [112], 226 and 180 at dh 256, no
+//   spills; 256 threads leave every thread 255.
 // * Measured with scripts/attention_tile_variants.py --dh 112 128
 //   (PERF.md): the producer's split and the copies' latency set the pace
 //   more than the products do. Fewer producer warps and cvt.rna in the
 //   split ran slower; one stage, or 64-key tiles in one stage (252
 //   registers), were no better on the serving rows; a consumer that
 //   issued QK^T(j + 1) before P·V(j), to run tile j + 1's softmax under
-//   tile j's products, needed more registers and ran slower.
+//   tile j's products, needed more registers and ran slower. At dh 256
+//   the design measured against the cluster is one block a column half
+//   (CLUSTER = false: Q and K over all 256 columns, 8 atoms, one stage,
+//   QK^T and the softmax in both blocks of a row tile, 230,400 bytes):
+//   variant "wgmma: dh 256 in one block", 32% slower at the forward and
+//   15-24% on the serving rows. Plain remote stores with one release
+//   arrival a thread in place of st.async ran 1-4% slower, and the
+//   opening cluster barrier waited on before Q's fill ~1.5% slower on
+//   all-miss rows; without any exchange (a diagnostic, wrong output) the
+//   rows run 1-5% faster (PERF.md).
 //
 // Layouts (PTX ISA, wgmma .m64nNk8 .tf32), lane = 4 g + t, warp w of the
 // warpgroup owns rows 16 w + {g, g + 8}:
@@ -114,6 +165,9 @@ constexpr int STAGES = 2;      // tiles in the ring
 constexpr int PW = 4;          // producer warps
 constexpr int NC = 128;        // consumer threads: warpgroup 0
 constexpr int NT = NC + 32 * PW;
+// dh 256: the row tile's two column blocks as a cluster exchanging
+// partial scores (false: each block computes all of QK^T itself)
+constexpr bool CLUSTER = true;
 static_assert(NT <= 256, "255 registers for every thread");
 // named barriers (0 is __syncthreads), one a stage each: the stage's
 // operands are ready (FULL), its A region (K, or the APM codes) is free
@@ -125,26 +179,37 @@ constexpr int FULL = 1, A_FREE = FULL + STAGES, V_FREE = A_FREE + STAGES,
 static_assert(KT % 32 == 0 && LANDED < 16, "whole atoms, 16 barriers");
 
 __host__ __device__ constexpr bool uses(int dh) {
-  return dh == 112 || dh == 128;
+  return dh == 112 || dh == 128 || dh == 256;
 }
 __host__ __device__ constexpr int threads(int dh) {
   return uses(dh) ? NT : attn_tile::NT;
 }
+// blocks a row tile: past dh 128 each owns half of O's columns
+__host__ __device__ constexpr int ncol(int dh) { return dh > 128 ? 2 : 1; }
 
 // Byte offsets from the block's 1,024-aligned base (see the head comment)
 template <int DH, int APM_ELEM = 0>
 struct Layout {
-  static constexpr int ATOMS = (DH + 31) / 32;    // 128-byte atoms a row
+  static constexpr int NCOL = ncol(DH);
+  static constexpr int DV = DH / NCOL;            // O's columns a block owns
+  static constexpr bool PAIR = NCOL > 1 && CLUSTER;
+  static constexpr int DQ = PAIR ? DV : DH;       // Q/K columns a block holds
+  static constexpr int ST = NCOL > 1 && !PAIR ? 1 : STAGES;   // stages
+  static constexpr bool VREG = NCOL > 1;          // V lands through registers
+  static constexpr int ATOMS = (DQ + 31) / 32;    // 128-byte atoms a row
   static constexpr int Q_BYTES = ATOMS * BQ * 128;
   // K hi rows 0..KT-1 and K lo rows KT..2 KT-1 of each atom
   static constexpr int K_BYTES = ATOMS * 2 * KT * 128;
-  static constexpr int VT_BYTES = DH * KT * 4;
-  static constexpr int VL_BYTES = KT * DH * 4;
+  static constexpr int VT_BYTES = DV * KT * 4;
+  static constexpr int VL_BYTES = VREG ? 0 : KT * DV * 4;
+  static constexpr int X_BYTES = PAIR ? BQ * KT * 4 : 0;   // partial scores
   static constexpr int APM_LD = KT * APM_ELEM + 16;
   static constexpr int STAGE = K_BYTES + 2 * VT_BYTES + VL_BYTES;
-  static constexpr int SMEM = 1024 + 2 * Q_BYTES + STAGES * STAGE;
+  static constexpr int SMEM =
+      1024 + 2 * Q_BYTES + ST * STAGE + 2 * X_BYTES + (PAIR ? 16 : 0);
   static constexpr int QHI = 0, QLO = Q_BYTES;
   static_assert(DH % 16 == 0, "whole 16-column copy passes");
+  static_assert(!VREG || DV % 32 == 0, "V^T rows in groups of 32");
   static_assert(BQ * APM_LD <= K_BYTES, "APM codes fit the K region");
   static_assert(SMEM <= 227 * 1024, "shared memory past 227 KB");
   __host__ __device__ static constexpr int k(int st) {
@@ -159,6 +224,14 @@ struct Layout {
   __host__ __device__ static constexpr int vl(int st) {
     return vtl(st) + VT_BYTES;
   }
+  // exchange buffer i (the peer's partial scores of tiles j = i mod 2)
+  // and its mbarrier
+  __host__ __device__ static constexpr int x(int i) {
+    return 2 * Q_BYTES + ST * STAGE + i * X_BYTES;
+  }
+  __host__ __device__ static constexpr int bar(int i) {
+    return x(2) + 8 * i;
+  }
 };
 
 // attn_tile::Layout's or Layout's SMEM, whichever tile DH runs
@@ -168,6 +241,15 @@ __host__ __device__ constexpr int smem_bytes() {
     return Layout<DH, APM_ELEM>::SMEM;
   else
     return attn_tile::Layout<DH, APM_ELEM>::SMEM;
+}
+
+// blocks of a cluster: 2 where a row tile's blocks exchange scores
+template <int DH>
+__host__ __device__ constexpr int cluster_size() {
+  if constexpr (uses(DH))
+    return Layout<DH>::PAIR ? Layout<DH>::NCOL : 1;
+  else
+    return 1;
 }
 
 // ---------------------------------------------------------------- PTX
@@ -207,6 +289,62 @@ __device__ __forceinline__ void hold(uint32_t (&a)[N][4]) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
   }
+}
+
+// the block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// the cluster barrier: every thread of every block of the cluster arrives
+// (release), and waits (acquire) before it arrives again
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// the shared::cluster address of shared address a in block `rank`
+__device__ __forceinline__ uint32_t mapa(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+// 16 bytes to shared::cluster address a (a peer's), counted as complete
+// transaction bytes on the peer's mbarrier at shared::cluster address
+// mbar once written (release at cluster scope)
+__device__ __forceinline__ void st_async(uint32_t a, float x, float y,
+                                         float z, float w, uint32_t mbar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];"
+      ::"r"(a), "f"(x), "f"(y), "f"(z), "f"(w), "r"(mbar) : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t a, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               ::"r"(a), "r"(count) : "memory");
+}
+// one arrival on this block's mbarrier at a, whose phase then also waits
+// for tx transaction bytes
+__device__ __forceinline__ void mbar_expect(uint32_t a, int tx) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(a), "r"(tx) : "memory");
+}
+// waits until the phase of parity `parity` of this block's mbarrier at a
+// has completed; the peer's stores before its arrivals are seen after
+__device__ __forceinline__ void mbar_wait(uint32_t a, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], "
+      "%1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(a), "r"(parity) : "memory");
 }
 
 // hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), as attn_tile::split,
@@ -306,7 +444,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
 
 // d (m64nN f32) = A · B (+ d if scale_d), A tf32 from registers (the
 // m64k8 A layout), B K-major tf32 in shared memory: N = 56, 64 (half
-// of dh 112's and dh 128's columns)
+// of dh 112's and dh 128's columns, and of a dh-256 block's)
 __device__ __forceinline__ void wgmma_rs(float (&d)[28],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
@@ -347,14 +485,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
 
 // acc = A (hi ah / lo al) · V^T over the KT keys of a tile: a_lo*v_hi +
 // a_hi*v_lo + a_hi*v_hi per 8-key slice, into fresh accumulators. V^T's
-// rows (O's columns) go in two halves, acc[0] and acc[1], so consecutive
-// wgmmas never wait on each other's sums.
-template <int DH>
-__device__ __forceinline__ void av(float (&acc)[2][DH / 4],
+// DV rows (O's columns) go in two halves, acc[0] and acc[1], so
+// consecutive wgmmas never wait on each other's sums.
+template <int DV>
+__device__ __forceinline__ void av(float (&acc)[2][DV / 4],
                                    uint32_t (&ah)[KT / 8][4],
                                    uint32_t (&al)[KT / 8][4], uint64_t vh,
                                    uint64_t vl) {
-  constexpr uint64_t HALF = DH / 2 * 128 >> 4;   // V^T row DH / 2
+  constexpr uint64_t HALF = DV / 2 * 128 >> 4;   // V^T row DV / 2
   hold(ah);
   hold(al);
   wg_fence();
@@ -362,13 +500,13 @@ __device__ __forceinline__ void av(float (&acc)[2][DH / 4],
   for (int kk = 0; kk < KT / 8; ++kk) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      wgmma_rs(acc[h], al[kk], kstep<DH>(vh, kk) + h * HALF, kk > 0);
+      wgmma_rs(acc[h], al[kk], kstep<DV>(vh, kk) + h * HALF, kk > 0);
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      wgmma_rs(acc[h], ah[kk], kstep<DH>(vl, kk) + h * HALF, 1);
+      wgmma_rs(acc[h], ah[kk], kstep<DV>(vl, kk) + h * HALF, 1);
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      wgmma_rs(acc[h], ah[kk], kstep<DH>(vh, kk) + h * HALF, 1);
+      wgmma_rs(acc[h], ah[kk], kstep<DV>(vh, kk) + h * HALF, 1);
   }
   wg_commit();
   wg_wait();
@@ -377,36 +515,36 @@ __device__ __forceinline__ void av(float (&acc)[2][DH / 4],
 }
 
 // o = o * alpha + acc, rows g (alpha[0]) and g + 8 (alpha[1]); o's column
-// block n is acc[n / (DH / 16)]'s block n % (DH / 16)
-template <int DH>
-__device__ __forceinline__ void add_tile(float (&o)[DH / 8][4],
-                                         const float (&acc)[2][DH / 4],
+// block n is acc[n / (DV / 16)]'s block n % (DV / 16)
+template <int DV>
+__device__ __forceinline__ void add_tile(float (&o)[DV / 8][4],
+                                         const float (&acc)[2][DV / 4],
                                          const float (&alpha)[2]) {
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       o[n][e] = fmaf(o[n][e], alpha[e >> 1],
-                     acc[n / (DH / 16)][4 * (n % (DH / 16)) + e]);
+                     acc[n / (DV / 16)][4 * (n % (DV / 16)) + e]);
   }
 }
 
 // ------------------------------------------------------------- producer
 // Producer thread p is 0..32 PW - 1.
 
-// K rows [k0, k0 + KT) of kb (rows ks floats apart; zero at or past S)
-// into the K hi rows, swizzled: a warp copies 4 keys x 8 chunks of one
-// atom a pass
-template <int DH>
+// K rows [k0, k0 + KT) of kb (rows ks floats apart, the block's DQ
+// columns; zero at or past S) into the K hi rows, swizzled: a warp copies
+// 4 keys x 8 chunks of one atom a pass
+template <class Lay>
 __device__ __forceinline__ void load_k(unsigned char* kr, const float* kb,
                                        size_t ks, int k0, int S, int p) {
   const int w = p >> 5, lane = p & 31;
 #pragma unroll
-  for (int it = 0; it < KT / 4 * Layout<DH>::ATOMS / PW; ++it) {
+  for (int it = 0; it < KT / 4 * Lay::ATOMS / PW; ++it) {
     const int wi = w + PW * it;
     const int r = wi % (KT / 4) * 4 + (lane >> 3);
     const int c = wi / (KT / 4) * 8 + (lane & 7);
-    if (c < DH / 4) {
+    if (c < Lay::DQ / 4) {
       const bool ok = k0 + r < S;
       attn_tile::cp_async16(kr + sw<2 * KT>(r, c),
                             ok ? kb + (size_t)(k0 + r) * ks + c * 4 : kb,
@@ -417,15 +555,15 @@ __device__ __forceinline__ void load_k(unsigned char* kr, const float* kb,
 
 // K hi rows (as landed) -> K hi, K lo in place: the chunks this thread
 // copied (load_k)
-template <int DH>
+template <class Lay>
 __device__ __forceinline__ void split_k(unsigned char* kr, int p) {
   const int w = p >> 5, lane = p & 31;
 #pragma unroll
-  for (int it = 0; it < KT / 4 * Layout<DH>::ATOMS / PW; ++it) {
+  for (int it = 0; it < KT / 4 * Lay::ATOMS / PW; ++it) {
     const int wi = w + PW * it;
     const int r = wi % (KT / 4) * 4 + (lane >> 3);
     const int c = wi / (KT / 4) * 8 + (lane & 7);
-    if (c < DH / 4) {
+    if (c < Lay::DQ / 4) {
       uint4* h = reinterpret_cast<uint4*>(kr + sw<2 * KT>(r, c));
       const float4 x = *reinterpret_cast<const float4*>(h);
       uint4 hi, lo;
@@ -439,14 +577,16 @@ __device__ __forceinline__ void split_k(unsigned char* kr, int p) {
   }
 }
 
-// V rows [k0, k0 + KT) (zero at or past S) into the landing tile, row
-// major (KT x DH f32): chunk i of the tile (row i / (DH / 4)) at byte 16 i
-template <int DH>
+// V rows [k0, k0 + KT) (the block's DV columns, zero at or past S) into
+// the landing tile, row major (KT x DV f32): chunk i of the tile (row
+// i / (DV / 4)) at byte 16 i
+template <class Lay>
 __device__ __forceinline__ void load_v(unsigned char* vl, const float* vb,
                                        size_t vs, int k0, int S, int p) {
+  constexpr int DV = Lay::DV;
 #pragma unroll
-  for (int it = 0; it < KT * DH / 4 / (32 * PW); ++it) {
-    const int i = p + 32 * PW * it, r = i / (DH / 4), c = i % (DH / 4);
+  for (int it = 0; it < KT * DV / 4 / (32 * PW); ++it) {
+    const int i = p + 32 * PW * it, r = i / (DV / 4), c = i % (DV / 4);
     const bool ok = k0 + r < S;
     attn_tile::cp_async16(vl + i * 16,
                           ok ? vb + (size_t)(k0 + r) * vs + c * 4 : vb,
@@ -454,41 +594,89 @@ __device__ __forceinline__ void load_v(unsigned char* vl, const float* vb,
   }
 }
 
+// One pass of V^T's split: the V^T chunk (4 key columns q) of row d that
+// producer thread p writes in pass `it`, and its 4 keys' rows in the tile
+// (columns 4q..4q+3: keys 8 (q / 2) + 2t (+1 for odd q), t = 0..3)
+struct VtChunk {
+  int q, d, r0;
+  __device__ __forceinline__ VtChunk(int p, int it) {
+    const int wi = (p >> 5) + PW * it;
+    q = wi % (KT / 4);
+    d = wi / (KT / 4) * 32 + (p & 31);
+    r0 = (q >> 1) * 8 + (q & 1);
+  }
+};
+// V^T hi/lo chunk at row d, key columns 4q..4q+3 = split of x
+template <class Lay>
+__device__ __forceinline__ void store_vt(unsigned char* vth, const VtChunk& c,
+                                         float x0, float x1, float x2,
+                                         float x3) {
+  uint4 hi, lo;
+  split(x0, hi.x, lo.x);
+  split(x1, hi.y, lo.y);
+  split(x2, hi.z, lo.z);
+  split(x3, hi.w, lo.w);
+  *reinterpret_cast<uint4*>(vth + sw<Lay::DV>(c.d, c.q)) = hi;
+  *reinterpret_cast<uint4*>(vth + Lay::VT_BYTES + sw<Lay::DV>(c.d, c.q)) =
+      lo;
+}
+
 // the landing tile (every producer thread's copies landed) -> V^T hi, lo:
 // row d, key column j holds key perm(j) (column t of each 8-key slice key
 // 2t, column t + 4 key 2t + 1). A warp writes one 16-byte chunk (4 key
 // columns) of 32 rows a pass, reading its 4 keys a row at a time.
-template <int DH>
+template <class Lay>
 __device__ __forceinline__ void split_v(unsigned char* vth,
                                         const unsigned char* vl, int p) {
-  constexpr int DG = (DH + 31) / 32;   // groups of 32 rows
-  const int w = p >> 5, lane = p & 31;
+  constexpr int DV = Lay::DV, DG = (DV + 31) / 32;   // groups of 32 rows
   const float* v = reinterpret_cast<const float*>(vl);
 #pragma unroll
   for (int it = 0; it < DG * KT / 4 / PW; ++it) {
-    const int wi = w + PW * it;
-    const int q = wi % (KT / 4), d = wi / (KT / 4) * 32 + lane;
-    if (d < DH) {
-      // columns 4q..4q+3: keys 8 (q / 2) + 2t (+1 for odd q), t = 0..3
-      const int r0 = (q >> 1) * 8 + (q & 1);
-      uint4 hi, lo;
-      split(v[(r0 + 0) * DH + d], hi.x, lo.x);
-      split(v[(r0 + 2) * DH + d], hi.y, lo.y);
-      split(v[(r0 + 4) * DH + d], hi.z, lo.z);
-      split(v[(r0 + 6) * DH + d], hi.w, lo.w);
-      *reinterpret_cast<uint4*>(vth + sw<DH>(d, q)) = hi;
-      *reinterpret_cast<uint4*>(vth + Layout<DH>::VT_BYTES + sw<DH>(d, q)) =
-          lo;
-    }
+    const VtChunk c(p, it);
+    if (c.d < DV)
+      store_vt<Lay>(vth, c, v[(c.r0 + 0) * DV + c.d],
+                    v[(c.r0 + 2) * DV + c.d], v[(c.r0 + 4) * DV + c.d],
+                    v[(c.r0 + 6) * DV + c.d]);
   }
 }
 
-// Issues the copies of the first STAGES tiles (load(j, stage)), one
-// cp.async group each; produce() then carries the ring to tile n - 1.
-template <typename Load>
+// V through registers (Lay::VREG): the values this thread splits into
+// V^T (split_v's chunks) loaded straight from V rows [k0, k0 + KT) (the
+// block's DV columns; zero at or past S), a warp's 32 lanes on 32
+// consecutive columns of one row
+template <class Lay>
+struct VRegs {
+  static constexpr int N = Lay::DV / 32 * KT / 4 / PW;
+  float x[N][4];
+};
+template <class Lay>
+__device__ __forceinline__ void ldg_v(VRegs<Lay>& vr, const float* vb,
+                                      size_t vs, int k0, int S, int p) {
+#pragma unroll
+  for (int it = 0; it < VRegs<Lay>::N; ++it) {
+    const VtChunk c(p, it);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = k0 + c.r0 + 2 * e;
+      vr.x[it][e] = r < S ? vb[(size_t)r * vs + c.d] : 0.f;
+    }
+  }
+}
+template <class Lay>
+__device__ __forceinline__ void split_v_regs(unsigned char* vth,
+                                             const VRegs<Lay>& vr, int p) {
+#pragma unroll
+  for (int it = 0; it < VRegs<Lay>::N; ++it)
+    store_vt<Lay>(vth, VtChunk(p, it), vr.x[it][0], vr.x[it][1],
+                  vr.x[it][2], vr.x[it][3]);
+}
+
+// Issues the copies of the first ST tiles (load(j, stage)), one cp.async
+// group each; produce() then carries the ring to tile n - 1.
+template <int ST, typename Load>
 __device__ __forceinline__ void prefetch(int n, Load load) {
 #pragma unroll
-  for (int j = 0; j < STAGES; ++j) {
+  for (int j = 0; j < ST; ++j) {
     if (j < n) {
       load(j, j);
       attn_tile::cp_commit();
@@ -496,65 +684,73 @@ __device__ __forceinline__ void prefetch(int n, Load load) {
   }
 }
 
-// The producer's ring: tile j lands (every producer thread's copies),
-// waits for its stage's K lo and V^T (tile j - STAGES's P·V), is made
-// into operands (prepare(j, stage)) and handed over; tile j + STAGES's
-// copy is issued once tile j's A region is free (which all producer
-// threads pass only after preparing tile j, so the landing tile is free
-// too).
-template <typename Load, typename Prepare>
+// The producer's ring of ST stages: tile j lands (every producer thread's
+// copies, where LANDED_SYNC: a thread prepares what others copied), waits
+// for its stage's K lo and V^T (tile j - ST's P·V), is made into operands
+// (prepare(j, stage)) and handed over; tile j + ST's copy is issued once
+// tile j's A region is free (which all producer threads pass only after
+// preparing tile j, so a landing tile is free too).
+template <int ST, bool LANDED_SYNC, typename Load, typename Prepare>
 __device__ __forceinline__ void produce(int n, Load load, Prepare prepare) {
-  static_assert(STAGES <= 2, "cp.async groups in flight: 1 or 2");
+  static_assert(ST == 1 || ST == 2, "cp.async groups in flight: 1 or 2");
   for (int j = 0; j < n; ++j) {
-    const int st = j % STAGES;
-    if (STAGES > 1 && j + 1 < n)
-      attn_tile::cp_wait<STAGES - 1>();
+    const int st = j % ST;
+    if (ST > 1 && j + 1 < n)
+      attn_tile::cp_wait<ST - 1>();
     else
       attn_tile::cp_wait<0>();
-    bar_sync<32 * PW>(LANDED);
-    if (j >= STAGES) bar_sync(V_FREE + st);
+    if (LANDED_SYNC) bar_sync<32 * PW>(LANDED);
+    if (j >= ST) bar_sync(V_FREE + st);
     prepare(j, st);
     fence_proxy_async();
     bar_arrive(FULL + st);
-    if (j + STAGES < n) {
+    if (j + ST < n) {
       bar_sync(A_FREE + st);
-      load(j + STAGES, st);
+      load(j + ST, st);
       attn_tile::cp_commit();
     }
   }
 }
 
-// Q rows [q0, q0 + BQ) (zero at or past S) -> Q hi, lo, swizzled, by the
-// consumer's NC threads: a warp takes 4 rows x 8 chunks of one atom a
-// pass. Then the consumer's own barrier: the producer never reads Q.
-template <int DH>
+// Q rows [q0, q0 + BQ) (the block's DQ columns from qb on; zero at or
+// past S) -> Q hi, lo, swizzled, by the consumer's NC threads: a warp
+// takes 4 rows x 8 chunks of one atom a pass, up to 4 atoms loaded before
+// they are split. Then the consumer's own barrier: the producer never
+// reads Q.
+template <class Lay>
 __device__ __forceinline__ void load_q(unsigned char* base, const float* qb,
                                        size_t qs, int q0, int S) {
-  using Lay = Layout<DH>;
-  constexpr int IT = BQ / 4 * Lay::ATOMS / (NC / 32);
+  constexpr int DQ = Lay::DQ, GA = Lay::ATOMS < 4 ? Lay::ATOMS : 4;
+  constexpr int IT = BQ / 4 * GA / (NC / 32);
+  static_assert(Lay::ATOMS % GA == 0, "whole groups of atoms");
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float4 x[IT];
 #pragma unroll
-  for (int it = 0; it < IT; ++it) {
-    const int wi = w + (NC / 32) * it;
-    const int r = (wi & 15) * 4 + (lane >> 3), c = (wi >> 4) * 8 + (lane & 7);
-    x[it] = c < DH / 4 && q0 + r < S
-                ? *reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * qs +
-                                                   c * 4)
-                : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  for (int a0 = 0; a0 < Lay::ATOMS; a0 += GA) {
+    float4 x[IT];
 #pragma unroll
-  for (int it = 0; it < IT; ++it) {
-    const int wi = w + (NC / 32) * it;
-    const int r = (wi & 15) * 4 + (lane >> 3), c = (wi >> 4) * 8 + (lane & 7);
-    if (c < DH / 4) {
-      uint4 hi, lo;
-      split(x[it].x, hi.x, lo.x);
-      split(x[it].y, hi.y, lo.y);
-      split(x[it].z, hi.z, lo.z);
-      split(x[it].w, hi.w, lo.w);
-      *reinterpret_cast<uint4*>(base + Lay::QHI + sw<BQ>(r, c)) = hi;
-      *reinterpret_cast<uint4*>(base + Lay::QLO + sw<BQ>(r, c)) = lo;
+    for (int it = 0; it < IT; ++it) {
+      const int wi = w + (NC / 32) * it;
+      const int r = (wi & 15) * 4 + (lane >> 3);
+      const int c = (a0 + (wi >> 4)) * 8 + (lane & 7);
+      x[it] = c < DQ / 4 && q0 + r < S
+                  ? *reinterpret_cast<const float4*>(
+                        qb + (size_t)(q0 + r) * qs + c * 4)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int wi = w + (NC / 32) * it;
+      const int r = (wi & 15) * 4 + (lane >> 3);
+      const int c = (a0 + (wi >> 4)) * 8 + (lane & 7);
+      if (c < DQ / 4) {
+        uint4 hi, lo;
+        split(x[it].x, hi.x, lo.x);
+        split(x[it].y, hi.y, lo.y);
+        split(x[it].z, hi.z, lo.z);
+        split(x[it].w, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(base + Lay::QHI + sw<BQ>(r, c)) = hi;
+        *reinterpret_cast<uint4*>(base + Lay::QLO + sw<BQ>(r, c)) = lo;
+      }
     }
   }
   fence_proxy_async();
@@ -570,20 +766,95 @@ __device__ __forceinline__ uint32_t saddr(const unsigned char* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// ------------------------------------------------------------- clusters
+
+// Where a row tile's blocks form a cluster (Lay::PAIR): thread 0 makes
+// the two exchange mbarriers (one arrival a phase, its own expect_tx),
+// then every thread of both blocks arrives on the cluster barrier. Each
+// thread waits on it before its first remote access (the consumer, after
+// Q's fill: attend) or before its next arrival (the producer), so neither
+// block touches the other's shared memory before it is running and its
+// mbarriers exist. Called by every thread of the block, first.
+template <class Lay>
+__device__ __forceinline__ void cluster_open(unsigned char* smem) {
+  if constexpr (Lay::PAIR) {
+    unsigned char* base = aligned(smem);
+    if (threadIdx.x == 0) {
+      mbar_init(saddr(base + Lay::bar(0)), 1);
+      mbar_init(saddr(base + Lay::bar(1)), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    cluster_arrive();
+  }
+}
+// ... and last: no block exits while its peer may still write to it
+template <class Lay>
+__device__ __forceinline__ void cluster_close() {
+  if constexpr (Lay::PAIR) {
+    cluster_arrive();
+    cluster_wait();
+  }
+}
+
+// Tile j's partial scores s (this block's DQ columns of dh, the D layout
+// of an m64n32 product) -> the full scores: s goes to the peer's exchange
+// buffer j % 2 (thread i's 16 values at float4 k NC + i, k = 0..3) by
+// st.async, each store counted on the peer's mbarrier j % 2, whose phase
+// (j / 2) % 2 its thread 0 opens expecting X_BYTES; the peer's partial is
+// read from this block's buffer j % 2 once that phase is complete here
+// and added: rank 0's + rank 1's in both blocks (f32 addition is
+// commutative, so the two sums are the same bits).
+template <class Lay>
+__device__ __forceinline__ void exchange(unsigned char* base,
+                                         float (&s)[KT / 8][4], int j) {
+  const int b = j & 1;
+  const uint32_t peer = cluster_rank() ^ 1u;
+  const int i = threadIdx.x;
+  const uint32_t bar = saddr(base + Lay::bar(b));
+  if (i == 0) mbar_expect(bar, Lay::X_BYTES);
+  const uint32_t there = mapa(saddr(base + Lay::x(b)) + i * 16, peer);
+  const uint32_t there_bar = mapa(bar, peer);
+#pragma unroll
+  for (int k = 0; k < KT / 8; ++k)
+    st_async(there + k * NC * 16, s[k][0], s[k][1], s[k][2], s[k][3],
+             there_bar);
+  mbar_wait(bar, (j >> 1) & 1);
+#pragma unroll
+  for (int k = 0; k < KT / 8; ++k) {
+    const float4 y = *reinterpret_cast<const float4*>(
+        base + Lay::x(b) + (k * NC + i) * 16);
+    s[k][0] += y.x;
+    s[k][1] += y.y;
+    s[k][2] += y.z;
+    s[k][3] += y.w;
+  }
+}
+
+// ------------------------------------------------------------- the tile
+
 // Rows [q0, q0 + BQ) of q (rows qs apart) attend over keys [0, len) of
-// k/v (rows ks / vs apart), all DH columns, and the rows below S are
-// stored to out (rows os apart, from ob on). Every thread of the block
+// k/v (rows ks / vs apart), and the rows below S are stored to out (rows
+// os apart, from ob on): block cb of the row tile's NCOL owns O's columns
+// [cb DV, cb DV + DV) and takes Q/K columns [cb DQ, cb DQ + DQ) where
+// they are split between the blocks (PAIR). Every thread of the block
 // calls it: the producer warps run the K/V ring, the consumer warpgroup
 // (threadIdx.x < NC) the products and the softmax; a fully masked row's
 // denominator is clamped at 1e-30, so it divides to 0.
 template <int DH, int APM_ELEM>
 __device__ __forceinline__ void attend(
-    unsigned char* smem, const float* qb, size_t qs, const float* kb,
+    unsigned char* smem, int cb, const float* qb, size_t qs, const float* kb,
     size_t ks, const float* vb, size_t vs, int S, int len, int q0,
     int causal, int has_window, int window, float scale, float* ob,
     size_t os) {
   using Lay = Layout<DH, APM_ELEM>;
+  constexpr int DV = Lay::DV, DQ = Lay::DQ, ST = Lay::ST;
   unsigned char* base = aligned(smem);
+  if (Lay::PAIR) {
+    qb += cb * DQ;
+    kb += cb * DQ;
+  }
+  vb += cb * DV;
+  ob += cb * DV;
   len = len < S ? len : S;
   int kend = len;
   if (causal && q0 + BQ < kend) kend = q0 + BQ;
@@ -596,29 +867,45 @@ __device__ __forceinline__ void attend(
 
   if (threadIdx.x >= NC) {
     const int p = threadIdx.x - NC;
-    auto load = [&](int j, int st) {
-      load_k<DH>(base + Lay::k(st), kb, ks, kstart + j * KT, S, p);
-      load_v<DH>(base + Lay::vl(st), vb, vs, kstart + j * KT, S, p);
-    };
-    prefetch(n, load);
-    produce(n, load, [&](int, int st) {
-      split_k<DH>(base + Lay::k(st), p);
-      split_v<DH>(base + Lay::vth(st), base + Lay::vl(st), p);
-    });
+    if constexpr (Lay::VREG) {
+      auto load = [&](int j, int st) {
+        load_k<Lay>(base + Lay::k(st), kb, ks, kstart + j * KT, S, p);
+      };
+      VRegs<Lay> vr;
+      if (n > 0) ldg_v<Lay>(vr, vb, vs, kstart, S, p);
+      prefetch<ST>(n, load);
+      produce<ST, false>(n, load, [&](int j, int st) {
+        split_k<Lay>(base + Lay::k(st), p);
+        split_v_regs<Lay>(base + Lay::vth(st), vr, p);
+        if (j + 1 < n) ldg_v<Lay>(vr, vb, vs, kstart + (j + 1) * KT, S, p);
+      });
+      if constexpr (Lay::PAIR) cluster_wait();   // cluster_open's
+    } else {
+      auto load = [&](int j, int st) {
+        load_k<Lay>(base + Lay::k(st), kb, ks, kstart + j * KT, S, p);
+        load_v<Lay>(base + Lay::vl(st), vb, vs, kstart + j * KT, S, p);
+      };
+      prefetch<ST>(n, load);
+      produce<ST, true>(n, load, [&](int, int st) {
+        split_k<Lay>(base + Lay::k(st), p);
+        split_v<Lay>(base + Lay::vth(st), base + Lay::vl(st), p);
+      });
+    }
     return;
   }
-  load_q<DH>(base, qb, qs, q0, S);
+  load_q<Lay>(base, qb, qs, q0, S);
+  if constexpr (Lay::PAIR) cluster_wait();   // cluster_open's
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   const uint64_t dqh = desc(saddr(base + Lay::QHI));
   const uint64_t dql = desc(saddr(base + Lay::QLO));
-  float o[DH / 8][4] = {};
+  float o[DV / 8][4] = {};
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
   for (int j = 0; j < n; ++j) {
-    const int st = j % STAGES, c0 = kstart + j * KT;
+    const int st = j % ST, c0 = kstart + j * KT;
     bar_sync(FULL + st);
     // S = Q K^T: hk = Q hi [K hi; K lo] (one m64n(2 KT) product: the large
     // products in its first KT columns, Q hi K lo in the rest), lk = Q lo
@@ -627,7 +914,7 @@ __device__ __forceinline__ void attend(
     float hk[KT], lk[KT / 2];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < DH / 8; ++kk) {
+    for (int kk = 0; kk < DQ / 8; ++kk) {
       wgmma_ss(hk, kstep<BQ>(dqh, kk), kstep<2 * KT>(dk, kk), kk > 0);
       wgmma_ss(lk, kstep<BQ>(dql, kk), kstep<2 * KT>(dk, kk), kk > 0);
     }
@@ -635,11 +922,20 @@ __device__ __forceinline__ void attend(
     wg_wait();
     hold(hk);
     hold(lk);
-    if (j + STAGES < n) bar_arrive(A_FREE + st);
+    if (j + ST < n) bar_arrive(A_FREE + st);
 
-    // scale, mask, running max (rows g, g + 8: a quad shares a row); each
-    // score's small products join in f32, then its large one
+    // each score's small products join in f32, then its large one; a
+    // cluster's blocks add their halves of dh
     float s[KT / 8][4];
+#pragma unroll
+    for (int nn = 0; nn < KT / 8; ++nn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[nn][e] = (hk[KT / 2 + 4 * nn + e] + lk[4 * nn + e]) + hk[4 * nn + e];
+    }
+    if constexpr (Lay::PAIR) exchange<Lay>(base, s, j);
+
+    // scale, mask, running max (rows g, g + 8: a quad shares a row)
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int nn = 0; nn < KT / 8; ++nn) {
@@ -649,9 +945,7 @@ __device__ __forceinline__ void attend(
         bool ok = kpos < kend;   // kend <= len
         if (causal) ok = ok && kpos <= r;
         if (has_window) ok = ok && kpos > r - window;
-        const float x =
-            (hk[KT / 2 + 4 * nn + e] + lk[4 * nn + e]) + hk[4 * nn + e];
-        s[nn][e] = ok ? x * scale : NEG_INF;
+        s[nn][e] = ok ? s[nn][e] * scale : NEG_INF;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[nn][e]);
       }
     }
@@ -684,11 +978,11 @@ __device__ __forceinline__ void attend(
     }
 
     // O = O alpha + P V
-    float acc[2][DH / 4];
-    av<DH>(acc, ph, pl, desc(saddr(base + Lay::vth(st))),
+    float acc[2][DV / 4];
+    av<DV>(acc, ph, pl, desc(saddr(base + Lay::vth(st))),
            desc(saddr(base + Lay::vtl(st))));
-    if (j + STAGES < n) bar_arrive(V_FREE + st);
-    add_tile<DH>(o, acc, alpha);
+    if (j + ST < n) bar_arrive(V_FREE + st);
+    add_tile<DV>(o, acc, alpha);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -696,7 +990,58 @@ __device__ __forceinline__ void attend(
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = fmaxf(l[i], 1e-30f);
   }
-  attn_tile::store_rows<DH>(ob, os, S, q0, o, l);
+  attn_tile::store_rows<DV>(ob, os, S, q0, o, l);
+}
+
+// Launches kernel over `grid` blocks of threads(DH) threads and `smem`
+// dynamic shared bytes on `stream`; where a row tile's blocks exchange
+// scores (cluster_size<DH>() > 1) as clusters of that many blocks along
+// x (grid.x a multiple of it).
+template <int DH, typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), dim3 grid, int smem,
+                   cudaStream_t stream, Args... args) {
+  if constexpr (cluster_size<DH>() > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads(DH));
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster_size<DH>();
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, kernel, args...);
+  } else {
+    kernel<<<grid, threads(DH), smem, stream>>>(args...);
+    return cudaGetLastError();
+  }
+}
+
+// out[0] = the cluster's blocks, out[1] = clusters of them resident on
+// this card at once (cudaOccupancyMaxActiveClusters; 0 where blocks do
+// not form clusters)
+template <int DH, typename Kernel>
+cudaError_t cluster_resources(Kernel kernel, int smem, int* out) {
+  out[0] = cluster_size<DH>();
+  out[1] = 0;
+  if constexpr (cluster_size<DH>() > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster_size<DH>());
+    cfg.blockDim = dim3(threads(DH));
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster_size<DH>();
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaOccupancyMaxActiveClusters(&out[1], kernel, &cfg);
+  }
+  return cudaSuccess;
 }
 
 }  // namespace attn_wg

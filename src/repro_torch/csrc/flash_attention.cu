@@ -8,7 +8,10 @@
 //
 // One block per (q-tile of 64 rows, head, batch row) runs an online-
 // softmax tile that memo_attention.cu's miss branch shares (128 threads,
-// attention_tile.cuh; 256 at dh 112 and 128, attention_wgmma.cuh): scale
+// attention_tile.cuh, at dh 16, 32 and 64; 256 at dh 112, 128 and 256,
+// attention_wgmma.cuh; at dh 256 two blocks a row tile, each owning 128 of
+// O's columns, launched as a cluster of 2 that exchanges partial scores):
+// scale
 // dh^-1/2, masks kpos < S, causal kpos <= qpos, window kpos > qpos -
 // window, NEG_INF = -1e30, fully masked rows zeroed. Q/K/V are read in the model's (B,S,H,dh) layout by
 // their strides (the last dim contiguous; base and strides 16-byte
@@ -23,15 +26,18 @@
 // At qwen2_1_5b's serving shape (B=32, S=128, H=12, Hkv=2, dh=128,
 // causal) the 58.7 MB of Q/K/V/out (0.0175 ms) outweigh the 1.62 GFLOP of
 // products (0.0098 ms): set by bytes; at qwen3_8b's (B=2, S=1024, H=32,
-// Hkv=8) the 17.2 GFLOP of products take 0.104 ms: set by operations.
+// Hkv=8) the 17.2 GFLOP of products take 0.104 ms: set by operations; at
+// recurrentgemma_2b's forward (B=1, S=2,560, H=10, Hkv=1, dh=256, causal,
+// window 2,048) 32.2 GFLOP, 0.195 ms: set by operations.
 // What the design does about it: QK^T and P·V run on the tensor cores,
 // three products per f32 product: mma.sync m16n8k8 tf32 at head_dim 16,
-// 32, 64 and 256, where K/V tiles of 64 keys (32 at dh 256) stream by
-// cp.async through a two-stage ring in dynamic shared memory (69,632
-// bytes at dh = 64, attention_tile.cuh) while the previous tile computes;
-// wgmma m64nNk8 tf32 at dh 112 and 128, where a producer warpgroup copies
-// and splits 32-key tiles for a consumer warpgroup (230,400 bytes at dh
-// 128, attention_wgmma.cuh). Key tiles after the causal diagonal or
+// 32 and 64, where K/V tiles of 64 keys stream by cp.async through a
+// two-stage ring in dynamic shared memory (69,632 bytes at dh = 64,
+// attention_tile.cuh) while the previous tile computes; wgmma m64nNk8
+// tf32 at dh 112, 128 and 256, where a producer warpgroup copies and
+// splits 32-key tiles for a consumer warpgroup (218,112 / 230,400 /
+// 214,032 bytes at dh 112 / 128 / 256, attention_wgmma.cuh). Key tiles
+// after the causal diagonal or
 // before the window are skipped, and the q-tiles with the most key tiles
 // launch first (the block index runs from the last q-tile down), so the
 // long causal tiles do not finish last.
@@ -55,10 +61,10 @@ __global__ void __launch_bounds__(attn_wg::threads(DH))
     int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     int causal, int has_window, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  using Lay = attn_tile::Layout<DH>;
-  constexpr int DV = Lay::DV, NCOL = Lay::NCOL;
+  constexpr int NCOL = attn_wg::ncol(DH);
   // block i: (column block, head, batch row) fastest, q-tiles from the
-  // last one down
+  // last one down; a row tile's NCOL column blocks are neighbours (a
+  // cluster at dh 256)
   const int n_qt = (S + BQ - 1) / BQ;
   const int n_hb = gridDim.x / n_qt;
   const int hbc = blockIdx.x % n_hb;
@@ -66,24 +72,25 @@ __global__ void __launch_bounds__(attn_wg::threads(DH))
   const int cb = hbc % NCOL, hb = hbc / NCOL;
   const int h = hb % H, b = hb / H;
   const int hk = h / (H / Hkv);
-  if constexpr (attn_wg::uses(DH)) {   // the wgmma tile stores its rows
-    const size_t o_row = (size_t)H * DH;
-    attn_wg::attend<DH, 0>(
-        smem, q + b * q_sb + h * q_sh, q_ss, k + b * k_sb + hk * k_sh, k_ss,
-        v + b * v_sb + hk * v_sh, v_ss, S, S, q0, causal, has_window, window,
-        scale, out + (size_t)b * S * o_row + (size_t)h * DH, o_row);
-    return;
-  }
-  float o[DV / 8][4] = {};
-  float l[2];
-  attn_tile::online_softmax<DH, 0>(
-      smem, q + b * q_sb + h * q_sh, q_ss, k + b * k_sb + hk * k_sh, k_ss,
-      v + b * v_sb + hk * v_sh + cb * DV, v_ss, S, S, q0, causal,
-      has_window, window, scale, o, l);
   const size_t o_row = (size_t)H * DH;
-  attn_tile::store_rows<DV>(
-      out + (size_t)b * S * o_row + (size_t)h * DH + cb * DV, o_row, S, q0,
-      o, l);
+  if constexpr (attn_wg::uses(DH)) {   // the wgmma tile stores its rows
+    using Lay = attn_wg::Layout<DH>;
+    attn_wg::cluster_open<Lay>(smem);
+    attn_wg::attend<DH, 0>(
+        smem, cb, q + b * q_sb + h * q_sh, q_ss, k + b * k_sb + hk * k_sh,
+        k_ss, v + b * v_sb + hk * v_sh, v_ss, S, S, q0, causal, has_window,
+        window, scale, out + (size_t)b * S * o_row + (size_t)h * DH, o_row);
+    attn_wg::cluster_close<Lay>();
+  } else {
+    float o[DH / 8][4] = {};
+    float l[2];
+    attn_tile::online_softmax<DH, 0>(
+        smem, q + b * q_sb + h * q_sh, q_ss, k + b * k_sb + hk * k_sh, k_ss,
+        v + b * v_sb + hk * v_sh, v_ss, S, S, q0, causal, has_window,
+        window, scale, o, l);
+    attn_tile::store_rows<DH>(out + (size_t)b * S * o_row + (size_t)h * DH,
+                              o_row, S, q0, o, l);
+  }
 }
 
 template <int DH>
@@ -96,17 +103,17 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   const cudaError_t e =
       attn_tile::allow_smem(flash_attention_kernel<DH>, smem, smem_set);
   if (e != cudaSuccess) return e;
-  const int blocks =
-      (S + BQ - 1) / BQ * attn_tile::Layout<DH>::NCOL * H * B;
-  flash_attention_kernel<DH>
-      <<<blocks, attn_wg::threads(DH), smem, stream>>>(
-      q, k, v, out, S, H, Hkv, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], causal, has_window, window, scale);
-  return cudaGetLastError();
+  const int blocks = (S + BQ - 1) / BQ * attn_wg::ncol(DH) * H * B;
+  return attn_wg::launch<DH>(
+      flash_attention_kernel<DH>, dim3(blocks), smem, stream, q, k, v, out,
+      S, H, Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], causal, has_window, window, scale);
 }
 
 // resident blocks per SM, registers, local (spill) bytes, dynamic shared
-// bytes and threads of a block, as the runtime reports them for this card
+// bytes and threads of a block, blocks of a cluster and clusters resident
+// at once (0 where blocks form none), as the runtime reports them for this
+// card
 template <int DH>
 cudaError_t resources(int* out) {
   constexpr int smem = attn_wg::smem_bytes<DH>();
@@ -123,7 +130,9 @@ cudaError_t resources(int* out) {
   out[2] = (int)attr.localSizeBytes;
   out[3] = smem;
   out[4] = attn_wg::threads(DH);
-  return e;
+  if (e != cudaSuccess) return e;
+  return attn_wg::cluster_resources<DH>(flash_attention_kernel<DH>, smem,
+                                        out + 5);
 }
 
 }  // namespace
@@ -167,8 +176,9 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   }
 }
 
-// out[5]: resident blocks per SM, registers, local bytes, dynamic shared
-// bytes and threads of flash_attention_kernel<dh>
+// out[7]: resident blocks per SM, registers, local bytes, dynamic shared
+// bytes and threads of flash_attention_kernel<dh>, blocks of a cluster and
+// clusters resident at once
 extern "C" int flash_attention_resources(int dh, void* out) {
   auto* o = static_cast<int*>(out);
   switch (dh) {

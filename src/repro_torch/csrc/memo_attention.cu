@@ -6,10 +6,13 @@
 // ragged-S padding and _fit_db (ops.py).
 //
 // One block per (q-tile of 64 rows, head, batch row): 128 threads on the
-// mma.sync tile (attention_tile.cuh), 256 at head_dim 112 and 128 on the
-// wgmma tile (attention_wgmma.cuh: a producer warpgroup copies and splits,
-// a consumer warpgroup runs the products; memo_wg). The block reads its
-// own hit[b], hit_idx[b] (clamped to [0, N)) and lengths[b]:
+// mma.sync tile (attention_tile.cuh, head_dim 16, 32 and 64), 256 on the
+// wgmma tile at head_dim 112, 128 and 256 (attention_wgmma.cuh: a
+// producer warpgroup copies and splits, a consumer warpgroup runs the
+// products; memo_wg). At dh 256 two blocks per row tile, each owning 128
+// of O's columns, launched as a cluster of 2 that exchanges partial
+// scores. The block reads its own hit[b], hit_idx[b] (clamped to [0, N))
+// and lengths[b]:
 //   hit  — never loads Q or K. Streams the entry's APM rows straight from
 //          the device DB, 16 bytes per thread by cp.async, and V beside
 //          them; dequantizes each int8 code against its row's f16 scale
@@ -21,7 +24,7 @@
 //          window, NEG_INF = -1e30, fully masked rows zeroed: the
 //          online-softmax tile flash_attention.cu shares
 //          (attention_tile.cuh's online_softmax, attention_wgmma.cuh's
-//          attend at dh 112 and 128).
+//          attend at dh 112, 128 and 256).
 // The DB is indexed with its own L stride and only [:S, :S] is read (zero
 // past L), which replaces the reference's pad/slice copies; the ragged
 // last q-tile and k-tile are masked here. Where a DB row is not 16-byte
@@ -33,13 +36,15 @@
 // TB/s) against 1.61 GFLOP of products (0.0098 ms at 3xTF32's 494.7 / 3
 // TFLOP/s): set by bytes; half the rows hitting, 40.9 MB, 0.0122 ms. At
 // qwen2_1_5b's (B=32, S=128, H=12, Hkv=2, dh=128) all-miss is 58.7 MB,
-// 0.0175 ms, also set by bytes.
+// 0.0175 ms, also set by bytes; at recurrentgemma_2b's (B=32, S=128,
+// H=10, Hkv=1, dh=256) 92.3 MB all-miss, 0.0275 ms.
 // What the design does about it: products run on the tensor cores at
 // f32-level accuracy (three TF32 products each), a hit block reads V
 // plus the compressed APM and no Q/K, a miss block reads Q/K/V and
 // nothing of the DB, tiles stream through a two-stage cp.async ring in
-// dynamic shared memory (69,632 bytes at dh = 64, 230,400 at dh = 128;
-// the APM tile takes the K tile's place), and fully masked key tiles
+// dynamic shared memory (69,632 bytes at dh = 64, 218,112 at dh = 112,
+// 230,400 at dh = 128, 214,032 at dh = 256; the APM tile takes the K
+// tile's place), and fully masked key tiles
 // (past lengths[b], after the causal diagonal, before the window) are
 // neither loaded nor computed.
 
@@ -99,14 +104,13 @@ __device__ __forceinline__ float2 dequant2(const unsigned char* p, float,
 }
 
 // o += APM[rows q0.., keys 0..kend) · V over the DB plane: the hit branch
-// (V's DV columns from vb on: the block's column block)
 template <int DH, typename RAW_T, bool QUANT>
 __device__ __forceinline__ void apm_pv(
     unsigned char* smem, const RAW_T* db, const __half* scales, size_t plane,
     int L, int kend, int vec, const float* vb, size_t vs, int S, int q0,
-    float (&o)[attn_tile::out_cols(DH) / 8][4]) {
+    float (&o)[DH / 8][4]) {
   using Lay = attn_tile::Layout<DH, sizeof(RAW_T)>;
-  constexpr int DV = Lay::DV, LDV = Lay::LDV, KT = Lay::KT;
+  constexpr int LDV = Lay::LDV, KT = Lay::KT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int rl = warp * 16 + g;            // local row of a0
@@ -121,7 +125,7 @@ __device__ __forceinline__ void apm_pv(
   if (kend > 0) {
     load_apm<RAW_T, Lay::APM_LD, KT>(Lay::a(smem, 0), db, plane, L, q0, 0,
                                      kend, vec);
-    attn_tile::load_rows_async<DV, LDV, KT>(Lay::v(smem, 0), vb, vs, 0, S);
+    attn_tile::load_rows_async<DH, LDV, KT>(Lay::v(smem, 0), vb, vs, 0, S);
     attn_tile::cp_commit();
   }
   int st = 0;
@@ -129,7 +133,7 @@ __device__ __forceinline__ void apm_pv(
     if (k0 + KT < kend) {
       load_apm<RAW_T, Lay::APM_LD, KT>(Lay::a(smem, st ^ 1), db, plane, L,
                                        q0, k0 + KT, kend, vec);
-      attn_tile::load_rows_async<DV, LDV, KT>(Lay::v(smem, st ^ 1), vb, vs,
+      attn_tile::load_rows_async<DH, LDV, KT>(Lay::v(smem, st ^ 1), vb, vs,
                                               k0 + KT, S);
       attn_tile::cp_commit();
       attn_tile::cp_wait<1>();
@@ -138,7 +142,7 @@ __device__ __forceinline__ void apm_pv(
     }
     __syncthreads();
     const unsigned char* A = Lay::a(smem, st) + rl * Lay::APM_LD;
-    float acc[DV / 8][4] = {};
+    float acc[DH / 8][4] = {};
 #pragma unroll
     for (int kk = 0; kk < KT / 8; ++kk) {   // codes past kend are 0
       const unsigned char* p = A + (kk * 8 + 2 * t) * sizeof(RAW_T);
@@ -149,42 +153,57 @@ __device__ __forceinline__ void apm_pv(
       attn_tile::split(x1.x, ph[1], pl[1]);
       attn_tile::split(x0.y, ph[2], pl[2]);
       attn_tile::split(x1.y, ph[3], pl[3]);
-      attn_tile::pv_slice<DV, LDV>(acc, ph, pl, Lay::v(smem, st), kk);
+      attn_tile::pv_slice<DH, LDV>(acc, ph, pl, Lay::v(smem, st), kk);
     }
-    attn_tile::add_tile<DV>(o, acc, {1.f, 1.f});
+    attn_tile::add_tile<DH>(o, acc, {1.f, 1.f});
     __syncthreads();
   }
 }
 
-// The hit branch at head_dim 112 / 128 on the wgmma tile
-// (attention_wgmma.cuh): the producer warps copy each tile's APM codes
-// into the stage's A region and V beside them, and split V into V^T
-// hi/lo; the consumer dequantizes the codes in f32 (no f16 round) straight
-// into m64k8 A fragments, split, runs APM·V on wgmma (a fresh accumulator
-// a 32-key tile, added to o in f32) and stores its rows of out (rows os
-// apart, from ob on).
+// The hit branch on the wgmma tile (attention_wgmma.cuh): the producer
+// warps copy each tile's APM codes into the stage's A region and V
+// beside them (or, at dh 256, load V into registers), and split V into
+// V^T hi/lo; the consumer dequantizes the codes in f32 (no f16 round)
+// straight into m64k8 A fragments, split, runs APM·V on wgmma (a fresh
+// accumulator a 32-key tile, added to o in f32) and stores its rows of
+// out (rows os apart, from ob on): block cb of the row tile's O columns.
 template <int DH, typename RAW_T, bool QUANT>
-__device__ __forceinline__ void apm_pv_wg(unsigned char* smem,
+__device__ __forceinline__ void apm_pv_wg(unsigned char* smem, int cb,
                                           const RAW_T* db,
                                           const __half* scales, size_t plane,
                                           int L, int kend, int vec,
                                           const float* vb, size_t vs, int S,
                                           int q0, float* ob, size_t os) {
   using Lay = attn_wg::Layout<DH, sizeof(RAW_T)>;
-  constexpr int KT = attn_wg::KT, STAGES = attn_wg::STAGES;
+  constexpr int KT = attn_wg::KT, ST = Lay::ST, DV = Lay::DV;
   unsigned char* base = attn_wg::aligned(smem);
+  vb += cb * DV;
+  ob += cb * DV;
   const int n = (kend + KT - 1) / KT;
   if (threadIdx.x >= attn_wg::NC) {
     const int p = threadIdx.x - attn_wg::NC;
-    auto load = [&](int j, int st) {
+    auto load_a = [&](int j, int st) {
       load_apm<RAW_T, Lay::APM_LD, KT, 32 * attn_wg::PW>(
           base + Lay::k(st), db, plane, L, q0, j * KT, kend, vec, p);
-      attn_wg::load_v<DH>(base + Lay::vl(st), vb, vs, j * KT, S, p);
     };
-    attn_wg::prefetch(n, load);
-    attn_wg::produce(n, load, [&](int, int st) {
-      attn_wg::split_v<DH>(base + Lay::vth(st), base + Lay::vl(st), p);
-    });
+    if constexpr (Lay::VREG) {
+      attn_wg::VRegs<Lay> vr;
+      if (n > 0) attn_wg::ldg_v<Lay>(vr, vb, vs, 0, S, p);
+      attn_wg::prefetch<ST>(n, load_a);
+      attn_wg::produce<ST, false>(n, load_a, [&](int j, int st) {
+        attn_wg::split_v_regs<Lay>(base + Lay::vth(st), vr, p);
+        if (j + 1 < n) attn_wg::ldg_v<Lay>(vr, vb, vs, (j + 1) * KT, S, p);
+      });
+    } else {
+      auto load = [&](int j, int st) {
+        load_a(j, st);
+        attn_wg::load_v<Lay>(base + Lay::vl(st), vb, vs, j * KT, S, p);
+      };
+      attn_wg::prefetch<ST>(n, load);
+      attn_wg::produce<ST, true>(n, load, [&](int, int st) {
+        attn_wg::split_v<Lay>(base + Lay::vth(st), base + Lay::vl(st), p);
+      });
+    }
   } else {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
@@ -197,9 +216,9 @@ __device__ __forceinline__ void apm_pv_wg(unsigned char* smem,
         s[i] = r < kend ? __half2float(scales[plane + r]) : 0.f;
       }
     }
-    float o[DH / 8][4] = {};
+    float o[DV / 8][4] = {};
     for (int j = 0; j < n; ++j) {
-      const int st = j % STAGES;
+      const int st = j % ST;
       attn_wg::bar_sync(attn_wg::FULL + st);
       const unsigned char* A = base + Lay::k(st) + rl * Lay::APM_LD;
       uint32_t ah[KT / 8][4], al[KT / 8][4];
@@ -213,22 +232,24 @@ __device__ __forceinline__ void apm_pv_wg(unsigned char* smem,
         attn_wg::split(x0.y, ah[kk][2], al[kk][2]);
         attn_wg::split(x1.y, ah[kk][3], al[kk][3]);
       }
-      if (j + STAGES < n) attn_wg::bar_arrive(attn_wg::A_FREE + st);
-      float acc[2][DH / 4];
-      attn_wg::av<DH>(acc, ah, al,
+      if (j + ST < n) attn_wg::bar_arrive(attn_wg::A_FREE + st);
+      float acc[2][DV / 4];
+      attn_wg::av<DV>(acc, ah, al,
                       attn_wg::desc(attn_wg::saddr(base + Lay::vth(st))),
                       attn_wg::desc(attn_wg::saddr(base + Lay::vtl(st))));
-      if (j + STAGES < n) attn_wg::bar_arrive(attn_wg::V_FREE + st);
-      attn_wg::add_tile<DH>(o, acc, {1.f, 1.f});
+      if (j + ST < n) attn_wg::bar_arrive(attn_wg::V_FREE + st);
+      attn_wg::add_tile<DV>(o, acc, {1.f, 1.f});
     }
-    attn_tile::store_rows<DH>(ob, os, S, q0, o, {1.f, 1.f});
+    attn_tile::store_rows<DV>(ob, os, S, q0, o, {1.f, 1.f});
   }
 }
 
-// memo_attention_kernel at head_dim 112 / 128, on the wgmma tile. Its
-// block order is flash_attention's: the linear block id walks (head,
-// batch row) fastest and the q-tiles from the last one down, so the
-// q-tiles with the most key tiles start first.
+// memo_attention_kernel on the wgmma tile. Its block order is
+// flash_attention's: the linear block id walks (head, batch row) fastest
+// and the q-tiles from the last one down, so the q-tiles with the most
+// key tiles start first; past dh 128 the NCOL column blocks of a row tile
+// are neighbours in x (block cb = blockIdx.x % NCOL), a cluster where
+// they exchange scores (attn_wg::cluster_open).
 template <int DH, typename RAW_T, bool QUANT>
 __device__ __forceinline__ void memo_wg(
     unsigned char* smem, const float* q, const float* k, const float* v,
@@ -236,25 +257,32 @@ __device__ __forceinline__ void memo_wg(
     const int* hit, const int* lengths, float* out, int S, int H, int Hkv,
     int L, int N, int db_vec, int causal, int has_window, int window,
     float scale) {
+  using Lay = attn_wg::Layout<DH, sizeof(RAW_T)>;
+  constexpr int NCOL = Lay::NCOL;
+  const int n_qt = gridDim.x / NCOL, cb = blockIdx.x % NCOL;
   const int hb = gridDim.y * gridDim.z;
-  const int id = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-  const int q0 = (gridDim.x - 1 - id / hb) * BQ;
+  const int id = blockIdx.x / NCOL + n_qt * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int q0 = (n_qt - 1 - id / hb) * BQ;
   const int h = id % hb % H, b = id % hb / H;
   const int hk = h / (H / Hkv);
   const size_t q_row = (size_t)H * DH, kv_row = (size_t)Hkv * DH;
   const float* vb = v + (size_t)b * S * kv_row + (size_t)hk * DH;
   float* ob = out + (size_t)b * S * q_row + (size_t)h * DH;
+  // hit[b] is the same in both blocks of a cluster: a hit cluster
+  // exchanges nothing and skips the cluster barriers together
   if (hit[b] == 1) {
     int e = hit_idx[b];
     e = e < 0 ? 0 : (e >= N ? N - 1 : e);
-    apm_pv_wg<DH, RAW_T, QUANT>(smem, db, scales, ((size_t)e * H + h) * L,
-                                L, S < L ? S : L, db_vec, vb, kv_row, S, q0,
-                                ob, q_row);
+    apm_pv_wg<DH, RAW_T, QUANT>(smem, cb, db, scales,
+                                ((size_t)e * H + h) * L, L, S < L ? S : L,
+                                db_vec, vb, kv_row, S, q0, ob, q_row);
   } else {
+    attn_wg::cluster_open<Lay>(smem);
     attn_wg::attend<DH, sizeof(RAW_T)>(
-        smem, q + (size_t)b * S * q_row + (size_t)h * DH, q_row,
+        smem, cb, q + (size_t)b * S * q_row + (size_t)h * DH, q_row,
         k + (size_t)b * S * kv_row + (size_t)hk * DH, kv_row, vb, kv_row, S,
         lengths[b], q0, causal, has_window, window, scale, ob, q_row);
+    attn_wg::cluster_close<Lay>();
   }
 }
 
@@ -272,32 +300,28 @@ __global__ void __launch_bounds__(attn_wg::threads(DH))
     memo_wg<DH, RAW_T, QUANT>(smem, q, k, v, db, scales, hit_idx, hit,
                               lengths, out, S, H, Hkv, L, N, db_vec, causal,
                               has_window, window, scale);
-    return;
-  }
-  constexpr int DV = attn_tile::out_cols(DH), NCOL = DH / DV;
-  const int h = blockIdx.y, b = blockIdx.z;
-  // block x: the q-tile, then its column block (past dh 128)
-  const int q0 = blockIdx.x / NCOL * BQ, cb = blockIdx.x % NCOL;
-  const int hk = h / (H / Hkv);
-  const size_t q_row = (size_t)H * DH, kv_row = (size_t)Hkv * DH;
-  const float* vb = v + (size_t)b * S * kv_row + (size_t)hk * DH + cb * DV;
-
-  float o[DV / 8][4] = {};
-  float l[2] = {1.f, 1.f};
-  if (hit[b] == 1) {
-    int e = hit_idx[b];
-    e = e < 0 ? 0 : (e >= N ? N - 1 : e);
-    apm_pv<DH, RAW_T, QUANT>(smem, db, scales, ((size_t)e * H + h) * L, L,
-                             S < L ? S : L, db_vec, vb, kv_row, S, q0, o);
   } else {
-    attn_tile::online_softmax<DH, sizeof(RAW_T)>(
-        smem, q + (size_t)b * S * q_row + (size_t)h * DH, q_row,
-        k + (size_t)b * S * kv_row + (size_t)hk * DH, kv_row, vb, kv_row, S,
-        lengths[b], q0, causal, has_window, window, scale, o, l);
+    const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BQ;
+    const int hk = h / (H / Hkv);
+    const size_t q_row = (size_t)H * DH, kv_row = (size_t)Hkv * DH;
+    const float* vb = v + (size_t)b * S * kv_row + (size_t)hk * DH;
+
+    float o[DH / 8][4] = {};
+    float l[2] = {1.f, 1.f};
+    if (hit[b] == 1) {
+      int e = hit_idx[b];
+      e = e < 0 ? 0 : (e >= N ? N - 1 : e);
+      apm_pv<DH, RAW_T, QUANT>(smem, db, scales, ((size_t)e * H + h) * L, L,
+                               S < L ? S : L, db_vec, vb, kv_row, S, q0, o);
+    } else {
+      attn_tile::online_softmax<DH, sizeof(RAW_T)>(
+          smem, q + (size_t)b * S * q_row + (size_t)h * DH, q_row,
+          k + (size_t)b * S * kv_row + (size_t)hk * DH, kv_row, vb, kv_row,
+          S, lengths[b], q0, causal, has_window, window, scale, o, l);
+    }
+    attn_tile::store_rows<DH>(
+        out + (size_t)b * S * q_row + (size_t)h * DH, q_row, S, q0, o, l);
   }
-  attn_tile::store_rows<DV>(
-      out + (size_t)b * S * q_row + (size_t)h * DH + cb * DV, q_row, S, q0,
-      o, l);
 }
 
 template <int DH, typename RAW_T, bool QUANT>
@@ -314,12 +338,12 @@ cudaError_t launch_db(const float* q, const float* k, const float* v,
   if (e != cudaSuccess) return e;
   const int db_vec = (uintptr_t)db % 16 == 0 &&
                      (size_t)L * sizeof(RAW_T) % 16 == 0;
-  dim3 grid((S + BQ - 1) / BQ * attn_tile::Layout<DH>::NCOL, H, B);
-  memo_attention_kernel<DH, RAW_T, QUANT>
-      <<<grid, attn_wg::threads(DH), smem, stream>>>(
-      q, k, v, static_cast<const RAW_T*>(db), scales, hit_idx, hit, lengths,
-      out, S, H, Hkv, L, N, db_vec, causal, has_window, window, scale);
-  return cudaGetLastError();
+  // past dh 128 a row tile's NCOL blocks are neighbours in x
+  const dim3 grid((S + BQ - 1) / BQ * attn_wg::ncol(DH), H, B);
+  return attn_wg::launch<DH>(
+      memo_attention_kernel<DH, RAW_T, QUANT>, grid, smem, stream, q, k, v,
+      static_cast<const RAW_T*>(db), scales, hit_idx, hit, lengths, out, S,
+      H, Hkv, L, N, db_vec, causal, has_window, window, scale);
 }
 
 template <int DH>
@@ -342,7 +366,9 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 }
 
 // resident blocks per SM, registers, local (spill) bytes, dynamic shared
-// bytes and threads of a block, as the runtime reports them for this card
+// bytes and threads of a block, blocks of a cluster and clusters resident
+// at once (0 where blocks form none), as the runtime reports them for this
+// card
 template <int DH, typename RAW_T, bool QUANT>
 cudaError_t resources_db(int* out) {
   constexpr int smem = attn_wg::smem_bytes<DH, sizeof(RAW_T)>();
@@ -360,7 +386,9 @@ cudaError_t resources_db(int* out) {
   out[2] = (int)attr.localSizeBytes;
   out[3] = smem;
   out[4] = attn_wg::threads(DH);
-  return e;
+  if (e != cudaSuccess) return e;
+  return attn_wg::cluster_resources<DH>(
+      memo_attention_kernel<DH, RAW_T, QUANT>, smem, out + 5);
 }
 template <int DH>
 cudaError_t resources(int db_kind, int* out) {
@@ -413,9 +441,9 @@ extern "C" int memo_attention_f32(
   }
 }
 
-// out[5]: resident blocks per SM, registers, local bytes, dynamic shared
+// out[7]: resident blocks per SM, registers, local bytes, dynamic shared
 // bytes and threads of memo_attention_kernel at dh over an int8 (db_kind
-// 1) or f16 DB
+// 1) or f16 DB, blocks of a cluster and clusters resident at once
 extern "C" int memo_attention_resources(int dh, int db_kind, void* out) {
   auto* o = static_cast<int*>(out);
   switch (dh) {

@@ -115,9 +115,11 @@ def resources(dh: int, quant: bool) -> dict:
     """The kernel at head_dim ``dh`` over an int8 (``quant``) or f16 DB, as
     the CUDA runtime reports it for this card: resident blocks per SM,
     registers per thread, local (spill) bytes, dynamic shared bytes and
-    threads of a block."""
-    out = (ctypes.c_int * 5)()
+    threads of a block, blocks of a cluster (1 where blocks form none) and
+    clusters resident at once (0 there)."""
+    out = (ctypes.c_int * 7)()
     build.check(build.library().memo_attention_resources(
         dh, int(quant), ctypes.addressof(out)), "memo_attention resources")
     return dict(zip(("blocks_per_sm", "registers", "local_bytes",
-                     "shared_bytes", "threads"), out))
+                     "shared_bytes", "threads", "cluster",
+                     "max_active_clusters"), out))

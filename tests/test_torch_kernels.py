@@ -490,14 +490,16 @@ def _slices(a, b, pairs):
 
 
 def _wgmma_attention(q, k, v, *, causal, split, kt=32):
-    """The head_dim 112/128 tile's schedule (csrc/attention_wgmma.cuh) on
-    (B,H,S,dh) f32: keys in tiles of ``kt`` (one online-softmax step
-    each). With ``split`` the scores sum Q hi [K hi; K lo] as one chain
-    and Q lo K hi as another, the small sums joined in f32 before the
-    large one; each tile's P·V sums p_lo v_hi, p_hi v_lo, p_hi v_hi per
-    8-key slice into a fresh accumulator that joins O in f32 (O = O alpha
-    + acc). Without, one TF32 product each. Rows divide by their sums
-    last, clamped at 1e-30."""
+    """The wgmma tile's schedule (csrc/attention_wgmma.cuh) on (B,H,S,dh)
+    f32: keys in tiles of ``kt`` (one online-softmax step each). With
+    ``split`` the scores sum Q hi [K hi; K lo] as one chain and Q lo K hi
+    as another, the small sums joined in f32 before the large one; past
+    dh 128 each half of dh does so in its own block of the cluster and
+    the two partial scores are added, rank 0's + rank 1's. Each tile's
+    P·V sums p_lo v_hi, p_hi v_lo, p_hi v_hi per 8-key slice into a fresh
+    accumulator that joins O in f32 (O = O alpha + acc). Without, one
+    TF32 product each. Rows divide by their sums last, clamped at
+    1e-30."""
     B, H, S, dh = q.shape
     qh, kh, vh = _tf32(q), _tf32(k), _tf32(v)
     ql, kl, vl = _tf32(q - qh), _tf32(k - kh), _tf32(v - vh)
@@ -505,16 +507,19 @@ def _wgmma_attention(q, k, v, *, causal, split, kt=32):
     m = torch.full((B, H, S, 1), -1e30)
     lsum = torch.zeros((B, H, S, 1))
     rows = torch.arange(S)[:, None]
+    half = dh // 2 if dh > 128 else dh     # dh columns a block holds
     for c0 in range(0, S, kt):
         ks = slice(c0, min(c0 + kt, S))
-        kt_h = kh[..., ks, :].transpose(-1, -2)
-        kt_l = kl[..., ks, :].transpose(-1, -2)
-        big = _slices([qh], [kt_h], [(0, 0)])
-        if split:
-            s = (_slices([qh], [kt_l], [(0, 0)])
-                 + _slices([ql], [kt_h], [(0, 0)])) + big
-        else:
-            s = big
+        s = 0
+        for d0 in range(0, dh, half):
+            ds = slice(d0, d0 + half)
+            kt_h = kh[..., ks, ds].transpose(-1, -2)
+            kt_l = kl[..., ks, ds].transpose(-1, -2)
+            big = _slices([qh[..., ds]], [kt_h], [(0, 0)])
+            if split:
+                big = (_slices([qh[..., ds]], [kt_l], [(0, 0)])
+                       + _slices([ql[..., ds]], [kt_h], [(0, 0)])) + big
+            s = s + big
         s = s * dh ** -0.5
         if causal:
             s = s.masked_fill(torch.arange(c0, ks.stop)[None, :] > rows,
@@ -531,11 +536,12 @@ def _wgmma_attention(q, k, v, *, causal, split, kt=32):
     return o / lsum.clamp_min(1e-30)
 
 
-@pytest.mark.parametrize("dh", [112, 128])
+@pytest.mark.parametrize("dh", [112, 128, 256])
 def test_wgmma_tile_schedule_keeps_f32_accuracy(dh):
-    """The head_dim 112/128 tile's accumulation schedule at S=1024,
-    causal: 32-key steps, each step's P·V in a fresh accumulator joined to
-    O in f32, the scores' small products summed apart. With split TF32
+    """The wgmma tile's accumulation schedule at S=1024, causal: 32-key
+    steps, each step's P·V in a fresh accumulator joined to O in f32, the
+    scores' small products summed apart (at dh 256 in each half of dh,
+    the two halves' partial scores then added). With split TF32
     (three products per f32 product) the output lands within the card's
     tolerance (chip_smoke.ATOL) of an f64 reference; with one TF32
     product it does not."""

@@ -31,9 +31,10 @@ search indices must be EQUAL (ties → the lowest index). The attention
 kernels are held at head_dim 16, 32, 64, 112 (kimi_k2's), 128 (the
 zoo's GQA decoders, qwen2_1_5b's serving shape among them) and 256
 (recurrentgemma_2b's MQA local attention, at its serving and forward
-shapes) and must refuse any other; at 112 and 128 (the wgmma tile) also
-at the edges of its 32-key tile and over a 1,024-key chain with a
-window. The routed MoE is held to the dense ``moe_ref`` on
+shapes) and must refuse any other; at 112, 128 and 256 (the wgmma tile)
+also at the edges of its 32-key tile, at 128 over a 1,024-key chain with
+a window and at 256 over the forward's 2,560 keys with its 2,048 window
+and with hit and miss clusters side by side. The routed MoE is held to the dense ``moe_ref`` on
 the card, and the expert-parallel form on a (4, 1) and a (2, 2) mesh of
 the one card to the routed form (nothing dropped) and to itself on the
 CPU (rows dropped). Each wrapper refuses, with grad enabled, inputs that require
@@ -148,6 +149,23 @@ def test_memo_attention_head_dim_256(cuda, quant, group, causal, window):
                                   varlen=window is not None, seed=group,
                                   hits=hits)
         _check(args, kw, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("H", [1, 10])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "f16"])
+def test_memo_attention_dh256_neighbouring_clusters(cuda, quant, H):
+    """dh 256 runs a row tile as a cluster of two blocks: batch rows that
+    hit and rows that miss alternate, so hit clusters (no exchange) and
+    miss clusters (partial scores exchanged every key tile) are
+    neighbours in the launch order, at S=128 (2 row tiles) and S=200."""
+    for S in (128, 200):
+        args, kw = attention_case(torch, cuda, B=6, S=S, H=H, Hkv=1,
+                                  dh=256, N=4, L=S, quant=quant,
+                                  varlen=S == 200, seed=H + S)
+        hit = args[5]
+        hit.copy_(torch.tensor([1, 0, 0, 1, 0, 1], dtype=hit.dtype))
+        for causal, window in ((True, None), (True, 40), (False, None)):
+            _check(args, kw, causal=causal, window=window)
 
 
 @pytest.mark.parametrize("hits", ["all", "none", "mixed"])
@@ -372,6 +390,45 @@ def test_attention_wgmma_key_tile_edges(cuda, S, dh, hits):
                                   varlen=window is not None,
                                   seed=S + dh + 1, hits=hits)
         _check(args, kw, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("hits", ["all", "none", "mixed"])
+@pytest.mark.parametrize("group", [1, 2, 10])
+@pytest.mark.parametrize("S", WG_EDGES)
+def test_attention_wgmma_dh256_key_tile_edges(cuda, S, group, hits):
+    """The wgmma tile at dh 256 (a cluster of two blocks a row tile, each
+    holding half of dh and exchanging partial scores) at the edges of its
+    32-key tile: both kernels, every mask, query heads per KV head 1, 2
+    and 10 (recurrentgemma_2b's 10 over 1), int8 and f16 DBs, ragged
+    lengths under the window."""
+    i = WG_EDGES.index(S)
+    Hkv = 1 if group == 10 else 2
+    for causal, window in ((True, None), (True, 20), (False, 24)):
+        q, k, v = flash_case(torch, cuda, B=2, S=S, H=group * Hkv, Hkv=Hkv,
+                             dh=256, seed=S + group + i)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        err = (out - flash_attention_ref(q, k, v, causal=causal,
+                                         window=window)).abs().max().item()
+        print(f"flash_attention S={S} dh=256 G={group} max|err|={err:.3e}")
+        assert err <= ATOL
+        for quant in (True, False):
+            args, kw = attention_case(torch, cuda, B=3, S=S, H=group * Hkv,
+                                      Hkv=Hkv, dh=256, N=3, L=S,
+                                      quant=quant, varlen=window is not None,
+                                      seed=S + group + 1, hits=hits)
+            _check(args, kw, causal=causal, window=window)
+
+
+def test_attention_wgmma_dh256_forward_window(cuda):
+    """memo_attention at dh 256 over recurrentgemma_2b's forward length
+    and window (S=2560, causal, window 2048): 64 key tiles a row tile,
+    each one's partial scores exchanged and its P·V summed in a fresh
+    accumulator joined to O in f32. (flash_attention at this shape is
+    test_flash_attention_against_plain's.)"""
+    args, kw = attention_case(torch, cuda, B=2, S=2560, H=2, Hkv=1,
+                              dh=256, N=2, L=2560, quant=True,
+                              varlen=False, seed=256, hits="mixed")
+    _check(args, kw, causal=True, window=2048)
 
 
 @pytest.mark.parametrize("kernel", ["flash", "memo"])
