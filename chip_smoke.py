@@ -160,8 +160,12 @@ and read just after:
   ``launch/cost_utils.py``'s ``StepCounter`` over a meta copy of the
   phase's step, its predicted peak against ``max_memory_allocated``
   (and ``value_and_grad``'s with and without remat) within
-  ``DRYRUN_PEAK_RTOL``, its counted FLOPs over the measured ms a step
-  (11a); ``dbrx_132b`` at
+  ``DRYRUN_PEAK_RTOL``, its counted FLOPs over the measured ms a step,
+  and a ``[dryrun] spmd`` line from a fresh process (``--spmd-child``):
+  the step as one device's program of a (4, 2) grid, its arguments
+  DTensors over a fake process group, its counted per-device peak
+  against ``max_memory_allocated`` within the same bound, its exchanges
+  a device by kind and torch's version (11a); ``dbrx_132b`` at
   full width cut to 1 of 40 layers trained 4 steps with Adafactor, the
   router's aux term checked, one host sync a step (11b); and
   ``bert_base``'s classifier trained 100 steps
@@ -3063,10 +3067,11 @@ def store_scale(torch, dev, per_path, errs, smi):
 # its Poisson arrivals ask for
 SERVER_BUCKETS = (32, 64, 128)
 SERVER_MAX_BATCH, SERVER_QUANTUM, SERVER_DELAY = 32, 4, 4e-3
-# (96 requests: 256 until phase 14 joined the script, 192 until the
+# (64 requests: 256 until phase 14 joined the script, 192 until the
 # hit-skip legs of phases 5b and 7 did, 128 until the script reached
-# 1181.7 s of its 1200 on a slow host; the cuts pay for them)
-SERVER_REQUESTS, SERVER_UTILIZATION = 96, 0.7
+# 1181.7 s of its 1200 on a slow host, 96 until phase 11's spmd child
+# joined; the cuts pay for them)
+SERVER_REQUESTS, SERVER_UTILIZATION = 64, 0.7
 # async vs sync runtime with admission off: the same kernels on the same
 # snapshot (the tolerance of tests/test_runtime.py)
 SERVER_TOL = 1e-5
@@ -6306,6 +6311,7 @@ def train_gpt2(torch, dev, per_path, errs, smi, tmp):
                peak_gb_remat=peaks[True])
     del g1, gr, params, opt
     res["dryrun"] = dryrun_gpt2(torch, cfg, med, peak, peaks, smi)
+    res["dryrun"]["spmd"] = spmd_trace(smi)
 
     # the checkpoint, served: launch/serve.py --ckpt --prefill, then the
     # trained weights' kernel forward against plain
@@ -7605,6 +7611,144 @@ def dryrun_dbrx(torch, cfg, tc, step_ms, peak, tok_dtype, smi):
                 tflops_by_count=tflops, collectives=coll, count_s=sec)
 
 
+# 11a's step as one device's program of a (data, model) grid: the
+# per-device dry run (launch/spmd.py) on the card, under the fake group
+SPMD_GRID = (4, 2)
+
+
+def spmd_trace(smi):
+    """``spmd_child()`` in a fresh process (no process group may be up
+    where the fake one comes up; its lines echoed). Returns its JSON."""
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--spmd-child"], capture_output=True, text=True,
+                         timeout=300)
+    for line in res.stdout.splitlines()[:-1]:
+        print(line)
+    require(res.returncode == 0, f"spmd child failed: "
+            f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+    out = json.loads(res.stdout.splitlines()[-1])
+    out["smi"] = smi
+    return out
+
+
+def spmd_child():
+    """``python3 chip_smoke.py --spmd-child``: 11a's ``gpt2_small`` AdamW
+    train step (B=TRAIN_B, S=TRAIN_S, f32; ``value_and_grad`` and the
+    optimizer update as the dry run's ``build_step`` makes it) as one
+    device's program of a ``SPMD_GRID`` grid: its arguments placed by the
+    sharding rules as DTensors over the fake process group
+    (``launch/spmd.py``), once on meta tensors under
+    ``StepCounter(per_device=True)`` and once on the card (under a
+    counter too: it runs what DTensor cannot split replicated, and its
+    FLOPs must be the meta count's), where the counted per-device peak
+    is held to ``max_memory_allocated`` within ``DRYRUN_PEAK_RTOL``.
+    Prints a ``[dryrun] spmd`` line and a JSON line last."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cost_utils import StepCounter, collective_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.spmd import fake_grid
+    from repro_torch.launch.steps import opt_spec_tree
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.sharding.rules import (NamedSharding, P,
+                                            batch_shardings,
+                                            logical_to_shardings, make_rules,
+                                            place, redistribute)
+    from repro_torch.train.trainer import value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_host_mesh(*SPMD_GRID, device="meta")
+    names = mesh.axis_names
+    opt_init, opt_update = make_optimizer(cfg.optimizer)
+
+    def built(device, gen):
+        model = build_model(cfg, device=device)
+        params = model.init(dtype=torch.float32, generator=gen)
+        opt = opt_init(params)
+        tokens = (torch.empty((TRAIN_B, TRAIN_S), dtype=torch.int32,
+                              device=device) if device == "meta" else
+                  torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S),
+                                generator=gen, device=device,
+                                dtype=torch.int32))
+        rules = make_rules(cfg, mesh)
+        specs = model.specs()
+        p_sh = logical_to_shardings(specs, rules, mesh, params)
+        sh = (p_sh, logical_to_shardings(opt_spec_tree(cfg.optimizer, specs),
+                                         rules, mesh, opt),
+              batch_shardings({"tokens": tokens}, mesh))
+
+        def step(params, opt_state, batch):
+            loss, grads = value_and_grad(model.train_loss, params, batch)
+            params, opt_state = opt_update(params, grads, opt_state,
+                                           lr=1e-4, grad_clip=1.0)
+            return redistribute((params, opt_state, loss),
+                                (p_sh, sh[1], NamedSharding(mesh, P())))
+        return step, (params, opt, {"tokens": tokens}), sh
+
+    t0 = time.perf_counter()
+    with fake_grid(SPMD_GRID, names) as grid:
+        step, args, sh = built("meta", torch.Generator())
+        placed = place(args, sh, grid)
+        c = StepCounter(*placed, per_device=True)
+        c.run(step, *placed)
+        counted = dict(peak=c.peak_bytes, base=c.base_bytes,
+                       flops=c.flops, collectives=collective_bytes(c),
+                       fallbacks=dict(c.fallbacks))
+        del c, placed
+    count_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t0 = time.perf_counter()
+    with fake_grid(SPMD_GRID, names, device_type="cuda") as grid:
+        step, args, sh = built(dev, gen)
+        placed = place(args, sh, grid)
+        del args
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        # under a counter too, whose fallback runs replicated what
+        # DTensor cannot split, as on meta; its count is the meta one's
+        c = StepCounter(*placed, per_device=True)
+        out = c.run(step, *placed)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        require(c.flops == counted["flops"] and
+                c.fallbacks == counted["fallbacks"],
+                f"the card's step counted {c.flops} FLOPs and fallbacks "
+                f"{c.fallbacks}, the meta one {counted['flops']} and "
+                f"{counted['fallbacks']}")
+        loss = out[2].to_local()
+        require(loss.shape == () and loss.device.type == "cuda",
+                f"spmd step's loss {loss.shape} on {loss.device}")
+        c.out = None
+        del out, placed, c
+    run_s = time.perf_counter() - t0
+    gap = dryrun_gap("spmd 11a step", counted["peak"], peak)
+    coll = counted["collectives"]
+    print(f"[dryrun] spmd 11a {cfg.name} AdamW step, B={TRAIN_B} "
+          f"S={TRAIN_S} f32, one device of a {SPMD_GRID} grid under the "
+          f"fake process group (torch {torch.__version__}): counted peak "
+          f"{counted['peak'] / 1e9:.3f} GB (its arguments "
+          f"{counted['base'] / 1e9:.3f} GB; counted in {count_s:.1f} s) vs "
+          f"max_memory_allocated {peak / 1e9:.3f} GB (arguments "
+          f"{base / 1e9:.3f} GB; {gap:+.2%}; bound {DRYRUN_PEAK_RTOL:.0%}; "
+          f"run in {run_s:.1f} s); exchanges a device "
+          f"{ {k: coll[k] for k in coll if k not in ('counts', 'total')} } "
+          f"B, counts {coll['counts']}; ops run replicated "
+          f"{counted['fallbacks']}")
+    return dict(grid=list(SPMD_GRID), torch=torch.__version__,
+                counted_peak_gb=counted["peak"] / 1e9,
+                measured_peak_gb=peak / 1e9, peak_gap=gap,
+                counted_args_gb=counted["base"] / 1e9,
+                measured_args_gb=base / 1e9, flops=counted["flops"],
+                collectives=coll, fallbacks=counted["fallbacks"],
+                count_s=count_s, run_s=run_s)
+
+
 # ------------------------------------------------------------ phase 14
 # the port's examples on the card, each through its main() as a user
 # runs it (train_memoize at 30 of its 300 default steps); the first
@@ -7711,6 +7855,9 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--hitskip-child"]:
         print(json.dumps(hitskip_child(sys.argv[2])))
+        return 0
+    if sys.argv[1:2] == ["--spmd-child"]:
+        print(json.dumps(spmd_child()))
         return 0
     from repro_torch.kernels import build
 

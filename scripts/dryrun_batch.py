@@ -4,6 +4,7 @@ batches on one host: one process a pair, never more at once than
 ``--jobs`` (the host's cores by default), the costliest first.
 
     python3 scripts/dryrun_batch.py [--jobs 8] [--hillclimb] [--timeout S]
+                                    [--until S]
     python3 scripts/dryrun_batch.py --table      # PERF.md's table
 
 Each pair runs ``python -m repro_torch.launch.dryrun --arch A --shape S
@@ -44,31 +45,34 @@ ASSIGNED = [a for a in ARCH_IDS if a not in ("bert_base", "gpt2_small")]
 
 GRIDS = ("pod256", "pod512")
 HILLCLIMB_OUT = "experiments/hillclimb_torch"
-# seconds each pair took on an 8-core host running 8 pairs at once (the
-# batch's order only; a pair not listed takes seconds)
+# seconds each pair takes on an 8-core host running 8 pairs at once, one
+# device's count and the whole step's (the batch's order only; a pair
+# not listed takes seconds): one controller's walk alone, measured with
+# PR 29's code, times ~2.5 for the two counts; a SCALED pair's 1- and
+# 2-unit walks
 COST_HINT = {
-    ("kimi_k2_1t_a32b", "train_4k", "pod256"): 2775,
-    ("rwkv6_3b", "prefill_32k", "pod256"): 1973,
-    ("dbrx_132b", "train_4k", "pod512"): 1862,
-    ("rwkv6_3b", "prefill_32k", "pod512"): 1785,
-    ("rwkv6_3b", "train_4k", "pod256"): 1700,
-    ("rwkv6_3b", "train_4k", "pod512"): 1564,
-    ("kimi_k2_1t_a32b", "prefill_32k", "pod512"): 1040,
-    ("dbrx_132b", "train_4k", "pod256"): 1022,
-    ("kimi_k2_1t_a32b", "prefill_32k", "pod256"): 561,
-    ("dbrx_132b", "prefill_32k", "pod512"): 360,
-    ("kimi_k2_1t_a32b", "decode_32k", "pod256"): 303,
-    ("kimi_k2_1t_a32b", "decode_32k", "pod512"): 283,
-    ("recurrentgemma_2b", "train_4k", "pod256"): 274,
-    ("kimi_k2_1t_a32b", "train_4k", "pod512"): 250,     # scaled
-    ("dbrx_132b", "prefill_32k", "pod256"): 206,
-    ("dbrx_132b", "decode_32k", "pod512"): 190,
-    ("recurrentgemma_2b", "train_4k", "pod512"): 184,
-    ("dbrx_132b", "decode_32k", "pod256"): 168,
-    ("recurrentgemma_2b", "prefill_32k", "pod256"): 195,
-    ("recurrentgemma_2b", "prefill_32k", "pod512"): 125,
+    ("kimi_k2_1t_a32b", "prefill_32k", "pod512"): 2600,
+    ("kimi_k2_1t_a32b", "prefill_32k", "pod256"): 1400,
+    ("dbrx_132b", "prefill_32k", "pod512"): 900,
+    ("kimi_k2_1t_a32b", "decode_32k", "pod256"): 760,
+    ("kimi_k2_1t_a32b", "decode_32k", "pod512"): 710,
+    ("recurrentgemma_2b", "train_4k", "pod256"): 690,
+    ("kimi_k2_1t_a32b", "train_4k", "pod256"): 600,     # scaled
+    ("kimi_k2_1t_a32b", "train_4k", "pod512"): 600,     # scaled
+    ("dbrx_132b", "prefill_32k", "pod256"): 520,
+    ("recurrentgemma_2b", "prefill_32k", "pod256"): 490,
+    ("dbrx_132b", "decode_32k", "pod512"): 480,
+    ("recurrentgemma_2b", "train_4k", "pod512"): 460,
+    ("dbrx_132b", "decode_32k", "pod256"): 420,
+    ("rwkv6_3b", "prefill_32k", "pod256"): 400,         # scaled
+    ("rwkv6_3b", "prefill_32k", "pod512"): 400,         # scaled
+    ("rwkv6_3b", "train_4k", "pod256"): 350,            # scaled
+    ("rwkv6_3b", "train_4k", "pod512"): 350,            # scaled
+    ("dbrx_132b", "train_4k", "pod256"): 300,           # scaled
+    ("dbrx_132b", "train_4k", "pod512"): 300,           # scaled
+    ("recurrentgemma_2b", "prefill_32k", "pod512"): 310,
 }
-HILLCLIMB_HINT = {1: 26, 2: 1570, 3: 11}
+HILLCLIMB_HINT = {1: 200, 2: 1400, 3: 200}
 
 
 def cpu_model() -> str:
@@ -98,8 +102,9 @@ def key(arch, shape, grid):
 
 
 def jobs(out, hillclimb, hillclimb_out=HILLCLIMB_OUT):
-    """(name, argv, hint) of every pair without a record, then the
-    hillclimb's pairs, costliest first."""
+    """(name, argv, hint) of every pair without a record in ``out`` and
+    the hillclimb's pairs: the single-pod pairs and the hillclimb first,
+    then the multi-pod pairs, each costliest first."""
     todo = []
     for arch in ASSIGNED:
         for shape in INPUT_SHAPES:
@@ -118,7 +123,7 @@ def jobs(out, hillclimb, hillclimb_out=HILLCLIMB_OUT):
             todo.append((f"hillclimb_pair{pair}",
                          ["-m", "repro_torch.launch.hillclimb", "--pair",
                           str(pair), "--out", hillclimb_out], hint))
-    return sorted(todo, key=lambda j: -j[2])
+    return sorted(todo, key=lambda j: (j[0].endswith("pod512"), -j[2]))
 
 
 def run(args):
@@ -137,6 +142,10 @@ def run(args):
     running = {}                # pid → (name, argv, t0, most at once, log)
     t_start = time.time()
     while queue or running:
+        if args.until and time.time() - t_start > args.until:
+            queue = []
+            for p in running:
+                os.kill(p, signal.SIGKILL)      # reaped by wait4 below
         while queue and len(running) < args.jobs:
             name, argv, _ = queue.pop(0)
             log = open(os.path.join(logs, name + ".log"), "w")
@@ -176,21 +185,23 @@ def run(args):
 
 
 def table(args):
-    """One markdown row an (arch, shape): on each grid its status and
+    """One markdown row an (arch, shape): on (16, 16) its status and
     ``elapsed_s`` with the processes at once (a record this script did
-    not run shows its wall alone), the corrected FLOPs and bytes, the
-    argument GB a device and one controller's peak GB; then the
-    hillclimb's records."""
+    not run shows its wall alone), one device's corrected FLOPs, its
+    collective GB, argument GB and peak GB, and the whole step's FLOPs
+    and peak GB on one controller; on (2, 16, 16) its status alone.
+    Then the hillclimb's records, and the ops that ran replicated."""
     runs = {}
     for path in sorted(glob.glob(os.path.join(args.out, "batch_*.json"))):
         with open(path) as f:
             for r in json.load(f)["runs"]:
                 runs[r["name"]] = r
-    print("| Pair | (16, 16): status, s (at once) | FLOPs | bytes | arg GB "
-          "| peak GB | (2, 16, 16): status, s (at once) | FLOPs | arg GB | "
-          "peak GB |")
-    print("|---|---|---|---|---|---|---|---|---|---|")
+    print("| Pair | (16, 16): status, s (at once) | FLOPs a device | "
+          "collective GB a device | arg GB | peak GB a device | whole FLOPs "
+          "| whole peak GB | (2, 16, 16): status, s (at once) |")
+    print("|---|---|---|---|---|---|---|---|---|")
     n_ok = n = 0
+    fallbacks = {}
     for arch in ASSIGNED:
         for shape in INPUT_SHAPES:
             cells = []
@@ -199,35 +210,47 @@ def table(args):
                 path = os.path.join(args.out, name + ".json")
                 n += 1
                 if not os.path.exists(path):
-                    cells.append(["no record", "", "", "", ""])
+                    cells.append(["no record"] + [""] * 6)
                     continue
                 with open(path) as f:
                     rec = json.load(f)
                 n_ok += rec["status"] == "ok"
+                for op in rec.get("fallbacks", {}):
+                    fallbacks.setdefault(op, []).append(name)
                 full, corr = rec.get("full", {}), rec.get("corrected", {})
+                whole = rec.get("whole", {})
                 at = runs.get(name, {}).get("most_at_once")
                 sc = " scaled" if rec.get("meta", {}).get("scaled") else ""
                 cells.append([
                     f"{rec['status']}{sc}, {rec.get('elapsed_s', '')}"
                     + (f" ({at})" if at else ""),
                     f"{corr.get('flops', 0):.4e}",
-                    f"{corr.get('bytes', 0):.4e}",
+                    f"{corr.get('collective_bytes', 0) / 1e9:.3f}",
                     f"{full.get('arg_bytes', 0) / 1e9:.3f}",
-                    f"{full.get('peak_bytes', 0) / 1e9:.1f}"])
+                    f"{full.get('peak_bytes', 0) / 1e9:.2f}",
+                    f"{whole.get('flops', 0):.4e}",
+                    f"{whole.get('peak_bytes', 0) / 1e9:.1f}"])
             a, b = cells
-            print(f"| {arch} {shape} | {a[0]} | {a[1]} | {a[2]} | {a[3]} | "
-                  f"{a[4]} | {b[0]} | {b[1]} | {b[3]} | {b[4]} |")
+            print(f"| {arch} {shape} | " + " | ".join(a) + f" | {b[0]} |")
     print(f"\n{n_ok} ok of {n}")
     for path in sorted(glob.glob(os.path.join(args.hillclimb_out,
                                               "*.json"))):
         with open(path) as f:
             rec = json.load(f)
         c, full = rec.get("corrected", {}), rec.get("full", {})
+        whole = rec.get("whole", {})
+        for op in rec.get("fallbacks", {}):
+            fallbacks.setdefault(op, []).append(os.path.basename(path)[:-5])
         print(f"hillclimb {os.path.basename(path)[:-5]}: {rec['status']}, "
-              f"{rec.get('elapsed_s', '')} s, flops {c.get('flops', 0):.4e},"
-              f" bytes {c.get('bytes', 0):.4e}, args "
-              f"{full.get('arg_bytes', 0) / 1e9:.3f} GB a device, peak "
-              f"{full.get('peak_bytes', 0) / 1e9:.1f} GB")
+              f"{rec.get('elapsed_s', '')} s, flops a device "
+              f"{c.get('flops', 0):.4e}, collectives a device "
+              f"{c.get('collective_bytes', 0) / 1e9:.4f} GB, args "
+              f"{full.get('arg_bytes', 0) / 1e9:.3f} GB, peak "
+              f"{full.get('peak_bytes', 0) / 1e9:.2f} GB a device; whole "
+              f"flops {whole.get('flops', 0):.4e}, peak "
+              f"{whole.get('peak_bytes', 0) / 1e9:.1f} GB")
+    for op, names in sorted(fallbacks.items()):
+        print(f"replicated {op}: {len(names)} records: {', '.join(names)}")
 
 
 def main(argv=None):
@@ -235,6 +258,10 @@ def main(argv=None):
     ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--jobs", type=int, default=os.cpu_count())
     ap.add_argument("--hillclimb", action="store_true")
+    ap.add_argument("--until", type=float, default=0,
+                    help="start no process after this many seconds of "
+                         "the batch and kill those still running then "
+                         "(0: no limit)")
     ap.add_argument("--hillclimb-out", default=HILLCLIMB_OUT)
     ap.add_argument("--timeout", type=float, default=0,
                     help="kill a process after this many seconds (0: none)")

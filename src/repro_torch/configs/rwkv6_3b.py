@@ -5,7 +5,8 @@
 ``configs/rwkv6_3b.py``. ``optimized()`` is the reference's mesh variant
 (the recurrent scan's operands batch-sharded over the device mesh); it
 sets ``act_shard_batch``, a placement hint that one controller does not
-act on, so the port's dry-run count of it equals the default's.
+act on, so the dry run's one-controller count of it (``whole``) equals
+the default's, and one device's program of a grid (``full``) does.
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -36,10 +36,26 @@ on one controller are the only ones: ``models/moe.py``'s ``all_to_all``
 (``_ALL_TO_ALL``, through ``_exchange``), forward and backward, and the
 ``model``-axis partial sum ``_ff_sum`` (forward). GSPMD's implicit
 collectives (gradient reductions, FSDP gathers) do not exist in a
-one-controller program, so the count covers explicit exchanges only;
-its bytes are summed over the mesh's shards, where the reference's
-HLO holds one device's program. Nothing compares it with the
-reference's figure.
+one-controller program, so this count covers explicit exchanges only,
+its bytes summed over the mesh's shards.
+
+``StepCounter(per_device=True)`` counts one device's program of the
+grid instead, as the reference's partitioned HLO describes it: the
+step's arguments are DTensors on a fake grid (``launch/spmd.py``,
+``sharding/rules.py::place``). A DTensor op reaches the counter first
+at its global shapes; the counter lets DTensor split it and counts
+what DTensor then runs on the local tensors: each local op's FLOPs,
+bytes and transcendentals, liveness on the local storages, and every
+collective DTensor issues (inside an op's dispatch too: a ``Partial``
+resolved, an argument redistributed) by the reference's ``COLLECTIVES``
+kind, its result's bytes as ``hlo_utils.collective_bytes`` reads them
+from the HLO. DTensor's own shape inference runs ops on fake tensors at
+the global shapes; those are not counted. An op DTensor has no
+sharding strategy for (or cannot split without an exchange it will
+not make) runs as GSPMD runs an op it cannot partition: its DTensor
+arguments gathered to ``Replicate`` one mesh axis at a time until
+DTensor splits it (at worst the op runs whole on every device), those
+all-gathers counted; ``fallbacks`` counts those ops by name.
 """
 from __future__ import annotations
 
@@ -48,7 +64,9 @@ import weakref
 from typing import Dict
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack)
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.models import moe
@@ -68,6 +86,26 @@ TRANSCENDENTAL = {
 # a Python scalar leaf (an optimizer's step count) is the reference's
 # int32 scalar argument
 SCALAR_BYTES = 4
+
+# DTensor's collectives (``torch.distributed._functional_collectives``)
+# by the reference's kind; ``wait_tensor`` and the autograd wrapper do
+# no work of their own
+_FUNCOL_KIND = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+}
+_FUNCOL_NOOP = {"wait_tensor", "_wrap_tensor_autograd"}
+# what DTensor raises where it cannot split an op: no strategy, a view
+# it will not split without an exchange, a strategy that rejects the
+# arguments' layout (torch 2.11's ``index_put``), a strategy whose
+# placements do not cover the mesh (torch 2.11's ``constant_pad_nd``)
+_UNSPLIT = (NotImplementedError, RuntimeError, AssertionError, IndexError)
 
 
 def shape_bytes(shape, dtype: torch.dtype) -> int:
@@ -96,6 +134,18 @@ def _tensors(x):
     return (t for t in _leaves(x) if isinstance(t, torch.Tensor))
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor (this device's shard), else ``t``."""
+    return getattr(t, "_local_tensor", t)
+
+
+def _in_shape_inference() -> bool:
+    """DTensor infers an op's global output shape by running it on fake
+    tensors under a ``FakeTensorMode``."""
+    return any(isinstance(m, FakeTensorMode)
+               for m in _get_current_dispatch_mode_stack())
+
+
 class _Counted(torch.autograd.Function):
     """Identity that records one exchange of ``x`` on the way forward and
     one of its gradient on the way back."""
@@ -119,18 +169,24 @@ class StepCounter(TorchDispatchMode):
     from the start, and ``base_bytes`` is their total. ``run(fn, *args)``
     runs ``fn`` under the counter and keeps its output in ``out``."""
 
-    def __init__(self, *held):
+    def __init__(self, *held, per_device: bool = False):
         super().__init__()
+        self.per_device = per_device
         self.flops = 0
         self.bytes = 0
         self.transcendentals = 0
         self.collectives = {k: 0 for k in COLLECTIVES}
         self.collective_counts = {k: 0 for k in COLLECTIVES}
+        self.fallbacks: Dict[str, int] = {}
         self.out = None
         self._live: Dict[int, int] = {}       # storage cdata → nbytes
         self._cur = 0                          # bytes of the live storages
+        self._splitting = False                # inside a DTensor op
+        if per_device:
+            from torch.distributed.tensor import DTensor
+            self._dtensor = DTensor
         for t in _tensors(held):
-            self._track(t)
+            self._track(_local(t))
         self.base_bytes = self._cur
         self.peak_bytes = self._cur
         self.phase_peaks = {"before": self._cur}
@@ -163,12 +219,16 @@ class StepCounter(TorchDispatchMode):
         self.collective_counts[kind] += 1
 
     def __enter__(self):
+        if self.per_device:
+            return super().__enter__()
         self._saved = (moe._ALL_TO_ALL, moe._ff_sum)
         a2a, ff_sum = self._saved
 
         def all_to_all(bufs, devices):
-            return [_Counted.apply(r, self, "all-to-all")
-                    for r in a2a(bufs, devices)]
+            got = a2a(bufs, devices)
+            if len(bufs) < 2:           # a group of one exchanges nothing
+                return got
+            return [_Counted.apply(r, self, "all-to-all") for r in got]
 
         def partial_sum(lay, s, experts, x, eq):
             y = ff_sum(lay, s, experts, x, eq)
@@ -179,7 +239,8 @@ class StepCounter(TorchDispatchMode):
         return super().__enter__()
 
     def __exit__(self, *exc):
-        moe._ALL_TO_ALL, moe._ff_sum = self._saved
+        if not self.per_device:
+            moe._ALL_TO_ALL, moe._ff_sum = self._saved
         return super().__exit__(*exc)
 
     def run(self, fn, *args):
@@ -190,8 +251,22 @@ class StepCounter(TorchDispatchMode):
     # -- every op -------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self.per_device:
+            if any(issubclass(t, self._dtensor) for t in types):
+                return self._split(func, args, kwargs)
+            if _in_shape_inference():
+                return func(*args, **kwargs)
         out = func(*args, **kwargs)
         packet = func.overloadpacket
+        if self.per_device and func.namespace != "aten":
+            name = func._opname
+            if name in _FUNCOL_NOOP:
+                return out
+            kind = _FUNCOL_KIND.get(name)
+            if kind is not None:
+                self.exchange(kind, sum(_nbytes(t) for t in
+                                        ([out] if isinstance(out, torch.Tensor)
+                                         else _tensors(out))))
         outs = ([out] if isinstance(out, torch.Tensor)
                 else list(_tensors(out)))
         formula = flop_registry.get(packet)
@@ -214,11 +289,74 @@ class StepCounter(TorchDispatchMode):
             self.peak_bytes = max(self.peak_bytes, self._cur)
         return out
 
+    def _split(self, func, args, kwargs):
+        """A DTensor op: DTensor splits it into local ops and collectives,
+        which come back to this mode; the mode steps aside for the op
+        itself (``NotImplemented`` hands it to DTensor with the mode still
+        active). An op DTensor cannot split runs replicated."""
+        if self._splitting:
+            return NotImplemented
+        self._splitting = True
+        try:
+            with self:
+                try:
+                    return func(*args, **kwargs)
+                except _UNSPLIT:
+                    name = str(func)
+                    self.fallbacks[name] = self.fallbacks.get(name, 0) + 1
+                    return _replicated(func, args, kwargs)
+        finally:
+            self._splitting = False
+
+
+def _replicated(func, args, kwargs):
+    """``func`` where DTensor cannot split it as its arguments lie: the
+    arguments' mesh axes gathered to ``Replicate`` one at a time, the
+    last first, until DTensor splits it (the gathers issued by DTensor,
+    so counted); with every axis gathered and still no strategy, run on
+    the local tensors, its tensor outputs replicated DTensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = next(t.device_mesh for t in _leaves((args, kwargs))
+                if isinstance(t, DTensor))
+
+    def gather(x, axis):
+        if isinstance(x, DTensor):
+            pl = list(x.placements)
+            pl[axis] = Replicate()
+            return x.redistribute(mesh, pl)
+        if isinstance(x, (list, tuple)):
+            return type(x)(gather(v, axis) for v in x)
+        return x
+    for axis in reversed(range(mesh.ndim)):
+        args = gather(args, axis)
+        kwargs = {k: gather(v, axis) for k, v in kwargs.items()}
+        try:
+            return func(*args, **kwargs)
+        except _UNSPLIT:
+            pass
+
+    def local(x):
+        if isinstance(x, DTensor):
+            return x.to_local()
+        if isinstance(x, (list, tuple)):
+            return type(x)(local(v) for v in x)
+        return x
+    out = func(*local(args), **{k: local(v) for k, v in kwargs.items()})
+    rep = [Replicate()] * mesh.ndim
+
+    def wrap(x):
+        if isinstance(x, torch.Tensor):
+            return DTensor.from_local(x, mesh, rep, run_check=False)
+        if isinstance(x, (list, tuple)):
+            return type(x)(wrap(v) for v in x)
+        return x
+    return wrap(out)
+
 
 def collective_bytes(counter: StepCounter) -> Dict[str, int]:
     """The reference's record of a step's collectives: bytes per kind,
-    ``total`` and ``counts`` (explicit exchanges only; see the module
-    docstring)."""
+    ``total`` and ``counts`` (one device's, or one controller's explicit
+    exchanges; see the module docstring)."""
     out: Dict[str, object] = dict(counter.collectives)
     out["total"] = sum(counter.collectives.values())
     out["counts"] = dict(counter.collective_counts)
@@ -252,8 +390,10 @@ def device_bytes(trees, shardings) -> int:
 
 
 def _whole(trees) -> int:
-    return sum(_nbytes(t) if isinstance(t, torch.Tensor) else SCALAR_BYTES
-               for t in _leaves(trees))
+    """Bytes the leaves of ``trees`` hold where the step runs: a DTensor
+    its local tensor's."""
+    return sum(_nbytes(_local(t)) if isinstance(t, torch.Tensor)
+               else SCALAR_BYTES for t in _leaves(trees))
 
 
 def cost_summary(counter: StepCounter, built, *, donate: bool = False
@@ -261,18 +401,19 @@ def cost_summary(counter: StepCounter, built, *, donate: bool = False
     """The reference's ``cost_summary`` keys for a step ``counter`` ran
     (``counter.run(built["fn"], *built["args"])``):
 
-    * ``flops``, ``bytes``, ``transcendentals``: the whole step, every
-      shard of the mesh (see the module docstring);
+    * ``flops``, ``bytes``, ``transcendentals``: one device's program
+      with ``per_device``, else the whole step, every shard of the mesh
+      (see the module docstring);
     * ``arg_bytes``, ``out_bytes``: one device's share, each leaf's shard
       under ``in_shardings`` / ``out_shardings``;
     * ``alias_bytes``: one device's share of the donated arguments (the
       params and optimizer state of a train step, a decode step's
       caches) when ``donate``;
-    * ``peak_bytes``: the one-controller step's peak of live bytes, which
-      is what a (1, 1) mesh holds on one device: it is not divided over
-      the grid;
-    * ``temp_bytes``: that peak above the step's whole arguments and
-      outputs.
+    * ``peak_bytes``: the most bytes live at once: on one device of the
+      grid with ``per_device``; else the one-controller step's, which is
+      what a (1, 1) mesh holds on one device;
+    * ``temp_bytes``: that peak above the arguments and outputs it holds
+      (one device's shards with ``per_device``).
     """
     args, out = built["args"], counter.out
     out = out if isinstance(out, tuple) else (out,)

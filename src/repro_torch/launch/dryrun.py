@@ -4,10 +4,16 @@
 ``build_step`` makes a step's function and its arguments as meta
 tensors; ``count_step`` runs it under ``cost_utils.StepCounter``, which
 proves the step runs through every layer at full production size and
-counts its FLOPs, bytes, transcendentals, explicit exchanges and peak
-of live bytes; ``cost_summary`` says what each device of the grid holds
-of its arguments under the sharding rules. Nothing is allocated and no
-card is used: this is analysis on the host.
+counts its FLOPs, bytes, transcendentals, exchanges and peak of live
+bytes. A record's ``full`` and ``corrected`` count one device's program
+of the grid, as the reference's partitioned HLO does: the arguments
+placed by the sharding rules as DTensors on a fake process group of the
+grid's shape (``launch/spmd.py``), every op split by DTensor and every
+collective it issues counted (``count_step(per_device=True)``). Its
+``whole`` keeps the one-controller count of the whole step under the
+same keys, and ``fallbacks`` the ops DTensor could not split, which ran
+replicated. Nothing is allocated and no card is used: this is analysis
+on the host.
 
 Unit correction (the reference's DESIGN.md §7): the reference's HLO
 cost analysis counts a scan body once, so its totals come from 1-unit
@@ -15,14 +21,19 @@ and 2-unit variants of the same config at full width,
     corrected = unit1 + (reps − 1) · (unit2 − unit1).
 The port loops over its layers in Python, so its full-depth count is
 already exact; the correction is still computed, and on a config whose
-units all cost the same it equals ``full``: a check of the method.
+units all cost the same it equals one controller's ``full``, and one
+device's up to DTensor's depth-dependent choices (1e-4 of the bytes): a
+check of the method.
 
-A pair in ``SCALED`` is the exception: its walk of every layer cannot
-finish in an hour on one host core, so ``full`` is the same correction
-(``scale_units``) of its 1-unit and 2-unit walks, the peak phase by
-phase, and its record's ``meta["scaled"]`` says so. At reduced configs
-the scaled FLOPs, bytes, transcendentals and exchanges equal the walk's
-and the peak lies within a few bytes of it (``tests/test_torch_dryrun.py``);
+A pair in ``SCALED`` is the exception: its walks of every layer cannot
+finish in an hour on one host core, so ``full`` and ``whole`` are the
+same correction (``scale_units``) of their 1-unit and 2-unit walks, the
+peak phase by phase, and its record's ``meta["scaled"]`` says so. At
+reduced configs the scaled one-controller FLOPs, bytes, transcendentals
+and exchanges equal the walk's and the peak lies within a few bytes of
+it; one device's program is not quite linear in depth (DTensor's
+choices for a stacked leaf change with the layer count), and its scaled
+count lies within 1e-3 of the walk's (``tests/test_torch_dryrun.py``);
 ``scripts/dryrun_scale_check.py`` holds a scaled count against a walked
 record at full size.
 
@@ -40,23 +51,31 @@ import time
 import traceback
 from dataclasses import replace
 
-import torch
-
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
 from repro_torch.launch.cost_utils import (COLLECTIVES, StepCounter,
                                            arg_summary, collective_bytes,
                                            cost_summary, device_bytes)
 from repro_torch.launch.mesh import make_production_mesh, use_mesh
+from repro_torch.launch.spmd import grid_of
 from repro_torch.launch.steps import build_step
+from repro_torch.sharding.rules import place, redistribute
 
 ASSIGNED = [a for a in ARCH_IDS if a not in ("bert_base", "gpt2_small")]
 
-# (arch, shape, mesh) pairs whose walk of every layer cannot finish on
-# one host core in an hour: ``main`` counts them with ``scale=True``.
-# kimi_k2's train step walks 60 MoE layers of 16 dispatch chunks,
-# forward, remat and backward: 2,775 s on (16, 16)'s 256 slots on an
-# 8-core host running 8 pairs at once, and (2, 16, 16) has 512.
-SCALED = frozenset({("kimi_k2_1t_a32b", "train_4k", "pod512")})
+# (arch, shape, mesh) pairs whose walks of every layer, one device's
+# program and the whole step's, cannot finish on one host core in an
+# hour: ``main`` and the hillclimb count them with ``scale=True``. One
+# controller's walk alone took, on an 8-core host running 8 pairs at
+# once: kimi_k2's train step (60 MoE layers of 16 dispatch chunks,
+# forward, remat and backward) 2,775 s on (16, 16) and more on
+# (2, 16, 16); rwkv6's prefill_32k 1,973 s and 1,785 s and its
+# train_4k 1,700 s and 1,564 s (a 32,768- and a 4,096-step Python scan
+# a layer); dbrx's train step 1,022 s and 1,862 s.
+SCALED = frozenset(
+    (arch, shape, grid) for arch, shape in (
+        ("kimi_k2_1t_a32b", "train_4k"), ("rwkv6_3b", "prefill_32k"),
+        ("rwkv6_3b", "train_4k"), ("dbrx_132b", "train_4k"))
+    for grid in ("pod256", "pod512"))
 
 
 def unit_info(cfg):
@@ -78,35 +97,63 @@ def small_variant(cfg, n_units: int):
 
 
 def count_step(arch, shape_name, mesh, *, cfg=None, rules_overrides=None,
-               verbose=False, donate=False):
+               verbose=False, donate=False, per_device=False):
     """The counterpart of the reference's ``lower_and_compile``: build the
     step and run it on meta tensors under ``StepCounter``. Returns
-    (built, metrics) with ``cost_summary``'s keys and ``collectives``,
-    or (None, None) for a skipped pair."""
+    (built, metrics) with ``cost_summary``'s keys, ``collectives`` and
+    ``fallbacks``, or (None, None) for a skipped pair.
+
+    ``per_device`` counts one device's program of the grid, as the
+    reference's partitioned HLO does: the arguments placed by their
+    ``in_shardings`` as DTensors on a fake grid of ``mesh``'s shape
+    (``launch/spmd.py``), the outputs moved to their ``out_shardings``
+    as XLA moves them. Otherwise the whole step on one controller."""
     built = build_step(arch, shape_name, mesh,
                        rules_overrides=rules_overrides, cfg=cfg)
     if built is None:
         return None, None
-    counter = StepCounter(*built["args"])
-    with use_mesh(mesh):
-        counter.run(built["fn"], *built["args"])
-    metrics = cost_summary(counter, built, donate=donate)
-    metrics["collectives"] = collective_bytes(counter)
-    metrics["peak_by_phase"] = dict(counter.phase_peaks)
+    metrics = count_built(built, mesh, per_device=per_device, donate=donate)
     if verbose:
-        print("  memory: args %.3e B/device, peak %.3e B (one controller)"
-              % (metrics["arg_bytes"], metrics["peak_bytes"]))
+        print("  memory: args %.3e B/device, peak %.3e B (%s)"
+              % (metrics["arg_bytes"], metrics["peak_bytes"],
+                 "one device" if per_device else "one controller"))
         print("  cost: flops=%.3e bytes=%.3e" % (metrics["flops"],
                                                  metrics["bytes"]))
     return built, metrics
 
 
-def unit_counts(arch, shape_name, mesh, cfg, rules_overrides=None):
+def count_built(built, mesh, *, per_device=False, donate=False):
+    """``count_step``'s metrics of a built step (``fn``, ``args``,
+    ``in_shardings``, ``out_shardings``, ``meta["kind"]``)."""
+    if per_device:
+        with grid_of(mesh) as grid:
+            args = place(built["args"], built["in_shardings"], grid)
+            counter = StepCounter(*args, per_device=True)
+            counter.run(lambda *a: redistribute(built["fn"](*a),
+                                                built["out_shardings"]),
+                        *args)
+            metrics = cost_summary(counter, dict(built, args=args),
+                                   donate=donate)
+            counter.out = args = None
+    else:
+        counter = StepCounter(*built["args"])
+        with use_mesh(mesh):
+            counter.run(built["fn"], *built["args"])
+        metrics = cost_summary(counter, built, donate=donate)
+    metrics["collectives"] = collective_bytes(counter)
+    metrics["peak_by_phase"] = dict(counter.phase_peaks)
+    metrics["fallbacks"] = dict(counter.fallbacks)
+    return metrics
+
+
+def unit_counts(arch, shape_name, mesh, cfg, rules_overrides=None,
+                per_device=False):
     """``count_step``'s metrics of the 1-unit and 2-unit variants of
     ``cfg`` (``small_variant``)."""
     return tuple(count_step(arch, shape_name, mesh,
                             cfg=small_variant(cfg, n),
-                            rules_overrides=rules_overrides)[1]
+                            rules_overrides=rules_overrides,
+                            per_device=per_device)[1]
                  for n in (1, 2))
 
 
@@ -138,14 +185,54 @@ def scale_units(m1, m2, reps):
     out["collectives"]["counts"] = {k: lin(c1["counts"][k],
                                            c2["counts"][k])
                                     for k in COLLECTIVES}
+    f1, f2 = m1.get("fallbacks", {}), m2.get("fallbacks", {})
+    out["fallbacks"] = {k: lin(f1.get(k, 0), f2.get(k, 0))
+                        for k in sorted(set(f1) | set(f2))}
     return out
+
+
+def _counts(arch, shape_name, mesh, cfg, cfg_override, rules_overrides,
+            *, scaled, reps, donate, verbose, per_device):
+    """(built, metrics, m1, m2): the full-depth step's metrics, walked, or
+    for ``scaled`` scaled from the 1-unit and 2-unit walks ``m1`` and
+    ``m2`` (None otherwise)."""
+    if not scaled:
+        built, metrics = count_step(
+            arch, shape_name, mesh, cfg=cfg_override,
+            rules_overrides=rules_overrides, verbose=verbose,
+            donate=donate, per_device=per_device)
+        return built, metrics, None, None
+    built = build_step(arch, shape_name, mesh,
+                       rules_overrides=rules_overrides, cfg=cfg_override)
+    if built is None:
+        return None, None, None, None
+    if built["meta"]["kind"] not in ("train", "prefill"):
+        raise ValueError("scale=True counts train and prefill steps only")
+    m1, m2 = unit_counts(arch, shape_name, mesh, cfg, rules_overrides,
+                         per_device=per_device)
+    metrics = scale_units(m1, m2, reps)
+    metrics.update(arg_summary(built, donate=donate))
+    # the outputs' per-device bytes come from the full-depth step, as
+    # the arguments' do (a 1- or 2-unit stack shards otherwise)
+    metrics["out_bytes"] = device_bytes(built["out_abs"],
+                                        built["out_shardings"])
+    built["meta"]["scaled"] = {
+        "loop": "layers", "walked_units": [1, 2], "units": reps,
+        "walked_layers": [small_variant(cfg, n).n_layers for n in (1, 2)]}
+    return built, metrics, m1, m2
 
 
 def run_one(arch, shape_name, multi_pod, *, correct_scan=True,
             rules_overrides=None, verbose=True, tag="", cfg_override=None,
-            donate=False, scale=False):
-    """One pair's record. ``scale=True`` (train steps) walks only the
-    1-unit and 2-unit variants and scales them to full depth
+            donate=False, scale=False, per_device=True):
+    """One pair's record. ``full`` and ``corrected`` hold one device's
+    program of the grid (``count_step(per_device=True)``) and ``whole``
+    the one-controller count of the whole step, under the same keys; with
+    ``per_device=False`` ``full`` is that whole count and there is no
+    ``whole``. ``fallbacks`` names the ops that ran replicated, as GSPMD
+    runs an op it cannot partition. ``scale=True`` (train and prefill
+    steps) walks only the 1-unit and 2-unit variants and scales them,
+    one device's and the whole step's, to full depth
     (``scale_units``), for a pair whose walk of every layer cannot finish
     (``SCALED``); its ``meta["scaled"]`` says so, and the argument and
     output bytes a device still come from the full-depth step."""
@@ -157,51 +244,32 @@ def run_one(arch, shape_name, multi_pod, *, correct_scan=True,
     cfg = cfg_override or get_config(arch)
     unit, start, reps, tail = unit_info(cfg)
     scaled = scale and reps > 1
-    m1 = m2 = None
+    kw = dict(scaled=scaled, reps=reps, donate=donate, verbose=verbose)
     try:
-        if scaled:
-            built = build_step(arch, shape_name, mesh,
-                               rules_overrides=rules_overrides,
-                               cfg=cfg_override)
-            if built is not None:
-                if built["meta"]["kind"] != "train":
-                    raise ValueError("scale=True counts train steps only")
-                m1, m2 = unit_counts(arch, shape_name, mesh, cfg,
-                                     rules_overrides)
-                metrics = scale_units(m1, m2, reps)
-                metrics.update(arg_summary(built, donate=donate))
-                # a train step returns new params and optimizer state of
-                # its arguments' shapes, and the loss: their per-device
-                # bytes come from the full-depth step, as the arguments'
-                # do (a 1- or 2-unit stack shards otherwise)
-                args = built["args"]
-                metrics["out_bytes"] = device_bytes(
-                    (args[0], args[1], torch.empty((), device="meta")),
-                    built["out_shardings"])
-                built["meta"]["scaled"] = {
-                    "loop": "layers", "walked_units": [1, 2],
-                    "units": reps,
-                    "walked_layers": [small_variant(cfg, n).n_layers
-                                      for n in (1, 2)]}
-        else:
-            built, metrics = count_step(
-                arch, shape_name, mesh, cfg=cfg_override,
-                rules_overrides=rules_overrides, verbose=verbose,
-                donate=donate)
+        built, metrics, m1, m2 = _counts(
+            arch, shape_name, mesh, cfg, cfg_override, rules_overrides,
+            per_device=per_device, **kw)
         if built is None:
             rec["status"] = "skipped"
             rec["reason"] = ("long_500k needs a sub-quadratic variant; "
                              "this arch has none configured")
             return rec
         rec["meta"] = built["meta"]
-        metrics.pop("peak_by_phase", None)
-        rec["full"] = metrics
         del built
+        metrics.pop("peak_by_phase", None)
+        rec["fallbacks"] = metrics.pop("fallbacks")
+        rec["full"] = metrics
+        if per_device:
+            whole = _counts(arch, shape_name, mesh, cfg, cfg_override,
+                            rules_overrides, per_device=False, **kw)[1]
+            whole.pop("peak_by_phase", None)
+            whole.pop("fallbacks")
+            rec["whole"] = whole
         rec["scan_reps"] = reps
         if (correct_scan or scaled) and reps > 1:
             if m1 is None:
                 m1, m2 = unit_counts(arch, shape_name, mesh, cfg,
-                                     rules_overrides)
+                                     rules_overrides, per_device=per_device)
             corr = {}
             for k in ("flops", "bytes", "transcendentals"):
                 corr[k] = m1[k] + (reps - 1) * (m2[k] - m1[k])

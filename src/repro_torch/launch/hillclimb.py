@@ -17,12 +17,11 @@ tagged record with ``launch/dryrun.py::run_one``'s keys, counted on the
      AttMemo technique at grid scale — hit rows run APM·V only against
      a DB sharded over entries, miss rows full attention
 
-The rules overrides change each device's share of the arguments and
-outputs, not the one-controller step's FLOPs, bytes or peak: the port
-places nothing by them yet, nor by ``act_shard_batch``. So pairs 1 and
-2 count their step on ``meta`` once and give each iteration that changes
-only these its own ``cost_summary`` under its own shardings. The port
-counts every layer, so ``corrected`` is the full count (no unit passes).
+Every iteration is its own ``run_one``: one device's program of the
+grid under the iteration's rules overrides and ``act_shard_batch``
+(``full``), and the one-controller count beside it (``whole``). The
+port counts every layer, so ``corrected`` is the full count (no unit
+passes).
 
 Run:  python -m repro_torch.launch.hillclimb [--pair 1|2|3] [--out DIR]
 """
@@ -32,17 +31,13 @@ import argparse
 import json
 import os
 import time
-import traceback
 
 import torch
 
 from repro_torch.configs import get_config, rwkv6_3b
-from repro_torch.launch.cost_utils import (StepCounter, collective_bytes,
-                                           cost_summary)
-from repro_torch.launch.dryrun import unit_info
-from repro_torch.launch.mesh import make_production_mesh, use_mesh
-from repro_torch.launch.steps import (PARAM_DTYPE, abstract_params,
-                                      build_step)
+from repro_torch.launch.dryrun import SCALED, count_built, run_one
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.steps import PARAM_DTYPE, abstract_params
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import backbone as bb
 from repro_torch.models.layers import mlp_apply, norm_apply
@@ -71,39 +66,14 @@ def _save(rec, name):
 
 
 def _climb(arch, shape, iterations):
-    """Each iteration ``(name, tag, cfg, rules_overrides)`` a tagged record
-    with ``run_one``'s keys. The step is counted on ``meta`` when the
-    config changes (``act_shard_batch`` aside, see the module docstring);
-    otherwise the counted step's ``cost_summary`` is taken again under
-    the iteration's shardings."""
-    mesh = make_production_mesh()
-    key = counter = None
+    """Each iteration ``(name, tag, cfg, rules_overrides)`` a tagged
+    record of ``run_one`` (pod256, no unit passes; a ``SCALED`` pair
+    scaled, as the dry run counts it)."""
+    scale = (arch, shape, "pod256") in SCALED
     for name, tag, cfg, overrides in iterations:
-        rec = {"arch": arch, "shape": shape, "mesh": "pod256",
-               "devices": 256, "tag": tag}
-        t0 = time.time()
-        try:
-            built = build_step(arch, shape, mesh,
-                               rules_overrides=overrides, cfg=cfg)
-            if cfg.replace(act_shard_batch=None) != key:
-                key = cfg.replace(act_shard_batch=None)
-                counter = StepCounter(*built["args"])
-                with use_mesh(mesh):
-                    counter.run(built["fn"], *built["args"])
-            m = cost_summary(counter, built)
-            m["collectives"] = collective_bytes(counter)
-            rec.update(meta=built["meta"], full=m,
-                       scan_reps=unit_info(cfg)[2],
-                       corrected={"flops": m["flops"], "bytes": m["bytes"],
-                                  "collective_bytes":
-                                      m["collectives"]["total"]},
-                       status="ok")
-        except Exception as e:  # noqa: BLE001 — report failures as data
-            key = None
-            rec.update(status="error", error=f"{type(e).__name__}: {e}",
-                       traceback=traceback.format_exc()[-2000:])
-        rec["elapsed_s"] = round(time.time() - t0, 1)
-        _save(rec, name)
+        _save(run_one(arch, shape, False, correct_scan=False,
+                      rules_overrides=overrides, verbose=False, tag=tag,
+                      cfg_override=cfg, scale=scale), name)
 
 
 # ---------------------------------------------------------------- pair 1
@@ -211,18 +181,19 @@ def pair3():
         rec = {"arch": "deepseek_7b", "shape": f"prefill_{seq}",
                "mesh": "pod256", "devices": 256, "tag": tag, "meta": meta,
                "status": "ok"}
+        # the reference leaves the logits' placement to XLA; counted
+        # replicated here
+        built = dict(fn=fn, args=args, in_shardings=in_sh,
+                     out_shardings=NamedSharding(mesh, P()),
+                     meta={"kind": "prefill"})
         try:
-            counter = StepCounter(*args)
-            with use_mesh(mesh):
-                counter.run(fn, *args)
-            # the reference leaves the logits' placement to XLA; counted
-            # replicated here
-            m = cost_summary(counter, dict(
-                args=args, in_shardings=in_sh,
-                out_shardings=NamedSharding(mesh, P()),
-                meta={"kind": "prefill"}))
-            m["collectives"] = collective_bytes(counter)
-            rec["full"] = m
+            m, whole = (count_built(built, mesh, per_device=pd)
+                        for pd in (True, False))
+            for x in (m, whole):
+                x.pop("peak_by_phase")
+            rec["fallbacks"] = m.pop("fallbacks")
+            whole.pop("fallbacks")
+            rec["full"], rec["whole"] = m, whole
             rec["corrected"] = {"flops": m["flops"], "bytes": m["bytes"],
                                 "collective_bytes": m["collectives"]["total"]}
         except Exception as e:  # noqa: BLE001 — report failures as data

@@ -7,7 +7,9 @@ such as ``("data", "model")``, a ``devices`` grid of ``torch.device``
 name → size mapping, so ``mesh.shape.get("model", 1)`` reads the same in
 both packages. One process drives every slot of the grid, as the
 reference drives its mesh from one process through ``shard_map``: no
-``torch.distributed``. A slot may repeat a device, which is how a mesh
+``torch.distributed``, but for the dry run's count of one device's
+program of a grid (``launch/spmd.py``), which runs on a fake process
+group and moves no data. A slot may repeat a device, which is how a mesh
 runs on one card, as ``--xla_force_host_platform_device_count`` runs it
 on one JAX host. A one-axis ``ModelMesh`` describes what
 ``core/shard.py``'s ``StoreMesh`` describes (an ordered tuple of devices

@@ -6,6 +6,7 @@ For every (arch, input shape, mesh) ``build_step`` makes:
                     reference's ``ShapeDtypeStruct`` stand-ins
     in_shardings  — a ``NamedSharding`` for every leaf of ``args``
     out_shardings — the same for the step's outputs
+    out_abs       — a train or prefill step's outputs as meta tensors
 so ``fn(*args)`` under ``cost_utils.StepCounter`` is the whole dry run
 of a step (``launch/dryrun.py``), where the reference lowers and
 compiles ``jax.jit(fn, in_shardings=...)``. Also here: the optimizer
@@ -191,6 +192,7 @@ def build_step(arch: str, shape_name: str, mesh, *, rules_overrides=None,
             args=(params_abs, opt_abs, batch_abs),
             in_shardings=(params_sh, opt_sh, batch_sh),
             out_shardings=(params_sh, opt_sh, NamedSharding(mesh, P())),
+            out_abs=(params_abs, opt_abs, _meta((), torch.float32)),
             cfg=cfg, model=model, meta=meta)
 
     if kind == "prefill":
@@ -204,13 +206,13 @@ def build_step(arch: str, shape_name: str, mesh, *, rules_overrides=None,
             return model.prefill(params, batch, cache_len=shape.seq_len,
                                  window=window, dtype=PARAM_DTYPE)
 
+        logits_abs = _meta((shape.global_batch, cfg.vocab), PARAM_DTYPE)
         return dict(
             fn=prefill,
             args=(params_abs, batch_abs),
             in_shardings=(params_sh, batch_sh),
-            out_shardings=(batch_shardings(
-                _meta((shape.global_batch, cfg.vocab), torch.float32),
-                mesh, dp), caches_sh),
+            out_shardings=(batch_shardings(logits_abs, mesh, dp), caches_sh),
+            out_abs=(logits_abs, caches_abs),
             cfg=cfg, model=model, meta=meta)
 
     # decode

@@ -11,6 +11,14 @@ tree's (``wq (d,H,dh)``, ``wo (H,dh,d)``). Each full-sequence apply can
   * consume a memoized APM override via ``memo=Memo(apm, hit)`` where
     ``apm: (B, H, S, S)`` and ``hit: (B,) bool`` (``idx``, the matched
     slots, rides along for the engine's kernel-mode layer).
+
+On one device's program of a grid (DTensor arguments: the dry run's
+per-device count) the attention products run on each device's shard
+of the batch and heads (``sharding/rules.py::local_over``), as GSPMD
+splits them. A decode step over a cache whose sequence is sharded
+splits the softmax over the shards (their row max and sum combined)
+and sums the shards' products with the values; each device writes the
+new slot into its own shard of the cache.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.sharding.rules import is_sharded, local_over
 
 
 class Memo(NamedTuple):
@@ -55,19 +64,89 @@ def _sdpa(q, k, v, mask, scale, memo: Optional[Memo] = None,
     Masks with ``finfo(float32).min`` before the softmax, as the
     reference does, so a fully masked row comes out uniform (the kernels'
     −1e30 convention zeroes it instead; both are correct)."""
+    if memo is None and not return_apm:
+        mroles = "qs" if mask.ndim == 2 else "bqs"
+        if mask.shape[0] == 1 and mask.ndim == 3:
+            mask, mroles = mask[0], "qs"
+        return _attend(lambda q, k, mask: _gqa_scores(q, k, mask, scale),
+                       lambda p, v: torch.einsum("bhgqs,bshd->bqhgd",
+                                                 p.to(v.dtype), v),
+                       (q, k, mask), ("bqhgd", "bshd", mroles), "bhgqs",
+                       v, "bshd", "bqhgd", "hgb",
+                       lambda r: r.permute(0, 3, 1, 2, 4)), None
     B, Sq, Hkv, G, dh = q.shape
-    scores = torch.einsum("bqhgd,bshd->bhgqs", q, k).float() * scale
-    if mask.ndim == 2:
-        mask = mask[None]
-    neg = torch.finfo(torch.float32).min
-    scores = scores.masked_fill(~mask[:, None, None], neg)
-    apm = torch.softmax(scores, dim=-1)
+    apm = torch.softmax(_gqa_scores(q, k, mask, scale), dim=-1)
     if memo is not None:
         memo_apm = memo.apm.reshape(B, Hkv, G, Sq, -1).float()
         apm = torch.where(memo.hit[:, None, None, None, None], memo_apm, apm)
     out = torch.einsum("bhgqs,bshd->bqhgd", apm.to(v.dtype), v)
     apm_full = apm.reshape(B, Hkv * G, Sq, -1) if return_apm else None
     return out, apm_full
+
+
+def _gqa_scores(q, k, mask, scale):
+    """``_sdpa``'s masked f32 scores (B,Hkv,G,Sq,Sk)."""
+    scores = torch.einsum("bqhgd,bshd->bhgqs", q, k).float() * scale
+    if mask.ndim == 2:
+        mask = mask[None]
+    neg = torch.finfo(torch.float32).min
+    return scores.masked_fill(~mask[:, None, None], neg)
+
+
+def _write_slot(cache, slot, new):
+    """``cache`` with ``new`` (B, 1, ...) at position ``slot`` (a 0-d or
+    1-element index) of its dim 1, each device writing its own shard of
+    a DTensor cache: in place where the sequence is whole there, element
+    by element where it is split (on the shard that holds the slot); no
+    exchange either way."""
+    new, slot = new.to(cache.dtype), slot.reshape(())
+    rest = "cdef"[:cache.ndim - 2]
+    if not is_sharded(cache, 1):
+        return local_over(lambda c, n, at: c.index_copy(1, at.reshape(1), n),
+                          (cache, new, slot), ("bs" + rest, "bs" + rest, ""),
+                          "bs" + rest, "b" + rest)
+    # each shard holds its positions' indices (a slice of the arange)
+
+    def write(c, n, idx, at):
+        hit = (idx == at).reshape((1, -1) + (1,) * (c.ndim - 2))
+        return torch.where(hit, n, c)
+    idx = torch.arange(cache.shape[1], device=slot.device)
+    return local_over(write, (cache, new, idx, slot),
+                      ("bs" + rest, "bx" + rest, "s", ""), "bs" + rest,
+                      "bs" + rest)
+
+
+def _attend(scores, attend, args, roles, sroles, v, vroles, oroles, free,
+            rows_to_out):
+    """``attend(softmax(scores(*args)), v)``. On DTensors each product
+    runs on the device's shard (``local_over``: batch and heads, the
+    ``free`` roles, and the key dim ``s`` where the keys shard it). Over
+    a sharded ``s`` the softmax is split as GSPMD splits it: each
+    shard's row max and row sum of ``exp``, combined over the shards
+    (two small all-reduces), and ``attend`` on the unnormalised shard a
+    partial sum, divided by the row sums (``rows_to_out`` moves them
+    into the output's layout)."""
+    if not is_sharded(args[0]):
+        return attend(torch.softmax(scores(*args), dim=-1), v)
+    sc = local_over(scores, args, roles, sroles, free + "s")
+    if not is_sharded(sc, sc.ndim - 1):
+        # the scores die into the softmax, as on the plain path
+        p = torch.softmax(sc, dim=-1)
+        del sc
+        return local_over(attend, (p, v), (sroles, vroles), oroles, free)
+    rroles = sroles[:-1] + "x"              # a row's max and sum
+    m = local_over(lambda sc: sc.amax(-1, keepdim=True), (sc,), (sroles,),
+                   rroles, free, {"s": "max"})
+
+    def exp_rows(sc, m):
+        p = torch.exp(sc - m)
+        return p, p.sum(-1, keepdim=True)
+    p, rows = local_over(exp_rows, (sc, m), (sroles, rroles),
+                         (sroles, rroles), free, {"s": "sum"})
+    del sc
+    o = local_over(attend, (p, v), (sroles, vroles), oroles, free,
+                   {"s": "sum"})
+    return (o / rows_to_out(rows)).to(o.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -173,8 +252,8 @@ def gqa_decode(params, x, cfg, cache, pos, *, window=None, use_rope=True):
     q, k, v = _qkv(params, x, cfg, positions, use_rope)
     Sc = cache["k"].shape[1]
     slot = torch.remainder(pos, Sc)
-    ck = cache["k"].index_copy(1, slot.reshape(1), k.to(cache["k"].dtype))
-    cv = cache["v"].index_copy(1, slot.reshape(1), v.to(cache["v"].dtype))
+    ck = _write_slot(cache["k"], slot, k)
+    cv = _write_slot(cache["v"], slot, v)
     # absolute position of each cache slot under rolling writes
     idx = torch.arange(Sc, device=dev)
     wrap = torch.div(pos, Sc, rounding_mode="floor") * Sc
@@ -282,19 +361,33 @@ def mla_apply(params, x, cfg, *, positions, mask_kind="causal", window=None,
     q_nope, q_rope, c_kv, k_rope = _mla_qkr(params, x, cfg, positions)
     k_nope = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uk"])
     v = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uv"])
-    scores = (torch.einsum("bqhe,bshe->bhqs", q_nope, k_nope)
-              + torch.einsum("bqhe,bse->bhqs", q_rope, k_rope))
-    scores = scores.float() * scale
     mask = make_mask(S, S, mask_kind, window, device=x.device)
     if kpad is not None:
         mask = mask[None] & kpad[:, None, :]
-    mask = mask[None, None] if mask.ndim == 2 else mask[:, None]
-    scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
-    apm = torch.softmax(scores, dim=-1)
-    if memo is not None:
-        apm = torch.where(memo.hit[:, None, None, None], memo.apm.float(),
-                          apm)
-    out = torch.einsum("bhqs,bshe->bqhe", apm.to(v.dtype), v)
+
+    def scores(q_nope, q_rope, k_nope, k_rope, mask):
+        sc = (torch.einsum("bqhe,bshe->bhqs", q_nope, k_nope)
+              + torch.einsum("bqhe,bse->bhqs", q_rope, k_rope))
+        mask = mask[None, None] if mask.ndim == 2 else mask[:, None]
+        return sc.float().mul(scale).masked_fill(
+            ~mask, torch.finfo(torch.float32).min)
+
+    def attend(apm, v):
+        return torch.einsum("bhqs,bshe->bqhe", apm.to(v.dtype), v)
+    args = (q_nope, q_rope, k_nope, k_rope, mask)
+    apm = None
+    if memo is None and not return_apm:
+        out = _attend(scores, attend, args,
+                      ("bqhe", "bqhf", "bshe", "bsf",
+                       "qs" if mask.ndim == 2 else "bqs"),
+                      "bhqs", v, "bshe", "bqhe", "hb",
+                      lambda r: r.transpose(1, 2))
+    else:
+        apm = torch.softmax(scores(*args), dim=-1)
+        if memo is not None:
+            apm = torch.where(memo.hit[:, None, None, None],
+                              memo.apm.float(), apm)
+        out = attend(apm, v)
     y = torch.einsum("bshe,hed->bsd", out, params["wo"])
     return y, (apm if return_apm else None)
 
@@ -326,10 +419,8 @@ def mla_decode(params, x, cfg, cache, pos, *, window=None):
                                                     positions)
     Sc = cache["c_kv"].shape[1]
     slot = torch.remainder(pos, Sc).reshape(1)
-    c_kv = cache["c_kv"].index_copy(1, slot,
-                                    c_kv_new.to(cache["c_kv"].dtype))
-    k_rope = cache["k_rope"].index_copy(1, slot,
-                                        k_rope_new.to(cache["k_rope"].dtype))
+    c_kv = _write_slot(cache["c_kv"], slot, c_kv_new)
+    k_rope = _write_slot(cache["k_rope"], slot, k_rope_new)
     idx = torch.arange(Sc, device=dev)
     wrap = torch.div(pos, Sc, rounding_mode="floor") * Sc
     abs_pos = torch.where(idx <= slot, wrap + idx, wrap - Sc + idx)
@@ -338,13 +429,17 @@ def mla_decode(params, x, cfg, cache, pos, *, window=None):
         valid &= abs_pos > pos - window
     # absorbed: q ⋅ W_uk projected into latent space once per step
     q_abs = torch.einsum("bqhe,rhe->bqhr", q_nope, params["w_uk"])
-    scores = (torch.einsum("bqhr,bsr->bhqs", q_abs, c_kv)
+
+    def scores(q_abs, q_rope, c_kv, k_rope, valid):
+        sc = (torch.einsum("bqhr,bsr->bhqs", q_abs, c_kv)
               + torch.einsum("bqhe,bse->bhqs", q_rope, k_rope))
-    scores = scores.float() * scale
-    scores = scores.masked_fill(~valid[None, None, None],
-                                torch.finfo(torch.float32).min)
-    apm = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhqs,bsr->bqhr", apm, c_kv)
+        return sc.float().mul(scale).masked_fill(
+            ~valid[None, None, None], torch.finfo(torch.float32).min)
+    ctx = _attend(scores, lambda p, c_kv: torch.einsum(
+                      "bhqs,bsr->bqhr", p.to(x.dtype), c_kv),
+                  (q_abs, q_rope, c_kv, k_rope, valid),
+                  ("bqhr", "bqhe", "bsr", "bse", "s"), "bhqs", c_kv, "bsr",
+                  "bqhr", "hb", lambda r: r.transpose(1, 2))
     out = torch.einsum("bqhr,rhe->bqhe", ctx, params["w_uv"])
     y = torch.einsum("bshe,hed->bsd", out, params["wo"])
     return y, {"c_kv": c_kv, "k_rope": k_rope}

@@ -30,6 +30,7 @@ from repro_torch.models.layers import (
     dense_init, embed_init, mlp_apply, mlp_init, mlp_specs, norm_apply,
     norm_init, norm_specs,
 )
+from repro_torch.sharding.rules import P, constrain
 from repro_torch.tree import leaves, tree_map
 
 
@@ -129,9 +130,12 @@ def _layer_apply(lp, h, cfg, kind, layer_idx, *, mode, positions,
     position ``pos``). ``mesh`` reaches the MoE layer (its
     expert-parallel form); every other layer runs where ``h`` is. The
     reference's ``cfg.act_shard_batch`` (a batch-sharding constraint on
-    the activations, a placement that changes no value) is not acted
-    on: one controller places nothing but the experts."""
+    the activations, a placement that changes no value) moves ``h`` on
+    one device's program of a grid (``sharding/rules.py::constrain``);
+    one controller places nothing but the experts."""
     mask_kind = "causal" if cfg.causal else "bidir"
+    if cfg.act_shard_batch and mode == "full" and h.ndim == 3:
+        h = constrain(h, P(cfg.act_shard_batch, None, None))
     x = norm_apply(lp["norm1"], h, cfg.norm)
     apm = None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -22,7 +22,12 @@
   to its card on every call (the experts are not held resident there
   yet). Every buffer size follows from static
   shapes, so the EP form reads nothing back from the device.
-  ``moe_apply(..., mesh=...)`` dispatches to it.
+  ``moe_apply(..., mesh=...)`` dispatches to it. On one device's program
+  of a grid (DTensor arguments: the dry run's per-device count) it runs
+  the reference's ``shard_map`` body itself, for that device alone,
+  under DTensor's ``local_map`` (``_moe_apply_spmd``), exchanging over
+  the grid's process groups (``all_to_all_single``, the partial sums'
+  ``all_reduce``) in place of ``_ALL_TO_ALL``.
 
 Router aux loss is the standard load-balance term E·Σ_e f_e·P_e.
 """
@@ -36,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.rules import is_sharded
 
 
 def moe_init(gen, cfg, dtype=torch.float32, device=None):
@@ -98,7 +104,10 @@ def all_to_all(bufs, devices):
     """The exchange of one expert-parallel group (the reference's tiled
     ``lax.all_to_all`` over axis 0): ``bufs[i]`` is shard i's (ep, ...)
     send buffer, and shard j receives row block j of every shard's
-    buffer, stacked in source order on ``devices[j]``."""
+    buffer, stacked in source order on ``devices[j]``. A group of one
+    keeps its buffer."""
+    if len(bufs) == 1:
+        return [bufs[0].to(devices[0])]
     return [torch.stack([b[j].to(dev) for b in bufs])
             for j, dev in enumerate(devices)]
 
@@ -168,8 +177,8 @@ class _Layout:
         scatter each into a zero copy of the leaf)."""
         blocks = {}
         for name, ff_dim in (("w_gate", 2), ("w_up", 2), ("w_down", 1)):
-            blocks[name] = [e.split(self.F_loc, dim=ff_dim) for e in
-                            params[name].split(self.E_loc, dim=0)]
+            blocks[name] = [_split(e, self.F_loc, ff_dim) for e in
+                            _split(params[name], self.E_loc, 0)]
         return [[tuple(blocks[n][self.ep_of[s]][j].to(self.dev[s][j])
                        for n in ("w_gate", "w_up", "w_down"))
                  for j in range(self.tp)] for s in range(self.dp)]
@@ -273,8 +282,9 @@ def _moe_body(params, xf, cfg, lay):
             n_chunks = c
             break
     t = T_loc // n_chunks
-    xs = [xf[s * T_loc:(s + 1) * T_loc].to(lay.dev[s][0])
-          for s in range(lay.dp)]
+    xs = ([xf.to(lay.dev[0][0])] if lay.dp == 1 else
+          [xf[s * T_loc:(s + 1) * T_loc].to(lay.dev[s][0])
+           for s in range(lay.dp)])
     wr = [params["w_router"].to(lay.dev[s][0]) for s in range(lay.dp)]
     experts = lay.experts(params)
     ys = [[] for _ in range(lay.dp)]
@@ -285,10 +295,22 @@ def _moe_body(params, xf, cfg, lay):
         for s in range(lay.dp):
             ys[s].append(y_c[s])
             auxs[s].append(aux_c[s])
-    y = torch.cat([torch.cat(y_s).to(lay.lead) for y_s in ys])
-    aux = torch.mean(torch.stack([torch.mean(torch.stack(a)).to(lay.lead)
-                                  for a in auxs]))
+    y = _cat([torch.cat(y_s).to(lay.lead) for y_s in ys])
+    aux = _cat([torch.mean(torch.stack(a)).to(lay.lead)[None]
+                for a in auxs]).sum(0) / lay.dp
     return y, aux
+
+
+def _split(t, size, dim):
+    """``t.split(size, dim)``; ``(t,)`` where that is one piece, whose
+    gradient then needs no copy back into the whole."""
+    return (t,) if t.shape[dim] == size else t.split(size, dim=dim)
+
+
+def _cat(xs):
+    """``torch.cat(xs)``; one tensor as it is (a shard of a one-shard
+    mesh is the whole)."""
+    return xs[0] if len(xs) == 1 else torch.cat(xs)
 
 
 def _moe_small_body(params, xf, cfg, lay):
@@ -315,12 +337,178 @@ def _moe_small_body(params, xf, cfg, lay):
     return y, aux
 
 
+# ---------------------------------------------------------------------------
+# one device's program of a grid
+# ---------------------------------------------------------------------------
+
+class _Exchange(torch.autograd.Function):
+    """A collective over ``group`` on the way forward and the same one on
+    the gradient on the way back: ``all_to_all_single`` (the reference's
+    tiled ``lax.all_to_all`` over axis 0) or a summing ``all_reduce``
+    (its ``psum``)."""
+
+    @staticmethod
+    def forward(ctx, x, kind, group):
+        ctx.kind, ctx.group = kind, group
+        return _collective(x, kind, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _collective(g, ctx.kind, ctx.group), None, None
+
+
+def _collective(x, kind, group):
+    import torch.distributed._functional_collectives as funcol
+    x = x.contiguous()
+    out = (funcol.all_to_all_single(x, None, None, group)
+           if kind == "all_to_all" else funcol.all_reduce(x, "sum", group))
+    return funcol.wait_tensor(out)
+
+
+class _Grid:
+    """The process groups of the axes a device of a grid exchanges over,
+    and its coordinate on the expert axis."""
+
+    def __init__(self, grid, dp_axes, ep_axis, tp_axis):
+        names = grid.mesh_dim_names
+        self.ep = grid.size(names.index(ep_axis))
+        self.ep_index = grid.get_local_rank(ep_axis)
+        self.dp = math.prod(grid.size(names.index(a)) for a in dp_axes)
+        # an axis of one device exchanges nothing
+        self.groups = {a: grid.get_group(a) for a in names
+                       if grid.size(names.index(a)) > 1}
+        self.ep_axis, self.tp_axis, self.dp_axes = ep_axis, tp_axis, dp_axes
+
+    def all_to_all(self, x):
+        if self.ep_axis not in self.groups:
+            return x
+        return _Exchange.apply(x, "all_to_all", self.groups[self.ep_axis])
+
+    def psum(self, x, axes):
+        for a in axes:
+            if a in self.groups:
+                x = _Exchange.apply(x, "all_reduce", self.groups[a])
+        return x
+
+
+def _local_chunk(x_c, wr, w_gate, w_up, w_down, cfg, g):
+    """The reference's ``_moe_chunk``: one token chunk of this device,
+    its expert blocks (E_loc, D, F_loc) / (E_loc, F_loc, D)."""
+    m = cfg.moe
+    t, D = x_c.shape
+    k, ep, E_loc = m.top_k, g.ep, w_gate.shape[0]
+    _, weights, ids, aux = _router(x_c, wr, k)
+    R = t * k
+    eid = ids.reshape(R)
+    dst = torch.div(eid, E_loc, rounding_mode="floor")   # owning shard
+    C = max(1, math.ceil(R / ep * m.capacity_factor))
+    order, dst_s, pos_cl, keep = _bucketize(dst, ep, C)
+    at, dev = (dst_s, pos_cl), x_c.device
+    send_x = x_c.new_zeros((ep, C + 1, D)).index_put(
+        at, x_c[torch.div(order, k, rounding_mode="floor")])[:, :C]
+    send_le = torch.zeros((ep, C + 1), dtype=eid.dtype, device=dev) \
+        .index_put(at, (eid % E_loc)[order])[:, :C]
+    send_ok = torch.zeros((ep, C + 1), dtype=torch.bool, device=dev) \
+        .index_put(at, keep)[:, :C]
+    recv_x, recv_le, recv_ok = (g.all_to_all(a)
+                                for a in (send_x, send_le, send_ok))
+    # local per-expert capacity buckets
+    R2 = ep * C
+    rows2 = recv_x.reshape(R2, D)
+    le = torch.where(recv_ok.reshape(R2), recv_le.reshape(R2), E_loc)
+    Ce = max(1, math.ceil(R2 / E_loc * m.capacity_factor))
+    order2, le_s, pos2_cl, keep2 = _bucketize(le, E_loc + 1, Ce)
+    xe = rows2.new_zeros((E_loc + 1, Ce + 1, D)).index_put(
+        (le_s, pos2_cl), rows2[order2])[:E_loc, :Ce]
+    h = F.silu(torch.einsum("ecd,edf->ecf", xe, w_gate)) \
+        * torch.einsum("ecd,edf->ecf", xe, w_up)
+    ye = g.psum(torch.einsum("ecf,efd->ecd", h, w_down), (g.tp_axis,))
+    # invert the local bucketing, then the dispatch bucketing
+    yb = F.pad(ye, (0, 0, 0, 1, 0, 1))
+    y_sorted = yb[le_s, pos2_cl] * keep2[:, None].to(ye.dtype)
+    recv_y = torch.zeros_like(rows2).index_put((order2,), y_sorted)
+    send_y = F.pad(g.all_to_all(recv_y.reshape(ep, C, D)), (0, 0, 0, 1))
+    y_src = send_y[dst_s, pos_cl] * keep[:, None].to(send_y.dtype)
+    y_flat = y_src.new_zeros((R, D)).index_put((order,), y_src)
+    return torch.sum(y_flat.reshape(t, k, D) * weights[..., None],
+                     dim=1), aux
+
+
+def _local_body(wr, w_gate, w_up, w_down, x_loc, *, cfg, g):
+    """The reference's ``_moe_body``: this device's tokens in chunks,
+    the aux loss averaged over the token axes (its ``pmean``)."""
+    T_loc = x_loc.shape[0]
+    n_chunks = next(c for c in range(min(cfg.moe.dispatch_chunks, T_loc),
+                                     0, -1) if T_loc % c == 0)
+    t = T_loc // n_chunks
+    ys, auxs = zip(*(_local_chunk(x_loc[c * t:(c + 1) * t], wr, w_gate,
+                                  w_up, w_down, cfg, g)
+                     for c in range(n_chunks)))
+    aux = g.psum(torch.mean(torch.stack(auxs))[None], g.dp_axes).sum(0) \
+        / g.dp
+    return torch.cat(ys), aux
+
+
+def _local_small_body(wr, w_gate, w_up, w_down, x, *, cfg, g):
+    """The reference's ``_moe_small_body``: every token on this device,
+    its local experts densely, one sum over the expert and ff axes."""
+    E_loc = w_gate.shape[0]
+    lo = g.ep_index * E_loc
+    _, weights, ids, aux = _router(x, wr, cfg.moe.top_k)
+    local = (ids >= lo) & (ids < lo + E_loc)
+    w_loc = torch.where(local, weights, torch.zeros_like(weights))
+    onehot = ((ids - lo)[..., None] == torch.arange(
+        E_loc, device=ids.device)).to(x.dtype)
+    w_te = torch.sum(onehot * w_loc[..., None], dim=1)          # (T, E_loc)
+    h = F.silu(torch.einsum("td,edf->tef", x, w_gate)) \
+        * torch.einsum("td,edf->tef", x, w_up)
+    y_e = torch.einsum("tef,efd->ted", h, w_down)
+    y = torch.einsum("ted,te->td", y_e, w_te.to(y_e.dtype))
+    return g.psum(y, (g.ep_axis, g.tp_axis)), aux
+
+
+def _moe_apply_spmd(params, x, cfg, dp_axes, ep_axis, tp_axis):
+    """``moe_apply_ep`` on one device's program of a grid: the
+    reference's ``shard_map`` (its in and out specs the placements the
+    arguments move to, DTensor counting those moves) over this device's
+    body (``local_map``)."""
+    from functools import partial
+
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.rules import NamedSharding, P, placements
+    grid = x.device_mesh
+    shape = x.shape
+    xf = x.reshape(-1, shape[-1])
+    g = _Grid(grid, tuple(dp_axes), ep_axis, tp_axis)
+
+    def pl(*spec):
+        return placements(NamedSharding(None, P(*spec)), grid)
+    w_pl = (pl(), pl(ep_axis, None, tp_axis), pl(ep_axis, None, tp_axis),
+            pl(ep_axis, tp_axis, None))
+    T = xf.shape[0]
+    if T % g.dp != 0 or T < 4 * g.dp:
+        body, x_pl = _local_small_body, pl()
+    else:
+        body, x_pl = _local_body, pl(tuple(dp_axes), None)
+    y, aux = local_map(partial(body, cfg=cfg, g=g),
+                       out_placements=(x_pl, pl()),
+                       in_placements=w_pl + (x_pl,), device_mesh=grid,
+                       redistribute_inputs=True)(
+        params["w_router"], params["w_gate"], params["w_up"],
+        params["w_down"], xf)
+    return y.reshape(shape), aux
+
+
 def moe_apply_ep(params, x, cfg, mesh, dp_axes=("data",), ep_axis="data",
                  tp_axis="model"):
     """x: (..., D) on the mesh's lead device, its tokens split over
     ``dp_axes``. Returns (y, aux) on the lead device. Too few tokens to
     split (``T % dp != 0`` or ``T < 4 dp``, the reference's test) take
-    the small body, the rest the chunked one."""
+    the small body, the rest the chunked one. A DTensor ``x`` (one
+    device's program of a grid) takes ``_moe_apply_spmd``."""
+    if is_sharded(x):
+        return _moe_apply_spmd(params, x, cfg, dp_axes, ep_axis, tp_axis)
     shape = x.shape
     xf = x.reshape(-1, shape[-1])
     T = xf.shape[0]

@@ -8,7 +8,9 @@ the reference's ``models/rglru.py``.
 preceded by a width-4 causal temporal conv and wrapped in a GeGLU-style
 output gate. The reference runs the recurrence with ``lax.scan``, outside
 any Pallas kernel; here it is a loop over the sequence in the same order,
-one fused multiply-add a step, in f32.
+one fused multiply-add a step, in f32: on one device's program of a
+grid, over that device's shard of the batch and channels
+(``sharding/rules.py::local_over``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.rules import local_over
 
 
 def rglru_init(gen, cfg, dtype=torch.float32, device=None):
@@ -81,7 +84,14 @@ def _rglru_scan(params, y, cfg, h0):
                                    min=1e-12)) * (i * y.float())
     # time-major, so each step reads and writes contiguous rows
     a, gated = a.transpose(0, 1).contiguous(), gated.transpose(0, 1)
-    h = h0.float()
+    hs, h = local_over(_recurrence, (a, gated, h0.float()),
+                       ("tbc", "tbc", "bc"), ("tbc", "bc"), "cb")
+    # the state is a copy, so a cache does not hold all of ``hs`` alive
+    return hs.transpose(0, 1).to(y.dtype), h.to(y.dtype, copy=True)
+
+
+def _recurrence(a, gated, h):
+    """h = a_t·h + g_t step by step, time-major: (every h, the last)."""
     if torch.is_grad_enabled() and (a.requires_grad or gated.requires_grad
                                     or h.requires_grad):
         # out= takes no autograd: a differentiable step list, stacked
@@ -94,8 +104,7 @@ def _rglru_scan(params, y, cfg, h0):
         hs = torch.empty_like(a)
         for t in range(a.shape[0]):
             h = torch.addcmul(gated[t], a[t], h, out=hs[t])
-    # the state is a copy, so a cache does not hold all of ``hs`` alive
-    return hs.transpose(0, 1).to(y.dtype), h.to(y.dtype, copy=True)
+    return hs, h
 
 
 def rglru_apply(params, x, cfg, state=None):

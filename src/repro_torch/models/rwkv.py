@@ -13,8 +13,11 @@ reference's ``"scan"``), ``"kernel"`` runs the ``rwkv6`` kernel wrapper
 kernel starts from a zero state and returns no final state, so a call
 with a ``state`` (prefill and decode) always takes the scan, as the
 reference's does. The reference's ``cfg.act_shard_batch`` pins the
-scan's operands to a batch sharding over the mesh, a placement that
-changes no value; the port's one controller does not act on it.
+scan's operands and state to a batch sharding over the mesh, a
+placement that changes no value: the port acts on it on one device's
+program of a grid (``sharding/rules.py::constrain``), where the scan
+runs on the device's shard of the batch and heads (``local_over``);
+one controller places nothing.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.rwkv6.ops import wkv6
 from repro_torch.kernels.rwkv6.ref import wkv_scan as _wkv_scan
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.rules import P, constrain, local_over
 
 _LORA = 64          # ddlerp / decay low-rank dim
 
@@ -53,10 +57,12 @@ def rwkv_time_init(gen, cfg, dtype=torch.float32, device=None):
 
 def _shift(x, state=None):
     """The previous token of each position: zeros before the first, or
-    the state's last token (``state["x_prev"]``) when there is one."""
-    if state is None:
-        return F.pad(x, (0, 0, 1, 0))[:, :-1]
-    return torch.cat([state["x_prev"][:, None], x[:, :-1]], 1)
+    the state's last token (``state["x_prev"]``) when there is one. A
+    ``cat`` and not a pad: DTensor splits both over a batch sharding, but
+    torch 2.11's pad strategy fails on a two-axis mesh."""
+    first = (torch.zeros_like(x[:, :1]) if state is None
+             else state["x_prev"][:, None])
+    return torch.cat([first, x[:, :-1]], 1)
 
 
 def rwkv_time_specs(cfg):
@@ -114,7 +120,14 @@ def rwkv_time_apply(params, x, cfg, state=None, impl="scan"):
     else:
         s0 = (torch.zeros((B, nh, N, N), dtype=x.dtype, device=x.device)
               if state is None else state["s"])
-        o, sT = _wkv_scan(r, k, v, w, u, s0)
+        if cfg.act_shard_batch:
+            # the reference's pin of the scan's operands and state to a
+            # batch sharding over the mesh
+            spec4 = P(cfg.act_shard_batch, None, None, None)
+            r, k, v, w, s0 = (constrain(t, spec4) for t in (r, k, v, w, s0))
+        o, sT = local_over(_wkv_scan, (r, k, v, w, u, s0),
+                           ("bthn", "bthn", "bthn", "bthn", "hn", "bhnm"),
+                           ("bthn", "bhnm"), "hb")
     o = _groupnorm(o, params["ln_scale"]).reshape(B, S, d) * g
     return o @ params["wo"], {"s": sT, "x_prev": x[:, -1]}
 

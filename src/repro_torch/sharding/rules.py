@@ -13,12 +13,17 @@ reference's ``PartitionSpec``). ``NamedSharding`` pairs a spec with its
 ``ModelMesh``. A sharding is placement, not value: the port's mesh runs
 every layer but the MoE's experts on the mesh's lead device
 (``models/moe.py`` places those), as the reference's GSPMD placement
-changes no value. ``logical_to_shardings``' ``abs_tree`` takes anything
-with a ``.shape``: tensors on ``torch.device("meta")`` are the port's
+changes no value. The dry run's count of one device's program of a
+grid places by them for real: ``placements`` and ``place`` turn specs
+into DTensor placements on a fake grid (``launch/spmd.py``), and the
+model's sharding sites (``constrain``, ``local_over``) act there alone.
+``logical_to_shardings``' ``abs_tree`` takes anything with a
+``.shape``: tensors on ``torch.device("meta")`` are the port's
 ``jax.eval_shape``.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -224,3 +229,160 @@ def cache_shardings(cache_tree, mesh, dp_axes=("data",), seq_axis="model"):
         s_ax = seq_axis if S % model_size == 0 and S >= model_size else None
         return NamedSharding(mesh, P(b_ax, s_ax, *([None] * (ndim - 2))))
     return tree_map(one, cache_tree)
+
+
+# --- one device's program on a fake grid (``launch/spmd.py``) -------------
+# A ``NamedSharding`` becomes DTensor placements on the grid's
+# ``DeviceMesh``; ``place`` puts a tree of tensors there, one device's
+# shard a leaf. The model's sharding sites (``constrain``,
+# ``local_over``) act only on DTensors, so one controller runs them as
+# the no-ops they are there.
+
+def placements(sharding, device_mesh):
+    """DTensor placements of ``sharding`` on ``device_mesh``: ``Shard(d)``
+    on each mesh axis the spec names at dim ``d`` (each axis of a tuple
+    entry such as ``("pod", "data")``), ``Replicate()`` on the rest and
+    on an axis of size 1, where a shard is the whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = device_mesh.mesh_dim_names
+    out = [Replicate()] * device_mesh.ndim
+    for d, ax in enumerate(sharding.spec):
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            if a in names and device_mesh.size(names.index(a)) > 1:
+                out[names.index(a)] = Shard(d)
+    return out
+
+
+def place(tree, shardings, device_mesh):
+    """``tree`` (nested dicts, tuples and lists of tensors; other leaves
+    kept) as DTensors on ``device_mesh`` under the matching
+    ``shardings``. A leaf's local tensor is device 0's shard of it, a
+    copy (a replicated leaf keeps the tensor itself), so its bytes are
+    ``cost_utils.shard_bytes``."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    def one(t, sh):
+        if not isinstance(t, torch.Tensor):
+            return t
+        pl = placements(sh, device_mesh)
+        local = t
+        for i, p in enumerate(pl):
+            if p.is_shard():
+                n = local.shape[p.dim]
+                local = local.narrow(p.dim, 0,
+                                     -(-n // device_mesh.size(i)))
+        if local is not t:
+            local = local.clone()
+        return DTensor.from_local(local, device_mesh, pl, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    return _zip_map(one, tree, shardings)
+
+
+def _zip_map(fn, tree, shardings):
+    """``fn(leaf, sharding)`` over ``tree``; a ``NamedSharding`` where
+    ``shardings`` stops short covers the whole subtree."""
+    if tree is None:
+        return None
+    one = isinstance(shardings, NamedSharding)
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, shardings if one else shardings[k])
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, shardings if one else s)
+                          for v, s in zip(tree, [None] * len(tree)
+                                          if one else shardings))
+    return fn(tree, shardings)
+
+
+def redistribute(tree, shardings):
+    """Every DTensor leaf of ``tree`` moved to the matching sharding's
+    placements (the reference's ``out_shardings``: XLA reshards a
+    step's outputs to them); other leaves kept."""
+    def one(t, sh):
+        if not is_sharded(t):
+            return t
+        return t.redistribute(t.device_mesh, placements(sh, t.device_mesh))
+    return _zip_map(one, tree, shardings)
+
+
+def constrain(x, spec):
+    """The reference's ``with_sharding_constraint(x, spec)``: a DTensor
+    ``x`` moved to ``spec``'s placements; anything else as it is, since
+    one controller places nothing."""
+    if not is_sharded(x):
+        return x
+    mesh = x.device_mesh
+    return x.redistribute(mesh, placements(NamedSharding(None, spec), mesh))
+
+
+def local_over(fn, args, roles, out_roles, free, partial=None):
+    """``fn(*args)``, on each device's shard where ``args[0]`` is a
+    DTensor (under DTensor's ``local_map``): ``fn`` works element by
+    element along the dims whose role is in ``free`` (batch, heads,
+    channels) and across the others (time, a contracted dim). ``roles``
+    names each argument's dims, one letter a dim (``"tbc"``), and
+    ``out_roles`` the output's (a tuple of them for several outputs).
+
+    Each mesh axis shards one role where every argument holding it
+    splits evenly: the role the largest argument already shards there
+    (moving the largest costs most), else the first role of ``free``
+    (so ``"hb"`` prefers heads to batch), else none (replicated). Each
+    argument moves there first, its exchange counted as DTensor issues
+    it, as GSPMD moves an operand to the split it chooses.
+
+    ``partial`` maps a role ``fn`` reduces over to the reduction
+    (``{"s": "sum"}``): a mesh axis may shard it too, and an output
+    without it is ``Partial`` over that axis, resolved by the exchange
+    DTensor makes when it is next read whole. A recurrence run this way
+    is one local op a step, where DTensor would dispatch each step's
+    ops."""
+    if not is_sharded(args[0]):
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    partial = partial or {}
+    mesh = args[0].device_mesh
+    axis_role = [None] * mesh.ndim
+
+    def fits(r, i):
+        n = mesh.size(i) * math.prod(mesh.size(j) for j, rj in
+                                     enumerate(axis_role) if rj == r)
+        return all(a.shape[rs.index(r)] % n == 0
+                   for a, rs in zip(args, roles) if r in rs)
+    by_size = sorted(zip(args, roles), key=lambda ar: -ar[0].numel())
+    for a, rs in by_size:
+        for i, p in enumerate(getattr(a, "placements", ())):
+            r = rs[p.dim] if p.is_shard() else None
+            if (r is not None and axis_role[i] is None
+                    and (r in free or r in partial) and fits(r, i)):
+                axis_role[i] = r
+    for i in range(mesh.ndim):
+        if axis_role[i] is None and mesh.size(i) > 1:
+            axis_role[i] = next((r for r in free if fits(r, i)), None)
+
+    def pl(rs, out=False):
+        return [Shard(rs.index(r)) if r is not None and r in rs
+                else Partial(partial[r]) if out and r in partial
+                else Replicate() for r in axis_role]
+    args = tuple(a if isinstance(a, DTensor) else DTensor.from_local(
+        a, mesh, [Replicate()] * mesh.ndim, run_check=False) for a in args)
+    outs = (pl(out_roles, True) if isinstance(out_roles, str)
+            else tuple(pl(r, True) for r in out_roles))
+    return local_map(fn, out_placements=outs,
+                     in_placements=tuple(pl(r) for r in roles),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def is_sharded(x, dim=None) -> bool:
+    """Whether ``x`` is a DTensor (one device's program on a fake grid:
+    none exists while no process group is up); with ``dim``, one whose
+    dim ``dim`` is split over the grid."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return False
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return False
+    return dim is None or any(p.is_shard(dim) and x.device_mesh.size(i) > 1
+                              for i, p in enumerate(x.placements))

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedule import cosine_schedule
+from repro_torch.sharding.rules import is_sharded
 from repro_torch.train.checkpoint import save_checkpoint
 from repro_torch.tree import flat_params, nest_params, tree_map
 
@@ -60,9 +61,18 @@ def value_and_grad(loss_fn, params, batch):
         loss = loss_fn(nest_params(leaves), batch)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
-    grads = {k: torch.zeros_like(v) if g is None else g
+    grads = {k: torch.zeros_like(v) if g is None else _placed_as(g, v)
              for (k, v), g in zip(leaves.items(), grads)}
     return loss.detach(), nest_params(grads)
+
+
+def _placed_as(g, p):
+    """A gradient on one device's program of a grid (DTensors) in its
+    param's placements, as XLA reduces it in the backward in the grad's
+    own dtype; any other gradient as it is."""
+    if not is_sharded(g) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 @torch.no_grad()

@@ -377,6 +377,7 @@ def test_port_imports_neither_jax_nor_reference():
         "        'repro_torch.launch.cost_utils',\n"
         "        'repro_torch.launch.dryrun',\n"
         "        'repro_torch.launch.hillclimb',\n"
+        "        'repro_torch.launch.spmd',\n"
         "        'repro_torch.sharding.rules',\n"
         "        'repro_torch.launch.train'} <= set(names), names\n"
         "assert not bad, bad\n")
